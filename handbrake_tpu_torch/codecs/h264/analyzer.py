@@ -573,10 +573,9 @@ def _analyze(mb_w, mb_h, with_deblock, transform8x8,
     rec_v_p = plane(vrec, 8)
     extra = {}
     if with_deblock:
-        dby, dbu, dbv = deblock(
-            rec_y_p, rec_u_p, rec_v_p, mv16, nnz,
-            torch.zeros((n_mb,), dtype=torch.bool, device=dev),  # all inter
-            t8_flags, qp, qpc, with_strong=False)
+        dby, dbu, dbv = deblock(rec_y_p, rec_u_p, rec_v_p, mv16, nnz,
+                                None, t8_flags, qp, qpc,   # all inter
+                                with_strong=False)
         extra = {"recon_y_nf": rec_y_p, "urec_nf": rec_u_p,
                  "vrec_nf": rec_v_p}
         rec_y_p, rec_u_p, rec_v_p = dby, dbu, dbv

@@ -9,10 +9,15 @@ a vertical phase over (member, row) lines, then a horizontal phase over
 (member, column) lines.  This is the schedule of ``build_deblock_fn``
 without its skewed-array layout.
 
-``deblock`` is the public entry: the plain version below for CPU
-tensors, the CUDA kernel (``deblock_cuda``) for CUDA tensors.
+``deblock`` is the public entry.  CPU tensors take ``compute_bs`` and the
+plain wavefront ``deblock_plain`` below; CUDA tensors go straight to the
+kernel of ``deblock_cuda``, which derives bS itself from the same side
+data (no fallback).  The CPU pair is the plain version the tests and
+``chip_smoke.py`` hold the kernel against.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -24,7 +29,7 @@ def compute_bs(mb_w, mb_h, mv, nnz, mb_intra, t8):
     ``deblock_tpu.compute_bs``.
 
     mv: (n_mb, 2) qpel; nnz: (n_mb, 16) per-4x4 counts (raster blocks);
-    mb_intra: (n_mb,) bool; t8: (n_mb,) bool or None.
+    mb_intra: (n_mb,) bool or None (all inter); t8: (n_mb,) bool or None.
     Returns (bs_v, bs_h), each (mb_h, mb_w, 4 edges, 4 groups) int32."""
     dev = nnz.device
     nnzg = nnz.reshape(mb_h, mb_w, 4, 4) != 0
@@ -36,7 +41,8 @@ def compute_bs(mb_w, mb_h, mv, nnz, mb_intra, t8):
         fold = q.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
         nnzg = torch.where(t8m, fold, nnzg)
     G = nnzg.permute(0, 2, 1, 3).reshape(mb_h * 4, mb_w * 4)
-    intra = mb_intra.reshape(mb_h, mb_w).bool()
+    intra = (torch.zeros((mb_h, mb_w), dtype=torch.bool, device=dev)
+             if mb_intra is None else mb_intra.reshape(mb_h, mb_w).bool())
     mvx = mv[:, 0].reshape(mb_h, mb_w).to(torch.int32)
     mvy = mv[:, 1].reshape(mb_h, mb_w).to(torch.int32)
     t8g = (t8.reshape(mb_h, mb_w).bool() if t8 is not None
@@ -237,19 +243,28 @@ def deblock_plain(ry, ru, rv, bs_v, bs_h, scal, with_strong):
     return tuple(out)
 
 
+@functools.lru_cache(maxsize=None)
+def _scal(qp: int, qpc: int) -> tuple:
+    return tuple(int(v) for v in deblock_scal(qp, qpc))
+
+
 def deblock(ry, ru, rv, mv, nnz, mb_intra, t8, qp, qpc, with_strong=True):
     """Deblock one frame: (ry, ru, rv) uint8 planes → filtered copies.
 
-    with_strong=False is the bS ≤ 2 variant the analyzer chains on
-    all-inter frames (bS 3/4 then take the normal filter, as the Pallas
-    kernel does).  CPU tensors take the plain wavefront; CUDA tensors
-    launch the kernel of ``deblock_cuda`` (no fallback)."""
-    mb_h, mb_w = ry.shape[0] // 16, ry.shape[1] // 16
-    bs_v, bs_h = compute_bs(mb_w, mb_h, mv, nnz, mb_intra, t8)
-    scal = deblock_scal(qp, qpc)
+    mv (n_mb, 2) qpel, nnz (n_mb, 16) per-4x4 counts, mb_intra and t8
+    (n_mb,) bool or None (all inter / no 8x8 transform).  with_strong=False
+    is the bS ≤ 2 variant the analyzer chains on all-inter frames (bS 3/4
+    then take the normal filter, as the Pallas kernel does).  CPU tensors
+    take compute_bs and the plain wavefront; CUDA tensors launch the
+    kernel of ``deblock_cuda`` (mv int16, nnz int32, flags bool; no
+    fallback); other devices raise."""
     if ry.device.type == "cuda":
         from .deblock_cuda import deblock_cuda
-        return deblock_cuda(ry, ru, rv, bs_v, bs_h, scal, with_strong)
+        return deblock_cuda(ry, ru, rv, mv, nnz, mb_intra, t8,
+                            _scal(int(qp), int(qpc)), with_strong)
     if ry.device.type != "cpu":
         raise ValueError(f"deblock: unsupported device {ry.device}")
-    return deblock_plain(ry, ru, rv, bs_v, bs_h, scal, with_strong)
+    mb_h, mb_w = ry.shape[0] // 16, ry.shape[1] // 16
+    bs_v, bs_h = compute_bs(mb_w, mb_h, mv, nnz, mb_intra, t8)
+    return deblock_plain(ry, ru, rv, bs_v, bs_h, deblock_scal(qp, qpc),
+                         with_strong)

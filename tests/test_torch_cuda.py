@@ -28,6 +28,8 @@ def dev():
 
 
 def _case(seed, mb_w, mb_h):
+    """Random planes (half of the luma smooth) and MB data with intra MBs;
+    mv int16, nnz int32, flags bool, the kernel's dtypes."""
     rng = np.random.default_rng(seed)
     H, W = mb_h * 16, mb_w * 16
     n_mb = mb_w * mb_h
@@ -35,17 +37,38 @@ def _case(seed, mb_w, mb_h):
     y[:H // 2] = (y[:H // 2] // 8) + 100
     u = (rng.integers(0, 256, (H // 2, W // 2)) // 2).astype(np.uint8)
     v = (rng.integers(0, 256, (H // 2, W // 2)) // 2).astype(np.uint8)
-    mv = rng.integers(-20, 20, (n_mb, 2)).astype(np.int32)
+    mv = rng.integers(-20, 20, (n_mb, 2)).astype(np.int16)
     nnz = rng.integers(0, 3, (n_mb, 16)).astype(np.int32)
     nnz[rng.random((n_mb, 16)) < 0.6] = 0
     intra = rng.random(n_mb) < 0.2
-    nnz = np.where(intra[:, None], 0, nnz)
+    nnz = np.where(intra[:, None], 0, nnz).astype(np.int32)
     t8 = (rng.random(n_mb) < 0.3) & ~intra
     return y, u, v, mv, nnz, intra, t8
 
 
+def _all_filtering_case(seed, mb_w, mb_h):
+    """Flat planes with small steps between 4x4 blocks and every bS >= 2
+    (every block coded, no 8x8 transform, some intra MBs): every edge
+    filters, so every step of the chain is driven."""
+    rng = np.random.default_rng(seed)
+    H, W = mb_h * 16, mb_w * 16
+    n_mb = mb_w * mb_h
+
+    def steps(h, w, base):
+        i, j = np.mgrid[0:h, 0:w]
+        return (base + 2 * ((i // 4 + j // 4) % 2)).astype(np.uint8)
+
+    mv = rng.integers(-20, 20, (n_mb, 2)).astype(np.int16)
+    nnz = rng.integers(1, 4, (n_mb, 16)).astype(np.int32)
+    intra = rng.random(n_mb) < 0.2
+    t8 = np.zeros(n_mb, bool)
+    return (steps(H, W, 100), steps(H // 2, W // 2, 120),
+            steps(H // 2, W // 2, 130), mv, nnz, intra, t8)
+
+
 @pytest.mark.parametrize("mb_w,mb_h,qp", [(1, 1, 30), (3, 7, 36), (8, 2, 24),
-                                          (45, 30, 28)])
+                                          (45, 30, 28), (1, 68, 32),
+                                          (120, 1, 26)])
 @pytest.mark.parametrize("with_strong", [False, True])
 def test_kernel_matches_plain(dev, mb_w, mb_h, qp, with_strong):
     y, u, v, mv, nnz, intra, t8 = (torch.from_numpy(a).to(dev)
@@ -53,7 +76,8 @@ def test_kernel_matches_plain(dev, mb_w, mb_h, qp, with_strong):
     bs_v, bs_h = compute_bs(mb_w, mb_h, mv, nnz, intra, t8)
     scal = deblock_scal(qp, qp - 2)
     n0 = deblock_cuda.launches
-    got = deblock_cuda.deblock_cuda(y, u, v, bs_v, bs_h, scal, with_strong)
+    got = deblock_cuda.deblock_cuda(y, u, v, mv, nnz, intra, t8, scal,
+                                    with_strong)
     assert deblock_cuda.launches == n0 + 1
     want = deblock_plain(y, u, v, bs_v, bs_h, scal, with_strong)
     torch.cuda.synchronize()
@@ -66,19 +90,77 @@ def test_kernel_matches_plain(dev, mb_w, mb_h, qp, with_strong):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("with_strong", [False, True])
+def test_kernel_matches_plain_all_filtering(dev, with_strong):
+    mb_w, mb_h, qp = 9, 5, 36
+    case = _all_filtering_case(3, mb_w, mb_h)
+    y, u, v, mv, nnz, intra, t8 = (torch.from_numpy(a).to(dev) for a in case)
+    bs_v, bs_h = compute_bs(mb_w, mb_h, mv, nnz, intra, t8)
+    # every edge but the frame's border: bS >= 2
+    inner_v = torch.ones_like(bs_v, dtype=torch.bool)
+    inner_v[:, 0, 0] = False
+    inner_h = torch.ones_like(bs_h, dtype=torch.bool)
+    inner_h[0, :, 0] = False
+    assert bool((bs_v[inner_v] >= 2).all() and (bs_h[inner_h] >= 2).all())
+    scal = deblock_scal(qp, qp)
+    got = deblock_cuda.deblock_cuda(y, u, v, mv, nnz, intra, t8, scal,
+                                    with_strong)
+    want = deblock_plain(y, u, v, bs_v, bs_h, scal, with_strong)
+    torch.cuda.synchronize()
+    for g, w, p in zip(got, want, (y, u, v)):
+        assert torch.equal(g, w)
+        assert int((g != p).sum()) > p.numel() // 8
+
+
+def test_deblock_on_card_skips_compute_bs(dev, monkeypatch):
+    """deblock() on CUDA tensors launches the kernel once and derives no
+    bS on the host; mb_intra=None is all inter."""
+    from handbrake_tpu_torch.codecs.h264 import deblock_torch
+
+    y, u, v, mv, nnz, intra, t8 = (torch.from_numpy(a).to(dev)
+                                   for a in _case(5, 6, 4))
+    want = deblock_plain(y, u, v,
+                         *compute_bs(6, 4, mv, nnz, None, t8),
+                         deblock_scal(30, 28), False)
+
+    def refuse(*a, **k):
+        raise AssertionError("compute_bs called on the CUDA path")
+
+    monkeypatch.setattr(deblock_torch, "compute_bs", refuse)
+    n0 = deblock_cuda.launches
+    got = deblock(y, u, v, mv, nnz, None, t8, 30, 28, with_strong=False)
+    assert deblock_cuda.launches == n0 + 1
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_wrapper_checks_inputs(dev):
     y, u, v, mv, nnz, intra, t8 = (torch.from_numpy(a).to(dev)
                                    for a in _case(1, 3, 2))
-    bs_v, bs_h = compute_bs(3, 2, mv, nnz, intra, t8)
     scal = deblock_scal(30, 28)
-    with pytest.raises(ValueError):
-        deblock_cuda.deblock_cuda(y.int(), u, v, bs_v, bs_h, scal, False)
-    with pytest.raises(ValueError):
-        deblock_cuda.deblock_cuda(y, u[:, :8], v, bs_v, bs_h, scal, False)
-    with pytest.raises(ValueError):
-        deblock_cuda.deblock_cuda(y, u, v, bs_v.cpu(), bs_h, scal, False)
-    with pytest.raises(ValueError):
-        deblock_cuda.deblock_cuda(y.t(), u, v, bs_v, bs_h, scal, False)
+    ok = (y, u, v, mv, nnz, intra, t8, scal, False)
+
+    def call(i, x):
+        args = list(ok)
+        args[i] = x
+        deblock_cuda.deblock_cuda(*args)
+
+    for i, bad in ((0, y.int()), (1, u[:, :8]), (0, y.t()),
+                   (3, mv.int()), (4, nnz.to(torch.int8)), (4, nnz.cpu()),
+                   (5, intra.to(torch.uint8)), (6, t8[:-1])):
+        with pytest.raises(ValueError):
+            call(i, bad)
+    # above the size limit (8192 samples a side): named in the error
+    H, W = 4800, 9600
+    n_mb = (H // 16) * (W // 16)
+    big = (torch.zeros((H, W), dtype=torch.uint8, device=dev),
+           torch.zeros((H // 2, W // 2), dtype=torch.uint8, device=dev),
+           torch.zeros((H // 2, W // 2), dtype=torch.uint8, device=dev),
+           torch.zeros((n_mb, 2), dtype=torch.int16, device=dev),
+           torch.zeros((n_mb, 16), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="8192x4320"):
+        deblock_cuda.deblock_cuda(*big, None, None, scal, False)
 
 
 @pytest.mark.parametrize("batch", [1, 8])

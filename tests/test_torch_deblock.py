@@ -154,3 +154,32 @@ def test_deblock_refuses_other_devices():
     t = [_t(a) for a in case]
     with pytest.raises(ValueError):
         DT.deblock(*(x.to("meta") for x in t), 30, 27)
+
+
+@pytest.mark.parametrize("with_strong", [False, True])
+def test_deblock_mb_intra_none_is_all_inter(with_strong):
+    """mb_intra=None (the analyzer's all-inter call) equals an all-False
+    mb_intra, in compute_bs and in the whole plain deblock."""
+    y, u, v, mv, nnz, intra, t8 = _case(6, 4, 30, 0.0)
+    zeros = np.zeros_like(intra)
+    bv, bh = DT.compute_bs(6, 4, _t(mv), _t(nnz), None, _t(t8))
+    zv, zh = DT.compute_bs(6, 4, _t(mv), _t(nnz), _t(zeros), _t(t8))
+    assert torch.equal(bv, zv) and torch.equal(bh, zh)
+    got = DT.deblock(_t(y), _t(u), _t(v), _t(mv), _t(nnz), None, _t(t8),
+                     30, 27, with_strong=with_strong)
+    want = DT.deblock(_t(y), _t(u), _t(v), _t(mv), _t(nnz), _t(zeros),
+                      _t(t8), 30, 27, with_strong=with_strong)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_deblock_cuda_refuses_cpu_tensors():
+    """The kernel's wrapper never filters CPU tensors (the plain version
+    is deblock_torch's): it raises before building anything."""
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    y, u, v, mv, nnz, intra, t8 = (_t(a) for a in _case(3, 2, 30, 0.2))
+    n0 = deblock_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        deblock_cuda.deblock_cuda(y, u, v, mv.to(torch.int16), nnz, intra,
+                                  t8, tdeblock.deblock_scal(30, 27), False)
+    assert deblock_cuda.launches == n0
