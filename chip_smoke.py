@@ -12,7 +12,8 @@ Phases (none is caught; any failure exits non-zero before the last line):
    bS itself) against its plain PyTorch version, ``deblock_plain`` on
    ``compute_bs``, on the card, bit for bit: random planes with intra
    MBs at 120x68 (1080p), 1x1, 3x7, 8x2, 1x68, 120x1 and 240x135 (2160p)
-   MBs, both ``with_strong`` variants, and 512x270 (4320p) with
+   MBs, 120x51 (1920x816, the letterbox job's coded size), both
+   ``with_strong`` variants, and 512x270 (4320p) with
    ``with_strong=False``; 1080p with ``mb_intra=None``; and an
    all-filtering 1080p input (every edge filters), both variants.  Show
    that the wrapper refuses a frame above its size limit.  Time
@@ -30,9 +31,34 @@ Phases (none is caught; any failure exits non-zero before the last line):
    call on the clip's next frame against the serial drive's references;
    its unfiltered recon, mv, nnz and t8 at qp 26 go to the kernel, whose
    output must equal the analyzer's and the plain version's.
-5. Print the kernels line (``ms`` is step 4's time, beside the bytes
-   bound and the dependency-chain floor), the card's name and power
-   limit, and the result line.
+5. Drive the job path, in-process, into a temporary directory:
+   (a) a 3840x2160 y4m of 33 ``make_clip`` frames at 3840x1608 between
+   black bars of 276 rows (2.39:1 film in a 16:9 frame) through the CLI,
+   ``cli.__main__.main(["-i", src, "-o", out, "-e", "h264", "-q", "28",
+   "--encoder-profile", "high"])``, default preset ``Fast 1080p30`` and
+   device: the scan must autocrop the bars exactly, the mp4 (read back
+   with the port's ``MP4Demuxer``) must hold 33 samples at the preset's
+   1920x804 with an avcC, deblock264 must have launched once per
+   analysed P frame, and the first 3 samples must equal the stream of
+   the port's CPU encoder (its plain deblock) on the planes and qp the
+   job's encoder was given; (b) the port's ``CropScaleFilter`` on (a)'s
+   first frame with (a)'s settings, on the card and on the CPU: every
+   plane within 1 LSB, the fraction of samples that differ printed; (c)
+   a 1920x1080 y4m of 33 ``make_clip`` frames through ``work.do_job``
+   (H.264 High, quality 26, mp4, no crop/scale): its samples, as annex-B,
+   must equal the stream of an ``H264Encoder`` driven directly on the
+   same frames with the job's gop and each frame's qp from
+   ``RateController("cq", qp=26)``; (d) the jobs' wall time and fps, the
+   crop/scale time per frame on the card beside the function's bound
+   (its banded taps and its planes) and the dense products' own time,
+   and the time to bring the scaled planes back to the host; (e) the
+   kernel on a letterbox P frame's own inputs (the source's next frame,
+   scaled on the card, analysed against (a)'s final references), as in
+   step 4.
+6. Print the kernels line (``ms`` is step 4's time, beside the bytes
+   bound and the dependency-chain floor; ``job_launches`` are step 5's
+   counts, ``ms_letterbox_input`` step 5 (e)'s time), the card's name
+   and power limit, and the result line.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -43,6 +69,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -70,14 +97,20 @@ SIDE_BYTES = 7
 CHAIN_OPS_PER_EDGE = 10
 CYCLES_PER_OP = 4
 KERNEL_REPS = 25
-# (mb_w, mb_h, qp, with_strong variants): 1080p, tiny, tall, wide, 2160p
-# and 4320p (the largest frame the kernel takes; its plain version is
-# slow, so one variant)
+# (mb_w, mb_h, qp, with_strong variants): 1080p, tiny, tall, wide, the
+# letterbox job's 1920x816, 2160p and 4320p (the largest frame the kernel
+# takes; its plain version is slow, so one variant)
 KERNEL_CASES = ((120, 68, 30, (False, True)), (1, 1, 36, (False, True)),
                 (3, 7, 40, (False, True)), (8, 2, 24, (False, True)),
                 (1, 68, 32, (False, True)), (120, 1, 26, (False, True)),
+                (120, 51, 28, (False, True)),
                 (240, 135, 28, (False, True)), (512, 270, 28, (False,)))
 BIG = (4800, 9600)      # a luma plane above the kernel's size limit
+# the job path (tools/profile_job.py defines its two jobs): a 2160p
+# source holding 2.39:1 film between black bars of 276 rows, which the
+# CLI's default preset brings down to 1920x804
+JOB_OUT = (1920, 804)
+CS_REPS = 9             # crop/scale calls timed on the card
 
 
 def smi(query):
@@ -406,12 +439,13 @@ def phase_main_path(label):
     return launches, enc1
 
 
-def phase_main_path_input(label, enc, clock_hz):
-    """The kernel on a main-path P frame's own inputs: one analyzer call
-    (deblock on, 8x8) on the clip's next frame against the serial
-    encoder's final references; its unfiltered recon, mv, nnz and t8 go
-    to the kernel, which must give the analyzer's filtered planes and
-    the plain version's.  Returns (kernel ms, bound, chain floor)."""
+def kernel_on_path_input(what, label, enc, frame, clock_hz):
+    """The kernel on a path's own P frame inputs: one analyzer call
+    (deblock on, 8x8, the encoder's qp) on `frame` (host planes at the
+    encoder's size) against the encoder's final references; its
+    unfiltered recon, mv, nnz and t8 go to the kernel, which must give
+    the analyzer's filtered planes and the plain version's.  Returns
+    (kernel ms, bound, chain floor)."""
     import torch
     from handbrake_tpu_torch.codecs.h264 import deblock_cuda
     from handbrake_tpu_torch.codecs.h264.analyzer import build_p_analyzer
@@ -419,18 +453,17 @@ def phase_main_path_input(label, enc, clock_hz):
     from handbrake_tpu_torch.codecs.h264.deblock_torch import (compute_bs,
                                                                deblock_plain)
     from handbrake_tpu_torch.codecs.h264.transform import chroma_qp
-    from handbrake_tpu_torch.utils.synth import make_clip
-    frame = make_clip(W, H, N_FRAMES + 1)[N_FRAMES]
     src = torch.from_numpy(np.concatenate(
         [enc._pad_to_mb(p, m).ravel() for p, m in zip(frame, (16, 8, 8))]
     )).cuda()
-    qpc = chroma_qp(QP, 0)
+    qp = enc.cfg.qp
+    qpc = chroma_qp(qp, enc.cfg.chroma_qp_offset)
     d = build_p_analyzer(enc.mb_w, enc.mb_h, deblock=True,
                          transform8x8=True)(
-        src, enc.recon_y, enc.recon_u, enc.recon_v, QP, qpc)
+        src, enc.recon_y, enc.recon_u, enc.recon_v, qp, qpc)
     planes = (d["recon_y_nf"], d["urec_nf"], d["vrec_nf"])
     mv, nnz, t8 = d["mv"], d["luma_nnz"].to(torch.int32), d["t8"].bool()
-    scal = deblock_scal(QP, qpc)
+    scal = deblock_scal(qp, qpc)
     outs, largs = deblock_cuda.prepare(*planes, mv, nnz, None, t8, scal,
                                        False)
     ms = kernel_ms(largs)
@@ -438,17 +471,315 @@ def phase_main_path_input(label, enc, clock_hz):
     want = deblock_plain(*planes, bs_v, bs_h, scal, False)
     for got, w, an in zip(outs, want, (d["recon_y"], d["urec"], d["vrec"])):
         if not (torch.equal(got, w) and torch.equal(got, an)):
-            raise RuntimeError("deblock264 on main-path input differs from "
-                               "its plain version or the analyzer's output")
+            raise RuntimeError(f"deblock264 on {what} input differs from "
+                               f"its plain version or the analyzer's output")
     b = bounds(planes, bs_v, bs_h, enc.mb_w, enc.mb_h, clock_hz)
-    print(f"deblock264 on a main-path P frame's inputs ({label}): kernel "
-          f"{ms:.4f} ms ({KERNEL_REPS} back-to-back launches, CUDA events); "
-          f"equal to the plain version and the analyzer's output; bS > 0 "
-          f"at {int((bs_v > 0).sum() + (bs_h > 0).sum())} of "
+    print(f"deblock264 on a {what} P frame's inputs ({enc.mb_w}x{enc.mb_h} "
+          f"MBs, qp {qp}) ({label}): kernel {ms:.4f} ms ({KERNEL_REPS} "
+          f"back-to-back launches, CUDA events); equal to the plain version "
+          f"and the analyzer's output; bS > 0 at "
+          f"{int((bs_v > 0).sum() + (bs_h > 0).sum())} of "
           f"{bs_v.numel() + bs_h.numel()} luma edge groups; bound "
           f"{b['bound_ms'] * 1e3:.2f} us by {b['bound_by']}, chain floor "
           f"{b['chain_floor_us']:.1f} us", flush=True)
     return ms, b
+
+
+def phase_main_path_input(label, enc, clock_hz):
+    """Step 4: the kernel on the clip's next frame (make_clip's first
+    frames do not depend on n) against the serial encoder's references."""
+    from handbrake_tpu_torch.utils.synth import make_clip
+    frame = make_clip(W, H, N_FRAMES + 1)[N_FRAMES]
+    return kernel_on_path_input("main-path", label, enc, frame, clock_hz)
+
+
+def read_mp4(path):
+    """(track info, annex-B samples) of the video track of an mp4."""
+    from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
+    d = MP4Demuxer(path)
+    try:
+        return d.tracks[0], [bytes(b.data) for _, b in d.packets()]
+    finally:
+        d.close()
+
+
+def avcc_parameter_sets(avcc: bytes) -> bytes:
+    """The SPS and PPS NALs of an avcC record, as annex-B."""
+    out, i = [], 5
+    for mask in (0x1F, 0xFF):               # SPS list, then PPS list
+        n = avcc[i] & mask
+        i += 1
+        for _ in range(n):
+            ln = int.from_bytes(avcc[i:i + 2], "big")
+            out.append(b"\x00\x00\x00\x01" + avcc[i + 2:i + 2 + ln])
+            i += 2 + ln
+    return b"".join(out)
+
+
+def equal_stream(want, avcc, samples) -> bool:
+    """An encoder's frames (annex-B, the first with SPS and PPS) equal the
+    mp4's avcC parameter sets and samples, sample for sample."""
+    from handbrake_tpu_torch.mux.nal import strip_parameter_sets
+    return (len(want) == len(samples)
+            and avcc_parameter_sets(avcc) + b"".join(samples)
+            == b"".join(want)
+            and all(strip_parameter_sets(w) == s
+                    for w, s in zip(want, samples)))
+
+
+def with_bars(picture):
+    """A letterboxed source frame: `picture` between the black bars."""
+    from handbrake_tpu_torch.tools.profile_job import JOB_BAR
+    return tuple(np.concatenate([np.full((b, p.shape[1]), fill, np.uint8), p,
+                                 np.full((b, p.shape[1]), fill, np.uint8)])
+                 for p, b, fill in zip(picture, (JOB_BAR, JOB_BAR // 2,
+                                                 JOB_BAR // 2),
+                                       (16, 128, 128)))
+
+
+def phase_letterbox_job(tmp, label):
+    """(a): the 2160p letterboxed y4m through the CLI; its first N_CPU
+    samples held against the port's CPU encoder on the planes and qp the
+    job's encoder was given.  Returns the job's numbers, its encoder, and
+    the source's first and next (34th) frames."""
+    import dataclasses
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.codecs.h264.encoder import H264Encoder
+    from handbrake_tpu_torch.job import schema as S
+    from handbrake_tpu_torch.tools import profile_job as pj
+    # one frame more than the job: the next P frame of (e)
+    frames = pj.letterbox_frames(N_FRAMES + 1)
+    src = os.path.join(tmp, "letterbox.y4m")
+    out = os.path.join(tmp, "letterbox.mp4")
+    pj.write_letterbox(src, frames[:N_FRAMES])
+    first, nxt = with_bars(frames[0]), with_bars(frames[N_FRAMES])
+    del frames
+    with pj.JobSpy(keep=N_CPU) as spy:
+        deblock_cuda.launches = 0
+        t0 = time.perf_counter()
+        rc = cli_main(pj.letterbox_argv(src, out))
+        t_cli = time.perf_counter() - t0
+        launches = deblock_cuda.launches
+    if rc != 0:
+        raise RuntimeError(f"the CLI job failed with exit code {rc}")
+    cs = next(f.settings for f in spy.job.filters
+              if f.id == S.FILTER_CROP_SCALE)
+    crop = tuple(cs[k] for k in ("crop-top", "crop-bottom", "crop-left",
+                                 "crop-right"))
+    ti, samples = read_mp4(out)
+    size = (ti.width, ti.height)
+    n_p = spy.p_frames()
+    print(f"job (a): {pj.JOB_W}x{pj.JOB_H} letterboxed y4m, CLI -e h264 -q "
+          f"{pj.JOB_Q} --encoder-profile high, preset Fast 1080p30: scan "
+          f"found crop {'/'.join(map(str, crop))} (top/bottom/left/right); "
+          f"mp4 {len(samples)} samples at {size[0]}x{size[1]}, avcC "
+          f"{len(ti.extradata)} B; deblock264 launches {launches}, P frames "
+          f"{n_p}, re-analysed {spy.enc.n_redo}", flush=True)
+    if crop != (pj.JOB_BAR, pj.JOB_BAR, 0, 0):
+        raise RuntimeError("the scan did not autocrop the bars exactly")
+    if size != JOB_OUT or size != (cs["width"], cs["height"]):
+        raise RuntimeError(f"the mp4 is {size}, not the preset's {JOB_OUT}")
+    if len(samples) != N_FRAMES or not ti.extradata.startswith(b"\x01"):
+        raise RuntimeError("the mp4 lacks samples or its avcC")
+    if launches != n_p + spy.enc.n_redo or launches == 0:
+        raise RuntimeError("the job did not launch deblock264 once per "
+                           "analysed P frame")
+    # the port's CPU encoder (compute_bs + deblock_plain in its P frames)
+    # on the scaled planes the job encoded: frame 2 is coded against
+    # frame 1's deblocked reference, so its bytes hold the kernel to the
+    # plain version at this coded size
+    cpu = H264Encoder(dataclasses.replace(spy.enc.cfg), device="cpu")
+    t0 = time.perf_counter()
+    want = [cpu.encode_frame(y, u, v, qp=qp) for y, u, v, qp in spy.frames]
+    t_cpu = time.perf_counter() - t0
+    same = equal_stream(want, ti.extradata, samples[:N_CPU])
+    print(f"job (a): first {len(want)} samples equal the port's CPU encoder "
+          f"on the planes the job encoded: {same} ({t_cpu:.1f} s on the "
+          f"CPU)", flush=True)
+    if len(want) != N_CPU or not same:
+        raise RuntimeError("job (a)'s first frames differ from the CPU "
+                           "encoder's on the same scaled planes")
+    print(f"job (a) ({label}): do_job {spy.seconds:.2f} s, "
+          f"{N_FRAMES / spy.seconds:.2f} fps ({N_FRAMES} frames incl. the "
+          f"IDR; the process's first crop/scale); CLI in all "
+          f"(scan of 10 previews + job) {t_cli:.2f} s", flush=True)
+    return {"launches": launches, "settings": dict(cs), "first": first,
+            "next": nxt, "enc": spy.enc, "seconds": spy.seconds}
+
+
+def crop_scale_bound(settings):
+    """The bound of the crop/scale function on this job's planes, the
+    larger of two times: the operations of its banded taps (a multiply
+    and an add for each nonzero weight of each output sample, in both
+    passes) at the f32 rate, and its bytes (each plane read once and
+    written once as u8, the nonzero f32 weights read once) at the memory
+    rate.  Also the operations of the dense products the port computes."""
+    from handbrake_tpu_torch.filters.kernels import resample_matrix
+    from handbrake_tpu_torch.tools.profile_job import JOB_H, JOB_W
+    ch = JOB_H - settings["crop-top"] - settings["crop-bottom"]
+    cw = JOB_W - settings["crop-left"] - settings["crop-right"]
+    oh, ow = settings["height"], settings["width"]
+    kind = settings.get("method", "lanczos")
+    ops = dense_ops = nbytes = 0
+    for h, w, o_h, o_w, shift in ((ch, cw, oh, ow, 0.0),
+                                  (ch // 2, cw // 2, oh // 2, ow // 2, -0.25),
+                                  (ch // 2, cw // 2, oh // 2, ow // 2, -0.25)):
+        taps_v = np.count_nonzero(resample_matrix(h, o_h, kind))
+        taps_h = np.count_nonzero(resample_matrix(w, o_w, kind, shift, shift))
+        # vertical pass: o_h x w samples; horizontal: o_h x o_w
+        ops += 2 * taps_v * w + 2 * taps_h * o_h
+        dense_ops += 2 * o_h * h * w + 2 * o_h * w * o_w
+        nbytes += h * w + o_h * o_w + 4 * (taps_v + taps_h)
+    t_ops = ops / SCALAR_RATE * 1e3
+    t_bytes = nbytes / MEM_BW * 1e3
+    return {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "dense_ops": dense_ops,
+            "dense_ops_ms": dense_ops / SCALAR_RATE * 1e3}
+
+
+def crop_scale_filter(settings, device):
+    """The port's CropScaleFilter with the job's settings on `device`."""
+    from handbrake_tpu_torch.core.buffer import Geometry
+    from handbrake_tpu_torch.filters.base import FilterInit
+    from handbrake_tpu_torch.filters.cropscale import CropScaleFilter
+    from handbrake_tpu_torch.tools.profile_job import JOB_H, JOB_W
+    f = CropScaleFilter(settings)
+    f.init(FilterInit(geometry=Geometry(JOB_W, JOB_H), device=device))
+    return f
+
+
+def scale(f, frame):
+    """The filter's planes for one source frame (host planes)."""
+    from handbrake_tpu_torch.core.buffer import YUV420P, Buffer
+    buf = Buffer(planes=list(frame), pix_fmt=YUV420P, pts=0, duration=3003)
+    return f.work(buf)[0].planes
+
+
+def phase_crop_scale(first, settings, label):
+    """(b): CropScaleFilter on (a)'s first frame on the card and on the
+    CPU, held within 1 LSB; (d) its time per frame on the card beside
+    the function's bound, the dense products' time, and the time to bring
+    the scaled planes to the host."""
+    import torch
+    from handbrake_tpu_torch.filters.kernels import resample_plane
+    on_dev = crop_scale_filter(settings, "cuda")
+    got = [p.cpu().numpy() for p in scale(on_dev, first)]
+    want = [p.numpy() for p in scale(crop_scale_filter(settings, "cpu"),
+                                     first)]
+    errs, fracs = [], []
+    for g, w in zip(got, want):
+        d = np.abs(g.astype(np.int32) - w.astype(np.int32))
+        errs.append(int(d.max()))
+        fracs.append(float((d != 0).mean()))
+    print(f"crop/scale (b): the card against the CPU on (a)'s first frame, "
+          f"Y/U/V max_abs_err {errs}, fraction of samples that differ "
+          f"{['%.3g' % x for x in fracs]}", flush=True)
+    if max(errs) > 1:
+        raise RuntimeError("crop/scale on the card is more than 1 LSB "
+                           "from the CPU")
+    out = {"max_abs_err": max(errs), "frac_differ": fracs}
+    planes = scale(on_dev, first)
+    out["ms"] = cuda_ms(lambda: scale(on_dev, first), CS_REPS)
+    out["d2h_ms"] = cuda_ms(lambda: [p.cpu() for p in planes], CS_REPS)
+    # the dense products alone, on planes already on the card
+    t, b, l, r = (settings[k] for k in ("crop-top", "crop-bottom",
+                                        "crop-left", "crop-right"))
+    dev_planes = [torch.from_numpy(np.ascontiguousarray(
+        p[t // s:p.shape[0] - b // s, l // s:p.shape[1] - r // s])).cuda()
+        for p, s in zip(first, (1, 2, 2))]
+    oh, ow = settings["height"], settings["width"]
+
+    def products():
+        resample_plane(dev_planes[0], oh, ow)
+        for p in dev_planes[1:]:
+            resample_plane(p, oh // 2, ow // 2, shift_in=(0.0, -0.25),
+                           shift_out=(0.0, -0.25))
+
+    out["products_ms"] = cuda_ms(products, CS_REPS)
+    out.update(crop_scale_bound(settings))
+    print(f"crop/scale (d) ({label}): {out['ms']:.4f} ms per frame (filter "
+          f"call on host planes, upload included; median of {CS_REPS}, CUDA "
+          f"events); bound of the function {out['bound_ms'] * 1e3:.2f} us "
+          f"by {out['bound_by']} ({out['ops'] / 1e9:.3f} GFLOP of banded "
+          f"taps at 67 TFLOP/s f32, {out['bytes'] / 1e6:.2f} MB at 3.35 "
+          f"TB/s); the dense products the port computes "
+          f"{out['products_ms']:.4f} ms ({out['dense_ops'] / 1e9:.2f} "
+          f"GFLOP, {out['dense_ops_ms']:.4f} ms at 67 TFLOP/s); scaled "
+          f"planes to the host {out['d2h_ms']:.4f} ms per frame", flush=True)
+    return out
+
+
+def phase_letterbox_input(a, label, clock_hz):
+    """(e): the kernel on a letterbox P frame's own inputs: the source's
+    next frame, scaled on the card as the job scales it, against (a)'s
+    final references."""
+    f = crop_scale_filter(a["settings"], "cuda")
+    frame = [p.cpu().numpy() for p in scale(f, a["next"])]
+    return kernel_on_path_input("letterbox-job", label, a["enc"], frame,
+                                clock_hz)
+
+
+def phase_unscaled_job(tmp, label):
+    """(c): the 1080p y4m through work.do_job, its samples held against
+    the directly driven encoder's stream."""
+    from handbrake_tpu_torch import work
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.codecs.h264.encoder import (EncoderConfig,
+                                                         H264Encoder)
+    from handbrake_tpu_torch.codecs.ratecontrol import RateController
+    from handbrake_tpu_torch.tools import profile_job as pj
+    from handbrake_tpu_torch.utils.synth import make_clip, write_y4m
+    frames = make_clip(W, H, N_FRAMES)
+    src = os.path.join(tmp, "unscaled.y4m")
+    out = os.path.join(tmp, "unscaled.mp4")
+    write_y4m(src, frames, W, H)
+    job = pj.unscaled_job(src, out)
+    with pj.JobSpy() as spy:
+        deblock_cuda.launches = 0
+        work.do_job(job)
+        launches = deblock_cuda.launches
+    ti, samples = read_mp4(out)
+    cfg = spy.enc.cfg
+    rc = RateController("cq", qp=work.quality_to_qp(job.quality))
+    direct = H264Encoder(EncoderConfig(
+        width=W, height=H, qp=cfg.qp, gop=cfg.gop, fps=cfg.fps,
+        deblock=True, cabac=True, transform8x8=True, dispatch_batch=1))
+    want = []
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        want.append(direct.encode_frame(*f, qp=rc.frame_qp(i % cfg.gop == 0)))
+    t_direct = time.perf_counter() - t0
+    same = equal_stream(want, ti.extradata, samples)
+    n_p = spy.p_frames()
+    print(f"job (c): {W}x{H} y4m through do_job (H.264 High, quality "
+          f"{pj.UNSCALED_Q}, mp4, gop {cfg.gop}, qp {cfg.qp}): "
+          f"{len(samples)} samples at {ti.width}x{ti.height}; deblock264 "
+          f"launches {launches}, P frames {n_p}, re-analysed "
+          f"{spy.enc.n_redo}; equal to the directly driven encoder: {same}",
+          flush=True)
+    if len(samples) != N_FRAMES or not same:
+        raise RuntimeError("the unscaled job's stream differs from the "
+                           "directly driven encoder's")
+    if launches != n_p + spy.enc.n_redo:
+        raise RuntimeError("the unscaled job did not launch deblock264 once "
+                           "per analysed P frame")
+    print(f"job (c) ({label}): do_job {spy.seconds:.2f} s, "
+          f"{N_FRAMES / spy.seconds:.2f} fps ({N_FRAMES} frames incl. the "
+          f"IDR); the encoder driven directly, serial (encode_frame, no "
+          f"frame in flight, {direct.n_redo} re-analysed) "
+          f"{N_FRAMES / t_direct:.2f} fps", flush=True)
+    return {"launches": launches, "seconds": spy.seconds}
+
+
+def phase_job_path(label, clock_hz):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        a = phase_letterbox_job(tmp, label)
+        b = phase_crop_scale(a["first"], a["settings"], label)
+        c = phase_unscaled_job(tmp, label)
+    ms, _ = phase_letterbox_input(a, label, clock_hz)
+    return a, b, c, ms
 
 
 def one_card():
@@ -478,9 +809,13 @@ def main() -> int:
     entry = phase_kernel(label, clock_hz)
     launches, enc = phase_main_path(label)
     ms, b = phase_main_path_input(label, enc, clock_hz)
+    job_a, _, job_c, ms_lb = phase_job_path(label, clock_hz)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
-                 chain_floor_us=b["chain_floor_us"])
+                 chain_floor_us=b["chain_floor_us"],
+                 ms_letterbox_input=ms_lb,
+                 job_launches={"letterbox_2160p_cli": job_a["launches"],
+                               "unscaled_1080p_do_job": job_c["launches"]})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry]}))
     print(label)

@@ -1,0 +1,70 @@
+"""Filter chain assembly + negotiation (reference: work.c:1788-1899 filter
+init loop and common.c:5491 hb_filter_init) — the counterpart of
+``handbrake_tpu/filters/graph.py``.
+
+Builds Filter instances from a job's FilterList (ordered by FILTER_ORDER —
+the enum-order contract), runs the init negotiation down the chain (a
+ported filter that refuses its settings with FilterError is disabled, not
+fatal — work.c:1852-1859), and processes buffers through the chain with
+fan-out (one input buffer may produce 0..n outputs at each stage).
+
+A filter the reference package knows but the port has not ported yet
+raises NotImplementedError naming it: dropping it would change the video
+without an error.
+"""
+from __future__ import annotations
+
+from ..core.buffer import Buffer
+from ..job import schema as S
+from ..utils.logging import error
+from .base import FilterError, FilterInit, create_filter, registry
+
+# the ported filter modules, so that their @register decorators run
+from . import cropscale, vfr  # noqa: F401
+
+
+class FilterGraph:
+    def __init__(self, filter_list: list, fi: FilterInit):
+        """filter_list: [{"ID": int, "Settings": dict}] (job JSON schema)."""
+        order = {fid: i for i, fid in enumerate(S.FILTER_ORDER)}
+        specs = sorted(filter_list, key=lambda f: order.get(f["ID"], 99))
+        ported = registry()
+        for spec in specs:
+            fid = spec["ID"]
+            if fid not in ported and fid in S.FILTER_NAMES:
+                raise NotImplementedError(
+                    f"filter {S.FILTER_NAMES[fid]!r} (id {fid}) is not "
+                    f"ported yet; the port has "
+                    f"{sorted(S.FILTER_NAMES[i] for i in ported)}")
+        self.filters: list = []
+        self.fi_in = fi.copy()
+        cur = fi.copy()
+        for spec in specs:
+            try:
+                f = create_filter(spec["ID"], spec.get("Settings"))
+                cur = f.init(cur)
+                self.filters.append(f)
+            except FilterError as e:
+                # disabled, not fatal (work.c:1852-1859)
+                error(f"filter {spec['ID']} disabled: {e}")
+        self.fi_out = cur
+
+    def work(self, buf: Buffer) -> list:
+        bufs = [buf]
+        for f in self.filters:
+            nxt = []
+            for b in bufs:
+                nxt.extend(f.work(b))
+            bufs = nxt
+            if not bufs:
+                break
+        return bufs
+
+    def flush(self) -> list:
+        """Flush every stage in order, feeding downstream stages."""
+        out = self.work(Buffer.eof())
+        return [b for b in out if not b.is_eof()]
+
+    def close(self):
+        for f in self.filters:
+            f.close()

@@ -1,0 +1,140 @@
+"""Resampling helpers of the filter suite — the counterpart of
+``handbrake_tpu/filters/kernels.py``'s ``resample_matrix`` and
+``_apply_separable`` / ``resample_plane``.
+
+Resampling follows the zimg model the reference uses via zscale
+(cropscale.c:150-157): separable filters with exact sample-grid math and
+chroma-siting offsets.  The separable passes are two dense f32 matrix
+products, out = A_v @ img @ A_h^T, with weight matrices built once on the
+host (numpy, a copy of the JAX package's) and kept on the device.  The
+products are ``torch.matmul`` with TF32 off, then round half to even,
+clip and cast, as the reference does.  Their summation order differs from
+XLA's, so a sample whose value lands near .5 may differ by one LSB; the
+0/1 weights of ``point`` are exact.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+
+
+# ---------------------------------------------------------------------------
+# resample weight matrices (host, cached)
+# ---------------------------------------------------------------------------
+def _sinc(x):
+    return np.sinc(x)
+
+
+def _lanczos(x, a):
+    x = np.asarray(x, np.float64)
+    return np.where(np.abs(x) < a, _sinc(x) * _sinc(x / a), 0.0)
+
+
+def _bicubic(x, b=0.0, c=0.5):  # Catmull-Rom default (zimg "bicubic")
+    x = np.abs(np.asarray(x, np.float64))
+    x2, x3 = x * x, x * x * x
+    p1 = ((12 - 9 * b - 6 * c) * x3 + (-18 + 12 * b + 6 * c) * x2
+          + (6 - 2 * b)) / 6
+    p2 = ((-b - 6 * c) * x3 + (6 * b + 30 * c) * x2
+          + (-12 * b - 48 * c) * x + (8 * b + 24 * c)) / 6
+    return np.where(x < 1, p1, np.where(x < 2, p2, 0.0))
+
+
+def _bilinear(x):
+    x = np.abs(np.asarray(x, np.float64))
+    return np.maximum(1.0 - x, 0.0)
+
+
+_KERNELS = {
+    "lanczos": (lambda x, s: _lanczos(x / s, 3.0), 3.0),
+    "bicubic": (lambda x, s: _bicubic(x / s), 2.0),
+    "bilinear": (lambda x, s: _bilinear(x / s), 1.0),
+    "point": (None, 0.5),
+}
+
+
+@functools.lru_cache(maxsize=256)
+def resample_matrix(n_in: int, n_out: int, kind: str = "lanczos",
+                    shift_in: float = 0.0, shift_out: float = 0.0):
+    """(n_out, n_in) float32 weight matrix.
+
+    shift_in/shift_out: sample-grid offsets in the respective pixel units
+    (chroma siting: left-sited 4:2:0 horizontal = -0.25).
+    Sample j sits at physical position j + 0.5 + shift (units of its own
+    grid); rows are normalized to sum 1 (edge clamp = weight folding).
+    """
+    scale = n_in / n_out
+    if kind == "point":
+        A = np.zeros((n_out, n_in), np.float32)
+        for i in range(n_out):
+            src = min(n_in - 1, max(0, int((i + 0.5) * scale)))
+            A[i, src] = 1.0
+        return A
+    fn, base_support = _KERNELS[kind]
+    s = max(scale, 1.0)  # widen when downscaling
+    support = base_support * s
+    A = np.zeros((n_out, n_in), np.float64)
+    for i in range(n_out):
+        center = (i + 0.5 + shift_out) * scale - 0.5 - shift_in
+        lo = max(0, int(math.floor(center - support)))
+        hi = min(n_in - 1, int(math.ceil(center + support)))
+        j = np.arange(lo, hi + 1)
+        w = fn(j - center, s)
+        tot = w.sum()
+        if tot == 0:
+            A[i, min(n_in - 1, max(0, int(round(center))))] = 1.0
+        else:
+            A[i, lo:hi + 1] = w / tot
+    return A.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _weights(n_in: int, n_out: int, kind: str, shift_in: float,
+             shift_out: float, device: torch.device) -> torch.Tensor:
+    """resample_matrix as a tensor on `device`, uploaded once."""
+    return torch.from_numpy(resample_matrix(n_in, n_out, kind, shift_in,
+                                            shift_out)).to(device)
+
+
+def _apply_separable(img: torch.Tensor, av: torch.Tensor, ah: torch.Tensor,
+                     maxval: int) -> torch.Tensor:
+    """The JAX package's einsum("oh,hw->ow"), einsum("ow,cw->oc") in f32,
+    round (half to even), clip to [0, maxval], cast to uint8/uint16."""
+    x = img.to(torch.float32)
+    x = av @ x
+    x = x @ ah.T
+    return torch.clamp(torch.round(x), 0, maxval).to(
+        torch.uint8 if maxval <= 255 else torch.uint16)
+
+
+def to_tensor(plane, device: torch.device) -> torch.Tensor:
+    """A plane (numpy, read-only views included, or a tensor) on `device`."""
+    if isinstance(plane, torch.Tensor):
+        return plane.to(device)
+    return torch.from_numpy(
+        np.require(plane, requirements=["C", "W"])).to(device)
+
+
+def resample_plane(plane, out_h: int, out_w: int, kind: str = "lanczos",
+                   shift_in=(0.0, 0.0), shift_out=(0.0, 0.0),
+                   maxval: int = 255, device=None) -> torch.Tensor:
+    """Resample one plane with two separable matrix products.  The plane
+    is a numpy array or a tensor; the work runs on the tensor's device,
+    else on `device` (None: the CUDA card).  Returns a tensor there."""
+    dev = resolve_device(plane.device if isinstance(plane, torch.Tensor)
+                         else device)
+    in_h, in_w = plane.shape
+    av = _weights(in_h, out_h, kind, float(shift_in[0]),
+                  float(shift_out[0]), dev)
+    ah = _weights(in_w, out_w, kind, float(shift_in[1]),
+                  float(shift_out[1]), dev)
+    return _apply_separable(to_tensor(plane, dev), av, ah, maxval)
+
+
+def maxval_of(pix_fmt) -> int:
+    return (1 << pix_fmt.bit_depth) - 1

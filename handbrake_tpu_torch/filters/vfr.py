@@ -1,0 +1,167 @@
+"""VFR/CFR/PFR framerate shaper (reference: vfr.c + motion_metric.c).
+
+Settings: mode (0=vfr passthrough, 1=cfr, 2=pfr), rate (Fraction or
+"num/den"). CFR re-times to a fixed grid, duplicating into gaps and
+dropping on overruns; like the reference (find_drop_frame vfr.c:133) a
+small candidate queue is kept and the frame with the lowest motion metric
+(most similar to its neighbours — SAD on device, motion_metric.c analog)
+is the one dropped.
+
+The counterpart of ``handbrake_tpu/filters/vfr.py``: the motion metric
+is a torch reduction on the filter's device (FilterInit.device), summed
+exactly in int64 where the reference takes an f32 mean, so the card and
+the CPU choose alike.  Above 2**24 the reference's sum rounds: on two
+candidates within that rounding of each other the choices may differ.
+"""
+from __future__ import annotations
+
+from fractions import Fraction
+
+import torch
+
+from ..core.buffer import Buffer, CLOCK
+from ..utils.device import resolve_device
+from .base import Filter, FilterInit, register
+from .kernels import to_tensor
+from ..job import schema as S
+
+
+def motion_metric(a, b, device=None) -> float:
+    """Mean absolute difference between two luma planes (numpy or
+    tensors), reduced on `device` (None: the CUDA card)."""
+    dev = resolve_device(device)
+    d = (to_tensor(a, dev).to(torch.int32)
+         - to_tensor(b, dev).to(torch.int32)).abs()
+    return float(d.sum(dtype=torch.int64)) / d.numel()
+
+
+def _parse_rate(v, default):
+    if v is None:
+        return default
+    if isinstance(v, Fraction):
+        return v
+    if isinstance(v, (int, float)):
+        return Fraction(v).limit_denominator(1001 * 120)
+    num, den = str(v).split("/")
+    return Fraction(int(num), int(den))
+
+
+@register
+class VFRFilter(Filter):
+    id = S.FILTER_VFR
+    name = "vfr"
+
+    def init(self, fi: FilterInit) -> FilterInit:
+        s = self.settings
+        self.device = fi.device
+        self.mode = int(s.get("mode", 0))
+        if "rate-num" in s and "rate-den" in s:
+            self.rate = Fraction(int(s["rate-num"]), int(s["rate-den"]))
+        else:
+            self.rate = _parse_rate(s.get("rate"), fi.vrate)
+        self.frame_ticks = Fraction(CLOCK, 1) / self.rate
+        self.out_pts = None       # next CFR grid position (Fraction)
+        self.pending: list = []   # candidate queue (≤2) for drop choice
+        self.last_emitted = None
+        self.drops = 0
+        self.dups = 0
+        self.fi = fi.copy()
+        self.fi.cfr = self.mode
+        if self.mode == 1:
+            self.fi.vrate = self.rate
+        return self.fi
+
+    # -- CFR engine ----------------------------------------------------------
+    def _emit_cfr(self, buf: Buffer) -> list:
+        out = []
+        if self.out_pts is None:
+            self.out_pts = Fraction(buf.pts or 0)
+        start = Fraction(buf.pts if buf.pts is not None else self.out_pts)
+        dur = Fraction(buf.duration or int(self.frame_ticks))
+        end = start + dur
+        # frame covers no grid point → drop candidate
+        if end <= self.out_pts:
+            self.pending.append(buf)
+            if len(self.pending) >= 2:
+                # drop the candidate most similar to its neighbour
+                a, b = self.pending[0], self.pending[1]
+                ref = (self.last_emitted or a).planes[0]
+                ma = motion_metric(ref, a.planes[0], self.device)
+                mb = motion_metric(ref, b.planes[0], self.device)
+                keep = b if ma <= mb else a
+                self.pending = [keep]
+                self.drops += 1
+            return out
+        # a pending candidate competes with buf for this grid point: keep
+        # whichever differs more from the last output (drop the redundant
+        # one — find_drop_frame vfr.c:133 picks the lowest-metric frame)
+        src = buf
+        dropped_buf = False
+        if self.pending:
+            cand = self.pending.pop()
+            self.drops += len(self.pending)
+            self.pending = []
+            ref = (self.last_emitted or cand).planes[0]
+            mc = motion_metric(ref, cand.planes[0], self.device)
+            mb2 = motion_metric(ref, buf.planes[0], self.device)
+            if mc >= mb2:
+                src = cand
+                dropped_buf = True
+            else:
+                self.drops += 1
+        # emit copies of src (and dup if it spans several grid points)
+        while end > self.out_pts:
+            ob = Buffer(planes=src.planes,
+                        pix_fmt=src.pix_fmt).copy_props(src)
+            ob.pts = int(self.out_pts)
+            ob.duration = int(self.frame_ticks)
+            ob.stop = int(self.out_pts + self.frame_ticks)
+            out.append(ob)
+            self.out_pts += self.frame_ticks
+            if len(out) > 1:
+                self.dups += 1
+            if src is not buf and end > self.out_pts:
+                src = buf  # newest frame takes over remaining grid points
+                dropped_buf = False
+        if dropped_buf:
+            self.drops += 1
+        self.last_emitted = out[-1] if out else self.last_emitted
+        return out
+
+    def _emit_pfr(self, buf: Buffer) -> list:
+        # cap: drop frames that would exceed peak rate; keep timestamps.
+        # A third-of-a-frame tolerance absorbs container timestamp
+        # jitter (mkv stores ms: a 30 fps stream lands at 2970/3060-tick
+        # intervals) without letting a genuinely faster stream through.
+        if self.out_pts is None:
+            self.out_pts = Fraction(buf.pts or 0)
+        start = Fraction(buf.pts if buf.pts is not None else self.out_pts)
+        if start < self.out_pts - self.frame_ticks / 3:
+            self.drops += 1
+            return []
+        self.out_pts = start + self.frame_ticks
+        return [buf]
+
+    def work(self, buf: Buffer) -> list:
+        if buf.is_eof():
+            return self.flush() + [buf]
+        if buf.planes is None:
+            return [buf]
+        if self.mode == 1:
+            return self._emit_cfr(buf)
+        if self.mode == 2:
+            return self._emit_pfr(buf)
+        return [buf]
+
+    def flush(self) -> list:
+        out = []
+        if self.mode == 1 and self.pending:
+            for b in self.pending:
+                ob = Buffer(planes=b.planes, pix_fmt=b.pix_fmt).copy_props(b)
+                ob.pts = int(self.out_pts)
+                ob.duration = int(self.frame_ticks)
+                ob.stop = int(self.out_pts + self.frame_ticks)
+                out.append(ob)
+                self.out_pts += self.frame_ticks
+            self.pending = []
+        return out

@@ -1,10 +1,28 @@
-"""Synthetic test clip: moving structured content + light noise.
+"""Synthetic test clip: moving structured content + light noise, and a
+y4m writer for such clips.
 
-A copy of ``bench.py``'s ``make_clip``, so the port's smoke script and
+``make_clip`` is a copy of ``bench.py``'s, so the port's smoke script and
 tests can make the same frames without importing the JAX package."""
 from __future__ import annotations
 
 import numpy as np
+
+
+def write_y4m(path, frames, w, h, bar=0, rate=(30000, 1001)):
+    """A 4:2:0 8-bit y4m of `frames` ((y, u, v) numpy planes of the
+    picture, h - 2 * bar rows high) between `bar` black rows above and
+    below (luma 16, chroma 128), as a letterboxed source holds them."""
+    yb = np.full((bar, w), 16, np.uint8)
+    cb = np.full((bar // 2, w // 2), 128, np.uint8)
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F{rate[0]}:{rate[1]} Ip A1:1 C420\n"
+                .encode())
+        for y, u, v in frames:
+            f.write(b"FRAME\n")
+            for plane, pad in ((y, yb), (u, cb), (v, cb)):
+                f.write(pad.tobytes() + np.ascontiguousarray(plane).tobytes()
+                        + pad.tobytes())
+    return path
 
 
 def make_clip(w, h, n, seed=0):

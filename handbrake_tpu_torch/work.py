@@ -1,0 +1,496 @@
+"""Work orchestrator — job → finished file (reference: libhb/work.c
+work_func/do_job, SURVEY.md §3.2); the counterpart of
+``handbrake_tpu/work.py``.
+
+Pipeline assembly per pass:
+  source demux → video decode → sync → filter chain → video encode → mux
+The stages run one thread each with bounded FIFOs between them
+(core/pipeline.py, the work.c:2242 assembly).  The filter chain and the
+encoder share the ``filter+encode`` thread, so one CUDA stream carries
+the crop/scale products and the encoder's analysis.
+
+The port runs video-only H.264 jobs into mp4: the device comes only from
+the caller (``device=None`` is the CUDA card, which raises where there is
+none).  Audio, subtitles, the mkv mux, B-frames, GOP-parallel and
+tile-parallel encodes and checkpoint/resume raise NotImplementedError:
+they are later slices.
+"""
+from __future__ import annotations
+
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from .codecs.registry import create_video_decoder
+from .core.buffer import Buffer, CLOCK, Geometry, PIX_FMTS
+from .core.pipeline import WorkObject
+from .core.state import Progress
+from .filters.base import FilterInit
+from .filters.graph import FilterGraph
+from .job.schema import Job
+from .sources.probe import open_source
+from .sync.sync import SyncCore
+from .utils.device import resolve_device
+
+H264_NAMES = ("h264_tpu", "x264", "h264")
+
+
+class WorkError(Exception):
+    pass
+
+
+def _unported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# encoders
+# ---------------------------------------------------------------------------
+def quality_to_qp(quality: float) -> int:
+    """CRF-style quality → QP for our encoder (x264 RF≈QP at crf zone)."""
+    return int(round(max(0, min(51, quality))))
+
+
+def create_video_encoder(job: Job, width: int, height: int,
+                         vrate: Fraction, device=None):
+    """The H.264 encoder of the job's settings, on `device` (None: the
+    CUDA card).  Its dispatch_batch stays 1, as on the reference's job
+    path."""
+    qp = quality_to_qp(job.quality if job.quality is not None else 26)
+    gop = max(1, int(round(float(vrate) * 10)))  # 10 s keyint, x264 dflt
+    opts = dict(kv.split("=", 1) for kv in
+                (job.encoder_options or "").split(":") if "=" in kv)
+    if "keyint" in opts:
+        gop = max(1, int(opts["keyint"]))
+    if job.vcodec in H264_NAMES:
+        if int(getattr(job, "bframes", 0) or 0) > 0:
+            _unported("H.264 with B-frames (the host B-pyramid walker)")
+        from .codecs.h264.encoder import EncoderConfig, H264Encoder
+        # Entropy coder selection (encx264.c profile plumbing): main/high
+        # profile or a cabac=1 option turns on CABAC
+        cabac = (job.encoder_profile in ("main", "high")
+                 or opts.get("cabac", "0") == "1")
+        # x264 defaults: in-loop deblocking on (no-deblock opts out);
+        # High profile adds the 8x8 transform — all run in the device path
+        deblock = opts.get("deblock", "1") != "0"
+        t8 = (job.encoder_profile == "high"
+              or opts.get("8x8dct", "0") == "1")
+        cfg = EncoderConfig(
+            width=width, height=height, qp=qp, gop=gop, cabac=cabac,
+            deblock=deblock, transform8x8=t8,
+            fps=(vrate.numerator, vrate.denominator))
+        return H264Encoder(cfg, device=device)
+    if job.vcodec in ("hevc_tpu", "x265", "hevc", "h265", "av1_tpu",
+                      "svt_av1", "av1", "mpeg2", "mpeg4", "vp9", "vp8",
+                      "ffv1", "prores", "theora"):
+        _unported(f"the {job.vcodec} video encoder")
+    raise WorkError(f"unknown video encoder {job.vcodec!r}")
+
+
+# ---------------------------------------------------------------------------
+# range selection (Source.Range — hb_json.c job schema)
+# ---------------------------------------------------------------------------
+def resolve_range(job: Job, src, vrate: Fraction) -> tuple:
+    """(pts_start, pts_stop) in 90 kHz ticks, either may be None."""
+    r = job.range
+    if r.type == "time":          # seconds
+        start = r.start * CLOCK
+        stop = r.end * CLOCK if r.end else None
+        return (start or None), stop
+    if r.type == "frame":
+        tick = CLOCK * vrate.denominator / vrate.numerator
+        start = int((r.start - 1) * tick) if r.start > 1 else None
+        # half-frame tolerance: containers with ms timestamp precision
+        # (mkv) place frame pts slightly under the exact boundary
+        stop = int(r.end * tick - tick / 2) if r.end else None
+        return start, stop
+    if r.type == "chapter":
+        chapters = getattr(src, "chapters", [])
+        if not chapters or (r.start <= 1 and not r.end):
+            return None, None
+        starts = [c[0] for c in chapters]
+        dur = getattr(src, "duration", 0)
+        start = starts[r.start - 1] if 0 < r.start <= len(starts) else None
+        stop = starts[r.end] if 0 < r.end < len(starts) else \
+            (dur or None) if r.end else None
+        return (start or None), stop
+    return None, None
+
+
+# ---------------------------------------------------------------------------
+# do_job
+# ---------------------------------------------------------------------------
+def _check_ported(job: Job):
+    """Raise for the job options whose paths are later slices."""
+    if job.subtitles or job.subtitle_search.get("Enable"):
+        _unported("subtitles (import, decode, burn-in and search)")
+    if job.mux in ("mkv", "webm"):
+        _unported(f"the {job.mux} muxer")
+    if int(getattr(job, "gop_parallel", 0) or 0) > 1:
+        _unported("GOP-parallel encoding")
+    if int(getattr(job, "tile_parallel", 0) or 0) > 1:
+        _unported("tile-parallel filters")
+    if getattr(job, "checkpoint", False) or getattr(job, "resume", False):
+        _unported("checkpoint/resume")
+
+
+def do_job(job: Job, state=None, die=None, pause=None, device=None) -> dict:
+    """Run one pass of a job on `device` (None: the CUDA card; "cpu"
+    runs on the CPU).  Returns stats dict (frames, bytes, ...)."""
+    dev = resolve_device(device)
+    _check_ported(job)
+    src = open_source(job.path)
+    try:
+        return _run(job, src, state, die, pause, dev)
+    finally:
+        src.close()
+
+
+def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
+    # ---- identify tracks ----
+    video_track = next((i for i, t in enumerate(src.tracks)
+                        if t.kind == "video"), None)
+    if video_track is None:
+        raise WorkError("no video track")
+    vti = src.tracks[video_track]
+    vrate = Fraction(*vti.frame_rate) if vti.frame_rate \
+        else Fraction(30000, 1001)
+    n_audio = sum(1 for t in src.tracks if t.kind == "audio")
+    if any(0 <= a.track < n_audio for a in job.audio):
+        _unported("audio (decode, encode and passthrough)")
+
+    # ---- decoder ----
+    vdec = create_video_decoder(vti.codec, vti.extradata,
+                                width=vti.width, height=vti.height)
+
+    # ---- sync ----
+    pts_start, pts_stop = resolve_range(job, src, vrate)
+    sync = SyncCore(pts_start=pts_start, pts_stop=pts_stop)
+    # video geometry lets sync synthesize black frames for gaps
+    # (CreateBlackBuf sync.c:349); frame cadence is tracked per buffer
+    v_sync = sync.add_stream(
+        "video", width=vti.width, height=vti.height,
+        frame_duration=int(90000 / float(vrate)) if vrate else None)
+
+    # ---- filters ----
+    fi = FilterInit(geometry=Geometry(
+        vti.width, vti.height, vti.par_num, vti.par_den),
+        pix_fmt=PIX_FMTS.get("yuv420p"), vrate=vrate, device=dev)
+    filter_list = [{"ID": f.id, "Settings": f.settings}
+                   for f in job.filters]
+    if job.anamorphic_mode is not None:
+        # resolve the geometry request (hb_set_anamorphic_size2) against
+        # the source + requested crop, overriding the crop/scale target
+        from .job import schema as S
+        from .job.geometry import GeometrySettings, set_anamorphic_size2
+        cs = next((f for f in filter_list
+                   if f["ID"] == S.FILTER_CROP_SCALE), None)
+        st = dict(cs["Settings"]) if cs else {}
+        crop = (st.get("crop-top", 0), st.get("crop-bottom", 0),
+                st.get("crop-left", 0), st.get("crop-right", 0))
+        gw, gh, gpar, _dw = set_anamorphic_size2(
+            vti.width, vti.height,
+            Fraction(vti.par_num or 1, vti.par_den or 1),
+            GeometrySettings(mode=job.anamorphic_mode,
+                             width=st.get("width", 0),
+                             height=st.get("height", 0),
+                             max_width=job.max_width,
+                             max_height=job.max_height,
+                             modulus=job.modulus,
+                             keep_display_aspect=job.keep_display_aspect,
+                             par_num=job.par_num, par_den=job.par_den,
+                             crop=crop))
+        st.update({"width": gw, "height": gh})
+        if cs is None:
+            filter_list.append({"ID": S.FILTER_CROP_SCALE,
+                                "Settings": st})
+        else:
+            cs["Settings"] = st
+        job.par_num, job.par_den = gpar.numerator, gpar.denominator
+        fi.geometry = Geometry(vti.width, vti.height,
+                               gpar.numerator, gpar.denominator)
+    graph = FilterGraph(filter_list, fi)
+    out_fi = graph.fi_out
+    out_w, out_h = out_fi.geometry.width, out_fi.geometry.height
+    out_vrate = out_fi.vrate
+
+    # ---- encoder ----
+    venc = create_video_encoder(job, out_w, out_h, out_vrate, device=dev)
+    from .codecs.ratecontrol import make_rate_controller
+    rc = make_rate_controller(job, out_w, out_h, float(out_vrate))
+
+    # ---- muxer (analysis pass writes nowhere — x264 pass-1 analog) ----
+    mux = _NullMux() if job.pass_id == 1 else _MuxAdapter(job, out_fi, src)
+
+    # ---- threaded stage graph (work.c:2242-2280: one thread per work
+    # object, bounded FIFOs between; reader → decode+sync → filters+encode
+    # → mux). IO, device analysis, host entropy coding and mux overlap
+    # across the four threads; fifo capacity is the backpressure.
+    stats = {"frames_in": 0, "frames_out": 0, "bytes_out": 0}
+    nframes = getattr(src, "n_frames", 0) or (
+        getattr(src, "duration", 0) * out_vrate.numerator
+        // max(1, out_vrate.denominator * CLOCK))
+    progress = Progress(int(nframes) or 1, state.update if state else
+                        (lambda **kw: None))
+    start_state = None
+    if pts_start:
+        start_state = src.seek(pts_start)
+    it = src.packets(start_state) if start_state is not None \
+        else src.packets()
+
+    from .core.pipeline import Pipeline
+    pl = Pipeline()
+    fifo_raw = pl.make_fifo(32, "raw")       # FIFO_LARGE (work.c:40-47)
+    fifo_sync = pl.make_fifo(32, "sync")
+    fifo_enc = pl.make_fifo(32, "enc")
+
+    reader = _ReaderStage(it, die, pause)
+    reader.fifo_out = fifo_raw
+    decsync = _DecodeSyncStage(video_track, vdec, sync, v_sync, stats)
+    decsync.fifo_in, decsync.fifo_out = fifo_raw, fifo_sync
+    encst = _EncodeStage(graph, venc, rc, stats, progress)
+    encst.fifo_in, encst.fifo_out = fifo_sync, fifo_enc
+    muxst = _MuxStage(mux)
+    muxst.fifo_in = fifo_enc
+
+    for w in (reader, decsync, encst, muxst):
+        pl.add_work(w)
+    pl.run()          # joins on the mux thread (work.c:2287)
+    if pl.error is not None:
+        raise pl.error
+
+    if job.pass_id == 1:
+        # hand measured complexity to the final pass (hb_interjob_t role)
+        job.interjob["rc_stats"] = rc.stats
+        job.interjob["vrate_measured"] = float(out_vrate)
+    if state is not None:
+        state.update(progress=1.0)
+    stats["width"], stats["height"] = out_w, out_h
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages (hb_work_object_t analogs; core/pipeline.py runs one
+# thread per stage with bounded FIFOs — the work.c:2242 assembly)
+# ---------------------------------------------------------------------------
+class _ReaderStage(WorkObject):
+    """Generator stage: source packets → fifo (reader.c role)."""
+    name = "reader"
+
+    def __init__(self, it, die, pause):
+        super().__init__()
+        self.it = it
+        self.die = die
+        self.pause = pause
+
+    def generate(self):
+        for trk, pkt in self.it:
+            if self.pause is not None:
+                self.pause.wait()
+            if self.die is not None and self.die.is_set():
+                break
+            pkt.stream_id = trk
+            yield pkt
+        yield Buffer.eof()
+
+
+class _DecodeSyncStage(WorkObject):
+    """Decode the video track and run the synchronizer (decavcodec +
+    sync.c)."""
+    name = "decode+sync"
+
+    def __init__(self, video_track, vdec, sync, v_sync, stats):
+        super().__init__()
+        self.video_track = video_track
+        self.vdec = vdec
+        self.sync = sync
+        self.v_sync = v_sync
+        self.stats = stats
+
+    def work(self, buf):
+        if buf.is_eof():
+            for f in self.vdec.flush():
+                self.sync.queue(self.v_sync, f)
+                self.stats["frames_in"] += 1
+            for idx in range(len(self.sync.streams)):
+                self.sync.set_eof(idx)
+            out = self.sync.poll()
+            out += self.sync.poll()      # tail after EOF
+            # cadence classifier consumer (checkCadence sync.c:1305)
+            cad = self.sync.cadence.info()
+            self.stats["cadence"] = cad["cadence"]
+            self.stats["cadence_breaks"] = cad["breaks"]
+            return out + [buf]
+        if buf.stream_id == self.video_track:
+            frames = [buf] if buf.planes is not None else self.vdec.feed(buf)
+            for f in frames:
+                self.sync.queue(self.v_sync, f)
+                self.stats["frames_in"] += 1
+        return self.sync.poll()
+
+
+def to_host(p) -> np.ndarray:
+    """A plane on the host: tensors (the resampled planes, on the job's
+    device) are copied back explicitly, numpy passes through."""
+    return p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
+
+
+class _EncodeStage(WorkObject):
+    """Filter graph + encoder. Video uses the encoder's begin/finish
+    pipelining so the device analyses frame N+1 while this thread
+    entropy-codes frame N (encx264 lookahead role)."""
+    name = "filter+encode"
+
+    def __init__(self, graph, venc, rc, stats, progress):
+        super().__init__()
+        self.graph = graph
+        self.venc = venc
+        self.rc = rc
+        self.stats = stats
+        self.progress = progress
+        self._pend = []   # (pending, fb, qp, is_idr)
+
+    def _planes(self, fb):
+        # the encoder takes host planes and pads and uploads them itself
+        y, u, v = (to_host(p) for p in fb.planes)
+        src_bd = fb.pix_fmt.bit_depth if fb.pix_fmt else 8
+        if src_bd > 8:
+            # FORMAT-filter role (work.c:1506): scale to the encoder's
+            # 8 bits
+            y, u, v = ((p >> (src_bd - 8)).astype(np.uint8)
+                       for p in (y, u, v))
+        return y, u, v
+
+    def _emit_video(self, au, fb, is_idr, qp):
+        self.rc.update(len(au) * 8, qp, is_idr)
+        self.stats["frames_out"] += 1
+        self.stats["bytes_out"] += len(au)
+        self.progress.tick()
+        out = Buffer(track_kind="video", pts=fb.pts,
+                     duration=fb.duration or 0)
+        out.data = au
+        out.side_data = dict(fb.side_data or {})
+        out.frametype = 1 if is_idr else 0
+        return out
+
+    def _encode(self, fb):
+        y, u, v = self._planes(fb)
+        is_idr = (self.venc.frame_idx % self.venc.cfg.gop) == 0
+        out = []
+        if is_idr:
+            # Drain the pipeline at GOP boundaries so rc.update() for every
+            # frame of the previous GOP has run before this GOP's allocation.
+            # Within a GOP, frame_qp intentionally lags one frame behind
+            # update() — the price of overlapping device analysis of frame
+            # N+1 with host entropy of frame N (encx264 lookahead role).
+            while self._pend:
+                out.append(self._finish_one())
+        qp = self.rc.frame_qp(is_idr)
+        self._pend.append((self.venc.begin_frame(y, u, v, qp=qp), fb, qp,
+                           is_idr))
+        if out:
+            return out
+        if len(self._pend) > 1:
+            return [self._finish_one()]
+        return []
+
+    def _finish_one(self):
+        p, fb, qp, is_idr = self._pend.pop(0)
+        au = self.venc.finish_frame(p)
+        return self._emit_video(au, fb, is_idr, qp)
+
+    def work(self, buf):
+        if buf.is_eof():
+            out = []
+            for fb in self.graph.flush():
+                out += self._encode(fb)
+            while self._pend:
+                out.append(self._finish_one())
+            return out + [buf]
+        if buf.track_kind == "video":
+            out = []
+            for fb in self.graph.work(buf):
+                if not fb.is_eof():
+                    out += self._encode(fb)
+            return out
+        return []
+
+
+class _MuxStage(WorkObject):
+    """Track fan-in + time-chunk interleave (muxcommon.c) driving the
+    format adapter."""
+    name = "mux"
+
+    def __init__(self, adapter):
+        super().__init__()
+        self.adapter = adapter
+        from .mux.common import Muxer
+        self.muxer = Muxer(writer=None, kind="custom")
+
+        def vid_write(b):
+            adapter.write_video(b.data, b, idr=bool(b.frametype & 1))
+        self._vtrack = self.muxer.add_track(write=vid_write)
+
+    def work(self, buf):
+        if buf.is_eof():
+            self.muxer.finish()
+            self.adapter.finalize()
+            return []
+        if buf.track_kind == "video":
+            self.muxer.queue(self._vtrack, buf)
+        return []
+
+
+class _NullMux:
+    """Sink for analysis passes (pass 1 writes no output file)."""
+
+    def write_video(self, au, fb, idr):
+        pass
+
+    def finalize(self):
+        pass
+
+
+# ---------------------------------------------------------------------------
+# mux adapter
+# ---------------------------------------------------------------------------
+class _MuxAdapter:
+    """MP4Writer behind the write_video API (muxcommon.c role: track
+    fan-in; interleave is the writer's concern).  The mp4 branch of the
+    reference's adapter, video only."""
+
+    def __init__(self, job: Job, out_fi, src):
+        from .mux.mp4 import MP4Writer
+        self.w = MP4Writer(job.file or "out.mp4")
+        self.vtrack = self.w.add_video_track(
+            codec="h264", width=out_fi.geometry.width,
+            height=out_fi.geometry.height)
+        # colr nclx from the title's signalled colorimetry (the
+        # muxavformat.c track-setup analog)
+        tcolor = dict(getattr(src, "color", None) or {})
+        tcolor.update(job.color or {})
+        self.w.tracks[self.vtrack].color = {
+            "Primaries": tcolor.get("Primaries", 1),
+            "Transfer": tcolor.get("Transfer", 1),
+            "Matrix": tcolor.get("Matrix", 1),
+            "Range": tcolor.get("Range", 1)}
+        if job.chapter_markers:
+            for i, (start, name) in enumerate(getattr(src, "chapters", [])):
+                title = job.chapter_names[i] \
+                    if i < len(job.chapter_names) else name
+                self.w.add_chapter(start, title or f"Chapter {i + 1}")
+        self.w.metadata = dict(job.metadata)
+        self._vdts = 0
+
+    def write_video(self, au: bytes, fb: Buffer, idr: bool):
+        dur = fb.duration or 0
+        # decode-order samples: cts offset = display pts vs the
+        # decode-order clock (non-zero only for B reorder; ctts v1)
+        cts = (fb.pts - self._vdts) if fb.pts is not None else 0
+        self._vdts += dur
+        self.w.write_sample(self.vtrack, au, duration=dur, sync=idr,
+                            cts_offset=cts, annexb=True)
+
+    def finalize(self):
+        self.w.finalize()

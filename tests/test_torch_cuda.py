@@ -1,5 +1,6 @@
 """Tests that need an NVIDIA GPU: the deblock kernel against its plain
-version, and a short encode on the card against the CPU path.  They skip
+version, a short encode on the card against the CPU path, and the
+crop/scale filter on the card against the CPU (within 1 LSB).  They skip
 where there is no card; on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
@@ -14,6 +15,9 @@ from handbrake_tpu_torch.codecs.h264.deblock_torch import (compute_bs,
                                                            deblock,
                                                            deblock_plain)
 from handbrake_tpu_torch.codecs.h264.encoder import EncoderConfig, H264Encoder
+from handbrake_tpu_torch.core.buffer import YUV420P, Buffer, Geometry
+from handbrake_tpu_torch.filters.base import FilterInit
+from handbrake_tpu_torch.filters.cropscale import CropScaleFilter
 from handbrake_tpu_torch.utils.synth import make_clip
 
 pytestmark = pytest.mark.cuda
@@ -68,7 +72,7 @@ def _all_filtering_case(seed, mb_w, mb_h):
 
 @pytest.mark.parametrize("mb_w,mb_h,qp", [(1, 1, 30), (3, 7, 36), (8, 2, 24),
                                           (45, 30, 28), (1, 68, 32),
-                                          (120, 1, 26)])
+                                          (120, 1, 26), (120, 51, 28)])
 @pytest.mark.parametrize("with_strong", [False, True])
 def test_kernel_matches_plain(dev, mb_w, mb_h, qp, with_strong):
     y, u, v, mv, nnz, intra, t8 = (torch.from_numpy(a).to(dev)
@@ -176,3 +180,27 @@ def test_encode_on_card_matches_cpu(dev, batch):
     assert deblock_cuda.launches - n0 == 8 + gpu.n_redo   # 8 P frames
     cpu = H264Encoder(EncoderConfig(**cfg), device="cpu")
     assert a == [cpu.encode_frame(*f) for f in frames]
+
+
+@pytest.mark.parametrize("settings", [
+    {"crop-top": 60, "crop-bottom": 60, "width": 480, "height": 200},
+    {"crop-left": 3, "crop-right": 5, "crop-top": 1, "width": 720,
+     "height": 400, "method": "bicubic"},
+    {"crop-top": 2, "width": 300, "height": 170, "method": "point"}],
+    ids=["letterbox-down", "odd-crop-up", "point"])
+def test_cropscale_on_card_matches_cpu(dev, settings):
+    """Card against CPU, every plane within 1 LSB (point: exact); the
+    resampled planes stay on the card."""
+    frame = make_clip(640, 360, 1, seed=6)[0]
+
+    def run(device):
+        f = CropScaleFilter(dict(settings))
+        f.init(FilterInit(geometry=Geometry(640, 360), device=device))
+        return f.work(Buffer(planes=list(frame), pix_fmt=YUV420P, pts=0))[0]
+
+    got, want = run(dev), run("cpu")
+    for g, w in zip(got.planes, want.planes):
+        assert g.device.type == "cuda"
+        d = (g.cpu().int() - w.int()).abs()
+        assert int(d.max()) <= (0 if settings.get("method") == "point"
+                                else 1)

@@ -47,8 +47,18 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", %r)
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not any(blocked(m) for m in sys.modules)
-print(len(names))
+print(" ".join(names))
 """
+
+# every module of the job path, cli.__main__ included, must be walked
+JOB_PATH = ("core.buffer", "core.fifo", "core.pipeline", "core.state",
+            "job.schema", "job.geometry", "job.title", "job.param",
+            "job.presets", "sources.common", "sources.raw", "sources.mp4",
+            "sources.probe", "sync.sync", "codecs.registry",
+            "codecs.ratecontrol", "mux.common", "mux.nal", "mux.mp4",
+            "filters.base", "filters.graph", "filters.kernels",
+            "filters.cropscale", "filters.vfr", "work", "scan", "hb",
+            "cli.__main__")
 
 
 def test_port_imports_with_jax_blocked():
@@ -56,7 +66,10 @@ def test_port_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 15      # every module was walked
+    walked = set(r.stdout.split())
+    assert len(walked) >= 15 + len(JOB_PATH)    # every module was walked
+    for m in JOB_PATH:
+        assert "handbrake_tpu_torch." + m in walked, m
 
 
 def _port_sources():

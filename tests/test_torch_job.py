@@ -1,0 +1,322 @@
+"""The port's job path (handbrake_tpu_torch: work.do_job, hb.Handle and
+the CLI, on the CPU) held against the JAX package's (device backend, JAX
+on the CPU) on a small y4m: the mp4 files must carry the same video
+samples, avcC, sample timestamps and track size.  Where a job resamples,
+the test first asserts that the port's scaled planes equal the
+reference's on every frame of the input, so the equal streams are not
+left to luck.  Unported filters, codecs, containers and options raise
+NotImplementedError, and nothing falls back to the CPU on its own."""
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from handbrake_tpu import work as jwork
+from handbrake_tpu.cli.__main__ import main as jcli
+from handbrake_tpu.core.buffer import YUV420P as J_YUV420P
+from handbrake_tpu.core.buffer import Buffer as JBuffer
+from handbrake_tpu.core.buffer import Geometry as JGeometry
+from handbrake_tpu.filters.base import FilterInit as JFilterInit
+from handbrake_tpu.filters.cropscale import CropScaleFilter as JCropScale
+from handbrake_tpu.hb import Handle as JHandle
+from handbrake_tpu.job import schema as JS
+from handbrake_tpu_torch import work
+from handbrake_tpu_torch.cli.__main__ import main as cli
+from handbrake_tpu_torch.core.buffer import YUV420P, Buffer, Geometry
+from handbrake_tpu_torch.filters.base import FilterInit
+from handbrake_tpu_torch.filters.cropscale import CropScaleFilter
+from handbrake_tpu_torch.hb import Handle
+from handbrake_tpu_torch.job import schema as S
+from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
+from handbrake_tpu_torch.sources.raw import Y4MReader
+from handbrake_tpu_torch.utils.synth import write_y4m
+
+W, H, N = 64, 48, 12
+FPS = (30000, 1001)
+BAR = 8                 # black rows above and below in the letterboxed y4m
+
+
+def _write_y4m(path, bar=0):
+    """tests/test_work.py's clip (a diagonal ramp, rolled per frame),
+    optionally between `bar` black rows above and below."""
+    base = (np.add.outer(np.arange(H - 2 * bar), np.arange(W)) * 3
+            % 256).astype(np.uint8)
+    chroma = (H - 2 * bar) // 2, W // 2
+    frames = [(np.roll(base, i, axis=1), np.full(chroma, 110 + i, np.uint8),
+               np.full(chroma, 60, np.uint8)) for i in range(N)]
+    return write_y4m(path, frames, W, H, bar, FPS)
+
+
+@pytest.fixture(scope="module")
+def src(tmp_path_factory):
+    return _write_y4m(str(tmp_path_factory.mktemp("tjob") / "in.y4m"))
+
+
+@pytest.fixture(scope="module")
+def letterbox(tmp_path_factory):
+    return _write_y4m(str(tmp_path_factory.mktemp("tjob") / "lb.y4m"), BAR)
+
+
+def _mp4(path):
+    """(video samples, avcC, (pts, dts, duration) per sample, size)."""
+    d = MP4Demuxer(path)
+    try:
+        ti = d.tracks[0]
+        bufs = [b for _, b in d.packets()]
+        return ([bytes(b.data) for b in bufs], ti.extradata,
+                [(b.pts, b.dts, b.duration) for b in bufs],
+                (ti.width, ti.height))
+    finally:
+        d.close()
+
+
+# the three jobs: crop/scale settings (None: no filter) and anamorphic mode
+JOBS = {
+    "unscaled": (None, None),
+    "crop-only": ({"crop-top": 4, "crop-bottom": 2, "crop-left": 6,
+                   "crop-right": 8}, None),
+    "crop-scale-anamorphic": ({"crop-top": 2, "crop-bottom": 2,
+                               "crop-left": 4, "width": 32,
+                               "height": 24}, 2),
+}
+
+
+def _job(Sm, path, out, name):
+    st, ana = JOBS[name]
+    j = Sm.Job(path=path, file=out, mux="mp4", vcodec="h264", quality=28.0,
+               encoder_profile="high")
+    if st is not None:
+        j.filters = [Sm.FilterSpec(Sm.FILTER_CROP_SCALE, dict(st))]
+    j.anamorphic_mode = ana
+    return j
+
+
+def _assert_scaled_planes_equal(path, settings):
+    """The port's CropScaleFilter gives the reference's planes on every
+    frame of the source (the job's resolved settings)."""
+    jf, tf = JCropScale(dict(settings)), CropScaleFilter(dict(settings))
+    jf.init(JFilterInit(geometry=JGeometry(W, H)))
+    tf.init(FilterInit(geometry=Geometry(W, H), device="cpu"))
+    rd = Y4MReader(path)
+    try:
+        for _, b in rd.packets():
+            want = jf.work(JBuffer(planes=list(b.planes), pix_fmt=J_YUV420P,
+                                   pts=b.pts))[0].planes
+            got = tf.work(Buffer(planes=list(b.planes), pix_fmt=YUV420P,
+                                 pts=b.pts))[0].planes
+            for g, w in zip(got, want):
+                g = work.to_host(g)
+                assert g.dtype == np.uint8
+                assert np.array_equal(g, np.asarray(w))
+    finally:
+        rd.close()
+
+
+@pytest.mark.parametrize("name", list(JOBS))
+def test_do_job_equals_reference(src, tmp_path, name):
+    jout, tout = str(tmp_path / "ref.mp4"), str(tmp_path / "port.mp4")
+    jstats = jwork.do_job(_job(JS, src, jout, name))
+    t0 = time.perf_counter()
+    tstats = work.do_job(_job(S, src, tout, name), device="cpu")
+    print(f"{name}: port do_job {time.perf_counter() - t0:.2f} s on the CPU")
+    assert tstats == jstats
+    assert tstats["frames_out"] == N
+    if name == "crop-scale-anamorphic":
+        st = dict(JOBS[name][0], width=tstats["width"],
+                  height=tstats["height"])
+        _assert_scaled_planes_equal(src, st)
+    got, want = _mp4(tout), _mp4(jout)
+    assert got[3] == want[3] == (tstats["width"], tstats["height"])
+    assert got[1] == want[1] and got[1].startswith(b"\x01")
+    assert got[2] == want[2]
+    assert len(got[0]) == N and got[0] == want[0]
+
+
+CLI_CASES = {"default-preset": [],
+             "default-preset-scaled": ["-w", "32", "-l", "16"],
+             "two-pass-bitrate": ["-b", "400", "--two-pass"],
+             "frame-range-cfr": ["--start-at", "frame:3", "--stop-at",
+                                 "frame:6", "--cfr", "-r", "25"]}
+
+
+@pytest.mark.parametrize("case", list(CLI_CASES))
+def test_cli_equals_reference(letterbox, tmp_path, case):
+    """Default preset (Fast 1080p30): the scan autocrops the bars, then
+    crop/scale and the framerate shaper run before the encoder; also a
+    scaled job, a two-pass bitrate job (analysis pass, then the final
+    pass on its stats) and a frame range re-timed to 25 fps CFR."""
+    extra = CLI_CASES[case]
+    argv = ["-i", letterbox, "-e", "h264", "-q", "28", "--encoder-profile",
+            "high", *extra]
+    jout, tout = str(tmp_path / "ref.mp4"), str(tmp_path / "port.mp4")
+    assert jcli(argv + ["-o", jout]) == 0
+    assert cli(argv + ["-o", tout, "--device", "cpu"]) == 0
+    got, want = _mp4(tout), _mp4(jout)
+    scaled = case == "default-preset-scaled"
+    assert got[3] == want[3] == ((32, 16) if scaled else (W, H - 2 * BAR))
+    if scaled:
+        _assert_scaled_planes_equal(letterbox, {
+            "crop-top": BAR, "crop-bottom": BAR, "width": 32, "height": 16})
+    if "--stop-at" not in extra:
+        assert len(got[0]) == N
+    assert got[0] and got == want
+
+
+def test_cfr_drop_choice_equals_reference():
+    """The framerate shaper re-timing 60 fps to 29.97 fps CFR drops the
+    same frames as the reference at 1920x804, where the reference's f32
+    mean of the motion metric rounds (the sum passes 2**24) and the
+    port's exact int64 sum does not: both metrics agree within f32
+    rounding (relative 1e-6) and so do the choices."""
+    from fractions import Fraction
+
+    from handbrake_tpu.filters.vfr import VFRFilter as JVFR
+    from handbrake_tpu.filters.vfr import motion_metric as jmetric
+    from handbrake_tpu_torch.filters.vfr import VFRFilter, motion_metric
+    h, w, n = 804, 1920, 10
+    rng = np.random.default_rng(5)
+    base = rng.integers(0, 200, (h, w))
+    frames = [[np.clip(base + 7 * ((i * 5) % 9) + rng.integers(0, 40, (h, w)),
+                       0, 255).astype(np.uint8),
+               np.full((h // 2, w // 2), 128, np.uint8),
+               np.full((h // 2, w // 2), 128, np.uint8)] for i in range(n)]
+    diff = np.abs(frames[0][0].astype(np.int64) - frames[1][0]).sum()
+    assert diff > 2 ** 24
+    got, want = motion_metric(frames[0][0], frames[1][0], "cpu"), float(
+        jmetric(frames[0][0], frames[1][0]))
+    assert abs(got - want) <= 1e-6 * got
+    settings = {"mode": 1, "rate": "30000/1001"}
+    jf, tf = JVFR(dict(settings)), VFRFilter(dict(settings))
+    jf.init(JFilterInit(geometry=JGeometry(w, h), vrate=Fraction(60)))
+    tf.init(FilterInit(geometry=Geometry(w, h), vrate=Fraction(60),
+                       device="cpu"))
+    index = {id(f): i for i, f in enumerate(frames)}
+    outs = []
+    for f, Buf, fmt in ((jf, JBuffer, J_YUV420P), (tf, Buffer, YUV420P)):
+        out = []
+        for i, planes in enumerate(frames + [None]):
+            buf = (Buf.eof() if planes is None else
+                   Buf(planes=planes, pix_fmt=fmt, pts=1500 * i,
+                       duration=1500))
+            out += [(index[id(b.planes)], b.pts) for b in f.work(buf)
+                    if not b.is_eof()]
+        outs.append((out, f.drops))
+    assert outs[0] == outs[1] and outs[1][1] > 0
+
+
+def _wait(h, state, timeout=120):
+    t0 = time.monotonic()
+    while h.get_state()["State"] != state:
+        assert time.monotonic() - t0 < timeout, h.get_state()
+        time.sleep(0.02)
+
+
+def test_handle_equals_do_job(src, tmp_path):
+    direct = str(tmp_path / "direct.mp4")
+    work.do_job(_job(S, src, direct, "crop-only"), device="cpu")
+    h = Handle(device="cpu")
+    h.scan(src, preview_count=3, keep_previews=True)
+    _wait(h, "SCANDONE")
+    assert [(t.width, t.height, t.crop) for t in h.titles] == \
+        [(W, H, (0, 0, 0, 0))]
+    out = str(tmp_path / "handle.mp4")
+    h.add(_job(S, src, out, "crop-only"))
+    h.start()
+    _wait(h, "WORKDONE")
+    assert h.work_wait() == 0 and h.work_exception is None
+    with open(out, "rb") as a, open(direct, "rb") as b:
+        assert a.read() == b.read()
+    # the preview runs the job's filter graph on a stored scan preview
+    jh = JHandle()
+    jh.scan(src, preview_count=3, keep_previews=True)
+    jh.scan_wait()
+    job = _job(S, src, out, "crop-scale-anamorphic")
+    jjob = _job(JS, src, out, "crop-scale-anamorphic")
+    for k in range(3):
+        got, want = h.get_preview(job, k), jh.get_preview(jjob, k)
+        assert [p.shape for p in got] == [(24, 32), (12, 16), (12, 16)]
+        for g, w in zip(got, want):
+            assert isinstance(g, np.ndarray)
+            assert np.array_equal(g, np.asarray(w))
+    h.close()
+    jh.close()
+
+
+def test_no_fallback_to_the_cpu(src, tmp_path, monkeypatch):
+    """device=None means the CUDA card; no environment variable moves a
+    job to the CPU or to a host encoder."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs on it")
+    monkeypatch.setenv("HB_TPU_DISABLE_DEVICE", "1")
+    out = str(tmp_path / "x.mp4")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        work.do_job(_job(S, src, out, "unscaled"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        work.do_job(_job(S, src, out, "unscaled"), device="cuda")
+    assert not os.path.exists(out)
+    h = Handle()
+    h.add(_job(S, src, out, "unscaled"))
+    h.start()
+    assert h.work_wait(60) != 0
+    assert isinstance(h.work_exception, RuntimeError)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli(["-i", src, "-o", out])
+
+
+# job changes whose paths are later slices of the port
+UNPORTED_JOBS = {
+    "filter-decomb": lambda j: j.filters.append(
+        S.FilterSpec(S.FILTER_DECOMB, {})),
+    "filter-nlmeans": lambda j: j.filters.append(
+        S.FilterSpec(S.FILTER_NLMEANS, {})),
+    "mux-mkv": lambda j: setattr(j, "mux", "mkv"),
+    "vcodec-hevc": lambda j: setattr(j, "vcodec", "hevc_tpu"),
+    "bframes": lambda j: setattr(j, "bframes", 2),
+    "gop-parallel": lambda j: setattr(j, "gop_parallel", 2),
+    "checkpoint": lambda j: setattr(j, "checkpoint", True),
+    "subtitles": lambda j: j.subtitles.append(
+        S.SubtitleJobTrack(track=-1, import_file="a.srt")),
+}
+
+
+@pytest.mark.parametrize("change", list(UNPORTED_JOBS))
+def test_unported_job_raises(src, tmp_path, change):
+    j = _job(S, src, str(tmp_path / "x.mp4"), "crop-only")
+    UNPORTED_JOBS[change](j)
+    with pytest.raises(NotImplementedError):
+        work.do_job(j, device="cpu")
+
+
+@pytest.mark.parametrize("opts", [["-E", "aac"], ["-a", "1"], ["-s", "1"],
+                                  ["--srt-file", "a.srt"],
+                                  ["--bframes", "2"],
+                                  ["--gop-parallel", "2"],
+                                  ["--tile-parallel", "2"],
+                                  ["--checkpoint"], ["--resume"],
+                                  ["--decomb"], ["-f", "mkv"]])
+def test_unported_cli_option_raises(src, tmp_path, opts):
+    with pytest.raises(NotImplementedError):
+        cli(["-i", src, "-o", str(tmp_path / "x.mp4"), "--device", "cpu",
+             *opts])
+
+
+def test_unported_sources_raise(src, tmp_path):
+    mkv = tmp_path / "a.mkv"
+    mkv.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(64))
+    ts = tmp_path / "a.ts"
+    ts.write_bytes(b"\x47" + bytes(187))
+    mp4 = str(tmp_path / "own.mp4")
+    work.do_job(_job(S, src, mp4, "unscaled"), device="cpu")
+    for path in (str(mkv), str(ts)):
+        with pytest.raises(NotImplementedError):
+            work.do_job(_job(S, path, str(tmp_path / "x.mp4"), "unscaled"),
+                        device="cpu")
+    # the port reads its own mp4 back, but has no H.264 decoder yet
+    assert _mp4(mp4)[3] == (W, H)
+    with pytest.raises(NotImplementedError):
+        work.do_job(_job(S, mp4, str(tmp_path / "y.mp4"), "unscaled"),
+                    device="cpu")
+    with pytest.raises(NotImplementedError):
+        cli(["-i", mp4, "-o", str(tmp_path / "y.mp4"), "--device", "cpu"])
