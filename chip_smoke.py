@@ -6,8 +6,9 @@ NVIDIA GPU.
 
 Phases (none is caught; any failure exits non-zero before the last line):
 
-1. Build the deblock kernel (``csrc/deblock264.cu``, nvcc, sm_90a) and the
-   native slice coder (``native/hb264.cpp``, g++), both at once.
+1. Build the deblock kernel (``csrc/deblock264.cu``, nvcc, sm_90a), the
+   hqdn3d kernel (``csrc/hqdn3d.cu``, nvcc, sm_90a) and the native slice
+   coder (``native/hb264.cpp``, g++), all at once.
 2. Hold the deblock kernel (planes and per-MB side data in; it derives
    bS itself) against its plain PyTorch version, ``deblock_plain`` on
    ``compute_bs``, on the card, bit for bit: random planes with intra
@@ -55,10 +56,29 @@ Phases (none is caught; any failure exits non-zero before the last line):
    kernel on a letterbox P frame's own inputs (the source's next frame,
    scaled on the card, analysed against (a)'s final references), as in
    step 4.
-6. Print the kernels line (``ms`` is step 4's time, beside the bytes
-   bound and the dependency-chain floor; ``job_launches`` are step 5's
-   counts, ``ms_letterbox_input`` step 5 (e)'s time), the card's name
-   and power limit, and the result line.
+6. The device filter suite (``handbrake_tpu_torch/filters``): (a) every
+   filter of ``tools/profile_filters.suite()`` at its CLI flag's settings
+   on a window of ``make_interlaced_clip`` 1920x1080 frames (colorspace:
+   a 3840x2160 10-bit BT.2020 PQ frame to BT.709, hable), on the card and
+   on the CPU: the integer filters equal, the float ones within 1 LSB,
+   the share of samples that differ printed; (b) the hqdn3d kernel
+   (``csrc/hqdn3d.cu``) against its plain version on the card over 3
+   consecutive 1080p frames with the f32 state carried: within 1 LSB,
+   the largest state difference printed; (c) a 33-frame 1920x1080 woven
+   y4m (header flag ``It``) through ``cli.__main__.main`` with
+   ``--comb-detect --decomb --hqdn3d -e h264 -q 28 --encoder-profile
+   high`` and the default preset: 33 samples at 1920x1080, deblock264
+   launched once per analysed P frame and hqdn3d once per frame, the
+   first 3 samples equal to the port's CPU encoder's on the planes the
+   job encoded; (d) the warm ms per 1080p frame of each filter on the
+   card (CUDA events, planes already there) beside its bytes bound, the
+   job's fps, and the kernel's time beside its bound and chain floor.
+7. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+   the bytes bound and the dependency-chain floor; ``job_launches`` are
+   step 5's counts, ``ms_letterbox_input`` step 5 (e)'s time; hqdn3d:
+   ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s count, with
+   ``launches_per_frame``), the card's name and power limit, and the
+   result line.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -111,6 +131,17 @@ BIG = (4800, 9600)      # a luma plane above the kernel's size limit
 # CLI's default preset brings down to 1920x804
 JOB_OUT = (1920, 804)
 CS_REPS = 9             # crop/scale calls timed on the card
+# the filter phase: nlmeans and bm3d are compared with the CPU on two
+# frames of the window (their CPU versions are the slow part), the rest
+# on all three
+SLOW_ON_CPU = ("nlmeans", "bm3d")
+HQ_FRAMES = 3           # frames of the hqdn3d kernel's check
+# dependency chain of one hqdn3d step: sub, abs, IEEE div, sub, max,
+# powf (log2, multiply, exp2 with their accurate corrections: the most of
+# it), mul, add, in SM cycles
+HQ_CYCLES_PER_STEP = 60
+# the f32 operations of one low-pass (pow counted as 4), three a sample
+HQ_OPS_PER_SAMPLE = 3 * 12
 
 
 def smi(query):
@@ -167,6 +198,14 @@ def all_filtering_case(seed, mb_w, mb_h):
             rng.integers(-20, 20, (n_mb, 2)).astype(np.int16),
             rng.integers(1, 4, (n_mb, 16)).astype(np.int32),
             rng.random(n_mb) < 0.2, np.zeros(n_mb, bool))
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count to 0, before a path is driven."""
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.filters import hqdn3d_cuda
+    deblock_cuda.launches = 0
+    hqdn3d_cuda.launches = 0
 
 
 def cuda_ms(fn, reps):
@@ -234,6 +273,7 @@ def bounds(planes, bs_v, bs_h, mb_w, mb_h, clock_hz):
 
 def phase_build():
     from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.filters import hqdn3d_cuda
     from handbrake_tpu_torch.native import get_lib
 
     def timed(f):
@@ -242,12 +282,14 @@ def phase_build():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         fk = ex.submit(timed, deblock_cuda.load)
+        fh = ex.submit(timed, hqdn3d_cuda.load)
         fn = ex.submit(timed, get_lib)
-        tk, tn = fk.result(), fn.result()
-    print(f"build: deblock264.cu (nvcc sm_90a) {tk:.1f} s, hb264.cpp (g++) "
-          f"{tn:.1f} s, {time.perf_counter() - t0:.1f} s in all", flush=True)
+        tk, th, tn = fk.result(), fh.result(), fn.result()
+    print(f"build: deblock264.cu (nvcc sm_90a) {tk:.1f} s, hqdn3d.cu (nvcc "
+          f"sm_90a) {th:.1f} s, hb264.cpp (g++) {tn:.1f} s, "
+          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
 
 
 def check_kernel(case, mb_w, mb_h, qp, strong, intra_none=False):
@@ -395,7 +437,7 @@ def phase_main_path(label):
     encode(frames[:NB + 1], "cuda", NB, NB + 2)
     encode(frames[:2], "cuda", 1, 0)
     # the main path: batches of 8, ~2 batches in flight (bench.py's drive)
-    deblock_cuda.launches = 0
+    reset_counts()
     main, enc8, t_main, _, _ = encode(frames, "cuda", NB, NB + 2)
     launches = deblock_cuda.launches
     n_p = N_FRAMES - 1
@@ -556,7 +598,7 @@ def phase_letterbox_job(tmp, label):
     first, nxt = with_bars(frames[0]), with_bars(frames[N_FRAMES])
     del frames
     with pj.JobSpy(keep=N_CPU) as spy:
-        deblock_cuda.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         rc = cli_main(pj.letterbox_argv(src, out))
         t_cli = time.perf_counter() - t0
@@ -737,7 +779,7 @@ def phase_unscaled_job(tmp, label):
     write_y4m(src, frames, W, H)
     job = pj.unscaled_job(src, out)
     with pj.JobSpy() as spy:
-        deblock_cuda.launches = 0
+        reset_counts()
         work.do_job(job)
         launches = deblock_cuda.launches
     ti, samples = read_mp4(out)
@@ -782,6 +824,213 @@ def phase_job_path(label, clock_hz):
     return a, b, c, ms
 
 
+def host(p) -> np.ndarray:
+    import torch
+    return p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
+
+
+def phase_filters(label):
+    """6 (a): every filter of the suite on the card and on the CPU over
+    its window; (d): its warm ms per frame on the card beside its bytes
+    bound.  Returns {name: numbers}."""
+    from handbrake_tpu_torch.tools import profile_filters as pf
+    out = {}
+    for name, fid, st, integer, reads, state in pf.suite():
+        frames, fmt, fi_kw = pf.window(name)
+        cmp = frames[:2] if name in SLOW_ON_CPU else frames
+        _, got = pf.run(fid, st, cmp, fmt, fi_kw, "cuda")
+        t0 = time.perf_counter()
+        _, want = pf.run(fid, st, cmp, fmt, fi_kw, "cpu")
+        t_cpu = time.perf_counter() - t0
+        if len(got) != len(want) or [b.pts for b in got] != \
+                [b.pts for b in want]:
+            raise RuntimeError(f"{name}: the card and the CPU emit different "
+                               f"frames")
+        err, diff, total = 0, 0, 0
+        for g, w in zip(got, want):
+            for a, b in zip(g.planes, w.planes):
+                a, b = host(a), host(b)
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    raise RuntimeError(f"{name}: planes of another shape or "
+                                       f"type on the card")
+                d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+                err = max(err, int(d.max()))
+                diff += int((d != 0).sum())
+                total += d.size
+        if err > (0 if integer else 1):
+            raise RuntimeError(f"{name} on the card is {err} LSB from the "
+                               f"CPU")
+        b = pf.bytes_bound(name, frames[0], got[0].planes, reads, state)
+        ms = pf.time_filter(fid, st, pf.on_card(frames), fmt, fi_kw)
+        h, w = frames[0][0].shape
+        print(f"filter {name} ({w}x{h} {fmt}, {len(cmp)} frames, "
+              f"{'integer' if integer else 'float'}): card vs CPU "
+              f"max_abs_err {err}, share that differs {diff / total:.3g} "
+              f"({t_cpu:.1f} s on the CPU); {ms:.4f} ms per frame warm on "
+              f"the card ({label}; planes on the card, median of "
+              f"{pf.REPS}, CUDA events), bytes bound "
+              f"{b['bound_ms'] * 1e3:.2f} us ({b['bytes']} B at 3.35 TB/s)",
+              flush=True)
+        out[name] = {"max_abs_err": err, "share_differs": diff / total,
+                     "ms": ms, "bound_ms": b["bound_ms"], "cpu_s": t_cpu}
+    return out
+
+
+def hqdn3d_bounds(planes, clock_hz) -> dict:
+    """One frame's bound (bytes or operations) and chain floor: each
+    sample in and out once and its f32 state in and out once; the
+    longest plane's horizontal then vertical chain of dependent steps."""
+    bps = planes[0].element_size()
+    n = sum(p.numel() for p in planes)
+    t_bytes = n * (2 * bps + 8) / MEM_BW * 1e3
+    t_ops = n * HQ_OPS_PER_SAMPLE / SCALAR_RATE * 1e3
+    steps = max(p.shape[0] - 1 + p.shape[1] - 1 for p in planes)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n * (2 * bps + 8), "t_ops": t_ops,
+            "chain_floor_us": steps * HQ_CYCLES_PER_STEP / clock_hz * 1e6}
+
+
+def phase_hqdn3d_kernel(label, clock_hz):
+    """6 (b): the kernel against its plain version on the card over
+    HQ_FRAMES consecutive 1080p frames, the state carried; (d) its time
+    (KERNEL_REPS back-to-back launches) beside its bound and chain floor,
+    and the plain version's time.  Returns its kernels-line entry."""
+    import torch
+    from handbrake_tpu_torch.core.buffer import Geometry
+    from handbrake_tpu_torch.filters import hqdn3d_cuda
+    from handbrake_tpu_torch.filters.base import FilterInit
+    from handbrake_tpu_torch.filters.denoise import (DenoiseFilter,
+                                                     hqdn3d_plane)
+    from handbrake_tpu_torch.job import param
+    from handbrake_tpu_torch.job import schema as S
+    from handbrake_tpu_torch.utils.synth import make_interlaced_clip
+    f = DenoiseFilter(param.generate_filter_settings(S.FILTER_DENOISE,
+                                                     "medium"))
+    f.init(FilterInit(geometry=Geometry(W, H), device="cpu"))
+    g_sp, g_tmp = f.g_sp, f.g_tmp
+    frames = [[torch.from_numpy(p).cuda() for p in fr]
+              for fr in make_interlaced_clip(W, H, HQ_FRAMES, seed=4)]
+    ka = [p.float() for p in frames[0]]     # 8 bits: 255 / maxval is 1
+    pa = [a.clone() for a in ka]
+    err, state = 0, 0.0
+    for planes in frames:
+        res = hqdn3d_cuda.hqdn3d_cuda(planes, ka, g_sp, g_tmp, 255)
+        want = [hqdn3d_plane(p, a, gs, gt, 255)
+                for p, a, gs, gt in zip(planes, pa, g_sp, g_tmp)]
+        torch.cuda.synchronize()
+        for (o, a), (wo, wa) in zip(res, want):
+            err = max(err, int((o.int() - wo.int()).abs().max()))
+            state = max(state, float((a - wa).abs().max()))
+        ka, pa = [a for _, a in res], [a for _, a in want]
+    print(f"hqdn3d kernel vs its plain version on the card, {HQ_FRAMES} "
+          f"frames {W}x{H} 4:2:0, state carried: max_abs_err {err}, largest "
+          f"f32 state difference {state:.3g}", flush=True)
+    if err > 1:
+        raise RuntimeError("the hqdn3d kernel disagrees with its plain "
+                           "version")
+    planes = frames[-1]
+    _out, args, _keep = hqdn3d_cuda.prepare(planes, ka, g_sp, g_tmp, 255)
+    lib = hqdn3d_cuda.load()
+    for _ in range(3):
+        if lib.hqdn3d_launch(*args) != 0:
+            raise RuntimeError("hqdn3d launch failed")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(KERNEL_REPS):
+        lib.hqdn3d_launch(*args)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / KERNEL_REPS
+    plain_ms = cuda_ms(lambda: [hqdn3d_plane(p, q, gs, gt, 255) for
+                                p, q, gs, gt in zip(planes, pa, g_sp, g_tmp)],
+                       1)
+    bd = hqdn3d_bounds(planes, clock_hz)
+    print(f"hqdn3d kernel at {W}x{H} 4:2:0 ({label}): {ms:.4f} ms a frame "
+          f"({KERNEL_REPS} back-to-back calls of its two launches, CUDA "
+          f"events); bound {bd['bound_ms'] * 1e3:.2f} us by "
+          f"{bd['bound_by']} ({bd['bytes']} B at 3.35 TB/s; operations "
+          f"{bd['t_ops'] * 1e3:.2f} us); chain floor "
+          f"{bd['chain_floor_us']:.1f} us ({HQ_CYCLES_PER_STEP} cycles a "
+          f"step); plain version {plain_ms:.1f} ms", flush=True)
+    return {"name": "hqdn3d", "route": "cuda",
+            "source": "handbrake_tpu_torch/csrc/hqdn3d.cu",
+            "replaces": "handbrake_tpu/filters/denoise.py:40",
+            "equal": err == 0, "max_abs_err": err,
+            "max_state_diff": state, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bd["bound_ms"], "bound_us": bd["bound_ms"] * 1e3,
+            "bound_by": bd["bound_by"],
+            "chain_floor_us": bd["chain_floor_us"], "library_ms": None}
+
+
+def phase_interlaced_job(tmp, label):
+    """6 (c): the woven 1080i y4m through the CLI with comb detection,
+    decomb and hqdn3d.  Returns its numbers."""
+    import dataclasses
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.codecs.h264.encoder import H264Encoder
+    from handbrake_tpu_torch.filters import hqdn3d_cuda
+    from handbrake_tpu_torch.tools import profile_job as pj
+    from handbrake_tpu_torch.utils.synth import (make_interlaced_clip,
+                                                 write_y4m)
+    src = os.path.join(tmp, "woven.y4m")
+    out = os.path.join(tmp, "woven.mp4")
+    write_y4m(src, make_interlaced_clip(W, H, N_FRAMES), W, H, interlace="t")
+    argv = ["-i", src, "-o", out, "--comb-detect", "--decomb", "--hqdn3d",
+            "-e", "h264", "-q", "28", "--encoder-profile", "high"]
+    with pj.JobSpy(keep=N_CPU) as spy:
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        t_cli = time.perf_counter() - t0
+        launches = deblock_cuda.launches
+        hq = hqdn3d_cuda.launches
+    if rc != 0:
+        raise RuntimeError(f"the 1080i CLI job failed with exit code {rc}")
+    ti, samples = read_mp4(out)
+    n_p = spy.p_frames()
+    names = [f.id for f in spy.job.filters]
+    print(f"job 1080i: {W}x{H} woven y4m (It), CLI {' '.join(argv[4:])}, "
+          f"preset Fast 1080p30, filters {names}: mp4 {len(samples)} samples "
+          f"at {ti.width}x{ti.height}; deblock264 launches {launches}, P "
+          f"frames {n_p}, re-analysed {spy.enc.n_redo}; hqdn3d launches "
+          f"{hq}", flush=True)
+    if len(samples) != N_FRAMES or (ti.width, ti.height) != (W, H):
+        raise RuntimeError("the 1080i job's mp4 lacks samples or has "
+                           "another size")
+    if launches != n_p + spy.enc.n_redo or launches == 0:
+        raise RuntimeError("the 1080i job did not launch deblock264 once per "
+                           "analysed P frame")
+    if hq != N_FRAMES:
+        raise RuntimeError("the 1080i job did not launch hqdn3d once per "
+                           "frame")
+    cpu = H264Encoder(dataclasses.replace(spy.enc.cfg), device="cpu")
+    want = [cpu.encode_frame(y, u, v, qp=qp) for y, u, v, qp in spy.frames]
+    same = equal_stream(want, ti.extradata, samples[:N_CPU])
+    print(f"job 1080i: first {len(want)} samples equal the port's CPU "
+          f"encoder on the planes the job encoded: {same}", flush=True)
+    if len(want) != N_CPU or not same:
+        raise RuntimeError("the 1080i job's first frames differ from the CPU "
+                           "encoder's on the same planes")
+    print(f"job 1080i ({label}): do_job {spy.seconds:.2f} s, "
+          f"{N_FRAMES / spy.seconds:.2f} fps ({N_FRAMES} frames incl. the "
+          f"IDR); CLI in all (scan + job) {t_cli:.2f} s", flush=True)
+    return {"launches": launches, "hqdn3d_launches": hq,
+            "fps": N_FRAMES / spy.seconds}
+
+
+def phase_filter_suite(label, clock_hz):
+    filters = phase_filters(label)
+    entry = phase_hqdn3d_kernel(label, clock_hz)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        job = phase_interlaced_job(tmp, label)
+    entry.update(launches=job["hqdn3d_launches"],
+                 launches_per_frame=job["hqdn3d_launches"] / N_FRAMES)
+    return filters, job, entry
+
+
 def one_card():
     """Make only the first visible card visible to this process (before
     CUDA starts), so the run uses, and reports, exactly one card."""
@@ -810,14 +1059,16 @@ def main() -> int:
     launches, enc = phase_main_path(label)
     ms, b = phase_main_path_input(label, enc, clock_hz)
     job_a, _, job_c, ms_lb = phase_job_path(label, clock_hz)
+    _, job_i, hq_entry = phase_filter_suite(label, clock_hz)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
                  ms_letterbox_input=ms_lb,
                  job_launches={"letterbox_2160p_cli": job_a["launches"],
-                               "unscaled_1080p_do_job": job_c["launches"]})
+                               "unscaled_1080p_do_job": job_c["launches"],
+                               "interlaced_1080i_cli": job_i["launches"]})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, hq_entry]}))
     print(label)
     count = torch.cuda.device_count()
     if count != 1:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils.fp import fma32 as _fma32
 from .deblock_torch import deblock
 from .tables import MF4x4, QBITS_BASE, V4x4
 from .transform import _G8_INV, V8x8, ZIG8
@@ -170,25 +171,6 @@ def _from_blocks4(b, H, W):
 # ---------------------------------------------------------------------------
 # 8x8 transform (High profile)
 # ---------------------------------------------------------------------------
-def _fma32(a, b, c):
-    """float32 fused multiply-add a*b + c, rounded once (IEEE fma).
-
-    Emulated in float64: a*b of two floats is exact there, TwoSum gives
-    the exact error e of s = a*b + c, and where s falls exactly halfway
-    between two floats the side of the exact sum decides."""
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    bb = s - p
-    e = (p - (s - bb)) + (cd - bb)
-    r = s.float()
-    d = s - r.double()
-    r2 = r.double() + 2.0 * d
-    mid = (d != 0) & (r2.float().double() == r2)
-    up = mid & (e != 0) & ((e > 0) == (d > 0))
-    return torch.where(up, r2.float(), r)
-
-
 def _dot8(xs, ys):
     """8-term f32 dot product in the reference's summation order (XLA's
     CPU dot): four fma accumulators over the terms j ≡ a (mod 4), then

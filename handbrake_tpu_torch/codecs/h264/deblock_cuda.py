@@ -24,12 +24,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import shutil
 import threading
 
 import torch
 
-from ...native.build import compile_shared
+from ...native.build import compile_shared, nvcc_command
 
 SOURCE = os.path.normpath(os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "..", "..", "csrc",
@@ -48,18 +47,6 @@ _lock = threading.Lock()
 _lib = [None]
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    return path if os.path.exists(path) else (shutil.which("nvcc") or "nvcc")
-
-
-def _nvcc_cmd(workdir, out):
-    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            os.path.join(workdir, "deblock264.cu"), "-o", out]
-
-
 def load():
     """Build (once) and load the kernel library."""
     with _lock:
@@ -67,7 +54,7 @@ def load():
             with open(SOURCE) as f:
                 src = f.read()
             so = compile_shared("deblock264", {"deblock264.cu": src},
-                                _nvcc_cmd)
+                                nvcc_command("deblock264.cu"))
             lib = ctypes.CDLL(so)
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.deblock264_launch.restype = ci

@@ -8,9 +8,11 @@ ported filter that refuses its settings with FilterError is disabled, not
 fatal — work.c:1852-1859), and processes buffers through the chain with
 fan-out (one input buffer may produce 0..n outputs at each stage).
 
-A filter the reference package knows but the port has not ported yet
-raises NotImplementedError naming it: dropping it would change the video
-without an error.
+The one filter the reference package registers and the port has not
+ported yet, the subtitle burn-in (render_sub), raises NotImplementedError
+naming it: dropping it would change the video without an error.  An id
+no package registers (mt_frame, or an unknown one) is disabled and
+logged, as the reference does.
 """
 from __future__ import annotations
 
@@ -20,7 +22,12 @@ from ..utils.logging import error
 from .base import FilterError, FilterInit, create_filter, registry
 
 # the ported filter modules, so that their @register decorators run
-from . import cropscale, vfr  # noqa: F401
+from . import (avfilter, bm3d, colorspace, comb_detect,  # noqa: F401
+               cropscale, deband, deblock, decomb, deinterlace, denoise,
+               detelecine, nlmeans, rpu, sharp, simple, vfr)
+
+# registered by the reference package, not ported yet
+UNPORTED = (S.FILTER_RENDER_SUB,)
 
 
 class FilterGraph:
@@ -28,14 +35,13 @@ class FilterGraph:
         """filter_list: [{"ID": int, "Settings": dict}] (job JSON schema)."""
         order = {fid: i for i, fid in enumerate(S.FILTER_ORDER)}
         specs = sorted(filter_list, key=lambda f: order.get(f["ID"], 99))
-        ported = registry()
         for spec in specs:
             fid = spec["ID"]
-            if fid not in ported and fid in S.FILTER_NAMES:
+            if fid in UNPORTED:
                 raise NotImplementedError(
                     f"filter {S.FILTER_NAMES[fid]!r} (id {fid}) is not "
                     f"ported yet; the port has "
-                    f"{sorted(S.FILTER_NAMES[i] for i in ported)}")
+                    f"{sorted(S.FILTER_NAMES[i] for i in registry())}")
         self.filters: list = []
         self.fi_in = fi.copy()
         cur = fi.copy()

@@ -1,6 +1,7 @@
-"""Resampling helpers of the filter suite — the counterpart of
-``handbrake_tpu/filters/kernels.py``'s ``resample_matrix`` and
-``_apply_separable`` / ``resample_plane``.
+"""Shared helpers of the filter suite — the counterpart of
+``handbrake_tpu/filters/kernels.py``: ``resample_matrix``,
+``_apply_separable`` / ``resample_plane``, ``pad_edge`` and
+``conv2d_small``, plus the edge-clamped shifts the other filters share.
 
 Resampling follows the zimg model the reference uses via zscale
 (cropscale.c:150-157): separable filters with exact sample-grid math and
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.fp import fma32
 
 
 # ---------------------------------------------------------------------------
@@ -108,8 +110,7 @@ def _apply_separable(img: torch.Tensor, av: torch.Tensor, ah: torch.Tensor,
     x = img.to(torch.float32)
     x = av @ x
     x = x @ ah.T
-    return torch.clamp(torch.round(x), 0, maxval).to(
-        torch.uint8 if maxval <= 255 else torch.uint16)
+    return torch.clamp(torch.round(x), 0, maxval).to(out_dtype(maxval))
 
 
 def to_tensor(plane, device: torch.device) -> torch.Tensor:
@@ -138,3 +139,74 @@ def resample_plane(plane, out_h: int, out_w: int, kind: str = "lanczos",
 
 def maxval_of(pix_fmt) -> int:
     return (1 << pix_fmt.bit_depth) - 1
+
+
+# ---------------------------------------------------------------------------
+# edge-clamped shifts and small convolutions (the filters' shared helpers)
+# ---------------------------------------------------------------------------
+def clamped(n: int, off: int, device) -> torch.Tensor:
+    """Index vector clip(arange(n) + off, 0, n - 1) on `device`."""
+    return torch.clamp(torch.arange(off, n + off, device=device), 0, n - 1)
+
+
+def rows(a: torch.Tensor, off: int) -> torch.Tensor:
+    """Vertical neighbour with edge clamp: out[y] = a[clip(y + off)]."""
+    return a if off == 0 else a[clamped(a.shape[-2], off, a.device)]
+
+
+def cols(a: torch.Tensor, off: int) -> torch.Tensor:
+    """Horizontal neighbour with edge clamp: out[:, x] = a[:, clip(x + off)]."""
+    return a if off == 0 else a[..., clamped(a.shape[-1], off, a.device)]
+
+
+def shift2(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[y, x] = a[clip(y + dy), clip(x + dx)] over the last two axes."""
+    return cols(a[..., clamped(a.shape[-2], dy, a.device), :]
+                if dy else a, dx)
+
+
+def pad_edge(x: torch.Tensor, t: int, b: int, l: int, r: int
+             ) -> torch.Tensor:
+    """Edge-replicate padding (jnp.pad mode="edge") by clamped indices."""
+    h, w = x.shape
+    ys = torch.clamp(torch.arange(-t, h + b, device=x.device), 0, h - 1)
+    xs = torch.clamp(torch.arange(-l, w + r, device=x.device), 0, w - 1)
+    return x[ys][:, xs]
+
+
+def conv2d_small(x: torch.Tensor, k: np.ndarray) -> torch.Tensor:
+    """x: (H, W) float32; k: (kh, kw) numpy.  Edge-replicate convolution by
+    shifted adds, in the reference's order (row-major taps, zero taps
+    skipped).  Each step out + w * tap is one fused multiply-add, as the
+    reference's XLA CPU backend contracts it: with the separate multiply
+    and add, a 5x5 kernel's sums differed in the last bit on two thirds
+    of the samples, and the rounded output on 2 % of them."""
+    kh, kw = k.shape
+    ph, pw = kh // 2, kw // 2
+    xp = pad_edge(x, ph, ph, pw, pw)
+    out = torch.zeros_like(x)
+    for dy in range(kh):
+        for dx in range(kw):
+            w = float(k[dy, dx])
+            if w != 0.0:
+                out = fma32(xp[dy:dy + x.shape[0], dx:dx + x.shape[1]],
+                            torch.tensor(w, dtype=torch.float32), out)
+    return out
+
+
+def div(a: torch.Tensor, s: float) -> torch.Tensor:
+    """a / s rounded as an IEEE division on every device.  A Python
+    scalar divisor would make PyTorch's CUDA kernel multiply by its
+    reciprocal, which rounds differently; a 0-dim tensor on a's device
+    keeps the true division the reference computes."""
+    return a / torch.full((), s, dtype=a.dtype, device=a.device)
+
+
+def out_dtype(maxval: int) -> torch.dtype:
+    return torch.uint8 if maxval <= 255 else torch.uint16
+
+
+def to_int32(plane, device: torch.device) -> torch.Tensor:
+    """A uint8/uint16 plane as int32 on `device` (uint16 tensors support
+    few operations, so integer filters work in int32 and cast back)."""
+    return to_tensor(plane, device).to(torch.int32)

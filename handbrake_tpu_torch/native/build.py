@@ -63,6 +63,20 @@ def compile_shared(name: str, files: dict, cmd_for, timeout: int = 600
     return so_path
 
 
+def nvcc_command(source: str):
+    """cmd_for of ``compile_shared`` for one CUDA source with a plain C
+    interface: nvcc for sm_90a (no fast math), a shared library."""
+    def cmd(workdir, out):
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        nvcc = os.path.join(home, "bin", "nvcc")
+        if not os.path.exists(nvcc):
+            nvcc = shutil.which("nvcc") or "nvcc"
+        return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                os.path.join(workdir, source), "-o", out]
+    return cmd
+
+
 def _sources() -> dict:
     from . import gen_tables
     files = {"cavlc_tables.h": gen_tables.generate()}

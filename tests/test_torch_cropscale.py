@@ -164,8 +164,8 @@ def test_filter_graph_order_and_geometry(graph):
 
 def test_unported_filter_raises_in_graph():
     fi = FilterInit(geometry=Geometry(64, 48), device="cpu")
-    with pytest.raises(NotImplementedError, match="decomb"):
+    with pytest.raises(NotImplementedError, match="render_sub"):
         FilterGraph([{"ID": S.FILTER_CROP_SCALE, "Settings": {}},
-                     {"ID": S.FILTER_DECOMB, "Settings": {}}], fi)
+                     {"ID": S.FILTER_RENDER_SUB, "Settings": {}}], fi)
     # an id no package knows is dropped by both, as the reference does
     assert FilterGraph([{"ID": 999, "Settings": {}}], fi).filters == []

@@ -1,7 +1,8 @@
 """Tests that need an NVIDIA GPU: the deblock kernel against its plain
-version, a short encode on the card against the CPU path, and the
-crop/scale filter on the card against the CPU (within 1 LSB).  They skip
-where there is no card; on a machine with one:
+version, a short encode on the card against the CPU path, the crop/scale
+filter on the card against the CPU (within 1 LSB), and the hqdn3d kernel
+against its plain version (within 1 LSB, the f32 state carried over
+frames).  They skip where there is no card; on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -17,7 +18,10 @@ from handbrake_tpu_torch.codecs.h264.deblock_torch import (compute_bs,
 from handbrake_tpu_torch.codecs.h264.encoder import EncoderConfig, H264Encoder
 from handbrake_tpu_torch.core.buffer import YUV420P, Buffer, Geometry
 from handbrake_tpu_torch.filters.base import FilterInit
+from handbrake_tpu_torch.filters import hqdn3d_cuda
 from handbrake_tpu_torch.filters.cropscale import CropScaleFilter
+from handbrake_tpu_torch.filters.denoise import (DenoiseFilter, _gamma,
+                                                 hqdn3d_plane)
 from handbrake_tpu_torch.utils.synth import make_clip
 
 pytestmark = pytest.mark.cuda
@@ -204,3 +208,91 @@ def test_cropscale_on_card_matches_cpu(dev, settings):
         d = (g.cpu().int() - w.int()).abs()
         assert int(d.max()) <= (0 if settings.get("method") == "point"
                                 else 1)
+
+
+def _noisy_frames(w, h, n, bits, seed):
+    rng = np.random.default_rng(seed)
+    mx = (1 << bits) - 1
+    out = []
+    for t in range(n):
+        planes = []
+        for pw, ph in ((w, h), (w // 2, h // 2), (w // 2, h // 2)):
+            yy, xx = np.mgrid[0:ph, 0:pw]
+            v = mx * (0.5 + 0.3 * np.sin((xx + 3 * t) / 9.0)) \
+                + rng.normal(0, mx / 30, (ph, pw))
+            planes.append(np.clip(np.round(v), 0, mx).astype(
+                np.uint8 if bits == 8 else np.uint16))
+        out.append(planes)
+    return out
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("w,h,strengths", [
+    (64, 48, ((3.0, 2.0, 2.0), (2.0, 3.0, 3.0))),
+    (322, 178, ((7.0, 7.0, 7.0), (5.0, 5.0, 5.0))),
+    (1920, 1080, ((3.0, 2.0, 2.0), (2.0, 3.0, 3.0))),
+    (130, 66, ((0.0, 4.0, 0.0), (6.0, 0.0, 0.0)))],
+    ids=["small", "odd", "1080p", "zero-gammas"])
+def test_hqdn3d_kernel_matches_plain(dev, w, h, strengths, bits):
+    """One launch a frame over all three planes, against the plain version
+    on the card, three frames with the state carried; a gamma of 0 skips
+    its pass in both."""
+    maxval = (1 << bits) - 1
+    g_sp = [_gamma(s) for s in strengths[0]]
+    g_tmp = [_gamma(s) for s in strengths[1]]
+    frames = _noisy_frames(w, h, 3, bits, w + bits)
+    ka = pa = None
+    worst = 0.0
+    for planes in frames:
+        pt = [torch.from_numpy(p).to(dev) for p in planes]
+        if ka is None:
+            ka = [p.float() * (255.0 / maxval) for p in pt]
+            pa = [a.clone() for a in ka]
+        n0 = hqdn3d_cuda.launches
+        res = hqdn3d_cuda.hqdn3d_cuda(pt, ka, g_sp, g_tmp, maxval)
+        assert hqdn3d_cuda.launches == n0 + 1
+        want = [hqdn3d_plane(p, a, gs, gt, maxval)
+                for p, a, gs, gt in zip(pt, pa, g_sp, g_tmp)]
+        torch.cuda.synchronize()
+        for (o, a), (wo, wa) in zip(res, want):
+            assert o.dtype == wo.dtype and o.shape == wo.shape
+            assert int((o.int() - wo.int()).abs().max()) <= 1
+            worst = max(worst, float((a - wa).abs().max()))
+        ka = [a for _, a in res]
+        pa = [a for _, a in want]
+    print(f"hqdn3d {w}x{h} {bits}-bit: largest f32 state difference {worst}")
+    assert worst < 1e-3
+
+
+def test_hqdn3d_wrapper_checks_inputs(dev):
+    p = torch.zeros((48, 64), dtype=torch.uint8, device=dev)
+    a = torch.zeros((48, 64), dtype=torch.float32, device=dev)
+    for planes, ants in (([p.int()], [a]), ([p], [a.double()]),
+                         ([p], [a[:, :32]]), ([p.cpu()], [a]),
+                         ([p.t()], [a.t()]), ([p] * 4, [a] * 4)):
+        n = len(planes)
+        with pytest.raises(ValueError):
+            hqdn3d_cuda.hqdn3d_cuda(planes, ants, [0.5] * n, [0.5] * n, 255)
+    with pytest.raises(ValueError):
+        hqdn3d_cuda.hqdn3d_cuda([p], [a], [0.5], [0.5], 1023)  # not uint16
+
+
+def test_denoise_filter_on_card_matches_cpu(dev):
+    """The filter launches the kernel once a frame on the card, within
+    1 LSB of the CPU path (the plain version)."""
+    frames = _noisy_frames(96, 64, 4, 8, 3)
+
+    def run(device):
+        f = DenoiseFilter({"y_spatial": 3.0, "cb_spatial": 2.0,
+                           "y_temporal": 2.0, "cb_temporal": 3.0})
+        f.init(FilterInit(geometry=Geometry(96, 64), device=device))
+        return [f.work(Buffer(planes=list(p), pix_fmt=YUV420P, pts=i))[0]
+                for i, p in enumerate(frames)]
+
+    n0 = hqdn3d_cuda.launches
+    got = run(dev)
+    assert hqdn3d_cuda.launches == n0 + len(frames)
+    for g, w in zip(got, run("cpu")):
+        for a, b in zip(g.planes, w.planes):
+            assert a.device.type == "cuda"
+            assert int((a.cpu().int() - b.int()).abs().max()) <= 1

@@ -50,7 +50,8 @@ assert not any(blocked(m) for m in sys.modules)
 print(" ".join(names))
 """
 
-# every module of the job path, cli.__main__ included, must be walked
+# every module of the job path, cli.__main__ and the filters included,
+# must be walked
 JOB_PATH = ("core.buffer", "core.fifo", "core.pipeline", "core.state",
             "job.schema", "job.geometry", "job.title", "job.param",
             "job.presets", "sources.common", "sources.raw", "sources.mp4",
@@ -58,7 +59,12 @@ JOB_PATH = ("core.buffer", "core.fifo", "core.pipeline", "core.state",
             "codecs.ratecontrol", "mux.common", "mux.nal", "mux.mp4",
             "filters.base", "filters.graph", "filters.kernels",
             "filters.cropscale", "filters.vfr", "work", "scan", "hb",
-            "cli.__main__")
+            "cli.__main__", "job.colormap", "utils.fp", "filters.avfilter",
+            "filters.bm3d", "filters.colorspace", "filters.comb_detect",
+            "filters.deband", "filters.deblock", "filters.decomb",
+            "filters.deinterlace", "filters.denoise", "filters.hqdn3d_cuda",
+            "filters.detelecine", "filters.nlmeans", "filters.rpu",
+            "filters.sharp", "filters.simple")
 
 
 def test_port_imports_with_jax_blocked():

@@ -267,10 +267,13 @@ def test_no_fallback_to_the_cpu(src, tmp_path, monkeypatch):
 
 # job changes whose paths are later slices of the port
 UNPORTED_JOBS = {
-    "filter-decomb": lambda j: j.filters.append(
-        S.FilterSpec(S.FILTER_DECOMB, {})),
+    # decomb is ported; the subtitle burn-in beside it is not
+    "filter-decomb": lambda j: j.filters.extend([
+        S.FilterSpec(S.FILTER_DECOMB, {}),
+        S.FilterSpec(S.FILTER_RENDER_SUB, {})]),
+    # nlmeans is ported; its mesh-sharded path is not
     "filter-nlmeans": lambda j: j.filters.append(
-        S.FilterSpec(S.FILTER_NLMEANS, {})),
+        S.FilterSpec(S.FILTER_NLMEANS, {"tile_parallel": 2})),
     "mux-mkv": lambda j: setattr(j, "mux", "mkv"),
     "vcodec-hevc": lambda j: setattr(j, "vcodec", "hevc_tpu"),
     "bframes": lambda j: setattr(j, "bframes", 2),
@@ -295,7 +298,7 @@ def test_unported_job_raises(src, tmp_path, change):
                                   ["--gop-parallel", "2"],
                                   ["--tile-parallel", "2"],
                                   ["--checkpoint"], ["--resume"],
-                                  ["--decomb"], ["-f", "mkv"]])
+                                  ["-f", "webm"], ["-f", "mkv"]])
 def test_unported_cli_option_raises(src, tmp_path, opts):
     with pytest.raises(NotImplementedError):
         cli(["-i", src, "-o", str(tmp_path / "x.mp4"), "--device", "cpu",

@@ -232,3 +232,78 @@ def test_sources_equal_reference(tmp_path, kind):
     got = read(open_source)
     assert got == read(j_open_source)
     assert len(got[1]) in (3, 5)
+
+
+# -- the filter suite's jax-free copies -----------------------------------
+COLOR_NAMES = sorted(__import__("handbrake_tpu.job.colormap", fromlist=[
+    "COLORS"]).COLORS) + ["#123456", "0xFF8000", " Navy "]
+
+
+@pytest.mark.parametrize("matrix", ["bt601", "bt709"])
+@pytest.mark.parametrize("bits", [8, 10])
+def test_colormap_equals_reference(bits, matrix):
+    from handbrake_tpu.job import colormap as jcm
+    from handbrake_tpu_torch.job import colormap as tcm
+    assert tcm.COLORS == jcm.COLORS
+    for name in COLOR_NAMES:
+        rgb = tcm.name_to_rgb(name)
+        assert rgb == jcm.name_to_rgb(name)
+        assert tcm.rgb_to_yuv(rgb, bits, matrix) == \
+            jcm.rgb_to_yuv(rgb, bits, matrix)
+    for bad in ("no-such-color", ""):
+        with pytest.raises(ValueError):
+            tcm.name_to_rgb(bad)
+        with pytest.raises(ValueError):
+            jcm.name_to_rgb(bad)
+
+
+AVFILTER_GRAPHS = ["hqdn3d=y_spatial=4,unsharp",
+                   "denoise=y_spatial=2.5:y_temporal=3, scale=width=32",
+                   "deinterlace=mode=7,transpose=angle=90,format",
+                   "nlmeans=y_strength=6.0:y_patch_size=5:kernel=isolap",
+                   ",,deblock=thresh=30:=9,", "no_such_filter=1"]
+
+
+@pytest.mark.parametrize("graph", AVFILTER_GRAPHS)
+def test_avfilter_parse_equals_reference(graph):
+    from handbrake_tpu.filters import avfilter as jav
+    from handbrake_tpu.filters.base import FilterError as JFilterError
+    from handbrake_tpu_torch.filters import avfilter as tav
+    from handbrake_tpu_torch.filters.base import FilterError
+    try:
+        want = jav._parse_graph(graph)
+    except JFilterError as e:
+        with pytest.raises(FilterError, match=str(e)):
+            tav._parse_graph(graph)
+        return
+    assert tav._parse_graph(graph) == want
+    assert tav._NAME_TO_ID == jav._NAME_TO_ID
+    assert tav._ALIASES == jav._ALIASES
+
+
+@pytest.mark.parametrize("crop,area", [((0, 0, 0, 0), (16, 16, 8, 8)),
+                                       ((4, 2, 6, 8), (16, 12, 8, 10)),
+                                       ((140, 140, 0, 0), (0, 0, 140, 140))])
+def test_rpu_equals_reference(crop, area):
+    from handbrake_tpu.core.buffer import Geometry as JGeometry
+    from handbrake_tpu.filters.base import FilterInit as JFilterInit
+    from handbrake_tpu.filters.rpu import RPUFilter as JRPU
+    from handbrake_tpu_torch.core.buffer import Geometry
+    from handbrake_tpu_torch.filters.base import FilterInit
+    from handbrake_tpu_torch.filters.rpu import RPUFilter
+
+    def run(F, FI, G, B):
+        f = F({"source-width": 1920, "source-height": 1080})
+        fi = FI(geometry=G(1280, 536))
+        fi.crop = crop
+        f.init(fi)
+        outs = []
+        for rpu in ({"active_area": area}, b"\x01\x02", None):
+            b = B(planes=None, pts=0)
+            if rpu is not None:
+                b.side_data["dovi_rpu"] = rpu
+            outs.append(f.work(b)[0].side_data.get("dovi_rpu"))
+        return outs
+
+    assert run(RPUFilter, FilterInit, Geometry, Buffer) == \
+        run(JRPU, JFilterInit, JGeometry, JBuffer)
