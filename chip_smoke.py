@@ -63,8 +63,12 @@ Phases (none is caught; any failure exits non-zero before the last line):
    on the CPU: the integer filters equal, the float ones within 1 LSB,
    the share of samples that differ printed; (b) the hqdn3d kernel
    (``csrc/hqdn3d.cu``) against its plain version on the card over 3
-   consecutive 1080p frames with the f32 state carried: within 1 LSB,
-   the largest state difference printed; (c) a 33-frame 1920x1080 woven
+   consecutive 1080p frames and a 3840x2160 10-bit frame pair, the f32
+   state carried: outputs and states equal (max_abs_err 0, state
+   difference 0); its division by 255 against ``__fdiv_rn`` over every
+   f32 in [0, 256) (0 mismatches); and its chain probe, one warp through
+   dependent low-pass steps with the kernel's division and with
+   ``__fdiv_rn``, cycles and time a step; (c) a 33-frame 1920x1080 woven
    y4m (header flag ``It``) through ``cli.__main__.main`` with
    ``--comb-detect --decomb --hqdn3d -e h264 -q 28 --encoder-profile
    high`` and the default preset: 33 samples at 1920x1080, deblock264
@@ -72,7 +76,9 @@ Phases (none is caught; any failure exits non-zero before the last line):
    first 3 samples equal to the port's CPU encoder's on the planes the
    job encoded; (d) the warm ms per 1080p frame of each filter on the
    card (CUDA events, planes already there) beside its bytes bound, the
-   job's fps, and the kernel's time beside its bound and chain floor.
+   job's fps, and the kernel's time beside its bound and the chain floor
+   that (b)'s probe measured (luma's 2,998 steps at the probe's cycles a
+   step and the top SM clock), and as a multiple of it.
 7. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's counts, ``ms_letterbox_input`` step 5 (e)'s time; hqdn3d:
@@ -135,11 +141,9 @@ CS_REPS = 9             # crop/scale calls timed on the card
 # frames of the window (their CPU versions are the slow part), the rest
 # on all three
 SLOW_ON_CPU = ("nlmeans", "bm3d")
-HQ_FRAMES = 3           # frames of the hqdn3d kernel's check
-# dependency chain of one hqdn3d step: sub, abs, IEEE div, sub, max,
-# powf (log2, multiply, exp2 with their accurate corrections: the most of
-# it), mul, add, in SM cycles
-HQ_CYCLES_PER_STEP = 60
+HQ_FRAMES = 3           # 1080p frames of the hqdn3d kernel's check
+HQ_UHD = (3840, 2160)   # and a 10-bit frame pair at 2160p
+HQ_PROBE_STEPS = 1 << 16   # dependent steps of the chain probe
 # the f32 operations of one low-pass (pow counted as 4), three a sample
 HQ_OPS_PER_SAMPLE = 3 * 12
 
@@ -876,10 +880,11 @@ def phase_filters(label):
     return out
 
 
-def hqdn3d_bounds(planes, clock_hz) -> dict:
+def hqdn3d_bounds(planes, step_cycles, clock_hz) -> dict:
     """One frame's bound (bytes or operations) and chain floor: each
     sample in and out once and its f32 state in and out once; the
-    longest plane's horizontal then vertical chain of dependent steps."""
+    longest plane's horizontal then vertical chain of dependent steps at
+    the probe's measured cycles a step and the card's top SM clock."""
     bps = planes[0].element_size()
     n = sum(p.numel() for p in planes)
     t_bytes = n * (2 * bps + 8) / MEM_BW * 1e3
@@ -887,15 +892,40 @@ def hqdn3d_bounds(planes, clock_hz) -> dict:
     steps = max(p.shape[0] - 1 + p.shape[1] - 1 for p in planes)
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n * (2 * bps + 8), "t_ops": t_ops,
-            "chain_floor_us": steps * HQ_CYCLES_PER_STEP / clock_hz * 1e6}
+            "bytes": n * (2 * bps + 8), "t_ops": t_ops, "steps": steps,
+            "chain_floor_us": steps * step_cycles / clock_hz * 1e6}
+
+
+def hqdn3d_compare(frames, g_sp, g_tmp, maxval):
+    """The kernel against its plain version on the card over `frames`
+    (planes there), the f32 state carried from the scaled first frame.
+    Returns (max_abs_err, largest state difference, (the kernel's and the
+    plain version's final states))."""
+    import torch
+    from handbrake_tpu_torch.filters import hqdn3d_cuda
+    from handbrake_tpu_torch.filters.denoise import hqdn3d_plane
+    ka = [p.float() * (255.0 / maxval) for p in frames[0]]
+    pa = [a.clone() for a in ka]
+    err, state = 0, 0.0
+    for planes in frames:
+        res = hqdn3d_cuda.hqdn3d_cuda(planes, ka, g_sp, g_tmp, maxval)
+        want = [hqdn3d_plane(p, a, gs, gt, maxval)
+                for p, a, gs, gt in zip(planes, pa, g_sp, g_tmp)]
+        torch.cuda.synchronize()
+        for (o, a), (wo, wa) in zip(res, want):
+            err = max(err, int((o.int() - wo.int()).abs().max()))
+            state = max(state, float((a - wa).abs().max()))
+        ka, pa = [a for _, a in res], [a for _, a in want]
+    return err, state, (ka, pa)
 
 
 def phase_hqdn3d_kernel(label, clock_hz):
     """6 (b): the kernel against its plain version on the card over
-    HQ_FRAMES consecutive 1080p frames, the state carried; (d) its time
-    (KERNEL_REPS back-to-back launches) beside its bound and chain floor,
-    and the plain version's time.  Returns its kernels-line entry."""
+    HQ_FRAMES consecutive 1080p frames and a 2160p 10-bit pair, the state
+    carried; its division over every f32 in [0, 256); its chain probe;
+    (d) its time (KERNEL_REPS back-to-back launches) beside its bound and
+    the measured chain floor, and the plain version's time.  Returns its
+    kernels-line entry."""
     import torch
     from handbrake_tpu_torch.core.buffer import Geometry
     from handbrake_tpu_torch.filters import hqdn3d_cuda
@@ -911,24 +941,44 @@ def phase_hqdn3d_kernel(label, clock_hz):
     g_sp, g_tmp = f.g_sp, f.g_tmp
     frames = [[torch.from_numpy(p).cuda() for p in fr]
               for fr in make_interlaced_clip(W, H, HQ_FRAMES, seed=4)]
-    ka = [p.float() for p in frames[0]]     # 8 bits: 255 / maxval is 1
-    pa = [a.clone() for a in ka]
-    err, state = 0, 0.0
-    for planes in frames:
-        res = hqdn3d_cuda.hqdn3d_cuda(planes, ka, g_sp, g_tmp, 255)
-        want = [hqdn3d_plane(p, a, gs, gt, 255)
-                for p, a, gs, gt in zip(planes, pa, g_sp, g_tmp)]
-        torch.cuda.synchronize()
-        for (o, a), (wo, wa) in zip(res, want):
-            err = max(err, int((o.int() - wo.int()).abs().max()))
-            state = max(state, float((a - wa).abs().max()))
-        ka, pa = [a for _, a in res], [a for _, a in want]
+    err, state, (ka, pa) = hqdn3d_compare(frames, g_sp, g_tmp, 255)
     print(f"hqdn3d kernel vs its plain version on the card, {HQ_FRAMES} "
-          f"frames {W}x{H} 4:2:0, state carried: max_abs_err {err}, largest "
-          f"f32 state difference {state:.3g}", flush=True)
-    if err > 1:
-        raise RuntimeError("the hqdn3d kernel disagrees with its plain "
+          f"frames {W}x{H} 4:2:0 8-bit, state carried: max_abs_err {err}, "
+          f"largest f32 state difference {state}", flush=True)
+    # 10 bits: the 8-bit clip widened, as profile_filters widens its own
+    uhd = [[torch.from_numpy((p.astype(np.uint16) << 2)
+                             | (p.astype(np.uint16) & 3)).cuda() for p in fr]
+           for fr in make_interlaced_clip(*HQ_UHD, 2, seed=5)]
+    err10, state10, _ = hqdn3d_compare(uhd, g_sp, g_tmp, 1023)
+    print(f"hqdn3d kernel vs its plain version on the card, 2 frames "
+          f"{HQ_UHD[0]}x{HQ_UHD[1]} 4:2:0 10-bit, state carried: "
+          f"max_abs_err {err10}, largest f32 state difference {state10}",
+          flush=True)
+    del uhd
+    if err != 0 or state != 0.0 or err10 != 0 or state10 != 0.0:
+        raise RuntimeError("the hqdn3d kernel differs from its plain "
                            "version")
+    div = hqdn3d_cuda.div_check()
+    print(f"hqdn3d division by 255 (RN(a RN(1/255)) with one fma "
+          f"correction) against __fdiv_rn, bit for bit, over every f32 in "
+          f"[0, 256): {div['checked']} values checked, {div['mismatches']} "
+          f"mismatches", flush=True)
+    if div["checked"] != 0x43800000 or div["mismatches"] != 0:
+        raise RuntimeError(f"the hqdn3d kernel's division differs from "
+                           f"__fdiv_rn: {div}")
+    probe = {}
+    for ieee in (False, True):
+        hqdn3d_cuda.chain_probe(64, g_sp[0], ieee)      # loads the function
+        probe[ieee] = hqdn3d_cuda.chain_probe(HQ_PROBE_STEPS, g_sp[0], ieee)
+    cycles = probe[False]["cycles"]
+    print(f"hqdn3d chain probe ({label}): one warp, {HQ_PROBE_STEPS} "
+          f"dependent low-pass steps at luma's spatial gamma "
+          f"{g_sp[0]:.4f}, register values only: the kernel's division "
+          f"{cycles:.2f} cycles a step (clock64), "
+          f"{probe[False]['ms'] * 1e6:.2f} ns (CUDA events, "
+          f"{cycles / probe[False]['ms'] / 1e3:.0f} MHz); __fdiv_rn "
+          f"{probe[True]['cycles']:.2f} cycles, "
+          f"{probe[True]['ms'] * 1e6:.2f} ns", flush=True)
     planes = frames[-1]
     _out, args, _keep = hqdn3d_cuda.prepare(planes, ka, g_sp, g_tmp, 255)
     lib = hqdn3d_cuda.load()
@@ -946,22 +996,30 @@ def phase_hqdn3d_kernel(label, clock_hz):
     plain_ms = cuda_ms(lambda: [hqdn3d_plane(p, q, gs, gt, 255) for
                                 p, q, gs, gt in zip(planes, pa, g_sp, g_tmp)],
                        1)
-    bd = hqdn3d_bounds(planes, clock_hz)
+    bd = hqdn3d_bounds(planes, cycles, clock_hz)
+    floor_ms = bd["chain_floor_us"] / 1e3
     print(f"hqdn3d kernel at {W}x{H} 4:2:0 ({label}): {ms:.4f} ms a frame "
           f"({KERNEL_REPS} back-to-back calls of its two launches, CUDA "
           f"events); bound {bd['bound_ms'] * 1e3:.2f} us by "
           f"{bd['bound_by']} ({bd['bytes']} B at 3.35 TB/s; operations "
-          f"{bd['t_ops'] * 1e3:.2f} us); chain floor "
-          f"{bd['chain_floor_us']:.1f} us ({HQ_CYCLES_PER_STEP} cycles a "
-          f"step); plain version {plain_ms:.1f} ms", flush=True)
+          f"{bd['t_ops'] * 1e3:.2f} us); measured chain floor "
+          f"{bd['chain_floor_us']:.1f} us ({bd['steps']} steps x "
+          f"{cycles:.2f} cycles at {clock_hz / 1e6:.0f} MHz); the kernel "
+          f"{ms / floor_ms:.3f}x the floor; plain version {plain_ms:.1f} ms",
+          flush=True)
     return {"name": "hqdn3d", "route": "cuda",
             "source": "handbrake_tpu_torch/csrc/hqdn3d.cu",
             "replaces": "handbrake_tpu/filters/denoise.py:40",
-            "equal": err == 0, "max_abs_err": err,
-            "max_state_diff": state, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bd["bound_ms"], "bound_us": bd["bound_ms"] * 1e3,
-            "bound_by": bd["bound_by"],
-            "chain_floor_us": bd["chain_floor_us"], "library_ms": None}
+            "equal": max(err, err10) == 0, "max_abs_err": max(err, err10),
+            "max_state_diff": max(state, state10), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
+            "bound_us": bd["bound_ms"] * 1e3, "bound_by": bd["bound_by"],
+            "chain_floor_us": bd["chain_floor_us"],
+            "chain_cycles_per_step": cycles,
+            "chain_cycles_per_step_fdiv_rn": probe[True]["cycles"],
+            "x_chain_floor": ms / floor_ms,
+            "div_checked": div["checked"],
+            "div_mismatches": div["mismatches"], "library_ms": None}
 
 
 def phase_interlaced_job(tmp, label):

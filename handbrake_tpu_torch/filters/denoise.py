@@ -9,9 +9,10 @@ computes it.
 
 Each spatial pass is a nonlinear recurrence along its axis, with no
 parallel-scan form.  On the card a frame is one call of the hand-written
-kernel ``csrc/hqdn3d.cu`` (``hqdn3d_cuda.py``): a thread per row for the
-horizontal pass, a thread per column for the vertical pass with the
-temporal pass, the rescale, the rounding and the new f32 state fused in.
+kernel ``csrc/hqdn3d.cu`` (``hqdn3d_cuda.py``): in each block one warp
+runs a pass's recurrence for 32 rows (then 32 columns) on samples staged
+through shared memory, and other warps load, store, and run the temporal
+pass, the rescale, the rounding and the new f32 state.
 ``hqdn3d_plane`` is its plain version: a Python loop over columns, then
 rows, each step a vector operation.  A plane on the CPU takes the plain
 version; on the card the kernel, with no fallback.

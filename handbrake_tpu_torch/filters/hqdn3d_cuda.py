@@ -2,14 +2,19 @@
 path of ``handbrake_tpu/filters/denoise.py``'s ``hqdn3d_plane`` for all
 planes of a frame at once.
 
-The kernel's two launches (a thread per row for the horizontal pass, a
-thread per column for the vertical and temporal passes, the rescale and
-the new f32 state) cover every plane; the source's note gives the design
-and its bounds.  The source is compiled with nvcc for sm_90a on first use
-into the package's ``_build`` directory (keyed by the source hash) and
-loaded with ctypes.  The kernel runs on the current stream and does not
-synchronise.  ``launches`` counts the calls of this process that launched
-it; its plain twin is ``denoise.hqdn3d_plane``.
+The kernel's two launches (32 rows a block for the horizontal pass, 32
+columns a block for the vertical and temporal passes, the rescale and the
+new f32 state; in each block one warp runs the recurrence on samples that
+other warps stage through shared memory) cover every plane; the source's
+note gives the design and its bounds.  The source is compiled with nvcc
+for sm_90a on first use into the package's ``_build`` directory (keyed by
+the source hash) and loaded with ctypes.  The kernel runs on the current
+stream and does not synchronise.  ``launches`` counts the calls of this
+process that launched it; its plain twin is ``denoise.hqdn3d_plane``.
+
+``chain_probe`` and ``div_check`` run the source's two measurement
+entries: the cycles of one dependent low-pass step, and the kernel's
+division by 255 against the IEEE one over every f32 in [0, 256).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import ctypes
 import os
 import threading
 
+import numpy as np
 import torch
 
 from ..native.build import compile_shared, nvcc_command
@@ -26,6 +32,8 @@ SOURCE = os.path.normpath(os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "..", "csrc", "hqdn3d.cu"))
 
 launches = 0
+# the f32 bit patterns below 256.0f's: every value |prev - cur| can take
+DIV_CHECK_END = int(np.float32(256.0).view(np.uint32))
 
 _lock = threading.Lock()
 _lib = [None]
@@ -45,6 +53,11 @@ def load():
             lib.hqdn3d_launch.argtypes = [
                 ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, cf, cf, ci, ci,
                 vp]
+            lib.hqdn3d_chain_probe.restype = ci
+            lib.hqdn3d_chain_probe.argtypes = [ci, cf, ci, vp, vp, ci, vp]
+            lib.hqdn3d_div_check.restype = ci
+            lib.hqdn3d_div_check.argtypes = [ctypes.c_uint, vp, vp, vp, ci,
+                                             vp]
             _lib[0] = lib
         return _lib[0]
 
@@ -110,3 +123,51 @@ def hqdn3d_cuda(planes, ants, g_sp, g_tmp, maxval: int) -> list:
         raise RuntimeError(f"hqdn3d launch failed: cudaError {rc}")
     launches += 1
     return outs
+
+
+def _stream():
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return dev, torch.cuda.current_stream(dev).cuda_stream
+
+
+def chain_probe(steps: int, gamma: float, ieee_div: bool) -> dict:
+    """One warp through `steps` dependent low-pass steps at `gamma`, on
+    register values only, with the kernel's division or ``__fdiv_rn``:
+    {"cycles": clock64 cycles a step, "ms": CUDA-event ms a step (launch
+    included, so take `steps` large)}."""
+    dev, st = _stream()
+    out = torch.empty(32, dtype=torch.float32, device=dev)
+    cyc = torch.zeros(1, dtype=torch.int64, device=dev)
+    lib = load()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    rc = lib.hqdn3d_chain_probe(steps, gamma, int(ieee_div), out.data_ptr(),
+                                cyc.data_ptr(), dev.index, st)
+    b.record()
+    if rc != 0:
+        raise RuntimeError(f"hqdn3d_chain_probe failed: cudaError {rc}")
+    b.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        raise RuntimeError("hqdn3d_chain_probe: non-finite results")
+    return {"cycles": int(cyc.item()) / steps,
+            "ms": a.elapsed_time(b) / steps}
+
+
+def div_check() -> dict:
+    """The kernel's division by 255 against ``__fdiv_rn`` on the card, bit
+    for bit, for every f32 in [0, 256): {"checked" (the values the kernel
+    compared, which it counts), "mismatches", "first_bad" (the smallest
+    differing bit pattern, or None)}."""
+    dev, st = _stream()
+    checked = torch.zeros(1, dtype=torch.int64, device=dev)
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    first = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    rc = load().hqdn3d_div_check(DIV_CHECK_END, checked.data_ptr(),
+                                 bad.data_ptr(), first.data_ptr(), dev.index,
+                                 st)
+    if rc != 0:
+        raise RuntimeError(f"hqdn3d_div_check failed: cudaError {rc}")
+    n_bad = int(bad.item())
+    return {"checked": int(checked.item()), "mismatches": n_bad,
+            "first_bad": (int(first.item()) & 0xFFFFFFFF) if n_bad else None}

@@ -1,8 +1,11 @@
 """Tests that need an NVIDIA GPU: the deblock kernel against its plain
 version, a short encode on the card against the CPU path, the crop/scale
 filter on the card against the CPU (within 1 LSB), and the hqdn3d kernel
-against its plain version (within 1 LSB, the f32 state carried over
-frames).  They skip where there is no card; on a machine with one:
+against its plain version (bit for bit, output and f32 state, the state
+carried over frames, at shapes on every edge of its 32-lane blocks and
+32-step tiles), with its division by 255 checked against the IEEE one
+over every f32 in [0, 256).  They skip where there is no card; on a
+machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -216,7 +219,8 @@ def _noisy_frames(w, h, n, bits, seed):
     out = []
     for t in range(n):
         planes = []
-        for pw, ph in ((w, h), (w // 2, h // 2), (w // 2, h // 2)):
+        cw, ch = (w + 1) // 2, (h + 1) // 2
+        for pw, ph in ((w, h), (cw, ch), (cw, ch)):
             yy, xx = np.mgrid[0:ph, 0:pw]
             v = mx * (0.5 + 0.3 * np.sin((xx + 3 * t) / 9.0)) \
                 + rng.normal(0, mx / 30, (ph, pw))
@@ -226,23 +230,32 @@ def _noisy_frames(w, h, n, bits, seed):
     return out
 
 
-@pytest.mark.parametrize("bits", [8, 10])
-@pytest.mark.parametrize("w,h,strengths", [
-    (64, 48, ((3.0, 2.0, 2.0), (2.0, 3.0, 3.0))),
-    (322, 178, ((7.0, 7.0, 7.0), (5.0, 5.0, 5.0))),
-    (1920, 1080, ((3.0, 2.0, 2.0), (2.0, 3.0, 3.0))),
-    (130, 66, ((0.0, 4.0, 0.0), (6.0, 0.0, 0.0)))],
-    ids=["small", "odd", "1080p", "zero-gammas"])
+_HQ = ((3.0, 2.0, 2.0), (2.0, 3.0, 3.0))
+# (id, w, h, (spatial, temporal) strengths, bit depths): a single sample,
+# a column, a row, sizes off the 32-lane blocks and 32-step tiles (65 is
+# one past two tiles), 1080p and 2160p at 10 bits; gammas of 0
+_HQ_CASES = (
+    ("1x1", 1, 1, _HQ, (8, 10)), ("1x97", 1, 97, _HQ, (8, 10)),
+    ("97x1", 97, 1, _HQ, (8, 10)), ("33x17", 33, 17, _HQ, (8, 10)),
+    ("65x40", 65, 40, _HQ, (8, 10)), ("small", 64, 48, _HQ, (8, 10)),
+    ("odd", 322, 178, ((7.0, 7.0, 7.0), (5.0, 5.0, 5.0)), (8, 10)),
+    ("1080p", 1920, 1080, _HQ, (8, 10)), ("2160p", 3840, 2160, _HQ, (10,)),
+    ("zero-gammas", 130, 66, ((0.0, 4.0, 0.0), (6.0, 0.0, 0.0)), (8, 10)),
+    ("no-spatial", 65, 40, ((0.0, 0.0, 0.0), (3.0, 3.0, 3.0)), (8, 10)))
+
+
+@pytest.mark.parametrize("w,h,strengths,bits", [
+    pytest.param(w, h, st, b, id=f"{name}-{b}")
+    for name, w, h, st, bits in _HQ_CASES for b in bits])
 def test_hqdn3d_kernel_matches_plain(dev, w, h, strengths, bits):
     """One launch a frame over all three planes, against the plain version
-    on the card, three frames with the state carried; a gamma of 0 skips
-    its pass in both."""
+    on the card, three frames with the state carried: outputs and f32
+    states equal; a gamma of 0 skips its pass in both."""
     maxval = (1 << bits) - 1
     g_sp = [_gamma(s) for s in strengths[0]]
     g_tmp = [_gamma(s) for s in strengths[1]]
     frames = _noisy_frames(w, h, 3, bits, w + bits)
     ka = pa = None
-    worst = 0.0
     for planes in frames:
         pt = [torch.from_numpy(p).to(dev) for p in planes]
         if ka is None:
@@ -256,12 +269,55 @@ def test_hqdn3d_kernel_matches_plain(dev, w, h, strengths, bits):
         torch.cuda.synchronize()
         for (o, a), (wo, wa) in zip(res, want):
             assert o.dtype == wo.dtype and o.shape == wo.shape
-            assert int((o.int() - wo.int()).abs().max()) <= 1
-            worst = max(worst, float((a - wa).abs().max()))
+            assert torch.equal(o, wo)
+            assert torch.equal(a, wa)
         ka = [a for _, a in res]
         pa = [a for _, a in want]
-    print(f"hqdn3d {w}x{h} {bits}-bit: largest f32 state difference {worst}")
-    assert worst < 1e-3
+
+
+@pytest.fixture(scope="module")
+def hqdn3d_variants():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    from handbrake_tpu_torch.tools import ablate_hqdn3d
+    with open(hqdn3d_cuda.SOURCE) as f:
+        return ablate_hqdn3d.build_variants(f.read())
+
+
+@pytest.mark.parametrize("w,h,strengths,bits", [
+    (1, 1, _HQ, 8), (33, 17, _HQ, 10), (65, 40, _HQ, 8),
+    (130, 66, ((0.0, 4.0, 0.0), (6.0, 0.0, 0.0)), 8)],
+    ids=["1x1", "33x17-10", "65x40", "zero-gammas"])
+def test_hqdn3d_ablation_variants_match_kernel(dev, hqdn3d_variants, w, h,
+                                               strengths, bits):
+    """The ablation tool's variants that compute the kernel's function
+    (the chain alone, the temporal pass on the chain, the IEEE division)
+    give the kernel's outputs and states, bit for bit."""
+    from handbrake_tpu_torch.tools import ablate_hqdn3d
+    maxval = (1 << bits) - 1
+    planes = [torch.from_numpy(p).to(dev)
+              for p in _noisy_frames(w, h, 1, bits, w + h)[0]]
+    ants = [p.float() * (255.0 / maxval) + 1.5 for p in planes]
+    outs, args, _keep = hqdn3d_cuda.prepare(
+        planes, ants, [_gamma(s) for s in strengths[0]],
+        [_gamma(s) for s in strengths[1]], maxval)
+    ablate_hqdn3d.check_exact(hqdn3d_variants, args, outs)
+
+
+def test_hqdn3d_division_exhaustive(dev):
+    """The kernel's division by 255 equals __fdiv_rn for every f32 bit
+    pattern in [0, 256)."""
+    r = hqdn3d_cuda.div_check()
+    assert r["checked"] == 0x43800000
+    assert r["mismatches"] == 0, r
+
+
+def test_hqdn3d_chain_probe(dev):
+    """The chain probe runs with both divisions and counts cycles."""
+    for ieee in (False, True):
+        r = hqdn3d_cuda.chain_probe(4096, 2.5, ieee)
+        assert r["cycles"] > 0 and r["ms"] > 0
 
 
 def test_hqdn3d_wrapper_checks_inputs(dev):
