@@ -7,8 +7,10 @@ NVIDIA GPU.
 Phases (none is caught; any failure exits non-zero before the last line):
 
 1. Build the deblock kernel (``csrc/deblock264.cu``, nvcc, sm_90a), the
-   hqdn3d kernel (``csrc/hqdn3d.cu``, nvcc, sm_90a) and the native slice
-   coder (``native/hb264.cpp``, g++), all at once.
+   hqdn3d kernel (``csrc/hqdn3d.cu``, nvcc, sm_90a), the resample kernel
+   (``csrc/resample.cu``, nvcc, sm_90a, ``--fmad=false``), the native
+   slice coder (``native/hb264.cpp``, g++) and the native H.264 decoder
+   (``native/hbdec264.cpp``, g++), all at once.
 2. Hold the deblock kernel (planes and per-MB side data in; it derives
    bS itself) against its plain PyTorch version, ``deblock_plain`` on
    ``compute_bs``, on the card, bit for bit: random planes with intra
@@ -42,17 +44,28 @@ Phases (none is caught; any failure exits non-zero before the last line):
    1920x804 with an avcC, deblock264 must have launched once per
    analysed P frame, and the first 3 samples must equal the stream of
    the port's CPU encoder (its plain deblock) on the planes and qp the
-   job's encoder was given; (b) the port's ``CropScaleFilter`` on (a)'s
-   first frame with (a)'s settings, on the card and on the CPU: every
-   plane within 1 LSB, the fraction of samples that differ printed; (c)
+   job's encoder was given, and the first 3 samples must equal, byte
+   for byte, those of the port's CPU run of the same job through the CLI
+   (``--device cpu``) on the source's first 3 frames; (b) the port's
+   ``CropScaleFilter`` on (a)'s first frame with (a)'s settings, on the
+   card and on the CPU: every plane equal, the fraction of samples that
+   differ printed; the resample kernel (``csrc/resample.cu``) against its
+   plain version on the card, bit for bit: (a)'s planes (3840x1608 luma
+   to 1920x804, chroma with its siting shift), odd sizes and up-scales,
+   with lanczos, bicubic, bilinear and point, 8 and 10 bits; (c)
    a 1920x1080 y4m of 33 ``make_clip`` frames through ``work.do_job``
    (H.264 High, quality 26, mp4, no crop/scale): its samples, as annex-B,
    must equal the stream of an ``H264Encoder`` driven directly on the
    same frames with the job's gop and each frame's qp from
    ``RateController("cq", qp=26)``; (d) the jobs' wall time and fps, the
-   crop/scale time per frame on the card beside the function's bound
-   (its banded taps and its planes) and the dense products' own time,
-   and the time to bring the scaled planes back to the host; (e) the
+   crop/scale filter's time per frame on the card, the resample kernel's
+   time on (a)'s three planes (back-to-back launches) beside the
+   function's bound (its banded taps and its planes), the kernels' own
+   device time (``torch.profiler``), its plain version's time, the time
+   of the two dense ``torch.matmul`` products
+   that compute the same function (the library call, used nowhere in the
+   port) and its launches per job frame, and the time to bring the scaled
+   planes back to the host; (e) the
    kernel on a letterbox P frame's own inputs (the source's next frame,
    scaled on the card, analysed against (a)'s final references), as in
    step 4.
@@ -79,12 +92,26 @@ Phases (none is caught; any failure exits non-zero before the last line):
    job's fps, and the kernel's time beside its bound and the chain floor
    that (b)'s probe measured (luma's 2,998 steps at the probe's cycles a
    step and the top SM clock), and as a multiple of it.
-7. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+7. The H.264-source job at 1080p: (a) 33 ``make_clip`` 1920x1080
+   frames encoded on the card by the port's encoder (High profile,
+   serial), its reconstruction kept after each frame; the port's decoder
+   must give back all 33, and the decoder's host ms per frame is printed;
+   (b) that stream in an mp4 (the port's ``MP4Writer``) through
+   ``cli.__main__.main(["-i", src, "-o", out.mkv, "-e", "h264", "-q",
+   "28", "--encoder-profile", "high"])``, default preset and device: the
+   scan decodes its previews, deblock264 launches once per analysed P
+   frame, and the mkv (read back with the port's ``MKVDemuxer`` and
+   decoded) holds 33 frames at 1920x1080; (c) the same job with ``-f
+   mp4`` gives the same H.264 samples; (d) the mkv as a source: it
+   scans and transcodes again to mp4 (33 samples); the jobs' fps.
+8. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
-   step 5's counts, ``ms_letterbox_input`` step 5 (e)'s time; hqdn3d:
-   ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s count, with
-   ``launches_per_frame``), the card's name and power limit, and the
-   result line.
+   step 5's and 7's counts, ``ms_letterbox_input`` step 5 (e)'s time;
+   hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s count,
+   with ``launches_per_frame``; resample: ``ms`` is 5 (d)'s kernel time
+   on (a)'s planes, ``launches`` 5 (a)'s count, ``library_ms`` the dense
+   products' time), the card's name and power limit, and the result
+   line.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -146,6 +173,15 @@ HQ_UHD = (3840, 2160)   # and a 10-bit frame pair at 2160p
 HQ_PROBE_STEPS = 1 << 16   # dependent steps of the chain probe
 # the f32 operations of one low-pass (pow counted as 4), three a sample
 HQ_OPS_PER_SAMPLE = 3 * 12
+# the resample kernel's cases against its plain version (5 (b)): (label,
+# in_h, in_w, out_h, out_w, horizontal chroma siting shift); (a)'s planes
+# are added from the job's own settings
+RS_CASES = (("odd down", 999, 1777, 541, 1103, -0.25),
+            ("odd up", 37, 53, 91, 129, 0.0),
+            ("1080p to 720p", 1080, 1920, 720, 1280, 0.0),
+            ("one row", 1, 97, 1, 50, 0.0), ("one sample", 1, 1, 3, 2, 0.0))
+RS_KINDS = ("lanczos", "bicubic", "bilinear", "point")
+SRC_N = 33              # frames of the H.264-source job (step 7)
 
 
 def smi(query):
@@ -207,9 +243,10 @@ def all_filtering_case(seed, mb_w, mb_h):
 def reset_counts():
     """Every kernel wrapper's launch count to 0, before a path is driven."""
     from handbrake_tpu_torch.codecs.h264 import deblock_cuda
-    from handbrake_tpu_torch.filters import hqdn3d_cuda
+    from handbrake_tpu_torch.filters import hqdn3d_cuda, resample_cuda
     deblock_cuda.launches = 0
     hqdn3d_cuda.launches = 0
+    resample_cuda.launches = 0
 
 
 def cuda_ms(fn, reps):
@@ -277,23 +314,25 @@ def bounds(planes, bs_v, bs_h, mb_w, mb_h, clock_hz):
 
 def phase_build():
     from handbrake_tpu_torch.codecs.h264 import deblock_cuda
-    from handbrake_tpu_torch.filters import hqdn3d_cuda
-    from handbrake_tpu_torch.native import get_lib
+    from handbrake_tpu_torch.filters import hqdn3d_cuda, resample_cuda
+    from handbrake_tpu_torch.native import get_decoder_lib, get_lib
 
     def timed(f):
         t0 = time.perf_counter()
         f()
         return time.perf_counter() - t0
 
+    builds = {"deblock264.cu (nvcc sm_90a)": deblock_cuda.load,
+              "hqdn3d.cu (nvcc sm_90a)": hqdn3d_cuda.load,
+              "resample.cu (nvcc sm_90a, --fmad=false)": resample_cuda.load,
+              "hb264.cpp (g++)": get_lib, "hbdec264.cpp (g++)":
+              get_decoder_lib}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
-        fk = ex.submit(timed, deblock_cuda.load)
-        fh = ex.submit(timed, hqdn3d_cuda.load)
-        fn = ex.submit(timed, get_lib)
-        tk, th, tn = fk.result(), fh.result(), fn.result()
-    print(f"build: deblock264.cu (nvcc sm_90a) {tk:.1f} s, hqdn3d.cu (nvcc "
-          f"sm_90a) {th:.1f} s, hb264.cpp (g++) {tn:.1f} s, "
-          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+    with ThreadPoolExecutor(len(builds)) as ex:
+        futures = {k: ex.submit(timed, f) for k, f in builds.items()}
+        times = {k: f.result() for k, f in futures.items()}
+    print("build: " + ", ".join(f"{k} {t:.1f} s" for k, t in times.items())
+          + f", {time.perf_counter() - t0:.1f} s in all", flush=True)
 
 
 def check_kernel(case, mb_w, mb_h, qp, strong, intra_none=False):
@@ -592,6 +631,7 @@ def phase_letterbox_job(tmp, label):
     from handbrake_tpu_torch.cli.__main__ import main as cli_main
     from handbrake_tpu_torch.codecs.h264 import deblock_cuda
     from handbrake_tpu_torch.codecs.h264.encoder import H264Encoder
+    from handbrake_tpu_torch.filters import resample_cuda
     from handbrake_tpu_torch.job import schema as S
     from handbrake_tpu_torch.tools import profile_job as pj
     # one frame more than the job: the next P frame of (e)
@@ -599,6 +639,10 @@ def phase_letterbox_job(tmp, label):
     src = os.path.join(tmp, "letterbox.y4m")
     out = os.path.join(tmp, "letterbox.mp4")
     pj.write_letterbox(src, frames[:N_FRAMES])
+    # the source's first N_CPU frames, for the CPU run of the same job
+    src_cpu = os.path.join(tmp, "letterbox_cpu.y4m")
+    out_cpu = os.path.join(tmp, "letterbox_cpu.mp4")
+    pj.write_letterbox(src_cpu, frames[:N_CPU])
     first, nxt = with_bars(frames[0]), with_bars(frames[N_FRAMES])
     del frames
     with pj.JobSpy(keep=N_CPU) as spy:
@@ -607,6 +651,7 @@ def phase_letterbox_job(tmp, label):
         rc = cli_main(pj.letterbox_argv(src, out))
         t_cli = time.perf_counter() - t0
         launches = deblock_cuda.launches
+        rs_launches = resample_cuda.launches
     if rc != 0:
         raise RuntimeError(f"the CLI job failed with exit code {rc}")
     cs = next(f.settings for f in spy.job.filters
@@ -621,7 +666,8 @@ def phase_letterbox_job(tmp, label):
           f"found crop {'/'.join(map(str, crop))} (top/bottom/left/right); "
           f"mp4 {len(samples)} samples at {size[0]}x{size[1]}, avcC "
           f"{len(ti.extradata)} B; deblock264 launches {launches}, P frames "
-          f"{n_p}, re-analysed {spy.enc.n_redo}", flush=True)
+          f"{n_p}, re-analysed {spy.enc.n_redo}; resample launches "
+          f"{rs_launches} (3 planes a frame)", flush=True)
     if crop != (pj.JOB_BAR, pj.JOB_BAR, 0, 0):
         raise RuntimeError("the scan did not autocrop the bars exactly")
     if size != JOB_OUT or size != (cs["width"], cs["height"]):
@@ -631,6 +677,9 @@ def phase_letterbox_job(tmp, label):
     if launches != n_p + spy.enc.n_redo or launches == 0:
         raise RuntimeError("the job did not launch deblock264 once per "
                            "analysed P frame")
+    if rs_launches != 3 * N_FRAMES:
+        raise RuntimeError("the job did not launch the resample kernel once "
+                           "per plane of each frame")
     # the port's CPU encoder (compute_bs + deblock_plain in its P frames)
     # on the scaled planes the job encoded: frame 2 is coded against
     # frame 1's deblocked reference, so its bytes hold the kernel to the
@@ -646,12 +695,32 @@ def phase_letterbox_job(tmp, label):
     if len(want) != N_CPU or not same:
         raise RuntimeError("job (a)'s first frames differ from the CPU "
                            "encoder's on the same scaled planes")
+    # the whole job on the CPU (scan, crop/scale by the resample's plain
+    # version, the encoder with its plain deblock): its samples must equal
+    # the card's, byte for byte
+    t0 = time.perf_counter()
+    rc = cli_main(pj.letterbox_argv(src_cpu, out_cpu) + ["--device", "cpu"])
+    t_cpu_job = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"the CPU run of job (a) failed with exit code "
+                           f"{rc}")
+    ti_cpu, samples_cpu = read_mp4(out_cpu)
+    same_job = (ti_cpu.extradata == ti.extradata
+                and samples_cpu == samples[:N_CPU])
+    print(f"job (a): the port's CPU run of the same job (CLI --device cpu, "
+          f"the source's first {N_CPU} frames): {len(samples_cpu)} samples "
+          f"at {ti_cpu.width}x{ti_cpu.height}, equal to the card's first "
+          f"{N_CPU} byte for byte: {same_job} ({t_cpu_job:.1f} s on the "
+          f"CPU)", flush=True)
+    if len(samples_cpu) != N_CPU or not same_job:
+        raise RuntimeError("job (a) on the card differs from its CPU run")
     print(f"job (a) ({label}): do_job {spy.seconds:.2f} s, "
           f"{N_FRAMES / spy.seconds:.2f} fps ({N_FRAMES} frames incl. the "
           f"IDR; the process's first crop/scale); CLI in all "
           f"(scan of 10 previews + job) {t_cli:.2f} s", flush=True)
-    return {"launches": launches, "settings": dict(cs), "first": first,
-            "next": nxt, "enc": spy.enc, "seconds": spy.seconds}
+    return {"launches": launches, "resample_launches": rs_launches,
+            "settings": dict(cs), "first": first, "next": nxt,
+            "enc": spy.enc, "seconds": spy.seconds}
 
 
 def crop_scale_bound(settings):
@@ -703,13 +772,63 @@ def scale(f, frame):
     return f.work(buf)[0].planes
 
 
-def phase_crop_scale(first, settings, label):
-    """(b): CropScaleFilter on (a)'s first frame on the card and on the
-    CPU, held within 1 LSB; (d) its time per frame on the card beside
-    the function's bound, the dense products' time, and the time to bring
-    the scaled planes to the host."""
+def dense_resample(planes, settings):
+    """The library call for the resample of (a)'s planes: out = A_v @ img
+    @ A_h^T as two dense f32 ``torch.matmul`` products (TF32 off), then
+    round, clip and cast, as the JAX package computes it.  Timed beside
+    the kernel; the port never calls it."""
     import torch
-    from handbrake_tpu_torch.filters.kernels import resample_plane
+    from handbrake_tpu_torch.filters.kernels import resample_matrix
+    oh, ow = settings["height"], settings["width"]
+    kind = settings.get("method", "lanczos")
+    mats = []
+    for p, s in zip(planes, (0.0, -0.25, -0.25)):
+        (h, w), (o_h, o_w) = p.shape, ((oh, ow) if s == 0.0 else
+                                       (oh // 2, ow // 2))
+        mats.append(tuple(torch.from_numpy(m).to(p.device) for m in (
+            resample_matrix(h, o_h, kind), resample_matrix(w, o_w, kind, s,
+                                                           s))))
+
+    def run():
+        return [torch.clamp(torch.round((av @ p.float()) @ ah.T), 0,
+                            255).to(torch.uint8)
+                for p, (av, ah) in zip(planes, mats)]
+    return run
+
+
+def resample_case(dev, in_h, in_w, out_h, out_w, shift, kind, bits, seed):
+    """The kernel against its plain version on one random plane on the
+    card; returns the largest difference."""
+    import torch
+    from handbrake_tpu_torch.filters import resample_cuda
+    from handbrake_tpu_torch.filters.kernels import (resample_band,
+                                                     resample_plain)
+    rng = np.random.default_rng(seed)
+    mx = (1 << bits) - 1
+    x = torch.from_numpy(rng.integers(0, mx + 1, (in_h, in_w)).astype(
+        np.uint8 if bits == 8 else np.uint16)).to(dev)
+    bands = [torch.from_numpy(b).to(dev) for b in
+             resample_band(in_h, out_h, kind)
+             + resample_band(in_w, out_w, kind, shift, shift)]
+    got = resample_cuda.resample_cuda(x, *bands, mx)
+    want = resample_plain(x, *bands, mx)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise RuntimeError("the resample kernel's output has another shape "
+                           "or type than its plain version's")
+    return int((got.int() - want.int()).abs().max())
+
+
+def phase_resample(first, settings, label):
+    """(b): CropScaleFilter on (a)'s first frame on the card and on the
+    CPU, equal; the resample kernel against its plain version on the
+    card, bit for bit; (d) the filter's time per frame on the card, the
+    kernel's time on (a)'s planes beside the function's bound, the plain
+    version's and the dense products' time, and the time to bring the
+    scaled planes to the host.  Returns the kernel's numbers."""
+    import torch
+    from handbrake_tpu_torch.filters import resample_cuda
+    from handbrake_tpu_torch.filters.kernels import (_band, resample_plain)
     on_dev = crop_scale_filter(settings, "cuda")
     got = [p.cpu().numpy() for p in scale(on_dev, first)]
     want = [p.numpy() for p in scale(crop_scale_filter(settings, "cpu"),
@@ -722,38 +841,104 @@ def phase_crop_scale(first, settings, label):
     print(f"crop/scale (b): the card against the CPU on (a)'s first frame, "
           f"Y/U/V max_abs_err {errs}, fraction of samples that differ "
           f"{['%.3g' % x for x in fracs]}", flush=True)
-    if max(errs) > 1:
-        raise RuntimeError("crop/scale on the card is more than 1 LSB "
-                           "from the CPU")
-    out = {"max_abs_err": max(errs), "frac_differ": fracs}
-    planes = scale(on_dev, first)
-    out["ms"] = cuda_ms(lambda: scale(on_dev, first), CS_REPS)
-    out["d2h_ms"] = cuda_ms(lambda: [p.cpu() for p in planes], CS_REPS)
-    # the dense products alone, on planes already on the card
+    if max(errs) != 0:
+        raise RuntimeError("crop/scale on the card differs from the CPU")
+    # the kernel against its plain version: (a)'s geometry, odd sizes
+    dev = torch.device("cuda")
     t, b, l, r = (settings[k] for k in ("crop-top", "crop-bottom",
                                         "crop-left", "crop-right"))
-    dev_planes = [torch.from_numpy(np.ascontiguousarray(
-        p[t // s:p.shape[0] - b // s, l // s:p.shape[1] - r // s])).cuda()
-        for p, s in zip(first, (1, 2, 2))]
     oh, ow = settings["height"], settings["width"]
+    ch, cw = first[0].shape[0] - t - b, first[0].shape[1] - l - r
+    cases = (("(a) luma", ch, cw, oh, ow, 0.0),
+             ("(a) chroma", ch // 2, cw // 2, oh // 2, ow // 2, -0.25)) \
+        + RS_CASES
+    max_err, n_cases = 0, 0
+    for i, (what, in_h, in_w, out_h, out_w, shift) in enumerate(cases):
+        for kind in RS_KINDS:
+            for bits in (8, 10):
+                err = resample_case(dev, in_h, in_w, out_h, out_w, shift,
+                                    kind, bits, 1000 * i + bits)
+                max_err = max(max_err, err)
+                n_cases += 1
+                if err != 0:
+                    raise RuntimeError(
+                        f"the resample kernel differs from its plain "
+                        f"version: {what} {in_w}x{in_h} to {out_w}x{out_h} "
+                        f"{kind} {bits}-bit, max_abs_err {err}")
+    print(f"resample kernel vs its plain version on the card: {n_cases} "
+          f"cases ({', '.join(c[0] for c in cases)}; {'/'.join(RS_KINDS)}; "
+          f"8 and 10 bits), max_abs_err {max_err}", flush=True)
+    out = {"max_abs_err": max_err, "cases": n_cases, "frac_differ": fracs}
+    planes = scale(on_dev, first)
+    out["filter_ms"] = cuda_ms(lambda: scale(on_dev, first), CS_REPS)
+    out["d2h_ms"] = cuda_ms(lambda: [p.cpu() for p in planes], CS_REPS)
+    # the kernel alone on (a)'s planes, already on the card: back-to-back
+    # launches of all three planes with the arguments prepared first
+    dev_planes = [torch.from_numpy(np.ascontiguousarray(
+        p[t // s:p.shape[0] - b // s, l // s:p.shape[1] - r // s])).to(dev)
+        for p, s in zip(first, (1, 2, 2))]
+    prepared = []
+    for p, sh in zip(dev_planes, (0.0, -0.25, -0.25)):
+        o_h, o_w = (oh, ow) if sh == 0.0 else (oh // 2, ow // 2)
+        bv = _band(p.shape[0], o_h, "lanczos", 0.0, 0.0, dev)
+        bh = _band(p.shape[1], o_w, "lanczos", sh, sh, dev)
+        prepared.append((resample_cuda.prepare(p, *bv, *bh, 255), bv, bh))
+    lib = resample_cuda.load()
 
-    def products():
-        resample_plane(dev_planes[0], oh, ow)
-        for p in dev_planes[1:]:
-            resample_plane(p, oh // 2, ow // 2, shift_in=(0.0, -0.25),
-                           shift_out=(0.0, -0.25))
-
-    out["products_ms"] = cuda_ms(products, CS_REPS)
+    def kernel_once():
+        for (_o, args, _keep), _bv, _bh in prepared:
+            if lib.resample_launch(*args) != 0:
+                raise RuntimeError("resample launch failed")
+    for _ in range(3):
+        kernel_once()
+    ea = torch.cuda.Event(enable_timing=True)
+    eb = torch.cuda.Event(enable_timing=True)
+    ea.record()
+    for _ in range(KERNEL_REPS):
+        kernel_once()
+    eb.record()
+    eb.synchronize()
+    out["ms"] = ea.elapsed_time(eb) / KERNEL_REPS
+    # the kernels' own device time (CUPTI through torch.profiler), to tell
+    # it from the host's time to enqueue the six launches
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(KERNEL_REPS):
+            kernel_once()
+        torch.cuda.synchronize()
+    passes = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and ("vpass" in e.key or "hpass" in e.key)]
+    out["device_ms"] = sum(e.self_device_time_total
+                           for e in passes) / KERNEL_REPS / 1e3
+    out["vpass_ms"] = sum(e.self_device_time_total for e in passes
+                          if "vpass" in e.key) / KERNEL_REPS / 1e3
+    out["kernels_per_frame"] = sum(e.count for e in passes) / KERNEL_REPS
+    kout = [o for (o, _a, _k), _bv, _bh in prepared]
+    out["plain_ms"] = cuda_ms(lambda: [
+        resample_plain(p, *bv, *bh, 255)
+        for p, (_x, bv, bh) in zip(dev_planes, prepared)], 3)
+    dense = dense_resample(dev_planes, settings)
+    out["library_ms"] = cuda_ms(dense, CS_REPS)
+    lib_err = max(int((a.int() - k.int()).abs().max())
+                  for a, k in zip(dense(), kout))
     out.update(crop_scale_bound(settings))
-    print(f"crop/scale (d) ({label}): {out['ms']:.4f} ms per frame (filter "
-          f"call on host planes, upload included; median of {CS_REPS}, CUDA "
-          f"events); bound of the function {out['bound_ms'] * 1e3:.2f} us "
-          f"by {out['bound_by']} ({out['ops'] / 1e9:.3f} GFLOP of banded "
-          f"taps at 67 TFLOP/s f32, {out['bytes'] / 1e6:.2f} MB at 3.35 "
-          f"TB/s); the dense products the port computes "
-          f"{out['products_ms']:.4f} ms ({out['dense_ops'] / 1e9:.2f} "
-          f"GFLOP, {out['dense_ops_ms']:.4f} ms at 67 TFLOP/s); scaled "
-          f"planes to the host {out['d2h_ms']:.4f} ms per frame", flush=True)
+    print(f"resample (d) ({label}): kernel {out['ms']:.4f} ms per frame on "
+          f"(a)'s three planes ({KERNEL_REPS} back-to-back launches of each, "
+          f"CUDA events), of which the card runs its "
+          f"{out['kernels_per_frame']:.0f} kernels {out['device_ms']:.4f} ms "
+          f"(torch.profiler; the vertical passes {out['vpass_ms']:.4f}); "
+          f"bound of the function {out['bound_ms'] * 1e3:.2f} us by "
+          f"{out['bound_by']} ({out['bytes'] / 1e6:.2f} MB at 3.35 "
+          f"TB/s; {out['ops'] / 1e9:.3f} GFLOP of banded taps at 67 TFLOP/s "
+          f"f32); plain version {out['plain_ms']:.2f} ms; the dense "
+          f"torch.matmul products (library call, TF32 off) "
+          f"{out['library_ms']:.4f} ms ({out['dense_ops'] / 1e9:.2f} GFLOP), "
+          f"{lib_err} LSB from the kernel at most; the filter call "
+          f"{out['filter_ms']:.4f} ms per frame (host planes, upload "
+          f"included; median of {CS_REPS}); scaled planes to the host "
+          f"{out['d2h_ms']:.4f} ms per frame", flush=True)
     return out
 
 
@@ -822,7 +1007,7 @@ def phase_unscaled_job(tmp, label):
 def phase_job_path(label, clock_hz):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         a = phase_letterbox_job(tmp, label)
-        b = phase_crop_scale(a["first"], a["settings"], label)
+        b = phase_resample(a["first"], a["settings"], label)
         c = phase_unscaled_job(tmp, label)
     ms, _ = phase_letterbox_input(a, label, clock_hz)
     return a, b, c, ms
@@ -1089,6 +1274,130 @@ def phase_filter_suite(label, clock_hz):
     return filters, job, entry
 
 
+def read_mkv(path):
+    """(track info, annex-B samples) of the video track of an mkv."""
+    from handbrake_tpu_torch.sources.mkv import MKVDemuxer
+    d = MKVDemuxer(path)
+    try:
+        return d.tracks[0], [bytes(b.data) for t, b in d.packets() if t == 0]
+    finally:
+        d.close()
+
+
+def decode_all(samples, extradata=b""):
+    """The port's decoder (the registry's, fed as a job feeds it) on a
+    track's samples; returns the frames' planes and the host seconds."""
+    from handbrake_tpu_torch.codecs.registry import create_video_decoder
+    from handbrake_tpu_torch.core.buffer import Buffer
+    dec = create_video_decoder("h264", extradata)
+    frames = []
+    t0 = time.perf_counter()
+    for i, smp in enumerate(samples):
+        frames += [f.planes for f in dec.feed(Buffer(data=smp, pts=i))]
+    frames += [f.planes for f in dec.flush()]
+    return frames, time.perf_counter() - t0
+
+
+def phase_h264_source(tmp, label):
+    """7: the H.264-source job at 1080p.  Returns its numbers."""
+    import torch
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.codecs.h264.encoder import (EncoderConfig,
+                                                         H264Encoder)
+    from handbrake_tpu_torch.mux.mp4 import MP4Writer
+    from handbrake_tpu_torch.tools import profile_job as pj
+    from handbrake_tpu_torch.utils.synth import make_clip
+    # (a) the source stream, encoded on the card, with its recons
+    frames = make_clip(W, H, SRC_N, seed=9)
+    enc = H264Encoder(EncoderConfig(width=W, height=H, qp=QP, gop=600,
+                                    deblock=True, cabac=True,
+                                    transform8x8=True))
+    stream, recons = [], []
+    for f in frames:
+        stream.append(enc.encode_frame(*f))
+        recons.append(tuple(p[:n_h, :n_w].cpu().numpy() for p, n_h, n_w in
+                            zip((enc.recon_y, enc.recon_u, enc.recon_v),
+                                (H, H // 2, H // 2), (W, W // 2, W // 2))))
+    decoded, t_dec = decode_all(stream)
+    same = len(decoded) == SRC_N and all(
+        all(np.array_equal(a, b) for a, b in zip(d, r))
+        for d, r in zip(decoded, recons))
+    dec_ms = t_dec / SRC_N * 1e3
+    print(f"H.264 source: {SRC_N} frames {W}x{H} encoded on the card (High, "
+          f"qp {QP}); the port's decoder gives back {len(decoded)} frames, "
+          f"equal to the encoder's reconstructions: {same}; decoder "
+          f"{dec_ms:.2f} ms per 1080p frame on the host ({label})",
+          flush=True)
+    if not same:
+        raise RuntimeError("the decoder's frames differ from the encoder's "
+                           "reconstructions")
+    src = os.path.join(tmp, "src.mp4")
+    w = MP4Writer(src)
+    v = w.add_video_track(codec="h264", width=W, height=H)
+    for i, au in enumerate(stream):
+        w.write_sample(v, au, duration=3003, sync=i == 0, annexb=True)
+    w.finalize()
+    # (b) the CLI job to mkv, on the card
+    argv = ["-e", "h264", "-q", "28", "--encoder-profile", "high"]
+    out_mkv = os.path.join(tmp, "out.mkv")
+    with pj.JobSpy() as spy:
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli_main(["-i", src, "-o", out_mkv] + argv)
+        t_cli = time.perf_counter() - t0
+        launches = deblock_cuda.launches
+    if rc != 0:
+        raise RuntimeError(f"the H.264-source job failed with exit code {rc}")
+    n_p = spy.p_frames()
+    ti, mkv_samples = read_mkv(out_mkv)
+    out_frames, _ = decode_all(mkv_samples, ti.extradata)
+    fps = SRC_N / spy.seconds
+    print(f"job 7 ({label}): {W}x{H} H.264 mp4 source, CLI -o out.mkv "
+          f"{' '.join(argv)}, preset Fast 1080p30: mkv {len(mkv_samples)} "
+          f"samples at {ti.width}x{ti.height} ({ti.codec}), decoded back to "
+          f"{len(out_frames)} frames; deblock264 launches {launches}, P "
+          f"frames {n_p}, re-analysed {spy.enc.n_redo}; do_job "
+          f"{spy.seconds:.2f} s, {fps:.2f} fps; CLI in all (scan + job) "
+          f"{t_cli:.2f} s", flush=True)
+    if len(mkv_samples) != SRC_N or (ti.width, ti.height) != (W, H) or \
+            len(out_frames) != SRC_N or \
+            out_frames[0][0].shape != (H, W) or ti.codec != "h264":
+        raise RuntimeError("the mkv lacks samples or frames, or has another "
+                           "size")
+    if launches != n_p + spy.enc.n_redo or launches == 0:
+        raise RuntimeError("the H.264-source job did not launch deblock264 "
+                           "once per analysed P frame")
+    # (c) the same job to mp4: the same samples
+    out_mp4 = os.path.join(tmp, "out.mp4")
+    if cli_main(["-i", src, "-o", out_mp4, "-f", "mp4"] + argv) != 0:
+        raise RuntimeError("the H.264-source job to mp4 failed")
+    ti4, mp4_samples = read_mp4(out_mp4)
+    same_mux = mp4_samples == mkv_samples and ti4.extradata == ti.extradata
+    print(f"job 7: the same job with -f mp4: {len(mp4_samples)} samples, "
+          f"equal to the mkv's (and its avcC to the mkv's CodecPrivate): "
+          f"{same_mux}", flush=True)
+    if not same_mux:
+        raise RuntimeError("the mkv and mp4 of the same job differ")
+    # (d) the mkv as a source: scan and transcode again
+    again = os.path.join(tmp, "again.mp4")
+    with pj.JobSpy() as spy2:
+        t0 = time.perf_counter()
+        rc = cli_main(["-i", out_mkv, "-o", again] + argv)
+        t_again = time.perf_counter() - t0
+    ti2, again_samples = read_mp4(again)
+    print(f"job 7: the mkv as a source, through the CLI to mp4: "
+          f"{len(again_samples)} samples at {ti2.width}x{ti2.height}; "
+          f"do_job {spy2.seconds:.2f} s, {SRC_N / spy2.seconds:.2f} fps; "
+          f"CLI in all {t_again:.2f} s", flush=True)
+    if rc != 0 or len(again_samples) != SRC_N or \
+            (ti2.width, ti2.height) != (W, H):
+        raise RuntimeError("the mkv source did not transcode")
+    torch.cuda.synchronize()
+    return {"launches": launches, "fps": fps, "decoder_ms": dec_ms,
+            "mkv_source_fps": SRC_N / spy2.seconds}
+
+
 def one_card():
     """Make only the first visible card visible to this process (before
     CUDA starts), so the run uses, and reports, exactly one card."""
@@ -1116,17 +1425,33 @@ def main() -> int:
     entry = phase_kernel(label, clock_hz)
     launches, enc = phase_main_path(label)
     ms, b = phase_main_path_input(label, enc, clock_hz)
-    job_a, _, job_c, ms_lb = phase_job_path(label, clock_hz)
+    job_a, rs, job_c, ms_lb = phase_job_path(label, clock_hz)
     _, job_i, hq_entry = phase_filter_suite(label, clock_hz)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        job_s = phase_h264_source(tmp, label)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
                  ms_letterbox_input=ms_lb,
                  job_launches={"letterbox_2160p_cli": job_a["launches"],
                                "unscaled_1080p_do_job": job_c["launches"],
-                               "interlaced_1080i_cli": job_i["launches"]})
+                               "interlaced_1080i_cli": job_i["launches"],
+                               "h264_source_1080p_cli": job_s["launches"]})
+    rs_entry = {
+        "name": "resample", "route": "cuda",
+        "source": "handbrake_tpu_torch/csrc/resample.cu",
+        "replaces": "handbrake_tpu/filters/kernels.py:90",
+        "launches": job_a["resample_launches"],
+        "launches_per_frame": job_a["resample_launches"] / N_FRAMES,
+        "equal": rs["max_abs_err"] == 0, "max_abs_err": rs["max_abs_err"],
+        "cases": rs["cases"], "ms": rs["ms"], "plain_ms": rs["plain_ms"],
+        "bound_ms": rs["bound_ms"], "bound_us": rs["bound_ms"] * 1e3,
+        "bound_by": rs["bound_by"], "library_ms": rs["library_ms"],
+        "device_ms": rs["device_ms"], "vpass_ms": rs["vpass_ms"],
+        "filter_ms": rs["filter_ms"]}
+    print(f"job 7 numbers: {json.dumps(job_s)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
-    print(json.dumps({"kernels": [entry, hq_entry]}))
+    print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)
     count = torch.cuda.device_count()
     if count != 1:

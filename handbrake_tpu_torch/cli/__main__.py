@@ -11,7 +11,7 @@ GOP- and tile-parallel encodes, checkpoint/resume) raise
 NotImplementedError, as do unported filters, codecs and containers.
 
 Usage:
-  python -m handbrake_tpu_torch.cli -i in.y4m -o out.mp4 [options]
+  python -m handbrake_tpu_torch.cli -i in.mp4 -o out.mkv [options]
   python -m handbrake_tpu_torch.cli -i src --scan --json
   python -m handbrake_tpu_torch.cli --preset-list
 """

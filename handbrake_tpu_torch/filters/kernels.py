@@ -1,17 +1,23 @@
 """Shared helpers of the filter suite — the counterpart of
 ``handbrake_tpu/filters/kernels.py``: ``resample_matrix``,
-``_apply_separable`` / ``resample_plane``, ``pad_edge`` and
+``_apply_separable`` (here ``resample_plane``), ``pad_edge`` and
 ``conv2d_small``, plus the edge-clamped shifts the other filters share.
 
 Resampling follows the zimg model the reference uses via zscale
 (cropscale.c:150-157): separable filters with exact sample-grid math and
-chroma-siting offsets.  The separable passes are two dense f32 matrix
-products, out = A_v @ img @ A_h^T, with weight matrices built once on the
-host (numpy, a copy of the JAX package's) and kept on the device.  The
-products are ``torch.matmul`` with TF32 off, then round half to even,
-clip and cast, as the reference does.  Their summation order differs from
-XLA's, so a sample whose value lands near .5 may differ by one LSB; the
-0/1 weights of ``point`` are exact.
+chroma-siting offsets.  The reference computes out = A_v @ img @ A_h^T as
+two dense f32 products; the port takes each output sample's band of
+nonzero weights (``resample_band``, from the copied ``resample_matrix``,
+built on the host once per geometry and kept on the device) and sums it
+as a chain of f32 fmas in ascending input order from 0, the order in
+which XLA:CPU computes the reference's vertical product; then round half
+to even, clip and cast.  On the card that is the hand-written kernel
+``csrc/resample.cu`` (``resample_cuda.py``); ``resample_plain`` is its
+plain version, the same chain through ``utils/fp.fma32``, which a plane
+on the CPU takes.  So the card and the CPU give the same bits.  XLA:CPU
+sums the horizontal product in another order at some shapes, where a
+sample whose value lands near .5 may differ from the reference by one
+LSB; the 0/1 weights of ``point`` are exact.
 """
 from __future__ import annotations
 
@@ -98,18 +104,60 @@ def resample_matrix(n_in: int, n_out: int, kind: str = "lanczos",
 @functools.lru_cache(maxsize=64)
 def _weights(n_in: int, n_out: int, kind: str, shift_in: float,
              shift_out: float, device: torch.device) -> torch.Tensor:
-    """resample_matrix as a tensor on `device`, uploaded once."""
+    """resample_matrix as a tensor on `device`, uploaded once (the
+    colorspace filter's chroma resampling multiplies by it)."""
     return torch.from_numpy(resample_matrix(n_in, n_out, kind, shift_in,
                                             shift_out)).to(device)
 
 
-def _apply_separable(img: torch.Tensor, av: torch.Tensor, ah: torch.Tensor,
-                     maxval: int) -> torch.Tensor:
-    """The JAX package's einsum("oh,hw->ow"), einsum("ow,cw->oc") in f32,
-    round (half to even), clip to [0, maxval], cast to uint8/uint16."""
-    x = img.to(torch.float32)
-    x = av @ x
-    x = x @ ah.T
+@functools.lru_cache(maxsize=256)
+def resample_band(n_in: int, n_out: int, kind: str = "lanczos",
+                  shift_in: float = 0.0, shift_out: float = 0.0):
+    """The band of each row of ``resample_matrix``: (lo, taps), lo int32
+    (n_out,) and taps float32 (T, n_out), tap-major, with taps[k, o] =
+    A[o, lo[o] + k].  T is the widest span from a row's first nonzero
+    weight to its last; a narrower row's band is moved left where it would
+    reach past n_in, so every band lies inside the input and holds the
+    row's nonzero weights in order, with zeros around them."""
+    a = resample_matrix(n_in, n_out, kind, shift_in, shift_out)
+    nz = a != 0
+    first = nz.argmax(axis=1)
+    last = n_in - 1 - nz[:, ::-1].argmax(axis=1)
+    n_taps = int((last - first).max()) + 1
+    lo = np.minimum(first, n_in - n_taps).astype(np.int32)
+    taps = np.ascontiguousarray(
+        a[np.arange(n_out)[None, :], lo[None, :] + np.arange(n_taps)[:, None]])
+    return lo, taps
+
+
+@functools.lru_cache(maxsize=64)
+def _band(n_in: int, n_out: int, kind: str, shift_in: float,
+          shift_out: float, device: torch.device) -> tuple:
+    """resample_band as tensors on `device`, uploaded once."""
+    return tuple(torch.from_numpy(b).to(device) for b in
+                 resample_band(n_in, n_out, kind, shift_in, shift_out))
+
+
+def _band_pass(x: torch.Tensor, lo: torch.Tensor, taps: torch.Tensor
+               ) -> torch.Tensor:
+    """out[o, :] = the fma chain of taps[k, o] * x[lo[o] + k, :] over k
+    ascending, from 0, in f32 (x: (n_in, m) float32)."""
+    acc = torch.zeros((lo.shape[0], x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    idx = lo.long()
+    for k in range(taps.shape[0]):
+        acc = fma32(taps[k][:, None], x[idx + k], acc)
+    return acc
+
+
+def resample_plain(img: torch.Tensor, lo_v, taps_v, lo_h, taps_h,
+                   maxval: int) -> torch.Tensor:
+    """The plain version of the resample kernel, on img's device: the
+    vertical band's fma chain, then the horizontal band's on the f32
+    intermediate, round (half to even), clip to [0, maxval], cast to
+    uint8/uint16."""
+    x = _band_pass(img.to(torch.float32), lo_v, taps_v)
+    x = _band_pass(x.T, lo_h, taps_h).T
     return torch.clamp(torch.round(x), 0, maxval).to(out_dtype(maxval))
 
 
@@ -124,17 +172,22 @@ def to_tensor(plane, device: torch.device) -> torch.Tensor:
 def resample_plane(plane, out_h: int, out_w: int, kind: str = "lanczos",
                    shift_in=(0.0, 0.0), shift_out=(0.0, 0.0),
                    maxval: int = 255, device=None) -> torch.Tensor:
-    """Resample one plane with two separable matrix products.  The plane
-    is a numpy array or a tensor; the work runs on the tensor's device,
-    else on `device` (None: the CUDA card).  Returns a tensor there."""
+    """Resample one plane through its separable bands.  The plane is a
+    numpy array or a tensor; the work runs on the tensor's device, else on
+    `device` (None: the CUDA card): the kernel on the card, its plain
+    version on the CPU.  Returns a tensor there."""
     dev = resolve_device(plane.device if isinstance(plane, torch.Tensor)
                          else device)
     in_h, in_w = plane.shape
-    av = _weights(in_h, out_h, kind, float(shift_in[0]),
-                  float(shift_out[0]), dev)
-    ah = _weights(in_w, out_w, kind, float(shift_in[1]),
-                  float(shift_out[1]), dev)
-    return _apply_separable(to_tensor(plane, dev), av, ah, maxval)
+    bv = _band(in_h, out_h, kind, float(shift_in[0]), float(shift_out[0]),
+               dev)
+    bh = _band(in_w, out_w, kind, float(shift_in[1]), float(shift_out[1]),
+               dev)
+    x = to_tensor(plane, dev)
+    if dev.type == "cuda":
+        from .resample_cuda import resample_cuda
+        return resample_cuda(x.contiguous(), *bv, *bh, maxval)
+    return resample_plain(x, *bv, *bh, maxval)
 
 
 def maxval_of(pix_fmt) -> int:

@@ -8,15 +8,16 @@ small candidate queue is kept and the frame with the lowest motion metric
 is the one dropped.
 
 The counterpart of ``handbrake_tpu/filters/vfr.py``: the motion metric
-is a torch reduction on the filter's device (FilterInit.device), summed
-exactly in int64 where the reference takes an f32 mean, so the card and
-the CPU choose alike.  Above 2**24 the reference's sum rounds: on two
-candidates within that rounding of each other the choices may differ.
+is the reference's f32 mean, summed in the order XLA:CPU sums it (see
+``motion_metric``), so a near-tie between two candidates, where the f32
+sum has rounded, is broken as the reference breaks it, on the card and
+on the CPU alike.
 """
 from __future__ import annotations
 
 from fractions import Fraction
 
+import numpy as np
 import torch
 
 from ..core.buffer import Buffer, CLOCK
@@ -26,13 +27,61 @@ from .kernels import to_tensor
 from ..job import schema as S
 
 
+# XLA:CPU's tree reduction: windows of 32 along each axis longer than 32
+# (the axis padded with zeros to a multiple of 32, half the padding in
+# front), an axis of 32 or less in one window; repeated until no axis is
+# longer than 32
+_WINDOW = 32
+
+
+def _windows(n: int) -> tuple:
+    """(windows, window size, zeros in front) of one axis of length n."""
+    if n <= _WINDOW:
+        return 1, n, 0
+    k = -(-n // _WINDOW)
+    return k, _WINDOW, (k * _WINDOW - n) // 2
+
+
+def _window_view(x: torch.Tensor) -> torch.Tensor:
+    """(H, W) → (windows down, windows across, elements of a window in row
+    order), the zero padding included."""
+    (kh, sh, th), (kw, sw, tw) = _windows(x.shape[0]), _windows(x.shape[1])
+    p = torch.zeros((kh * sh, kw * sw), dtype=x.dtype, device=x.device)
+    p[th:th + x.shape[0], tw:tw + x.shape[1]] = x
+    return p.reshape(kh, sh, kw, sw).transpose(1, 2).reshape(kh, kw, -1)
+
+
+def _chain(x: np.ndarray) -> np.ndarray:
+    """Sums over the last axis as f32 chains from 0 in index order."""
+    return np.add.accumulate(x.astype(np.float32), axis=-1,
+                             dtype=np.float32)[..., -1]
+
+
 def motion_metric(a, b, device=None) -> float:
     """Mean absolute difference between two luma planes (numpy or
-    tensors), reduced on `device` (None: the CUDA card)."""
+    tensors), as the reference's jitted ``jnp.mean`` computes it on the
+    CPU: XLA sums the f32 values as a tree of window chains
+    (``_windows``); each window's sum is a chain of f32 adds in row order;
+    the last level, of at most 32 x 32 sums, is a chain in row order, but
+    two rows are summed as two chains added at the end (LLVM vectorizes
+    that loop); the mean is that sum times f32(1/n).  The first level runs
+    on `device` (None: the CUDA card) as exact integer sums, which equal
+    the f32 chains while a window's sum stays below 2**24 (samples of up
+    to 14 bits); the rest is a few thousand values, summed on the host."""
     dev = resolve_device(device)
     d = (to_tensor(a, dev).to(torch.int32)
          - to_tensor(b, dev).to(torch.int32)).abs()
-    return float(d.sum(dtype=torch.int64)) / d.numel()
+    if max(d.shape) > _WINDOW:
+        x = _window_view(d.to(torch.int64)).sum(-1).cpu().numpy()
+        if x.max() >= 1 << 24:
+            x = _chain(_window_view(d.cpu()).numpy())
+        while max(x.shape) > _WINDOW:
+            x = _chain(_window_view(torch.from_numpy(x)).numpy())
+    else:
+        x = d.cpu().numpy()
+    r = _chain(x if x.shape[0] == 2 else x.reshape(1, -1))
+    total = r[0] + r[1] if len(r) == 2 else r[0]
+    return float(total * np.float32(1.0 / d.numel()))
 
 
 def _parse_rate(v, default):

@@ -1,8 +1,10 @@
-"""Build + load the native slice coder (g++, cached by source hash).
+"""Build + load the native host stages (g++, cached by source hash).
 
-Only ``hb264.cpp`` is built: the encoder needs neither decoder.  The
-shared library goes into the package's ``_build`` directory (listed in
-``.gitignore``), keyed by the sha256 of the sources and generated
+Two libraries: the slice coder ``hb264.cpp`` (``get_lib``) and the H.264
+decoder ``hbdec264.cpp`` (``get_decoder_lib``), each a shared library of
+its own, so the two build in parallel.  ``hbdecmjpeg.cpp`` is not ported
+yet.  A library goes into the package's ``_build`` directory (listed in
+``.gitignore``), keyed by the sha256 of its sources and generated
 tables, so a rebuild happens only when they change.  A failed build
 raises: there is no pure-Python fallback.
 """
@@ -20,6 +22,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 
 _lock = threading.Lock()
 _lib = [None]
+_dec_lock = threading.Lock()
+_dec_lib = [None]
 
 
 def compile_shared(name: str, files: dict, cmd_for, timeout: int = 600
@@ -63,9 +67,10 @@ def compile_shared(name: str, files: dict, cmd_for, timeout: int = 600
     return so_path
 
 
-def nvcc_command(source: str):
+def nvcc_command(source: str, extra=()):
     """cmd_for of ``compile_shared`` for one CUDA source with a plain C
-    interface: nvcc for sm_90a (no fast math), a shared library."""
+    interface: nvcc for sm_90a (no fast math), a shared library, with
+    the `extra` flags."""
     def cmd(workdir, out):
         home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
         nvcc = os.path.join(home, "bin", "nvcc")
@@ -73,22 +78,24 @@ def nvcc_command(source: str):
             nvcc = shutil.which("nvcc") or "nvcc"
         return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                os.path.join(workdir, source), "-o", out]
+                *extra, os.path.join(workdir, source), "-o", out]
     return cmd
 
 
-def _sources() -> dict:
+def _sources(names) -> dict:
     from . import gen_tables
     files = {"cavlc_tables.h": gen_tables.generate()}
-    for name in ("hb264.cpp", "cabac264.h", "cabac_tables_h264.h"):
+    for name in names:
         with open(os.path.join(_DIR, name)) as f:
             files[name] = f.read()
     return files
 
 
-def _gxx(workdir, out):
-    return ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-I", workdir,
-            os.path.join(workdir, "hb264.cpp"), "-o", out]
+def _gxx(source: str):
+    def cmd(workdir, out):
+        return ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-I",
+                workdir, os.path.join(workdir, source), "-o", out]
+    return cmd
 
 
 def _bind(lib):
@@ -118,10 +125,48 @@ def _bind(lib):
     return lib
 
 
+def _bind_decoder(lib):
+    """The H.264 decoder's entry points, bound as the reference binds
+    them (handbrake_tpu/native/build.py)."""
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.hbdec264_create.restype = ctypes.c_void_p
+    lib.hbdec264_free.argtypes = [ctypes.c_void_p]
+    lib.hbdec264_error.restype = ctypes.c_char_p
+    lib.hbdec264_error.argtypes = [ctypes.c_void_p]
+    lib.hbdec264_send_nal.restype = ctypes.c_int
+    lib.hbdec264_send_nal.argtypes = [ctypes.c_void_p, u8p, ctypes.c_int]
+    lib.hbdec264_get_frame.restype = ctypes.c_int
+    lib.hbdec264_get_frame.argtypes = [
+        ctypes.c_void_p, u8p, u8p, u8p,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+    lib.hbdec264_geometry.restype = ctypes.c_int
+    lib.hbdec264_geometry.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
 def get_lib():
     """Build (once) and return the loaded native slice coder."""
     with _lock:
         if _lib[0] is None:
-            so = compile_shared("hb264", _sources(), _gxx, timeout=300)
+            so = compile_shared(
+                "hb264", _sources(("hb264.cpp", "cabac264.h",
+                                   "cabac_tables_h264.h")),
+                _gxx("hb264.cpp"), timeout=300)
             _lib[0] = _bind(ctypes.CDLL(so))
         return _lib[0]
+
+
+def get_decoder_lib():
+    """Build (once) and return the loaded native H.264 decoder."""
+    with _dec_lock:
+        if _dec_lib[0] is None:
+            so = compile_shared(
+                "hbdec264", _sources(("hbdec264.cpp",
+                                      "cabac_tables_h264.h")),
+                _gxx("hbdec264.cpp"), timeout=300)
+            _dec_lib[0] = _bind_decoder(ctypes.CDLL(so))
+        return _dec_lib[0]

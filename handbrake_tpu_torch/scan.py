@@ -9,9 +9,10 @@ frames through the real decoder, and derives:
 Previews can be kept for GUI use (hb_save_preview analog).
 
 The counterpart of ``handbrake_tpu/scan.py``.  Previews decode for raw
-sources (y4m); any other video codec raises NotImplementedError, since
-its decoder is a later slice.  CEA-608 caption detection is left out: a
-caption track asked of a job raises in ``work.do_job``.
+sources (y4m) and H.264 ones (annex-B, mp4, mkv; the native decoder);
+any other video codec raises NotImplementedError, since its decoder is a
+later slice.  CEA-608 caption detection is left out: a caption track
+asked of a job raises in ``work.do_job``.
 """
 from __future__ import annotations
 

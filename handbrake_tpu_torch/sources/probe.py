@@ -6,8 +6,8 @@ batch.c for directories).
 .duration / .close(). ``scan_paths`` expands a directory into per-file
 sources (hb_batch_init analog, batch.c).
 
-The port opens y4m, annex-B H.264 and mp4.  MKV, AVI, MPEG-PS/TS,
-HEVC elementary streams and DVD/Blu-ray folders raise
+The port opens y4m, annex-B H.264, mp4 and Matroska/WebM.  AVI,
+MPEG-PS/TS, HEVC elementary streams and DVD/Blu-ray folders raise
 NotImplementedError: their demuxers are later slices.
 """
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import os
 
 from .common import DemuxError
+from .mkv import MKVDemuxer, probe_is_mkv
 from .mp4 import MP4Demuxer, probe_is_mp4
 from .raw import AnnexBReader, Y4MReader
 
@@ -25,7 +26,7 @@ _VIDEO_EXTS = {".mp4", ".m4v", ".mov", ".mkv", ".webm", ".y4m", ".264", ".avi",
 def _unported(what: str, path: str):
     raise NotImplementedError(
         f"{what} sources are not ported yet ({path}); the port opens y4m, "
-        f"annex-B H.264 and mp4")
+        f"annex-B H.264, mp4 and Matroska/WebM")
 
 
 def open_source(path: str):
@@ -37,8 +38,8 @@ def open_source(path: str):
         head = f.read(16)
     if probe_is_mp4(head):
         return MP4Demuxer(path)
-    if head.startswith(b"\x1a\x45\xdf\xa3"):
-        _unported("Matroska/WebM", path)
+    if probe_is_mkv(head):
+        return MKVDemuxer(path)
     if head.startswith(b"YUV4MPEG2"):
         return Y4MReader(path)
     if head.startswith(b"RIFF") and head[8:12] == b"AVI ":

@@ -9,11 +9,11 @@ The stages run one thread each with bounded FIFOs between them
 encoder share the ``filter+encode`` thread, so one CUDA stream carries
 the crop/scale products and the encoder's analysis.
 
-The port runs video-only H.264 jobs into mp4: the device comes only from
-the caller (``device=None`` is the CUDA card, which raises where there is
-none).  Audio, subtitles, the mkv mux, B-frames, GOP-parallel and
-tile-parallel encodes and checkpoint/resume raise NotImplementedError:
-they are later slices.
+The port runs video-only H.264 jobs from y4m, H.264 (annex-B, mp4, mkv)
+sources into mp4, mkv or webm: the device comes only from the caller
+(``device=None`` is the CUDA card, which raises where there is none).
+Audio, subtitles, B-frames, GOP-parallel and tile-parallel encodes and
+checkpoint/resume raise NotImplementedError: they are later slices.
 """
 from __future__ import annotations
 
@@ -125,8 +125,6 @@ def _check_ported(job: Job):
     """Raise for the job options whose paths are later slices."""
     if job.subtitles or job.subtitle_search.get("Enable"):
         _unported("subtitles (import, decode, burn-in and search)")
-    if job.mux in ("mkv", "webm"):
-        _unported(f"the {job.mux} muxer")
     if int(getattr(job, "gop_parallel", 0) or 0) > 1:
         _unported("GOP-parallel encoding")
     if int(getattr(job, "tile_parallel", 0) or 0) > 1:
@@ -456,41 +454,87 @@ class _NullMux:
 # mux adapter
 # ---------------------------------------------------------------------------
 class _MuxAdapter:
-    """MP4Writer behind the write_video API (muxcommon.c role: track
-    fan-in; interleave is the writer's concern).  The mp4 branch of the
-    reference's adapter, video only."""
+    """Wraps MP4Writer/MKVWriter behind one write_video API (muxcommon.c
+    role: track fan-in; interleave is the writers' concern).  The video
+    parts of the reference's adapter."""
 
     def __init__(self, job: Job, out_fi, src):
-        from .mux.mp4 import MP4Writer
-        self.w = MP4Writer(job.file or "out.mp4")
-        self.vtrack = self.w.add_video_track(
-            codec="h264", width=out_fi.geometry.width,
-            height=out_fi.geometry.height)
-        # colr nclx from the title's signalled colorimetry (the
-        # muxavformat.c track-setup analog)
-        tcolor = dict(getattr(src, "color", None) or {})
-        tcolor.update(job.color or {})
-        self.w.tracks[self.vtrack].color = {
-            "Primaries": tcolor.get("Primaries", 1),
-            "Transfer": tcolor.get("Transfer", 1),
-            "Matrix": tcolor.get("Matrix", 1),
-            "Range": tcolor.get("Range", 1)}
+        self.kind = job.mux
+        path = job.file or "out.mp4"
+        if job.vcodec in ("hevc_tpu", "x265", "hevc", "h265"):
+            mux_vcodec = "hevc"
+        elif job.vcodec in ("av1_tpu", "svt_av1", "av1"):
+            mux_vcodec = "av1"
+        elif job.vcodec in ("mpeg2", "mpeg4", "vp9", "vp8", "ffv1",
+                            "prores", "theora"):
+            mux_vcodec = job.vcodec      # lavc catalog: raw samples
+        else:
+            mux_vcodec = "h264"
+        self._raw_video = mux_vcodec not in ("h264", "hevc", "av1")
+        if self._raw_video and self.kind not in ("mkv", "webm"):
+            raise WorkError(
+                f"{mux_vcodec} output requires the mkv container")
+        if self.kind in ("mkv", "webm"):
+            from .mux.mkv import MKVWriter
+            self.w = MKVWriter(path, webm=(self.kind == "webm"))
+            self.vtrack = self.w.add_video_track(
+                codec=mux_vcodec, width=out_fi.geometry.width,
+                height=out_fi.geometry.height,
+                fps=float(out_fi.vrate))
+        else:
+            from .mux.mp4 import MP4Writer
+            self.w = MP4Writer(path)
+            self.vtrack = self.w.add_video_track(
+                codec=mux_vcodec, width=out_fi.geometry.width,
+                height=out_fi.geometry.height)
+            # colr nclx from the title's signalled colorimetry (the
+            # muxavformat.c track-setup analog; mdcv/clli follow from
+            # side_data at write_video time)
+            tcolor = dict(getattr(src, "color", None) or {})
+            tcolor.update(job.color or {})
+            self.w.tracks[self.vtrack].color = {
+                "Primaries": tcolor.get("Primaries", 1),
+                "Transfer": tcolor.get("Transfer", 1),
+                "Matrix": tcolor.get("Matrix", 1),
+                "Range": tcolor.get("Range", 1)}
         if job.chapter_markers:
             for i, (start, name) in enumerate(getattr(src, "chapters", [])):
                 title = job.chapter_names[i] \
                     if i < len(job.chapter_names) else name
                 self.w.add_chapter(start, title or f"Chapter {i + 1}")
-        self.w.metadata = dict(job.metadata)
-        self._vdts = 0
+        self.metadata = dict(job.metadata)
+        if hasattr(self.w, "metadata"):
+            self.w.metadata = self.metadata
 
     def write_video(self, au: bytes, fb: Buffer, idr: bool):
+        sd = fb.side_data or {}
+        if sd and self.kind not in ("mkv", "webm"):
+            t = self.w.tracks[self.vtrack]
+            if "mastering_display" in sd and not t.mastering:
+                t.mastering = sd["mastering_display"]
+            if "content_light" in sd and not t.cll:
+                t.cll = sd["content_light"]
         dur = fb.duration or 0
-        # decode-order samples: cts offset = display pts vs the
-        # decode-order clock (non-zero only for B reorder; ctts v1)
-        cts = (fb.pts - self._vdts) if fb.pts is not None else 0
-        self._vdts += dur
-        self.w.write_sample(self.vtrack, au, duration=dur, sync=idr,
-                            cts_offset=cts, annexb=True)
+        annexb = not self._raw_video
+        cp = sd.get("codec_private")
+        if cp and self.kind in ("mkv", "webm") \
+                and not self.w.tracks[self.vtrack].private:
+            # catalog encoders (theora/mpeg4/...) carry their config in
+            # extradata — MKV CodecPrivate, set before the first sample
+            self.w.tracks[self.vtrack].private = cp
+        if self.kind in ("mkv", "webm"):
+            # the H.264 CodecPrivate (avcC) comes from the first sample's
+            # SPS/PPS, before the track header is written
+            self.w.write_sample(self.vtrack, au, pts_90k=fb.pts or 0,
+                                duration_90k=dur, sync=idr, annexb=annexb)
+        else:
+            # decode-order samples: cts offset = display pts vs the
+            # decode-order clock (non-zero only for B reorder; ctts v1)
+            vdts = getattr(self, "_vdts", 0)
+            cts = (fb.pts - vdts) if fb.pts is not None else 0
+            self._vdts = vdts + dur
+            self.w.write_sample(self.vtrack, au, duration=dur, sync=idr,
+                                cts_offset=cts, annexb=annexb)
 
     def finalize(self):
         self.w.finalize()

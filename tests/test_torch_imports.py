@@ -64,7 +64,9 @@ JOB_PATH = ("core.buffer", "core.fifo", "core.pipeline", "core.state",
             "filters.deband", "filters.deblock", "filters.decomb",
             "filters.deinterlace", "filters.denoise", "filters.hqdn3d_cuda",
             "filters.detelecine", "filters.nlmeans", "filters.rpu",
-            "filters.sharp", "filters.simple")
+            "filters.sharp", "filters.simple", "filters.resample_cuda",
+            "sources.mkv", "mux.mkv", "codecs.h264.native_decoder",
+            "native.build")
 
 
 def test_port_imports_with_jax_blocked():

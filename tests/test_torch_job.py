@@ -274,7 +274,9 @@ UNPORTED_JOBS = {
     # nlmeans is ported; its mesh-sharded path is not
     "filter-nlmeans": lambda j: j.filters.append(
         S.FilterSpec(S.FILTER_NLMEANS, {"tile_parallel": 2})),
-    "mux-mkv": lambda j: setattr(j, "mux", "mkv"),
+    # mkv is ported; the catalog encoders that need it are not
+    "mux-mkv": lambda j: (setattr(j, "mux", "mkv"),
+                          setattr(j, "vcodec", "vp9")),
     "vcodec-hevc": lambda j: setattr(j, "vcodec", "hevc_tpu"),
     "bframes": lambda j: setattr(j, "bframes", 2),
     "gop-parallel": lambda j: setattr(j, "gop_parallel", 2),
@@ -298,28 +300,30 @@ def test_unported_job_raises(src, tmp_path, change):
                                   ["--gop-parallel", "2"],
                                   ["--tile-parallel", "2"],
                                   ["--checkpoint"], ["--resume"],
-                                  ["-f", "webm"], ["-f", "mkv"]])
+                                  ["-f", "webm", "-e", "vp9"],
+                                  ["-f", "mkv", "-e", "mpeg2"]])
 def test_unported_cli_option_raises(src, tmp_path, opts):
     with pytest.raises(NotImplementedError):
         cli(["-i", src, "-o", str(tmp_path / "x.mp4"), "--device", "cpu",
              *opts])
 
 
-def test_unported_sources_raise(src, tmp_path):
-    mkv = tmp_path / "a.mkv"
-    mkv.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(64))
+def test_unported_sources_raise(tmp_path):
+    """mp4, mkv and annex-B H.264 sources are ported (test_torch_job_sources
+    and test_torch_h264dec hold them); AVI, MPEG-TS, HEVC elementary
+    streams and disc folders are not."""
+    avi = tmp_path / "a.avi"
+    avi.write_bytes(b"RIFF" + bytes(4) + b"AVI " + bytes(64))
     ts = tmp_path / "a.ts"
     ts.write_bytes(b"\x47" + bytes(187))
-    mp4 = str(tmp_path / "own.mp4")
-    work.do_job(_job(S, src, mp4, "unscaled"), device="cpu")
-    for path in (str(mkv), str(ts)):
+    hevc = tmp_path / "a.265"
+    hevc.write_bytes(b"\x00\x00\x00\x01\x40\x01" + bytes(32))
+    disc = tmp_path / "VIDEO_TS"
+    disc.mkdir()
+    for path in (str(avi), str(ts), str(hevc), str(disc)):
         with pytest.raises(NotImplementedError):
             work.do_job(_job(S, path, str(tmp_path / "x.mp4"), "unscaled"),
                         device="cpu")
-    # the port reads its own mp4 back, but has no H.264 decoder yet
-    assert _mp4(mp4)[3] == (W, H)
     with pytest.raises(NotImplementedError):
-        work.do_job(_job(S, mp4, str(tmp_path / "y.mp4"), "unscaled"),
-                    device="cpu")
-    with pytest.raises(NotImplementedError):
-        cli(["-i", mp4, "-o", str(tmp_path / "y.mp4"), "--device", "cpu"])
+        cli(["-i", str(avi), "-o", str(tmp_path / "y.mp4"), "--device",
+             "cpu"])

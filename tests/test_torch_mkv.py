@@ -1,0 +1,141 @@
+"""The port's Matroska/WebM writer (``mux/mkv.py``) and demuxer
+(``sources/mkv.py``) held against the JAX package's: the same samples,
+chapters and WebM flag give the same bytes, and the port's demuxer reads
+those files into the reference's tracks, chapters and packets.  Also the
+copies themselves: each copied file equals its original (the decoder's
+Python wrapper up to its one rewritten import)."""
+import filecmp
+import os
+
+import pytest
+
+import handbrake_tpu
+import handbrake_tpu_torch
+from handbrake_tpu.mux.mkv import MKVWriter as JMKVWriter
+from handbrake_tpu.sources.mkv import MKVDemuxer as JMKVDemuxer
+from handbrake_tpu_torch.codecs.h264.encoder import EncoderConfig, H264Encoder
+from handbrake_tpu_torch.mux.mkv import MKVWriter
+from handbrake_tpu_torch.sources.mkv import MKVDemuxer, probe_is_mkv
+from handbrake_tpu_torch.sources.probe import open_source
+from handbrake_tpu_torch.utils.synth import make_clip
+
+
+def _aus(n=5, gop=3):
+    """H.264 access units (annex-B, SPS/PPS on each IDR) of the port's
+    encoder on the CPU."""
+    enc = H264Encoder(EncoderConfig(width=48, height=32, qp=30, gop=gop,
+                                    deblock=True, cabac=True,
+                                    transform8x8=True), device="cpu")
+    return [enc.encode_frame(*f) for f in make_clip(48, 32, n, seed=6)]
+
+
+AUS = []
+
+
+def _samples():
+    if not AUS:
+        AUS.extend(_aus())
+    return AUS
+
+
+# (webm, chapters, audio and subtitle tracks, fps)
+WRITES = {
+    "mkv-video": (False, False, False, 29.97),
+    "mkv-chapters-audio-subs": (False, True, True, 25.0),
+    "webm-video": (True, False, False, 30.0),
+    "webm-chapters-audio": (True, True, True, 0.0),
+}
+
+
+def _write(Writer, path, case):
+    webm, chapters, extra, fps = WRITES[case]
+    w = Writer(path, webm=webm)
+    v = w.add_video_track(codec="h264", width=48, height=32, fps=fps)
+    a = s = None
+    if extra:
+        a = w.add_audio_track(codec="opus" if webm else "aac",
+                              sample_rate=48000, channels=2,
+                              private=b"\x12\x10", language="eng")
+        if not webm:
+            s = w.add_subtitle_track(codec="srt", language="fre")
+    if chapters:
+        w.add_chapter(0, "One")
+        w.add_chapter(6006, "Two")
+    for i, au in enumerate(_samples()):
+        # 2.5 s apart from frame 3 on, so a new cluster starts there
+        pts = i * 3003 + (225000 if i >= 3 else 0)
+        w.write_sample(v, au, pts_90k=pts, duration_90k=3003,
+                       sync=i % 3 == 0, annexb=True)
+        if a is not None:
+            w.write_sample(a, bytes([i]) * 9, pts_90k=pts + 100,
+                           duration_90k=1920)
+        if s is not None and i == 1:
+            w.write_sample(s, b"hello", pts_90k=pts, duration_90k=9000)
+    w.finalize()
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _read(Demuxer, path):
+    d = Demuxer(path)
+    try:
+        tracks = [(t.kind, t.codec, t.width, t.height, t.frame_rate,
+                   t.extradata, t.sample_rate, t.channels, t.language)
+                  for t in d.tracks]
+        pkts = [(trk, b.pts, b.dts, b.duration, b.stop, int(b.frametype),
+                 b.track_kind, bytes(b.data)) for trk, b in d.packets()]
+        return (tracks, pkts, d.duration, list(getattr(d, "chapters", [])),
+                d.seek(6006))
+    finally:
+        d.close()
+
+
+@pytest.mark.parametrize("case", list(WRITES))
+def test_mkv_writer_bytes_and_demuxer_equal_reference(tmp_path, case):
+    got = _write(MKVWriter, str(tmp_path / "port.mkv"), case)
+    want = _write(JMKVWriter, str(tmp_path / "ref.mkv"), case)
+    assert got == want
+    assert probe_is_mkv(got[:16])
+    assert (b"webm" in got[:64]) == WRITES[case][0]
+    for path in (str(tmp_path / "port.mkv"), str(tmp_path / "ref.mkv")):
+        assert _read(MKVDemuxer, path) == _read(JMKVDemuxer, path)
+    tracks, pkts, *_ = _read(MKVDemuxer, str(tmp_path / "port.mkv"))
+    video = [p for p in pkts if p[0] == 0]
+    # the samples come back as the annex-B the writer was given, less the
+    # parameter sets, which went into the CodecPrivate (avcC)
+    assert tracks[0][:2] == ("video", "h264") and \
+        tracks[0][5].startswith(b"\x01")
+    assert len(video) == len(_samples())
+    # open_source takes Matroska now
+    src = open_source(str(tmp_path / "port.mkv"))
+    assert isinstance(src, MKVDemuxer)
+    src.close()
+
+
+# every file this slice copies from the JAX package, and the lines a
+# copy may change (its imports)
+COPIES = {
+    "native/hbdec264.cpp": (),
+    "mux/mkv.py": (),
+    "sources/mkv.py": (),
+    "codecs/h264/native_decoder.py": (
+        ("        from ...native import get_lib\n",
+         "        from ...native import get_decoder_lib as get_lib\n"),),
+}
+
+
+@pytest.mark.parametrize("rel", list(COPIES))
+def test_copy_equals_original(rel):
+    port = os.path.join(os.path.dirname(handbrake_tpu_torch.__file__), rel)
+    ref = os.path.join(os.path.dirname(handbrake_tpu.__file__), rel)
+    if not COPIES[rel]:
+        assert filecmp.cmp(port, ref, shallow=False)
+        return
+    with open(port) as f:
+        got = f.read()
+    with open(ref) as f:
+        want = f.read()
+    for old, new in COPIES[rel]:
+        assert want.count(old) == 1 and got.count(new) == 1
+        want = want.replace(old, new)
+    assert got == want
