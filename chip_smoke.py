@@ -52,20 +52,23 @@ Phases (none is caught; any failure exits non-zero before the last line):
    differ printed; the resample kernel (``csrc/resample.cu``) against its
    plain version on the card, bit for bit: (a)'s planes (3840x1608 luma
    to 1920x804, chroma with its siting shift), odd sizes and up-scales,
-   with lanczos, bicubic, bilinear and point, 8 and 10 bits; (c)
+   with lanczos, bicubic, bilinear and point, 8 and 10 bits, and
+   ``RS_RAGGED``: tiles one more and one less than a tile multiple, odd
+   pitches, 16-bit output from 8-bit input, 8x down lanczos; (c)
    a 1920x1080 y4m of 33 ``make_clip`` frames through ``work.do_job``
    (H.264 High, quality 26, mp4, no crop/scale): its samples, as annex-B,
    must equal the stream of an ``H264Encoder`` driven directly on the
    same frames with the job's gop and each frame's qp from
    ``RateController("cq", qp=26)``; (d) the jobs' wall time and fps, the
    crop/scale filter's time per frame on the card, the resample kernel's
-   time on (a)'s three planes (back-to-back launches) beside the
-   function's bound (its banded taps and its planes), the kernels' own
-   device time (``torch.profiler``), its plain version's time, the time
-   of the two dense ``torch.matmul`` products
-   that compute the same function (the library call, used nowhere in the
-   port) and its launches per job frame, and the time to bring the scaled
-   planes back to the host; (e) the
+   time on (a)'s three planes (one launch: back to back, and with a cold
+   L2 after a 64 MB write) beside the function's bound (its banded taps
+   and its planes), its own device time (``torch.profiler``), registers,
+   local bytes and shared memory, its plain version's time, the time of
+   the two dense ``torch.matmul`` products that compute the same function
+   (the library call, used nowhere in the port) and its launches per job
+   frame, and the time to bring the scaled planes back to the host; (e)
+   the
    kernel on a letterbox P frame's own inputs (the source's next frame,
    scaled on the card, analysed against (a)'s final references), as in
    step 4.
@@ -108,10 +111,11 @@ Phases (none is caught; any failure exits non-zero before the last line):
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's and 7's counts, ``ms_letterbox_input`` step 5 (e)'s time;
    hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s count,
-   with ``launches_per_frame``; resample: ``ms`` is 5 (d)'s kernel time
-   on (a)'s planes, ``launches`` 5 (a)'s count, ``library_ms`` the dense
-   products' time), the card's name and power limit, and the result
-   line.
+   with ``launches_per_frame``; resample: ``ms`` and ``cold_ms`` are 5
+   (d)'s kernel times on (a)'s planes, ``launches`` 5 (a)'s count, one a
+   frame, ``library_ms`` the dense products' time, ``regs``,
+   ``local_bytes`` and ``smem_bytes`` the kernel's), the card's name and
+   power limit, and the result line.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -181,6 +185,21 @@ RS_CASES = (("odd down", 999, 1777, 541, 1103, -0.25),
             ("1080p to 720p", 1080, 1920, 720, 1280, 0.0),
             ("one row", 1, 97, 1, 50, 0.0), ("one sample", 1, 1, 3, 2, 0.0))
 RS_KINDS = ("lanczos", "bicubic", "bilinear", "point")
+# the new kernel's ragged tiles (its first tile is 16 rows x 128 columns),
+# each in one kind (label, in_h, in_w, out_h, out_w, shift, kind, input
+# bits, maxval): a tile multiple and one more, one less; odd pitches;
+# 16-bit output from 8-bit input; 8x down lanczos (48 taps, smaller tiles)
+RS_RAGGED = (("tile+1", 66, 516, 17, 129, 0.0, "lanczos", 8, 255),
+             ("tile-1", 62, 508, 15, 127, -0.25, "lanczos", 8, 255),
+             ("2 tiles+1", 70, 520, 33, 257, 0.0, "bicubic", 8, 255),
+             ("2 tiles-1", 60, 1016, 31, 255, -0.25, "lanczos", 10, 1023),
+             ("odd pitch", 101, 333, 50, 166, 0.0, "lanczos", 8, 255),
+             ("odd pitch 16-bit", 77, 1001, 38, 500, -0.25, "lanczos", 10,
+              1023),
+             ("16-bit out", 64, 512, 32, 256, 0.0, "bicubic", 8, 1023),
+             ("8x down", 2160, 3840, 270, 480, 0.0, "lanczos", 8, 255),
+             ("8x down 16-bit", 1080, 1920, 135, 240, -0.25, "lanczos", 10,
+              1023))
 SRC_N = 33              # frames of the H.264-source job (step 7)
 
 
@@ -667,7 +686,7 @@ def phase_letterbox_job(tmp, label):
           f"mp4 {len(samples)} samples at {size[0]}x{size[1]}, avcC "
           f"{len(ti.extradata)} B; deblock264 launches {launches}, P frames "
           f"{n_p}, re-analysed {spy.enc.n_redo}; resample launches "
-          f"{rs_launches} (3 planes a frame)", flush=True)
+          f"{rs_launches} (one a frame, for its 3 planes)", flush=True)
     if crop != (pj.JOB_BAR, pj.JOB_BAR, 0, 0):
         raise RuntimeError("the scan did not autocrop the bars exactly")
     if size != JOB_OUT or size != (cs["width"], cs["height"]):
@@ -677,9 +696,9 @@ def phase_letterbox_job(tmp, label):
     if launches != n_p + spy.enc.n_redo or launches == 0:
         raise RuntimeError("the job did not launch deblock264 once per "
                            "analysed P frame")
-    if rs_launches != 3 * N_FRAMES:
+    if rs_launches != N_FRAMES:
         raise RuntimeError("the job did not launch the resample kernel once "
-                           "per plane of each frame")
+                           "a frame (its three planes in one launch)")
     # the port's CPU encoder (compute_bs + deblock_plain in its P frames)
     # on the scaled planes the job encoded: frame 2 is coded against
     # frame 1's deblocked reference, so its bytes hold the kernel to the
@@ -796,16 +815,18 @@ def dense_resample(planes, settings):
     return run
 
 
-def resample_case(dev, in_h, in_w, out_h, out_w, shift, kind, bits, seed):
-    """The kernel against its plain version on one random plane on the
-    card; returns the largest difference."""
+def resample_case(dev, in_h, in_w, out_h, out_w, shift, kind, bits, seed,
+                  maxval=None):
+    """The kernel against its plain version on one random plane of `bits`
+    (uint8 or uint16) on the card, to maxval (default 2^bits - 1); returns
+    the largest difference."""
     import torch
     from handbrake_tpu_torch.filters import resample_cuda
     from handbrake_tpu_torch.filters.kernels import (resample_band,
                                                      resample_plain)
     rng = np.random.default_rng(seed)
-    mx = (1 << bits) - 1
-    x = torch.from_numpy(rng.integers(0, mx + 1, (in_h, in_w)).astype(
+    mx = maxval or (1 << bits) - 1
+    x = torch.from_numpy(rng.integers(0, 1 << bits, (in_h, in_w)).astype(
         np.uint8 if bits == 8 else np.uint16)).to(dev)
     bands = [torch.from_numpy(b).to(dev) for b in
              resample_band(in_h, out_h, kind)
@@ -823,12 +844,14 @@ def phase_resample(first, settings, label):
     """(b): CropScaleFilter on (a)'s first frame on the card and on the
     CPU, equal; the resample kernel against its plain version on the
     card, bit for bit; (d) the filter's time per frame on the card, the
-    kernel's time on (a)'s planes beside the function's bound, the plain
-    version's and the dense products' time, and the time to bring the
-    scaled planes to the host.  Returns the kernel's numbers."""
+    kernel's time on (a)'s planes (one launch for the three, warm and
+    with a cold L2) beside the function's bound, the plain version's and
+    the dense products' time, and the time to bring the scaled planes to
+    the host.  Returns the kernel's numbers."""
     import torch
     from handbrake_tpu_torch.filters import resample_cuda
     from handbrake_tpu_torch.filters.kernels import (_band, resample_plain)
+    from handbrake_tpu_torch.tools import ablate_resample
     on_dev = crop_scale_filter(settings, "cuda")
     got = [p.cpu().numpy() for p in scale(on_dev, first)]
     want = [p.numpy() for p in scale(crop_scale_filter(settings, "cpu"),
@@ -865,80 +888,96 @@ def phase_resample(first, settings, label):
                         f"the resample kernel differs from its plain "
                         f"version: {what} {in_w}x{in_h} to {out_w}x{out_h} "
                         f"{kind} {bits}-bit, max_abs_err {err}")
+    for i, (what, in_h, in_w, out_h, out_w, shift, kind, bits,
+            mx) in enumerate(RS_RAGGED):
+        err = resample_case(dev, in_h, in_w, out_h, out_w, shift, kind,
+                            bits, 7000 + i, mx)
+        max_err = max(max_err, err)
+        n_cases += 1
+        if err != 0:
+            raise RuntimeError(
+                f"the resample kernel differs from its plain version: "
+                f"{what} {in_w}x{in_h} to {out_w}x{out_h} {kind} {bits}-bit "
+                f"to maxval {mx}, max_abs_err {err}")
     print(f"resample kernel vs its plain version on the card: {n_cases} "
           f"cases ({', '.join(c[0] for c in cases)}; {'/'.join(RS_KINDS)}; "
-          f"8 and 10 bits), max_abs_err {max_err}", flush=True)
+          f"8 and 10 bits; and {', '.join(c[0] for c in RS_RAGGED)}), "
+          f"max_abs_err {max_err}", flush=True)
     out = {"max_abs_err": max_err, "cases": n_cases, "frac_differ": fracs}
     planes = scale(on_dev, first)
     out["filter_ms"] = cuda_ms(lambda: scale(on_dev, first), CS_REPS)
     out["d2h_ms"] = cuda_ms(lambda: [p.cpu() for p in planes], CS_REPS)
-    # the kernel alone on (a)'s planes, already on the card: back-to-back
-    # launches of all three planes with the arguments prepared first
+    # the kernel alone on (a)'s planes, already on the card: one launch for
+    # all three with the arguments prepared first
     dev_planes = [torch.from_numpy(np.ascontiguousarray(
         p[t // s:p.shape[0] - b // s, l // s:p.shape[1] - r // s])).to(dev)
         for p, s in zip(first, (1, 2, 2))]
-    prepared = []
+    items, bands = [], []
     for p, sh in zip(dev_planes, (0.0, -0.25, -0.25)):
         o_h, o_w = (oh, ow) if sh == 0.0 else (oh // 2, ow // 2)
         bv = _band(p.shape[0], o_h, "lanczos", 0.0, 0.0, dev)
         bh = _band(p.shape[1], o_w, "lanczos", sh, sh, dev)
-        prepared.append((resample_cuda.prepare(p, *bv, *bh, 255), bv, bh))
+        pl = resample_cuda.planned(*p.shape, o_h, o_w, "lanczos", (0.0, 0.0),
+                                   (sh, sh), 1, 1, dev)
+        items.append((p, *bv, *bh, 255, pl))
+        bands.append((bv, bh))
+    kout, args, _keep = resample_cuda.prepare(items)
     lib = resample_cuda.load()
 
-    def kernel_once():
-        for (_o, args, _keep), _bv, _bh in prepared:
-            if lib.resample_launch(*args) != 0:
-                raise RuntimeError("resample launch failed")
-    for _ in range(3):
-        kernel_once()
-    ea = torch.cuda.Event(enable_timing=True)
-    eb = torch.cuda.Event(enable_timing=True)
-    ea.record()
-    for _ in range(KERNEL_REPS):
-        kernel_once()
-    eb.record()
-    eb.synchronize()
-    out["ms"] = ea.elapsed_time(eb) / KERNEL_REPS
-    # the kernels' own device time (CUPTI through torch.profiler), to tell
-    # it from the host's time to enqueue the six launches
+    def launch():
+        if lib.resample_frame_launch(*args) != 0:
+            raise RuntimeError("resample launch failed")
+    # warm: back-to-back frames; cold: each frame after a 64 MB write
+    out["ms"] = ablate_resample.timed(launch)
+    flush = torch.empty(ablate_resample.FLUSH_BYTES, dtype=torch.uint8,
+                        device=dev)
+    out["cold_ms"] = ablate_resample.timed(launch, flush)
+    del flush
+    out["smem_bytes"] = args[1]
+    out.update(resample_cuda.kernel_attrs(1, 1, lib))
+    # the kernel's own device time (CUPTI through torch.profiler), to tell
+    # it from the host's time to enqueue the launch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(KERNEL_REPS):
-            kernel_once()
+            lib.resample_frame_launch(*args)
         torch.cuda.synchronize()
-    passes = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and ("vpass" in e.key or "hpass" in e.key)]
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "resample_frame" in e.key]
     out["device_ms"] = sum(e.self_device_time_total
-                           for e in passes) / KERNEL_REPS / 1e3
-    out["vpass_ms"] = sum(e.self_device_time_total for e in passes
-                          if "vpass" in e.key) / KERNEL_REPS / 1e3
-    out["kernels_per_frame"] = sum(e.count for e in passes) / KERNEL_REPS
-    kout = [o for (o, _a, _k), _bv, _bh in prepared]
+                           for e in kern) / KERNEL_REPS / 1e3
+    out["kernels_per_frame"] = sum(e.count for e in kern) / KERNEL_REPS
     out["plain_ms"] = cuda_ms(lambda: [
         resample_plain(p, *bv, *bh, 255)
-        for p, (_x, bv, bh) in zip(dev_planes, prepared)], 3)
+        for p, (bv, bh) in zip(dev_planes, bands)], 3)
     dense = dense_resample(dev_planes, settings)
     out["library_ms"] = cuda_ms(dense, CS_REPS)
     lib_err = max(int((a.int() - k.int()).abs().max())
                   for a, k in zip(dense(), kout))
     out.update(crop_scale_bound(settings))
     print(f"resample (d) ({label}): kernel {out['ms']:.4f} ms per frame on "
-          f"(a)'s three planes ({KERNEL_REPS} back-to-back launches of each, "
-          f"CUDA events), of which the card runs its "
-          f"{out['kernels_per_frame']:.0f} kernels {out['device_ms']:.4f} ms "
-          f"(torch.profiler; the vertical passes {out['vpass_ms']:.4f}); "
-          f"bound of the function {out['bound_ms'] * 1e3:.2f} us by "
-          f"{out['bound_by']} ({out['bytes'] / 1e6:.2f} MB at 3.35 "
-          f"TB/s; {out['ops'] / 1e9:.3f} GFLOP of banded taps at 67 TFLOP/s "
-          f"f32); plain version {out['plain_ms']:.2f} ms; the dense "
-          f"torch.matmul products (library call, TF32 off) "
-          f"{out['library_ms']:.4f} ms ({out['dense_ops'] / 1e9:.2f} GFLOP), "
-          f"{lib_err} LSB from the kernel at most; the filter call "
-          f"{out['filter_ms']:.4f} ms per frame (host planes, upload "
-          f"included; median of {CS_REPS}); scaled planes to the host "
-          f"{out['d2h_ms']:.4f} ms per frame", flush=True)
+          f"(a)'s three planes (one launch, {ablate_resample.REPS} back to "
+          f"back, CUDA events), {out['cold_ms']:.4f} ms with a cold L2 "
+          f"(median of {ablate_resample.REPS}, "
+          f"{ablate_resample.FLUSH_BYTES >> 20} MB written before each); the "
+          f"card runs {out['kernels_per_frame']:.0f} kernel a frame, "
+          f"{out['device_ms']:.4f} ms (torch.profiler); {out['regs']} "
+          f"registers, {out['local_bytes']} local bytes, "
+          f"{out['smem_bytes']} B of shared memory a block; bound of the "
+          f"function {out['bound_ms'] * 1e3:.2f} us by {out['bound_by']} "
+          f"({out['bytes'] / 1e6:.2f} MB at 3.35 TB/s; "
+          f"{out['ops'] / 1e9:.3f} GFLOP of banded taps at 67 TFLOP/s f32), "
+          f"{out['bound_ms'] / max(out['device_ms'], 1e-9) * 100:.1f} % of "
+          f"it (device time); plain "
+          f"version {out['plain_ms']:.2f} ms; the dense torch.matmul "
+          f"products (library call, TF32 off) {out['library_ms']:.4f} ms "
+          f"({out['dense_ops'] / 1e9:.2f} GFLOP), {lib_err} LSB from the "
+          f"kernel at most; the filter call {out['filter_ms']:.4f} ms per "
+          f"frame (host planes, upload included; median of {CS_REPS}); "
+          f"scaled planes to the host {out['d2h_ms']:.4f} ms per frame",
+          flush=True)
     return out
 
 
@@ -1444,10 +1483,12 @@ def main() -> int:
         "launches": job_a["resample_launches"],
         "launches_per_frame": job_a["resample_launches"] / N_FRAMES,
         "equal": rs["max_abs_err"] == 0, "max_abs_err": rs["max_abs_err"],
-        "cases": rs["cases"], "ms": rs["ms"], "plain_ms": rs["plain_ms"],
-        "bound_ms": rs["bound_ms"], "bound_us": rs["bound_ms"] * 1e3,
-        "bound_by": rs["bound_by"], "library_ms": rs["library_ms"],
-        "device_ms": rs["device_ms"], "vpass_ms": rs["vpass_ms"],
+        "cases": rs["cases"], "ms": rs["ms"], "cold_ms": rs["cold_ms"],
+        "plain_ms": rs["plain_ms"], "bound_ms": rs["bound_ms"],
+        "bound_us": rs["bound_ms"] * 1e3, "bound_by": rs["bound_by"],
+        "library_ms": rs["library_ms"], "device_ms": rs["device_ms"],
+        "vpass_ms": None, "regs": rs["regs"],
+        "local_bytes": rs["local_bytes"], "smem_bytes": rs["smem_bytes"],
         "filter_ms": rs["filter_ms"]}
     print(f"job 7 numbers: {json.dumps(job_s)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)

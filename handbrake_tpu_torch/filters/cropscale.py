@@ -19,7 +19,7 @@ from __future__ import annotations
 from ..core.buffer import Buffer, Geometry
 from ..utils.device import resolve_device
 from .base import Filter, FilterInit, register
-from .kernels import maxval_of, resample_plane
+from .kernels import maxval_of, resample_planes
 from ..job import schema as S
 
 
@@ -52,24 +52,31 @@ class CropScaleFilter(Filter):
         mx = maxval_of(fmt)
         sw, sh = fmt.subsampling
         y = buf.planes[0][t:buf.height - b, l:buf.width - r]
-        same = (tuple(y.shape) == (self.out_h, self.out_w))
-        planes = [y if same else
-                  resample_plane(y, self.out_h, self.out_w, self.method,
-                                 maxval=mx, device=self.device)]
-        # chroma: left-sited horizontally when subsampled by 2
+        planes = [y]
+        # (index, spec) of each plane that needs a resample; chroma is
+        # left-sited horizontally when subsampled by 2
+        todo = []
+        if tuple(y.shape) != (self.out_h, self.out_w):
+            todo.append((0, (y, self.out_h, self.out_w, self.method,
+                             (0.0, 0.0), (0.0, 0.0), mx)))
         csh = -0.25 if sw == 2 else 0.0
+        och = (self.out_h + sh - 1) // sh
+        ocw = (self.out_w + sw - 1) // sw
         for p in buf.planes[1:]:
             cp = p[t // sh:(buf.height - b + sh - 1) // sh,
                    l // sw:(buf.width - r + sw - 1) // sw]
-            och = (self.out_h + sh - 1) // sh
-            ocw = (self.out_w + sw - 1) // sw
-            if tuple(cp.shape) == (och, ocw):
-                planes.append(cp)
-            else:
-                planes.append(resample_plane(
-                    cp, och, ocw, self.method,
-                    shift_in=(0.0, csh), shift_out=(0.0, csh), maxval=mx,
-                    device=self.device))
+            planes.append(cp)
+            if tuple(cp.shape) != (och, ocw):
+                todo.append((len(planes) - 1,
+                             (cp, och, ocw, self.method, (0.0, csh),
+                              (0.0, csh), mx)))
+        # all of a frame's resamples in one call (one kernel launch on the
+        # card)
+        if todo:
+            done = resample_planes([spec for _i, spec in todo],
+                                   device=self.device)
+            for (i, _spec), plane in zip(todo, done):
+                planes[i] = plane
         # resampled planes stay on the device; the encode stage brings
         # them to the host
         out = Buffer(planes=planes, pix_fmt=fmt).copy_props(buf)

@@ -9,15 +9,15 @@ chroma-siting offsets.  The reference computes out = A_v @ img @ A_h^T as
 two dense f32 products; the port takes each output sample's band of
 nonzero weights (``resample_band``, from the copied ``resample_matrix``,
 built on the host once per geometry and kept on the device) and sums it
-as a chain of f32 fmas in ascending input order from 0, the order in
-which XLA:CPU computes the reference's vertical product; then round half
-to even, clip and cast.  On the card that is the hand-written kernel
+in the order in which XLA:CPU sums the reference's products
+(``vertical_order``, ``horizontal_order``: fma chains in lanes of the
+input index, in blocks of it, with a separately rounded tail); then round
+half to even, clip and cast.  On the card that is the hand-written kernel
 ``csrc/resample.cu`` (``resample_cuda.py``); ``resample_plain`` is its
-plain version, the same chain through ``utils/fp.fma32``, which a plane
-on the CPU takes.  So the card and the CPU give the same bits.  XLA:CPU
-sums the horizontal product in another order at some shapes, where a
-sample whose value lands near .5 may differ from the reference by one
-LSB; the 0/1 weights of ``point`` are exact.
+plain version, the same order through ``utils/fp.fma32``, which a plane
+on the CPU takes.  So the card and the CPU give the same bits, and both
+give the reference's bits wherever the order was measured
+(``tests/test_torch_resample_order.py``).
 """
 from __future__ import annotations
 
@@ -138,26 +138,113 @@ def _band(n_in: int, n_out: int, kind: str, shift_in: float,
                  resample_band(n_in, n_out, kind, shift_in, shift_out))
 
 
-def _band_pass(x: torch.Tensor, lo: torch.Tensor, taps: torch.Tensor
-               ) -> torch.Tensor:
-    """out[o, :] = the fma chain of taps[k, o] * x[lo[o] + k, :] over k
-    ascending, from 0, in f32 (x: (n_in, m) float32)."""
-    acc = torch.zeros((lo.shape[0], x.shape[1]), dtype=torch.float32,
-                      device=x.device)
+# XLA:CPU's order of the reference's two f32 products, measured on an
+# AVX-512 host (jaxlib 0.9.0: each dot runs as a YNNPACK kernel; the map
+# is tests/test_torch_resample_order.py).  Each output sums its K terms
+# (k the input index) in blocks of the K axis, [0, B), [B, 2B), ..., each
+# block from 0, the blocks added in order.  Within a block a term goes to
+# lane k mod L as an fma chain; the lanes are added as (l0 + l1) + (l2 +
+# l3).  Past the last multiple of L, the tail terms are multiplied and
+# added (two roundings each) in order from 0, and that sum is added last.
+# B is the K extent of a 128 KiB panel of the kernel's n columns.
+_PANEL = 32768          # f32 values of that panel
+_CHUNK = 64             # the vertical product's column tile
+
+
+def _block(n_cols: int, lanes: int) -> int:
+    b = _PANEL // n_cols
+    return b - b % 4 if lanes > 1 else b
+
+
+def horizontal_order(n_in: int, n_out: int) -> tuple:
+    """(lanes, block, main) of XLA:CPU's sum of the horizontal product
+    ``einsum("ow,cw->oc")`` over n_in terms into n_out columns (at least 2
+    output rows): the kernel XLA picks by the output width, and terms at
+    main = n_in - n_in % lanes and beyond form the tail."""
+    r = (n_out - 1) % 64 + 1
+    if n_out <= 24:
+        lanes, cols = 4, (-(-n_out // 4) * 4 if n_out <= 16 else 8)
+    elif 17 <= r <= 32:
+        lanes, cols = 2, 32
+    elif r >= 49:
+        lanes, cols = 1, 64
+    else:
+        lanes, cols = 4, 16
+    return lanes, _block(cols, lanes), n_in - n_in % lanes
+
+
+def vertical_order(n_in: int, width: int) -> list:
+    """XLA:CPU's order of the vertical product ``einsum("oh,hw->ow")`` over
+    n_in terms, for a plane `width` columns wide: [(col0, col1, lanes,
+    block, main)], one entry for each run of columns that shares it.  A
+    plane up to 64 wide is one tile (four lanes up to 16 columns); a wider
+    one takes tiles of 64 columns, with a narrower last tile."""
+    if width <= _CHUNK:
+        lanes = 4 if width <= 16 else 1
+        cols = -(-width // 4) * 4 if lanes > 1 else width
+        return [(0, width, lanes, _block(cols, lanes),
+                 n_in - n_in % lanes)]
+    split = width - width % _CHUNK
+    runs = [(0, split, 1, _block(_CHUNK, 1), n_in)]
+    if split < width:
+        runs.append((split, width, 1, _block(width - split, 1), n_in))
+    return runs
+
+
+def _lane_sum(acc: torch.Tensor) -> torch.Tensor:
+    while acc.shape[0] > 1:
+        acc = acc[0::2] + acc[1::2]
+    return acc[0]
+
+
+def _band_pass(x: torch.Tensor, lo: torch.Tensor, taps: torch.Tensor,
+               order=(1, None, None)) -> torch.Tensor:
+    """out[o, :] = the sum of taps[k, o] * x[lo[o] + k, :] over the band in
+    f32 (x: (n_in, m) float32), in `order` = (lanes, block, main) over the
+    absolute input index lo[o] + k (``horizontal_order``,
+    ``vertical_order``); the default is one fma chain in ascending order
+    from 0.  A zero weight adds a zero, which changes no sum, so the
+    band's zero padding changes no bit."""
+    lanes, block, main = order
+    n_in, n_out, m = x.shape[0], lo.shape[0], x.shape[1]
+    block = block or n_in
+    main = n_in if main is None else main
     idx = lo.long()
-    for k in range(taps.shape[0]):
-        acc = fma32(taps[k][:, None], x[idx + k], acc)
-    return acc
+    rows = torch.arange(n_out, device=x.device)
+    acc = torch.zeros((lanes, n_out, m), dtype=torch.float32,
+                      device=x.device)
+    total = torch.zeros((n_out, m), dtype=torch.float32, device=x.device)
+    tail = torch.zeros_like(total)
+    for t in range(taps.shape[0]):
+        k = idx + t
+        w, v = taps[t][:, None], x[k]
+        flush = (k % block == 0) & (k < main)
+        if bool(flush.any()):
+            f = flush[:, None]
+            total = torch.where(f, total + _lane_sum(acc), total)
+            acc = torch.where(f, torch.zeros_like(acc), acc)
+        in_tail = (k >= main)[:, None]
+        lane = k % lanes
+        cur = acc[lane, rows]
+        acc[lane, rows] = torch.where(in_tail, cur, fma32(w, v, cur))
+        if bool(in_tail.any()):
+            tail = torch.where(in_tail, w * v + tail, tail)
+    return (total + _lane_sum(acc)) + tail
 
 
 def resample_plain(img: torch.Tensor, lo_v, taps_v, lo_h, taps_h,
                    maxval: int) -> torch.Tensor:
     """The plain version of the resample kernel, on img's device: the
-    vertical band's fma chain, then the horizontal band's on the f32
-    intermediate, round (half to even), clip to [0, maxval], cast to
-    uint8/uint16."""
-    x = _band_pass(img.to(torch.float32), lo_v, taps_v)
-    x = _band_pass(x.T, lo_h, taps_h).T
+    vertical band's sum in ``vertical_order``, then the horizontal band's
+    on the f32 intermediate in ``horizontal_order``, round (half to even),
+    clip to [0, maxval], cast to uint8/uint16."""
+    x = img.to(torch.float32)
+    in_h, in_w = x.shape
+    x = torch.cat([_band_pass(x[:, c0:c1], lo_v, taps_v, (lanes, b, main))
+                   for c0, c1, lanes, b, main in vertical_order(in_h, in_w)],
+                  dim=1)
+    x = _band_pass(x.T, lo_h, taps_h,
+                   horizontal_order(in_w, lo_h.shape[0])).T
     return torch.clamp(torch.round(x), 0, maxval).to(out_dtype(maxval))
 
 
@@ -169,25 +256,43 @@ def to_tensor(plane, device: torch.device) -> torch.Tensor:
         np.require(plane, requirements=["C", "W"])).to(device)
 
 
+def resample_planes(specs, device=None) -> list:
+    """Resample planes through their separable bands.  specs: (plane,
+    out_h, out_w, kind, shift_in, shift_out, maxval) each, a plane being a
+    numpy array or a tensor; the work runs on the first plane's device if
+    it is a tensor, else on `device` (None: the CUDA card): one launch of
+    the kernel for all of them on the card (up to three, of one sample
+    size), the plain version plane by plane on the CPU.  Returns tensors
+    there."""
+    p0 = specs[0][0]
+    dev = resolve_device(p0.device if isinstance(p0, torch.Tensor)
+                         else device)
+    items = []
+    for plane, out_h, out_w, kind, shift_in, shift_out, maxval in specs:
+        in_h, in_w = plane.shape
+        sv = (float(shift_in[0]), float(shift_out[0]))
+        sh = (float(shift_in[1]), float(shift_out[1]))
+        x = to_tensor(plane, dev)
+        items.append((x, *_band(in_h, out_h, kind, *sv, dev),
+                      *_band(in_w, out_w, kind, *sh, dev), maxval,
+                      (out_h, out_w, kind, sv, sh)))
+    if dev.type == "cuda":
+        from . import resample_cuda
+        return resample_cuda.resample_frame([
+            (x.contiguous(), *bands, mx,
+             resample_cuda.planned(*x.shape, *geo, x.element_size(),
+                                   out_dtype(mx).itemsize, dev))
+            for x, *bands, mx, geo in items])
+    return [resample_plain(x, *bands, mx) for x, *bands, mx, _geo in items]
+
+
 def resample_plane(plane, out_h: int, out_w: int, kind: str = "lanczos",
                    shift_in=(0.0, 0.0), shift_out=(0.0, 0.0),
                    maxval: int = 255, device=None) -> torch.Tensor:
-    """Resample one plane through its separable bands.  The plane is a
-    numpy array or a tensor; the work runs on the tensor's device, else on
-    `device` (None: the CUDA card): the kernel on the card, its plain
-    version on the CPU.  Returns a tensor there."""
-    dev = resolve_device(plane.device if isinstance(plane, torch.Tensor)
-                         else device)
-    in_h, in_w = plane.shape
-    bv = _band(in_h, out_h, kind, float(shift_in[0]), float(shift_out[0]),
-               dev)
-    bh = _band(in_w, out_w, kind, float(shift_in[1]), float(shift_out[1]),
-               dev)
-    x = to_tensor(plane, dev)
-    if dev.type == "cuda":
-        from .resample_cuda import resample_cuda
-        return resample_cuda(x.contiguous(), *bv, *bh, maxval)
-    return resample_plain(x, *bv, *bh, maxval)
+    """Resample one plane through its separable bands
+    (``resample_planes`` of one plane)."""
+    return resample_planes([(plane, out_h, out_w, kind, shift_in,
+                             shift_out, maxval)], device)[0]
 
 
 def maxval_of(pix_fmt) -> int:

@@ -1,0 +1,204 @@
+"""The order in which XLA:CPU sums the reference's two resample products
+(``handbrake_tpu/filters/kernels.py`` ``_apply_separable``), mapped, and
+the port's rule for it (``filters/kernels.py`` ``vertical_order``,
+``horizontal_order``) held to it.
+
+- The map: each product ``einsum("oh,hw->ow")`` (vertical) and
+  ``einsum("ow,cw->oc")`` (horizontal) on random f32 data, at the test
+  shapes of ``tests/test_torch_resample.py``, the crop/scale geometries of
+  the presets (1080p to 720p, 2160p to 1080p, the letterbox job's
+  3840x1608 to 1920x804, each with its 4:2:0 chroma) and shapes that
+  show each lane count, block and tail, against the rule emulated in
+  numpy with exact f32 fmas, on a seeded sample of output rows.  Each
+  case prints its shape, the rule (lanes, block, main) and the share of
+  outputs that differ from the rule and from the plain ascending chain.
+- The bands: the port's ``_band_pass`` in that order on real bands at the
+  preset geometries, 8 and 10 bits, pass by pass against XLA's products
+  and the JAX package's ``_apply_separable``, bit for bit, on the rows
+  whose vertical band crosses a block and a seeded sample of the rest.
+
+Not matched, and printed as the map's open part: a product with one
+output row (a matrix-vector product), a vertical product with few output
+rows (8 here) and fewer than 1024 input rows, and the narrow last column
+tile of a vertical product with many output rows (999x1777 to 541 rows).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from handbrake_tpu.filters import kernels as jk
+from handbrake_tpu_torch.filters import kernels as tk
+
+_vertical = jax.jit(lambda a, x: jnp.einsum("oh,hw->ow", a, x))
+_horizontal = jax.jit(lambda x, a: jnp.einsum("ow,cw->oc", x, a))
+
+
+def fma32(a, b, c):
+    """f32 a * b + c rounded once, from float64 (a * b is exact there;
+    the error of the f64 sum decides the halfway cases)."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    cd = c.astype(np.float64)
+    s = p + cd
+    bb = s - p
+    e = (p - (s - bb)) + (cd - bb)
+    r = s.astype(np.float32)
+    d = s - r.astype(np.float64)
+    r2 = r.astype(np.float64) + 2.0 * d
+    mid = (d != 0) & (r2.astype(np.float32).astype(np.float64) == r2)
+    up = mid & (e != 0) & ((e > 0) == (d > 0))
+    return np.where(up, r2.astype(np.float32), r)
+
+
+def ordered_dot(x, a, lanes, block, main):
+    """x (m, K) times a (n, K)^T in the rule's order: blocks of K from 0,
+    lane k mod lanes as fma chains added (l0 + l1) + (l2 + l3), the
+    blocks added in order, then the tail from main on (products rounded,
+    added in order from 0)."""
+    m, k_all = x.shape
+    out = np.zeros((m, a.shape[0]), np.float32)
+    for b0 in range(0, main, block):
+        acc = [np.zeros_like(out) for _ in range(lanes)]
+        for k in range(b0, min(b0 + block, main)):
+            acc[k % lanes] = fma32(x[:, k, None], a[None, :, k],
+                                   acc[k % lanes])
+        while len(acc) > 1:
+            acc = [acc[i] + acc[i + 1] for i in range(0, len(acc), 2)]
+        out = out + acc[0]
+    tail = np.zeros_like(out)
+    for k in range(main, k_all):
+        tail = (x[:, k, None] * a[None, :, k]).astype(np.float32) + tail
+    return out + tail
+
+
+def chain_dot(x, a):
+    return ordered_dot(x, a, 1, x.shape[1], x.shape[1])
+
+
+# (pass, out rows M, terms K, columns N): the vertical product is
+# av (M, K) @ plane (K, N = the plane's width); the horizontal one is
+# mid (M, K = the plane's width) @ ah (N = the output width, K)^T
+TEST_SHAPES = [("v", 24, 48, 64), ("h", 24, 64, 32), ("v", 32, 45, 61),
+               ("h", 32, 61, 40), ("v", 40, 24, 32), ("h", 40, 32, 56),
+               ("v", 108, 216, 384), ("h", 108, 384, 192)]
+PRESET_SHAPES = [("v", 720, 1080, 1920), ("h", 720, 1920, 1280),
+                 ("v", 360, 540, 960), ("h", 360, 960, 640),
+                 ("v", 1080, 2160, 3840), ("h", 1080, 3840, 1920),
+                 ("v", 540, 1080, 1920), ("h", 540, 1920, 960),
+                 ("v", 804, 1608, 3840), ("h", 804, 3840, 1920),
+                 ("v", 402, 804, 1920), ("h", 402, 1920, 960)]
+# lanes 2 and 4, blocks of 2048 and 4096 with a tail, narrow planes, a
+# narrow last column tile, and few output rows
+RULE_SHAPES = [("h", 8, 3001, 20), ("h", 8, 2051, 40), ("h", 6, 2050, 88),
+               ("h", 4, 1777, 1103), ("h", 3, 600, 12), ("h", 2, 97, 50),
+               ("v", 6, 1203, 12), ("v", 4, 1100, 40), ("v", 8, 1100, 80),
+               ("v", 8, 1030, 129), ("v", 100, 900, 128)]
+# where the rule is known not to hold (ROADMAP §3): one output row (a
+# matrix-vector product); a vertical product with few output rows and
+# fewer than 1024 input rows, which XLA splits into other blocks; and the
+# narrow last column tile of a vertical product with many output rows
+LEFT_SHAPES = [("h", 1, 97, 50), ("v", 8, 900, 80), ("v", 2, 600, 129),
+               ("v", 8, 540, 960), ("v", 541, 999, 1777)]
+
+
+def _map_case(which, m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    if which == "v":
+        a = rng.standard_normal((m, k)).astype(np.float32)
+        x = rng.standard_normal((k, n)).astype(np.float32)
+        want = np.asarray(_vertical(a, x))
+        rows = np.sort(rng.choice(m, min(m, 2), replace=False))
+        got, chain, rule = np.zeros((rows.size, n), np.float32), None, []
+        for c0, c1, lanes, block, main in tk.vertical_order(k, n):
+            got[:, c0:c1] = ordered_dot(a[rows], x[:, c0:c1].T, lanes,
+                                        block, main)
+            rule.append((c0, c1, lanes, block, main))
+        chain = chain_dot(a[rows], x.T)
+    else:
+        x = rng.standard_normal((m, k)).astype(np.float32)
+        a = rng.standard_normal((n, k)).astype(np.float32)
+        want = np.asarray(_horizontal(x, a))
+        rows = np.sort(rng.choice(m, min(m, 2), replace=False))
+        rule = tk.horizontal_order(k, n)
+        got = ordered_dot(x[rows], a, *rule)
+        chain = chain_dot(x[rows], a)
+    want = want[rows]
+    share = float((got != want).mean())
+    chain_share = float((chain != want).mean())
+    print(f"order map: {which} M={m} K={k} N={n}: rule {rule}; outputs "
+          f"that differ from XLA's: the rule {share:.4g}, the ascending "
+          f"chain {chain_share:.4g}")
+    return share
+
+
+@pytest.mark.parametrize("which,m,k,n", TEST_SHAPES + PRESET_SHAPES
+                         + RULE_SHAPES)
+def test_xla_order_map(which, m, k, n):
+    assert _map_case(which, m, k, n, m * 131 + k * 7 + n) == 0.0
+
+
+@pytest.mark.parametrize("which,m,k,n", LEFT_SHAPES)
+def test_xla_order_map_left(which, m, k, n):
+    """The map's open part, printed with the rest: the rule differs from
+    XLA's order there (if it stops differing, ROADMAP §3 is stale)."""
+    assert _map_case(which, m, k, n, m * 131 + k * 7 + n) > 0.0
+
+
+# crop/scale geometries (in_h, in_w, out_h, out_w) of the presets, luma
+# and 4:2:0 chroma (left-sited: the horizontal shift -0.25)
+GEOMETRIES = {"1080p-720p-luma": (1080, 1920, 720, 1280, 0.0),
+              "1080p-720p-chroma": (540, 960, 360, 640, -0.25),
+              "2160p-1080p-luma": (2160, 3840, 1080, 1920, 0.0),
+              "2160p-1080p-chroma": (1080, 1920, 540, 960, -0.25),
+              "letterbox-luma": (1608, 3840, 804, 1920, 0.0),
+              "letterbox-chroma": (804, 1920, 402, 960, -0.25)}
+
+
+def _plane(h, w, bits, seed):
+    mx = (1 << bits) - 1
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = mx / 2 * (1 + np.sin(xx / 9.0) * np.cos(yy / 11.0))
+    return np.clip(smooth + rng.normal(0, mx / 12, smooth.shape), 0,
+                   mx).astype(np.uint8 if bits == 8 else np.uint16)
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_band_passes_equal_xla(geometry, bits):
+    in_h, in_w, out_h, out_w, sh = GEOMETRIES[geometry]
+    mx = (1 << bits) - 1
+    plane = _plane(in_h, in_w, bits, in_h + out_w + bits)
+    av = jk.resample_matrix(in_h, out_h, "lanczos")
+    ah = jk.resample_matrix(in_w, out_w, "lanczos", sh, sh)
+    lo_v, taps_v = tk.resample_band(in_h, out_h)
+    lo_h, taps_h = tk.resample_band(in_w, out_w, "lanczos", sh, sh)
+    # the rows whose vertical band crosses a block of the vertical order,
+    # and a seeded sample of the others
+    blocks = {b for *_c, _l, b, _m in tk.vertical_order(in_h, in_w)}
+    cross = [o for o in range(out_h) for b in blocks
+             if lo_v[o] // b != (lo_v[o] + taps_v.shape[0] - 1) // b]
+    rng = np.random.default_rng(bits)
+    rows = np.unique(np.concatenate([np.asarray(cross, np.int64),
+                                     rng.choice(out_h, 12, replace=False)]))
+    x = torch.from_numpy(plane.astype(np.float32))
+    lo_s = torch.from_numpy(lo_v[rows])
+    taps_s = torch.from_numpy(np.ascontiguousarray(taps_v[:, rows]))
+    p1 = torch.cat([tk._band_pass(x[:, c0:c1], lo_s, taps_s, (ln, b, mn))
+                    for c0, c1, ln, b, mn in tk.vertical_order(in_h, in_w)],
+                   dim=1).numpy()
+    want1 = np.asarray(_vertical(av, plane.astype(np.float32)))
+    assert np.array_equal(p1.view(np.uint32), want1[rows].view(np.uint32))
+    p2 = tk._band_pass(torch.from_numpy(p1.T.copy()),
+                       torch.from_numpy(lo_h), torch.from_numpy(taps_h),
+                       tk.horizontal_order(in_w, out_w)).T.numpy()
+    want2 = np.asarray(_horizontal(want1, ah))
+    assert np.array_equal(p2.view(np.uint32), want2[rows].view(np.uint32))
+    got = np.clip(np.round(p2), 0, mx)
+    want = np.asarray(jk.resample_plane(plane, out_h, out_w, "lanczos",
+                                        (0.0, sh), (0.0, sh), mx))
+    assert np.array_equal(got, want[rows].astype(np.float32))
+    print(f"bands {geometry} {bits}-bit: {rows.size} rows ({len(cross)} "
+          f"crossing a block of {sorted(blocks)}), both passes and the "
+          f"output equal to XLA's")
