@@ -52,9 +52,12 @@ Phases (none is caught; any failure exits non-zero before the last line):
    differ printed; the resample kernel (``csrc/resample.cu``) against its
    plain version on the card, bit for bit: (a)'s planes (3840x1608 luma
    to 1920x804, chroma with its siting shift), odd sizes and up-scales,
-   with lanczos, bicubic, bilinear and point, 8 and 10 bits, and
-   ``RS_RAGGED``: tiles one more and one less than a tile multiple, odd
-   pitches, 16-bit output from 8-bit input, 8x down lanczos; (c)
+   with lanczos, bicubic, bilinear and point, 8 and 10 bits, the DVD
+   upscales to 1080p (720x480 to 1440x1080, 720x576 to 1920x1080, luma
+   and chroma: planes 720 and 360 wide, four lanes in the vertical
+   order), and ``RS_RAGGED``: tiles one more and one less than a tile
+   multiple, odd pitches, 16-bit output from 8-bit input, 8x down
+   lanczos; (c)
    a 1920x1080 y4m of 33 ``make_clip`` frames through ``work.do_job``
    (H.264 High, quality 26, mp4, no crop/scale): its samples, as annex-B,
    must equal the stream of an ``H264Encoder`` driven directly on the
@@ -67,7 +70,8 @@ Phases (none is caught; any failure exits non-zero before the last line):
    local bytes and shared memory, its plain version's time, the time of
    the two dense ``torch.matmul`` products that compute the same function
    (the library call, used nowhere in the port) and its launches per job
-   frame, and the time to bring the scaled planes back to the host; (e)
+   frame, and the time to bring the scaled planes back to the host, and
+   the kernel's time on a DVD frame to 1080p (both upscales, warm); (e)
    the
    kernel on a letterbox P frame's own inputs (the source's next frame,
    scaled on the card, analysed against (a)'s final references), as in
@@ -107,15 +111,37 @@ Phases (none is caught; any failure exits non-zero before the last line):
    decoded) holds 33 frames at 1920x1080; (c) the same job with ``-f
    mp4`` gives the same H.264 samples; (d) the mkv as a source: it
    scans and transcodes again to mp4 (33 samples); the jobs' fps.
-8. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+8. Audio jobs on the card (the audio is host code, as in the JAX
+   package; the video path runs the deblock kernel): (a) step 7's stream
+   in an mp4 with three sound tracks as long as it, written by the
+   port's encoders and ``MP4Writer``: AAC stereo 48 kHz, AC-3 5.1 48 kHz
+   and PCM s16le stereo 44.1 kHz; (b) the CLI's default preset
+   (``-e h264 -q 28 --encoder-profile high``: AAC stereo 160 kb/s from
+   track 1) to mp4: the AAC track decodes through the port's decoder to
+   within one AAC frame of the source track's samples, starts at the
+   video's first pts, and its packets equal those of the port's
+   ``AudioChain`` run on the host on the same source packets; its video
+   samples equal those of the same job with ``-a none``; deblock264 once
+   per analysed P frame; (c) ``-a 1,2,3 -E copy:aac,flac,ac3 -R
+   auto,auto,48`` to mkv: track 1's packets equal the source's, track 2
+   (5.1 AC-3 to stereo FLAC) decodes through the port's FLAC decoder to
+   exactly the host's AC-3 decode, stereo mixdown and 16-bit
+   quantization, track 3 (44.1 kHz PCM resampled to 48 kHz, AC-3) has
+   the expected frame count; (d) the jobs' fps with and without audio,
+   the audio decoder's and chain's host time in (b), and the AAC, AC-3
+   and FLAC encoders' host seconds per second of 48 kHz stereo audio
+   (AAC also with its MDCT matrix rebuilt on every call, as the JAX
+   package does, which must give the same bytes).
+9. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
-   step 5's and 7's counts, ``ms_letterbox_input`` step 5 (e)'s time;
-   hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s count,
-   with ``launches_per_frame``; resample: ``ms`` and ``cold_ms`` are 5
-   (d)'s kernel times on (a)'s planes, ``launches`` 5 (a)'s count, one a
+   step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
+   time; hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s
+   count, with ``launches_per_frame``; resample: ``ms`` and ``cold_ms``
+   are 5 (d)'s kernel times on (a)'s planes, ``ms_dvd`` its times on the
+   DVD frames beside ``bound_dvd_ms``, ``launches`` 5 (a)'s count, one a
    frame, ``library_ms`` the dense products' time, ``regs``,
-   ``local_bytes`` and ``smem_bytes`` the kernel's), the card's name and
-   power limit, and the result line.
+   ``local_bytes`` and ``smem_bytes`` the kernel's), step 8's numbers,
+   the card's name and power limit, and the result line.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -183,7 +209,16 @@ HQ_OPS_PER_SAMPLE = 3 * 12
 RS_CASES = (("odd down", 999, 1777, 541, 1103, -0.25),
             ("odd up", 37, 53, 91, 129, 0.0),
             ("1080p to 720p", 1080, 1920, 720, 1280, 0.0),
-            ("one row", 1, 97, 1, 50, 0.0), ("one sample", 1, 1, 3, 2, 0.0))
+            ("one row", 1, 97, 1, 50, 0.0), ("one sample", 1, 1, 3, 2, 0.0),
+            ("NTSC DVD to 1080p", 480, 720, 1080, 1440, 0.0),
+            ("NTSC DVD chroma", 240, 360, 540, 720, -0.25),
+            ("PAL DVD to 1080p", 576, 720, 1080, 1920, 0.0),
+            ("PAL DVD chroma", 288, 360, 540, 960, -0.25))
+# the DVD upscales (4:2:0 frames) whose kernel time 5 (d) also prints: a
+# plane width that is not a multiple of 64, four lanes in the vertical
+# order: (label, in_h, in_w, out_h, out_w)
+RS_DVD = (("ntsc_720x480_to_1440x1080", 480, 720, 1080, 1440),
+          ("pal_720x576_to_1920x1080", 576, 720, 1080, 1920))
 RS_KINDS = ("lanczos", "bicubic", "bilinear", "point")
 # the new kernel's ragged tiles (its first tile is 16 rows x 128 columns),
 # each in one kind (label, in_h, in_w, out_h, out_w, shift, kind, input
@@ -201,6 +236,9 @@ RS_RAGGED = (("tile+1", 66, 516, 17, 129, 0.0, "lanczos", 8, 255),
              ("8x down 16-bit", 1080, 1920, 135, 240, -0.25, "lanczos", 10,
               1023))
 SRC_N = 33              # frames of the H.264-source job (step 7)
+FRAME_TICKS = 3003      # 90 kHz ticks of a frame at 30000/1001
+AC3_SRC_BPS = 384000    # the audio source's 5.1 AC-3 track (step 8)
+SPEED_SECONDS = 1.0     # audio each encoder's speed is measured on
 
 
 def smi(query):
@@ -840,6 +878,32 @@ def resample_case(dev, in_h, in_w, out_h, out_w, shift, kind, bits, seed,
     return int((got.int() - want.int()).abs().max())
 
 
+def frame_launch(dev_planes, oh, ow):
+    """The resample kernel's one launch for a 4:2:0 frame's three planes
+    on the card (lanczos, chroma with its siting shift) to oh x ow luma,
+    with the arguments prepared first: (outputs, arguments, bands, a
+    function that launches it, the tensors to keep alive)."""
+    from handbrake_tpu_torch.filters import resample_cuda
+    from handbrake_tpu_torch.filters.kernels import _band
+    dev = dev_planes[0].device
+    items, bands = [], []
+    for p, sh in zip(dev_planes, (0.0, -0.25, -0.25)):
+        o_h, o_w = (oh, ow) if sh == 0.0 else (oh // 2, ow // 2)
+        bv = _band(p.shape[0], o_h, "lanczos", 0.0, 0.0, dev)
+        bh = _band(p.shape[1], o_w, "lanczos", sh, sh, dev)
+        pl = resample_cuda.planned(*p.shape, o_h, o_w, "lanczos", (0.0, 0.0),
+                                   (sh, sh), 1, 1, dev)
+        items.append((p, *bv, *bh, 255, pl))
+        bands.append((bv, bh))
+    kout, args, keep = resample_cuda.prepare(items)
+    lib = resample_cuda.load()
+
+    def launch():
+        if lib.resample_frame_launch(*args) != 0:
+            raise RuntimeError("resample launch failed")
+    return kout, args, bands, launch, (keep, items)
+
+
 def phase_resample(first, settings, label):
     """(b): CropScaleFilter on (a)'s first frame on the card and on the
     CPU, equal; the resample kernel against its plain version on the
@@ -850,7 +914,7 @@ def phase_resample(first, settings, label):
     the host.  Returns the kernel's numbers."""
     import torch
     from handbrake_tpu_torch.filters import resample_cuda
-    from handbrake_tpu_torch.filters.kernels import (_band, resample_plain)
+    from handbrake_tpu_torch.filters.kernels import resample_plain
     from handbrake_tpu_torch.tools import ablate_resample
     on_dev = crop_scale_filter(settings, "cuda")
     got = [p.cpu().numpy() for p in scale(on_dev, first)]
@@ -912,23 +976,24 @@ def phase_resample(first, settings, label):
     dev_planes = [torch.from_numpy(np.ascontiguousarray(
         p[t // s:p.shape[0] - b // s, l // s:p.shape[1] - r // s])).to(dev)
         for p, s in zip(first, (1, 2, 2))]
-    items, bands = [], []
-    for p, sh in zip(dev_planes, (0.0, -0.25, -0.25)):
-        o_h, o_w = (oh, ow) if sh == 0.0 else (oh // 2, ow // 2)
-        bv = _band(p.shape[0], o_h, "lanczos", 0.0, 0.0, dev)
-        bh = _band(p.shape[1], o_w, "lanczos", sh, sh, dev)
-        pl = resample_cuda.planned(*p.shape, o_h, o_w, "lanczos", (0.0, 0.0),
-                                   (sh, sh), 1, 1, dev)
-        items.append((p, *bv, *bh, 255, pl))
-        bands.append((bv, bh))
-    kout, args, _keep = resample_cuda.prepare(items)
+    kout, args, bands, launch, _keep = frame_launch(dev_planes, oh, ow)
     lib = resample_cuda.load()
-
-    def launch():
-        if lib.resample_frame_launch(*args) != 0:
-            raise RuntimeError("resample launch failed")
     # warm: back-to-back frames; cold: each frame after a 64 MB write
     out["ms"] = ablate_resample.timed(launch)
+    # the DVD upscales, warm: random 4:2:0 frames
+    out["ms_dvd"] = {}
+    for i, (what, in_h, in_w, o_h, o_w) in enumerate(RS_DVD):
+        rng = np.random.default_rng(9000 + i)
+        frame = [torch.from_numpy(rng.integers(0, 256, (h, w)).astype(
+            np.uint8)).to(dev) for h, w in ((in_h, in_w),
+                                            (in_h // 2, in_w // 2),
+                                            (in_h // 2, in_w // 2))]
+        fl = frame_launch(frame, o_h, o_w)     # kept alive while timed
+        out["ms_dvd"][what] = ablate_resample.timed(fl[3])
+        del fl
+        # the bytes bound: each 4:2:0 plane read once and written once
+        out.setdefault("bound_dvd_ms", {})[what] = \
+            1.5 * (in_h * in_w + o_h * o_w) / MEM_BW * 1e3
     flush = torch.empty(ablate_resample.FLUSH_BYTES, dtype=torch.uint8,
                         device=dev)
     out["cold_ms"] = ablate_resample.timed(launch, flush)
@@ -976,8 +1041,11 @@ def phase_resample(first, settings, label):
           f"({out['dense_ops'] / 1e9:.2f} GFLOP), {lib_err} LSB from the "
           f"kernel at most; the filter call {out['filter_ms']:.4f} ms per "
           f"frame (host planes, upload included; median of {CS_REPS}); "
-          f"scaled planes to the host {out['d2h_ms']:.4f} ms per frame",
-          flush=True)
+          f"scaled planes to the host {out['d2h_ms']:.4f} ms per frame; the "
+          f"kernel on a DVD frame to 1080p (warm, one launch): "
+          + ", ".join(f"{k} {v:.4f} ms (bytes bound "
+                      f"{out['bound_dvd_ms'][k] * 1e3:.2f} us)"
+                      for k, v in out["ms_dvd"].items()), flush=True)
     return out
 
 
@@ -1434,7 +1502,277 @@ def phase_h264_source(tmp, label):
         raise RuntimeError("the mkv source did not transcode")
     torch.cuda.synchronize()
     return {"launches": launches, "fps": fps, "decoder_ms": dec_ms,
-            "mkv_source_fps": SRC_N / spy2.seconds}
+            "mkv_source_fps": SRC_N / spy2.seconds}, stream
+
+
+def tone(sr, ch, n, seed):
+    """Tones (one a channel) plus noise, float32 (n, ch)."""
+    t = np.arange(n) / sr
+    rng = np.random.default_rng(seed)
+    return np.stack([0.4 * np.sin(2 * np.pi * (440 + 110 * c) * t)
+                     + 0.02 * rng.standard_normal(n) for c in range(ch)],
+                    1).astype(np.float32)
+
+
+def dac3(enc) -> bytes:
+    """The dac3 payload of an AC-3 encoder's stream."""
+    v = (enc.fscod << 22) | (8 << 17) | (enc.acmod << 11) \
+        | (enc.lfeon << 10) | ((enc.frmsizecod >> 1) << 5)
+    return v.to_bytes(3, "big")
+
+
+def audio_source(path, stream):
+    """8 (a): the H.264 stream (annex-B, SPS and PPS in the first access
+    unit) in an mp4 with three sound tracks as long as the video: AAC
+    stereo 48 kHz (the port's AACEncoder), AC-3 5.1 48 kHz (its
+    Ac3Encoder) and PCM s16le stereo 44.1 kHz, each interleaved with the
+    frames it sounds under.  Returns each track's (codec, rate, channels,
+    extradata, [(payload, samples)]) and its PCM."""
+    from handbrake_tpu_torch.audio.aac import AACEncoder
+    from handbrake_tpu_torch.audio.ac3enc import Ac3Encoder
+    from handbrake_tpu_torch.mux.mp4 import MP4Writer
+    n = len(stream)
+    secs = n * FRAME_TICKS / 90000
+    pcm = [tone(48000, 2, int(48000 * secs), 11),
+           tone(48000, 6, int(48000 * secs), 12),
+           tone(44100, 2, int(44100 * secs), 13)]
+    aac = AACEncoder(48000, 2)
+    ac3 = Ac3Encoder(48000, 6, AC3_SRC_BPS)
+    s16 = np.clip(pcm[2] * 32767, -32768, 32767).astype("<i2")
+    tracks = [
+        ("aac", 48000, 2, aac.audio_specific_config(),
+         [(au, 1024) for au in aac.encode(pcm[0]) + aac.flush()]),
+        ("ac3", 48000, 6, dac3(ac3),
+         [(f, 1536) for f in ac3.encode(pcm[1]) + ac3.flush()]),
+        ("pcm_s16le", 44100, 2, b"",
+         [(s16[i:i + 1470].tobytes(), len(s16[i:i + 1470]))
+          for i in range(0, len(s16), 1470)])]
+    w = MP4Writer(path)
+    vi = w.add_video_track(codec="h264", width=W, height=H)
+    ais = [w.add_audio_track(codec=c, sample_rate=sr, channels=ch,
+                             extradata=xd) for c, sr, ch, xd, _ in tracks]
+    for i, au in enumerate(stream):
+        w.write_sample(vi, au, duration=FRAME_TICKS, sync=i == 0,
+                       annexb=True)
+        for ai, (_c, sr, _ch, _xd, pkts) in zip(ais, tracks):
+            t0 = i * FRAME_TICKS * sr // 90000
+            t1 = (i + 1) * FRAME_TICKS * sr // 90000
+            pos = 0
+            for data, k in pkts:
+                if t0 <= pos < t1 or (i == n - 1 and pos >= t1):
+                    w.write_sample(ai, data, duration=k)
+                pos += k
+    w.finalize()
+    return tracks, pcm
+
+
+def read_tracks(path):
+    """Each track's info and (pts, payload) packets, of an mp4 or mkv."""
+    from handbrake_tpu_torch.sources.mkv import MKVDemuxer
+    from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
+    d = MKVDemuxer(path) if path.endswith(".mkv") else MP4Demuxer(path)
+    try:
+        pk = {}
+        for trk, b in d.packets():
+            pk.setdefault(trk, []).append((b.pts, bytes(b.data)))
+        return list(d.tracks), pk
+    finally:
+        d.close()
+
+
+def host_chain(src, track, spec):
+    """The packets that the port's AudioChain gives on the host for one
+    source track: its packets through the job's decoder, then the chain,
+    outside any job."""
+    from handbrake_tpu_torch import work
+    from handbrake_tpu_torch.audio.chain import AudioChain
+    from handbrake_tpu_torch.core.buffer import Buffer
+    tracks, pk = read_tracks(src)
+    ti = tracks[track]
+    dec = work._make_audio_decoder(ti, spec)
+    chain = AudioChain(spec, ti)
+    out = []
+    for pts, data in pk[track]:
+        for b in dec.feed(Buffer(data=data, pts=pts, track_kind="audio")):
+            out += chain.process(b)
+    out += chain.flush()
+    return [bytes(p.data) for p in out]
+
+
+def encoder_speed():
+    """Host seconds per second of 48 kHz stereo audio of the AAC (also
+    with its MDCT matrix rebuilt on every call, as the JAX package does:
+    the same bytes), AC-3 and FLAC encoders."""
+    from handbrake_tpu_torch.audio import aac
+    from handbrake_tpu_torch.audio.ac3enc import Ac3Encoder
+    from handbrake_tpu_torch.audio.flac import FlacEncoder
+    pcm = tone(48000, 2, int(48000 * SPEED_SECONDS), 21)
+    s16 = np.clip(pcm * 32767, -32768, 32767).astype(np.int32)
+
+    def rebuilt(frames):
+        return frames @ aac._mdct_matrix()
+
+    def run(make, feed):
+        enc = make()
+        t0 = time.perf_counter()
+        out = feed(enc)
+        return out, (time.perf_counter() - t0) / SPEED_SECONDS
+
+    def aac_feed(e):
+        return e.encode(pcm) + e.flush()
+    cached, t_aac = run(lambda: aac.AACEncoder(48000, 2, bitrate=160000),
+                        aac_feed)
+    cached_mdct = aac._mdct_long
+    aac._mdct_long = rebuilt
+    try:
+        slow, t_aac_rebuilt = run(
+            lambda: aac.AACEncoder(48000, 2, bitrate=160000), aac_feed)
+    finally:
+        aac._mdct_long = cached_mdct
+    if slow != cached:
+        raise RuntimeError("the AAC encoder's bytes depend on where its "
+                           "MDCT matrix is built")
+    _, t_ac3 = run(lambda: Ac3Encoder(48000, 2, 192000),
+                   lambda e: e.encode(pcm) + e.flush())
+    _, t_flac = run(lambda: FlacEncoder(48000, 2, 16),
+                    lambda e: e.encode(s16) + e.flush())
+    return {"aac": t_aac, "aac_mdct_rebuilt_each_call": t_aac_rebuilt,
+            "ac3": t_ac3, "flac": t_flac}
+
+
+def phase_audio(tmp, label, stream, device_args=()):
+    """8: audio jobs on the card: (a) the source; (b) the CLI's default
+    preset (AAC stereo 160 from track 1) to mp4, and the same job with -a
+    none; (c) three tracks to mkv (copy:aac, 5.1 AC-3 to stereo FLAC, 44.1
+    kHz PCM to 48 kHz AC-3); (d) the jobs' fps, the audio stages' host
+    time and the audio encoders' speed.  Returns its numbers."""
+    from handbrake_tpu_torch.audio.aacdec import AACDecoder
+    from handbrake_tpu_torch.audio.ac3dec import Ac3Decoder
+    from handbrake_tpu_torch.audio.dsp import apply_mixdown
+    from handbrake_tpu_torch.audio.flac import FlacDecoder
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.tools import profile_job as pj
+    n = len(stream)
+    src = os.path.join(tmp, "av.mp4")
+    tracks, pcm = audio_source(src, stream)
+    _src_tracks, src_pk = read_tracks(src)
+    print(f"audio (a): {W}x{H} H.264 mp4 of {n} frames with "
+          + ", ".join(f"{c} {sr} Hz {ch} ch ({len(p)} packets)"
+                      for c, sr, ch, _x, p in tracks), flush=True)
+    argv = ["-e", "h264", "-q", "28", "--encoder-profile", "high",
+            *device_args]
+
+    def job(out, *extra):
+        with pj.JobSpy() as spy, pj.StageTimers() as st:
+            reset_counts()
+            rc = cli_main(["-i", src, "-o", out, *argv, *extra])
+            launches = deblock_cuda.launches
+        if rc != 0:
+            raise RuntimeError(f"the audio job {extra} failed: exit {rc}")
+        want = spy.p_frames() + spy.enc.n_redo
+        if device_args == () and (launches == 0 or launches != want):
+            raise RuntimeError(f"the audio job {extra} did not launch "
+                               f"deblock264 once per analysed P frame "
+                               f"({launches}, {want})")
+        return spy, dict(st.sec), launches
+
+    # (b) the default preset, and the same job without sound
+    out_b = os.path.join(tmp, "b.mp4")
+    spy_b, sec_b, launches_b = job(out_b)
+    out_none = os.path.join(tmp, "none.mp4")
+    spy_n, _sec_n, _ = job(out_none, "-a", "none")
+    tb, pb = read_tracks(out_b)
+    tn, pn = read_tracks(out_none)
+    spec = spy_b.job.audio[0]
+    aac_out = [p for _pts, p in pb[1]]
+    # samples decoded from each AAC track after its priming frame: the
+    # output's against the source's (the PCM the job was given)
+    dec = AACDecoder(tb[1].extradata)
+    n_dec = sum(dec.decode_frame(p).shape[0] for p in aac_out) - 1024
+    dec = AACDecoder(tracks[0][3])
+    n_src = sum(dec.decode_frame(p).shape[0] for p, _k in tracks[0][4]) \
+        - 1024
+    host = host_chain(src, 1, spec)
+    video_same = pb[0] == pn[0]
+    checks_b = {
+        "tracks": [(t.kind, t.codec) for t in tb] == [("video", "h264"),
+                                                      ("audio", "aac")],
+        "spec": (spec.encoder, spec.bitrate, spec.mixdown) == ("aac", 160,
+                                                               "stereo"),
+        "samples": abs(n_dec - n_src) <= 1024,
+        "first_pts": pb[1][0][0] == pb[0][0][0],
+        "host_chain": aac_out == host,
+        "video_unchanged": video_same and len(tn) == 1}
+    fps_b, fps_n = n / spy_b.seconds, n / spy_n.seconds
+    audio_s = sec_b.get("audio decode", 0.0) + sec_b.get("audio chain", 0.0)
+    print(f"audio (b) ({label}): CLI default preset to mp4: {len(aac_out)} "
+          f"AAC packets ({spec.encoder} {spec.bitrate} kb/s "
+          f"{spec.mixdown}), decoded {n_dec} samples after the priming "
+          f"frame against the source track's {n_src} (its PCM "
+          f"{len(pcm[0])}); first audio pts "
+          f"{pb[1][0][0]}, video {pb[0][0][0]}; packets equal to the host "
+          f"AudioChain's: {checks_b['host_chain']}; video samples equal to "
+          f"the -a none job's: {video_same}; deblock264 launches "
+          f"{launches_b}; do_job {spy_b.seconds:.3f} s, {fps_b:.2f} fps, "
+          f"-a none {spy_n.seconds:.3f} s, {fps_n:.2f} fps; host time of "
+          f"the audio decoder {sec_b.get('audio decode', 0.0):.3f} s and "
+          f"chain {sec_b.get('audio chain', 0.0):.3f} s, begin_frame "
+          f"{sec_b.get('begin_frame', 0.0):.3f} s, finish_frame "
+          f"{sec_b.get('finish_frame', 0.0):.3f} s", flush=True)
+    if not all(checks_b.values()):
+        raise RuntimeError(f"audio job (b) failed its checks: {checks_b}")
+    # (c) three tracks to mkv
+    out_c = os.path.join(tmp, "c.mkv")
+    spy_c, _sec_c, launches_c = job(out_c, "-a", "1,2,3", "-E",
+                                    "copy:aac,flac,ac3", "-R",
+                                    "auto,auto,48")
+    tc, pc = read_tracks(out_c)
+    flac_dec = FlacDecoder(tc[2].extradata + b"".join(p for _t, p in pc[2]))
+    got_flac = flac_dec.decode_all()
+    ac3 = Ac3Decoder()
+    want_flac = []
+    for _pts, data in src_pk[2]:
+        for fr in ac3.feed(data):
+            mix = apply_mixdown(np.ascontiguousarray(fr.T), "stereo")
+            want_flac.append(np.clip(mix * 32767.0, -32768,
+                                     32767).astype(np.int32))
+    want_flac = np.concatenate(want_flac)
+    resampled = sum(int(round(k * 48000 / 44100)) for _d, k in tracks[2][4])
+    want_ac3 = -(-resampled // 1536)
+    checks_c = {
+        "tracks": [(t.kind, t.codec, t.sample_rate if t.kind == "audio"
+                    else 0) for t in tc] == [
+            ("video", "h264", 0), ("audio", "aac", 48000),
+            ("audio", "flac", 48000), ("audio", "ac3", 48000)],
+        "copy": [p for _t, p in pc[1]] == [p for _t, p in src_pk[1]],
+        "flac": got_flac.shape == want_flac.shape
+        and np.array_equal(got_flac, want_flac),
+        "ac3_frames": len(pc[3]) == want_ac3}
+    print(f"audio (c) ({label}): -a 1,2,3 -E copy:aac,flac,ac3 -R "
+          f"auto,auto,48 to mkv: "
+          f"track 1 {len(pc[1])} packets equal to the source's: "
+          f"{checks_c['copy']}; track 2 FLAC {got_flac.shape[0]} samples x "
+          f"{got_flac.shape[1]}, equal to the host's AC-3 decode, stereo "
+          f"mixdown and 16-bit quantization: {checks_c['flac']}; track 3 "
+          f"{len(pc[3])} AC-3 frames at {tc[3].sample_rate} Hz (expected "
+          f"{want_ac3}); deblock264 launches {launches_c}; do_job "
+          f"{spy_c.seconds:.3f} s, {n / spy_c.seconds:.2f} fps", flush=True)
+    if not all(checks_c.values()):
+        raise RuntimeError(f"audio job (c) failed its checks: {checks_c}")
+    # (d) the audio encoders' speed on this host
+    speed = encoder_speed()
+    print(f"audio (d) ({label}): host seconds per second of 48 kHz stereo "
+          f"audio: AAC {speed['aac']:.3f} (MDCT matrix rebuilt every call: "
+          f"{speed['aac_mdct_rebuilt_each_call']:.3f}, the same bytes), "
+          f"AC-3 {speed['ac3']:.3f}, FLAC {speed['flac']:.3f}; job (b)'s "
+          f"audio decode and chain {audio_s:.3f} s of its "
+          f"{spy_b.seconds:.3f} s", flush=True)
+    return {"fps_with_audio": fps_b, "fps_without_audio": fps_n,
+            "fps_three_tracks_mkv": n / spy_c.seconds,
+            "audio_stage_s": audio_s, "job_s": spy_b.seconds,
+            "launches_default": launches_b, "launches_three_tracks": launches_c,
+            "encoder_s_per_s": speed}
 
 
 def one_card():
@@ -1467,7 +1805,8 @@ def main() -> int:
     job_a, rs, job_c, ms_lb = phase_job_path(label, clock_hz)
     _, job_i, hq_entry = phase_filter_suite(label, clock_hz)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        job_s = phase_h264_source(tmp, label)
+        job_s, stream = phase_h264_source(tmp, label)
+        job_au = phase_audio(tmp, label, stream)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -1475,7 +1814,11 @@ def main() -> int:
                  job_launches={"letterbox_2160p_cli": job_a["launches"],
                                "unscaled_1080p_do_job": job_c["launches"],
                                "interlaced_1080i_cli": job_i["launches"],
-                               "h264_source_1080p_cli": job_s["launches"]})
+                               "h264_source_1080p_cli": job_s["launches"],
+                               "audio_default_preset_cli":
+                                   job_au["launches_default"],
+                               "audio_three_tracks_mkv_cli":
+                                   job_au["launches_three_tracks"]})
     rs_entry = {
         "name": "resample", "route": "cuda",
         "source": "handbrake_tpu_torch/csrc/resample.cu",
@@ -1487,10 +1830,12 @@ def main() -> int:
         "plain_ms": rs["plain_ms"], "bound_ms": rs["bound_ms"],
         "bound_us": rs["bound_ms"] * 1e3, "bound_by": rs["bound_by"],
         "library_ms": rs["library_ms"], "device_ms": rs["device_ms"],
-        "vpass_ms": None, "regs": rs["regs"],
+        "vpass_ms": None, "ms_dvd": rs["ms_dvd"],
+        "bound_dvd_ms": rs["bound_dvd_ms"], "regs": rs["regs"],
         "local_bytes": rs["local_bytes"], "smem_bytes": rs["smem_bytes"],
         "filter_ms": rs["filter_ms"]}
     print(f"job 7 numbers: {json.dumps(job_s)}", flush=True)
+    print(f"audio numbers: {json.dumps(job_au)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

@@ -6,9 +6,13 @@ build job from preset + CLI overrides → add → start → poll state.
 
 The counterpart of ``handbrake_tpu/cli/__main__.py``: the same parser,
 plus ``--device {cuda,cpu}`` (default cuda) for where the job runs.
-Options whose paths are not ported yet (audio, subtitles, B-frames,
-GOP- and tile-parallel encodes, checkpoint/resume) raise
-NotImplementedError, as do unported filters, codecs and containers.
+The audio options take comma lists, one value a track of ``-a`` (the
+last value repeats), as HandBrakeCLI's do; a single value gives every
+track the same setting, as the reference's parser does.  Options whose
+paths are not ported yet (subtitles, B-frames, GOP- and tile-parallel
+encodes, checkpoint/resume, the libavcodec audio encoders mp3, opus and
+vorbis) raise NotImplementedError, as do unported filters, codecs and
+containers.
 
 Usage:
   python -m handbrake_tpu_torch.cli -i in.mp4 -o out.mkv [options]
@@ -26,7 +30,7 @@ from ..hb import Handle
 from ..job import schema as S
 from ..job.presets import (builtin_presets, flatten, import_preset_file,
                            preset_search, preset_to_job)
-from ..job.schema import FilterSpec, Job, RangeSpec
+from ..job.schema import AudioJobTrack, FilterSpec, Job, RangeSpec
 from ..utils.device import resolve_device
 
 
@@ -136,16 +140,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pad", help="width:height[:color]")
     # audio
     p.add_argument("-a", "--audio", help="track list, e.g. 1,2 or none")
-    p.add_argument("-E", "--aencoder", default=None,
-                   help="audio encoder (aac); not ported yet")
-    p.add_argument("-B", "--ab", type=int, default=160)
-    p.add_argument("--mixdown", default="stereo")
+    p.add_argument("-E", "--aencoder", default="aac",
+                   help="audio encoders, one a track: aac, ac3, flac, pcm "
+                        "or copy[:codec]")
+    p.add_argument("-B", "--ab", default="160",
+                   help="audio bit rates in kb/s, one a track")
+    p.add_argument("-6", "--mixdown", default="stereo",
+                   help="mixdowns, one a track (mono, stereo, dpl2, "
+                        "5point1, ...)")
     p.add_argument("-R", "--arate", default=None,
-                   help="audio samplerate (kHz or Hz)")
-    p.add_argument("--gain", type=float, default=0.0,
-                   help="audio gain dB")
-    p.add_argument("--drc", type=float, default=0.0,
-                   help="dynamic range compression (1.0-4.0)")
+                   help="audio samplerates (kHz or Hz), one a track")
+    p.add_argument("--gain", default="0",
+                   help="audio gains in dB, one a track")
+    p.add_argument("--drc", default="0",
+                   help="dynamic range compression (1.0-4.0), one a "
+                        "track")
+    p.add_argument("--audio-copy-mask",
+                   help="codecs a copy may pass through, e.g. aac,ac3 "
+                        "(the job's Audio.CopyMask)")
+    p.add_argument("--audio-fallback",
+                   help="encoder where a copy cannot pass a track "
+                        "through (the job's Audio.FallbackEncoder)")
     p.add_argument("--acompressor", type=float, default=0.0,
                    help="compressor ratio (acompressor)")
     p.add_argument("--agate", type=float, default=0.0,
@@ -188,9 +203,10 @@ def list_presets():
 def check_ported(args):
     """Raise NotImplementedError for options whose paths are later
     slices of the port."""
+    aencoders = _per_track(args.aencoder, 1)
     unported = (
-        ("audio (-a/-E)", (args.audio not in (None, "none"))
-         or args.aencoder is not None),
+        ("audio encoders mp3, opus and vorbis (-E)",
+         any(e in ("mp3", "opus", "vorbis") for e in aencoders)),
         ("subtitles (-s/--srt-file)", args.subtitle or args.srt_file),
         ("B-frames (--bframes)", args.bframes),
         ("GOP-parallel encoding (--gop-parallel)", args.gop_parallel),
@@ -200,6 +216,20 @@ def check_ported(args):
     for what, asked in unported:
         if asked:
             raise NotImplementedError(f"{what} is not ported yet")
+
+
+def _per_track(value, n: int) -> list:
+    """A comma list of an audio option as n values, one a track, the last
+    value repeating (HandBrakeCLI's rule)."""
+    vals = [v.strip() for v in str(value).split(",")]
+    return vals + vals[-1:] * (n - len(vals))
+
+
+def _samplerate(v: str) -> int:
+    if not v or v == "auto":
+        return 0
+    f = float(v)
+    return int(f * 1000) if f < 200 else int(f)
 
 
 def apply_cli_overrides(job: Job, args) -> Job:
@@ -326,9 +356,29 @@ def apply_cli_overrides(job: Job, args) -> Job:
                          key=lambda f: S.FILTER_ORDER.index(f.id)
                          if f.id in S.FILTER_ORDER else 999)
 
-    # audio (any other -a raises in check_ported)
+    # audio
     if args.audio == "none":
         job.audio = []
+    elif args.audio:
+        tracks = [int(x) - 1 for x in args.audio.split(",")]
+        n = len(tracks)
+        enc, ab, mix = (_per_track(v, n) for v in (args.aencoder, args.ab,
+                                                  args.mixdown))
+        rate = _per_track(args.arate or "", n)
+        gain, drc = _per_track(args.gain, n), _per_track(args.drc, n)
+        job.audio = [AudioJobTrack(track=t, encoder=enc[i],
+                                   bitrate=int(ab[i]), mixdown=mix[i],
+                                   samplerate=_samplerate(rate[i]),
+                                   gain=float(gain[i]), drc=float(drc[i]),
+                                   compressor=args.acompressor,
+                                   gate=args.agate)
+                     for i, t in enumerate(tracks)]
+    if args.audio_copy_mask:
+        job.audio_copy_mask = [
+            c if c.startswith("copy") else f"copy:{c}"
+            for c in args.audio_copy_mask.split(",")]
+    if args.audio_fallback:
+        job.audio_fallback = args.audio_fallback
 
     # range
     if args.chapters:

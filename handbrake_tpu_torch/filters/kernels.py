@@ -149,6 +149,8 @@ def _band(n_in: int, n_out: int, kind: str, shift_in: float,
 # B is the K extent of a 128 KiB panel of the kernel's n columns.
 _PANEL = 32768          # f32 values of that panel
 _CHUNK = 64             # the vertical product's column tile
+_MANY_ROWS = 51         # output rows from which the vertical product
+                        # takes the horizontal product's kernels
 
 
 def _block(n_cols: int, lanes: int) -> int:
@@ -173,12 +175,17 @@ def horizontal_order(n_in: int, n_out: int) -> tuple:
     return lanes, _block(cols, lanes), n_in - n_in % lanes
 
 
-def vertical_order(n_in: int, width: int) -> list:
+def vertical_order(n_in: int, width: int, n_out: int) -> list:
     """XLA:CPU's order of the vertical product ``einsum("oh,hw->ow")`` over
-    n_in terms, for a plane `width` columns wide: [(col0, col1, lanes,
-    block, main)], one entry for each run of columns that shares it.  A
-    plane up to 64 wide is one tile (four lanes up to 16 columns); a wider
-    one takes tiles of 64 columns, with a narrower last tile."""
+    n_in terms into n_out rows, for a plane `width` columns wide: [(col0,
+    col1, lanes, block, main)], one entry for each run of columns that
+    shares it.  From _MANY_ROWS output rows on, XLA picks the kernel by the
+    plane's width as ``horizontal_order`` does by the output width, for
+    every column.  Below that, a plane up to 64 wide is one tile (four
+    lanes up to 16 columns); a wider one takes tiles of 64 columns, with a
+    narrower last tile."""
+    if n_out >= _MANY_ROWS:
+        return [(0, width, *horizontal_order(n_in, width))]
     if width <= _CHUNK:
         lanes = 4 if width <= 16 else 1
         cols = -(-width // 4) * 4 if lanes > 1 else width
@@ -241,7 +248,8 @@ def resample_plain(img: torch.Tensor, lo_v, taps_v, lo_h, taps_h,
     x = img.to(torch.float32)
     in_h, in_w = x.shape
     x = torch.cat([_band_pass(x[:, c0:c1], lo_v, taps_v, (lanes, b, main))
-                   for c0, c1, lanes, b, main in vertical_order(in_h, in_w)],
+                   for c0, c1, lanes, b, main
+                   in vertical_order(in_h, in_w, lo_v.shape[0])],
                   dim=1)
     x = _band_pass(x.T, lo_h, taps_h,
                    horizontal_order(in_w, lo_h.shape[0])).T

@@ -316,7 +316,7 @@ def prepare(items, scratch=None):
                                                    plans[0].out_bytes):
             raise ValueError("resample_cuda: the planes of one call must "
                              "share their sample sizes")
-        runs = vertical_order(in_h, in_w)
+        runs = vertical_order(in_h, in_w, out_h)
         h_lanes, h_block, h_main = horizontal_order(in_w, out_w)
         pl = prm.p[i]
         for name, t in (("x", x), ("out", out), ("lo_v", lo_v),

@@ -15,7 +15,8 @@ frame, decode+sync, the filter graph, within it the crop/scale filter
 (split into the wait for the work already queued on the card, by a
 synchronize before the call, and the call itself) and the framerate
 shaper, bringing the planes to the host, ``begin_frame``,
-``finish_frame`` and the mux.  The stages run in threads of their own, so
+``finish_frame``, the mux, and in a job with sound tracks the audio
+decoders and chains.  The stages run in threads of their own, so
 their times overlap; each is host wall time, device waits included.  A
 third run of the letterboxed job under ``torch.profiler`` gives the
 card's busy time (kernel and copy time summed) against that run's wall
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import work
+from ..audio.chain import AudioChain
 from ..cli.__main__ import main as cli_main
 from ..codecs.h264.encoder import H264Encoder
 from ..filters.cropscale import CropScaleFilter
@@ -134,7 +136,14 @@ class StageTimers:
                (work._EncodeStage, "_planes", "planes to host"),
                (H264Encoder, "begin_frame", "begin_frame"),
                (H264Encoder, "finish_frame", "finish_frame"),
-               (work._MuxStage, "work", "mux"))
+               (work._MuxStage, "work", "mux"),
+               # audio (jobs with sound tracks): the decoders run on the
+               # decode+sync thread, the chains on the filter+encode one
+               (work._AacPacketDecoder, "feed", "audio decode"),
+               (work._Ac3PacketDecoder, "feed", "audio decode"),
+               (work._PcmDecoder, "feed", "audio decode"),
+               (AudioChain, "process", "audio chain"),
+               (AudioChain, "flush", "audio chain"))
 
     def __init__(self):
         self.sec = collections.defaultdict(float)

@@ -3,17 +3,22 @@ work_func/do_job, SURVEY.md §3.2); the counterpart of
 ``handbrake_tpu/work.py``.
 
 Pipeline assembly per pass:
-  source demux → video decode → sync → filter chain → video encode → mux
+  source demux → video decode → sync → filter chain → video encode ┐
+               → audio decode → sync → audio encode ──────────────┼→ mux
 The stages run one thread each with bounded FIFOs between them
 (core/pipeline.py, the work.c:2242 assembly).  The filter chain and the
 encoder share the ``filter+encode`` thread, so one CUDA stream carries
-the crop/scale products and the encoder's analysis.
+the crop/scale products and the encoder's analysis; the audio chains run
+on the same thread, on the host, as in the reference.
 
-The port runs video-only H.264 jobs from y4m, H.264 (annex-B, mp4, mkv)
-sources into mp4, mkv or webm: the device comes only from the caller
-(``device=None`` is the CUDA card, which raises where there is none).
-Audio, subtitles, B-frames, GOP-parallel and tile-parallel encodes and
-checkpoint/resume raise NotImplementedError: they are later slices.
+The port runs H.264 jobs from y4m, H.264 (annex-B, mp4, mkv) sources into
+mp4, mkv or webm, with audio tracks decoded from PCM, AAC, AC-3, MP2 and
+FLAC and encoded to AAC, AC-3, FLAC or PCM, or passed through: the device
+comes only from the caller (``device=None`` is the CUDA card, which
+raises where there is none).  Subtitles, B-frames, GOP-parallel and
+tile-parallel encodes, checkpoint/resume and the libavcodec audio codecs
+raise NotImplementedError: they are later slices.  An audio track that
+cannot be decoded raises; none is passed through or dropped in its place.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from .job.schema import Job
 from .sources.probe import open_source
 from .sync.sync import SyncCore
 from .utils.device import resolve_device
+from .utils.logging import log
 
 H264_NAMES = ("h264_tpu", "x264", "h264")
 
@@ -154,13 +160,18 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     vti = src.tracks[video_track]
     vrate = Fraction(*vti.frame_rate) if vti.frame_rate \
         else Fraction(30000, 1001)
-    n_audio = sum(1 for t in src.tracks if t.kind == "audio")
-    if any(0 <= a.track < n_audio for a in job.audio):
-        _unported("audio (decode, encode and passthrough)")
+    audio_sel = []            # (src_track_index, AudioJobTrack)
+    audio_srcs = [i for i, t in enumerate(src.tracks) if t.kind == "audio"]
+    for a in job.audio:
+        if 0 <= a.track < len(audio_srcs):
+            audio_sel.append((audio_srcs[a.track], a))
 
-    # ---- decoder ----
+    # ---- decoders ----
     vdec = create_video_decoder(vti.codec, vti.extradata,
                                 width=vti.width, height=vti.height)
+    adecs = {}
+    for si, spec in audio_sel:
+        adecs[si] = _make_audio_decoder(src.tracks[si], spec)
 
     # ---- sync ----
     pts_start, pts_stop = resolve_range(job, src, vrate)
@@ -170,6 +181,17 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     v_sync = sync.add_stream(
         "video", width=vti.width, height=vti.height,
         frame_duration=int(90000 / float(vrate)) if vrate else None)
+    # PCM geometry lets sync synthesize silence for gaps (CreateSilenceBuf
+    # analog); passthrough tracks get no fill (compressed domain)
+    a_sync = {}
+    for si, _spec in audio_sel:
+        ti = src.tracks[si]
+        pcm = ti.codec in ("pcm_s16le", "lpcm", "flac", "aac", "ac3",
+                           "mp2")
+        a_sync[si] = sync.add_stream(
+            "audio", sid=si,
+            sample_rate=ti.sample_rate if pcm else None,
+            channels=max(1, ti.channels))
 
     # ---- filters ----
     fi = FilterInit(geometry=Geometry(
@@ -213,13 +235,17 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     out_w, out_h = out_fi.geometry.width, out_fi.geometry.height
     out_vrate = out_fi.vrate
 
-    # ---- encoder ----
+    # ---- encoders ----
     venc = create_video_encoder(job, out_w, out_h, out_vrate, device=dev)
     from .codecs.ratecontrol import make_rate_controller
     rc = make_rate_controller(job, out_w, out_h, float(out_vrate))
+    aencs = {}
+    for si, spec in audio_sel:
+        aencs[si] = _make_audio_encoder(spec, src.tracks[si])
 
     # ---- muxer (analysis pass writes nowhere — x264 pass-1 analog) ----
-    mux = _NullMux() if job.pass_id == 1 else _MuxAdapter(job, out_fi, src)
+    mux = _NullMux() if job.pass_id == 1 else \
+        _MuxAdapter(job, out_fi, audio_sel, src, aencs)
 
     # ---- threaded stage graph (work.c:2242-2280: one thread per work
     # object, bounded FIFOs between; reader → decode+sync → filters+encode
@@ -245,11 +271,12 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
 
     reader = _ReaderStage(it, die, pause)
     reader.fifo_out = fifo_raw
-    decsync = _DecodeSyncStage(video_track, vdec, sync, v_sync, stats)
+    decsync = _DecodeSyncStage(video_track, vdec, adecs, sync, v_sync,
+                               a_sync, stats)
     decsync.fifo_in, decsync.fifo_out = fifo_raw, fifo_sync
-    encst = _EncodeStage(graph, venc, rc, stats, progress)
+    encst = _EncodeStage(graph, venc, aencs, rc, stats, progress)
     encst.fifo_in, encst.fifo_out = fifo_sync, fifo_enc
-    muxst = _MuxStage(mux)
+    muxst = _MuxStage(mux, aencs)
     muxst.fifo_in = fifo_enc
 
     for w in (reader, decsync, encst, muxst):
@@ -294,16 +321,18 @@ class _ReaderStage(WorkObject):
 
 
 class _DecodeSyncStage(WorkObject):
-    """Decode the video track and run the synchronizer (decavcodec +
-    sync.c)."""
+    """Decode per track and run the synchronizer (decavcodec + sync.c)."""
     name = "decode+sync"
 
-    def __init__(self, video_track, vdec, sync, v_sync, stats):
+    def __init__(self, video_track, vdec, adecs, sync, v_sync, a_sync,
+                 stats):
         super().__init__()
         self.video_track = video_track
         self.vdec = vdec
+        self.adecs = adecs
         self.sync = sync
         self.v_sync = v_sync
+        self.a_sync = a_sync
         self.stats = stats
 
     def work(self, buf):
@@ -325,6 +354,9 @@ class _DecodeSyncStage(WorkObject):
             for f in frames:
                 self.sync.queue(self.v_sync, f)
                 self.stats["frames_in"] += 1
+        elif buf.stream_id in self.adecs:
+            for ab in self.adecs[buf.stream_id].feed(buf):
+                self.sync.queue(self.a_sync[buf.stream_id], ab)
         return self.sync.poll()
 
 
@@ -335,15 +367,17 @@ def to_host(p) -> np.ndarray:
 
 
 class _EncodeStage(WorkObject):
-    """Filter graph + encoder. Video uses the encoder's begin/finish
+    """Filter graph + encoders. Video uses the encoder's begin/finish
     pipelining so the device analyses frame N+1 while this thread
-    entropy-codes frame N (encx264 lookahead role)."""
+    entropy-codes frame N (encx264 lookahead role); each audio track's
+    chain encodes its PCM on the host between video frames."""
     name = "filter+encode"
 
-    def __init__(self, graph, venc, rc, stats, progress):
+    def __init__(self, graph, venc, aencs, rc, stats, progress):
         super().__init__()
         self.graph = graph
         self.venc = venc
+        self.aencs = aencs
         self.rc = rc
         self.stats = stats
         self.progress = progress
@@ -405,12 +439,25 @@ class _EncodeStage(WorkObject):
                 out += self._encode(fb)
             while self._pend:
                 out.append(self._finish_one())
+            for sid, enc in self.aencs.items():
+                for pkt in enc.flush():
+                    pkt.stream_id = sid
+                    out.append(pkt)
             return out + [buf]
         if buf.track_kind == "video":
             out = []
             for fb in self.graph.work(buf):
                 if not fb.is_eof():
                     out += self._encode(fb)
+            return out
+        if buf.track_kind == "audio":
+            enc = self.aencs.get(buf.stream_id)
+            out = []
+            if enc is not None:
+                for pkt in enc.process(buf):
+                    pkt.stream_id = buf.stream_id
+                    pkt.track_kind = "audio"
+                    out.append(pkt)
             return out
         return []
 
@@ -420,15 +467,20 @@ class _MuxStage(WorkObject):
     format adapter."""
     name = "mux"
 
-    def __init__(self, adapter):
+    def __init__(self, adapter, aencs):
         super().__init__()
         self.adapter = adapter
         from .mux.common import Muxer
         self.muxer = Muxer(writer=None, kind="custom")
+        self._tmap = {}
 
         def vid_write(b):
             adapter.write_video(b.data, b, idr=bool(b.frametype & 1))
-        self._vtrack = self.muxer.add_track(write=vid_write)
+        self._tmap[("video", None)] = self.muxer.add_track(write=vid_write)
+        for sid in aencs:
+            def aw(b, sid=sid):
+                adapter.write_audio(sid, b)
+            self._tmap[("audio", sid)] = self.muxer.add_track(write=aw)
 
     def work(self, buf):
         if buf.is_eof():
@@ -436,7 +488,11 @@ class _MuxStage(WorkObject):
             self.adapter.finalize()
             return []
         if buf.track_kind == "video":
-            self.muxer.queue(self._vtrack, buf)
+            self.muxer.queue(self._tmap[("video", None)], buf)
+        elif buf.track_kind == "audio":
+            t = self._tmap.get(("audio", buf.stream_id))
+            if t is not None:
+                self.muxer.queue(t, buf)
         return []
 
 
@@ -446,21 +502,297 @@ class _NullMux:
     def write_video(self, au, fb, idr):
         pass
 
+    def write_audio(self, sid, pkt):
+        pass
+
     def finalize(self):
         pass
+
+
+# ---------------------------------------------------------------------------
+# audio stages (host code, as in the reference)
+# ---------------------------------------------------------------------------
+class _PcmDecoder:
+    """PCM-in-container (little-endian s16) and DVD LPCM
+    (declpcm.c:410 role: big-endian, 16/20/24-bit; the PS demuxer parses
+    the substream header into TrackInfo + a bits byte in extradata)."""
+
+    def __init__(self, ti):
+        self.ti = ti
+        self.dvd = ti.codec == "lpcm"
+        self.bits = (ti.extradata[0] if self.dvd and ti.extradata
+                     else 16)
+        self._rem = b""
+
+    def feed(self, buf: Buffer) -> list:
+        if buf.data is None:
+            return []
+        ch = max(1, self.ti.channels)
+        if not self.dvd:
+            pcm = np.frombuffer(buf.data, "<i2").astype(np.float32) / 32768.0
+        else:
+            data = self._rem + bytes(buf.data)
+            if self.bits == 16:
+                n = len(data) // (2 * ch) * (2 * ch)
+                self._rem = data[n:]
+                pcm = np.frombuffer(data[:n], ">i2").astype(
+                    np.float32) / 32768.0
+            else:
+                # DVD 20/24-bit group: per 2-sample-pair group, the MSB
+                # 16 bits of 2*ch samples, then the LSB tail bytes
+                gsz = 2 * ch * 2 + (ch if self.bits == 24 else ch // 2 or 1)
+                n = len(data) // gsz * gsz
+                self._rem = data[n:]
+                g = np.frombuffer(data[:n], np.uint8).reshape(-1, gsz)
+                hi = g[:, :2 * ch * 2].reshape(-1, 2 * ch, 2)
+                s16 = (hi[:, :, 0].astype(np.int32) << 8) | hi[:, :, 1]
+                s16 = np.where(s16 >= 32768, s16 - 65536, s16)
+                pcm = (s16 / 32768.0).astype(np.float32).reshape(-1)
+        pcm = pcm.reshape(-1, ch)
+        out = Buffer(track_kind="audio").copy_props(buf)
+        out.planes = [pcm]
+        out.data = None
+        if not out.duration and self.ti.sample_rate:
+            # containers without per-block durations (mkv) would leave
+            # the sync gap-filler thinking the clock never advanced
+            out.duration = int(round(pcm.shape[0] * 90000
+                                     / self.ti.sample_rate))
+            out.stop = (out.pts + out.duration) \
+                if out.pts is not None else None
+        return [out]
+
+
+class _CopyAudioDecoder:
+    """Passthrough: compressed packets ride the sync layer unchanged."""
+
+    def feed(self, buf: Buffer) -> list:
+        return [buf]
+
+
+class _AacPacketDecoder:
+    """AAC-LC decode (audio/aacdec.py, decavcodec.c:367 role): one
+    container packet = one access unit (mp4/mkv, ASC in extradata) or an
+    ADTS byte stream (TS).  The 1024-sample filterbank delay is absorbed
+    by dropping the first output frame and carrying each output on the
+    previous packet's timestamp."""
+
+    def __init__(self, ti):
+        import collections
+        from .audio.aacdec import AACDecoder
+        self.dec = AACDecoder(ti.extradata or None)
+        self.ti = ti
+        self._pend = b""
+        self._adts = None
+        self._pts_q = collections.deque()
+        self._primed = False
+
+    def feed(self, buf: Buffer) -> list:
+        if buf.data is None:
+            return []
+        data = bytes(buf.data)
+        if self._adts is None:
+            self._adts = (len(data) >= 2 and data[0] == 0xFF
+                          and (data[1] & 0xF0) == 0xF0)
+        if self._adts:
+            self._pend += data
+            frames = []
+            while True:
+                h = self.dec.parse_adts_header(self._pend)
+                if h is None:
+                    i = self._pend.find(b"\xff", 1)   # resync on garbage
+                    if i < 0:
+                        self._pend = self._pend[-1:] \
+                            if self._pend else b""
+                        break
+                    self._pend = self._pend[i:]
+                    continue
+                if len(self._pend) < h[1]:
+                    break
+                frames.append(self._pend[:h[1]])
+                self._pend = self._pend[h[1]:]
+        else:
+            frames = [data]
+        outs = []
+        for k, fr in enumerate(frames):
+            try:
+                pcm = self.dec.decode_frame(fr)
+            except Exception as e:  # noqa: BLE001 — corrupt AU: skip
+                log("aac decode error: %s" % e)
+                continue
+            dur = int(round(pcm.shape[0] * 90000 /
+                            max(1, self.dec.sample_rate)))
+            # AU k of an ADTS burst starts k frame-durations after the
+            # packet pts; mp4/mkv deliver one AU per packet (k = 0)
+            self._pts_q.append((buf.pts + k * dur)
+                               if buf.pts is not None else None)
+            if not self._primed:
+                # drop the filterbank priming frame; each later output
+                # carries the PREVIOUS AU's pts (1024-sample delay)
+                self._primed = True
+                continue
+            pts = self._pts_q.popleft()
+            out = Buffer(track_kind="audio").copy_props(buf)
+            out.pts = pts
+            out.duration = dur
+            out.stop = (pts + dur) if pts is not None else None
+            out.planes = [pcm]
+            out.data = None
+            outs.append(out)
+        return outs
+
+
+class _Ac3PacketDecoder:
+    """AC-3 decode (audio/ac3dec.py — decavcodec.c AC-3 personality
+    role): byte-stream sync on 0x0B77 syncframes, so DVD/TS packets may
+    split or batch frames.  Each 1536-sample output takes the packet
+    pts when a fresh packet starts a frame, else extrapolates."""
+
+    def __init__(self, ti):
+        from .audio.ac3dec import Ac3Decoder
+        self.dec = Ac3Decoder()
+        self.ti = ti
+        self._next_pts = None
+
+    def feed(self, buf: Buffer) -> list:
+        if buf.data is None:
+            return []
+        if buf.pts is not None and not self.dec._buf:
+            self._next_pts = buf.pts
+        frames = self.dec.feed(bytes(buf.data))
+        outs = []
+        for pcm in frames:
+            sr = max(1, self.dec.sample_rate)
+            dur = int(round(pcm.shape[1] * 90000 / sr))
+            out = Buffer(track_kind="audio").copy_props(buf)
+            out.pts = self._next_pts
+            out.duration = dur
+            out.stop = (self._next_pts + dur) \
+                if self._next_pts is not None else None
+            out.planes = [np.ascontiguousarray(pcm.T)]
+            out.data = None
+            outs.append(out)
+            if self._next_pts is not None:
+                self._next_pts += dur
+        return outs
+
+
+class _Mp2PacketDecoder:
+    """MPEG-1 Layer I/II audio decode (audio/mp2dec.py — the DVB/DVD
+    broadcast personality of decavcodec.c): byte-stream sync, 1152
+    (or 384) samples per frame, same pts policy as _Ac3PacketDecoder."""
+
+    def __init__(self, ti):
+        from .audio.mp2dec import Mp2Decoder
+        self.dec = Mp2Decoder()
+        self.ti = ti
+        self._next_pts = None
+
+    def feed(self, buf: Buffer) -> list:
+        if buf.data is None:
+            return []
+        if buf.pts is not None and not self.dec._buf:
+            self._next_pts = buf.pts
+        outs = []
+        for pcm in self.dec.feed(bytes(buf.data)):
+            sr = max(1, self.dec.sample_rate)
+            dur = int(round(pcm.shape[0] * 90000 / sr))
+            out = Buffer(track_kind="audio").copy_props(buf)
+            out.pts = self._next_pts
+            out.duration = dur
+            out.stop = (self._next_pts + dur) \
+                if self._next_pts is not None else None
+            out.planes = [pcm]
+            out.data = None
+            outs.append(out)
+            if self._next_pts is not None:
+                self._next_pts += dur
+        return outs
+
+
+class _FlacPacketDecoder:
+    """Streaming FLAC decode: one container packet = one FLAC frame
+    (decavcodec.c audio personality role for FLAC inputs).  A track
+    without STREAMINFO raises (the reference decodes nothing from it)."""
+
+    def __init__(self, ti):
+        from .audio.flac import FLAC_MARKER, FlacDecoder
+        xd = ti.extradata or b""
+        if not xd:
+            raise WorkError("flac: the track carries no STREAMINFO, so it "
+                            "cannot be decoded")
+        if not xd.startswith(FLAC_MARKER):
+            # mp4 dfLa carries the bare STREAMINFO block; mkv has fLaC + blocks
+            xd = FLAC_MARKER + b"\x80\x00\x00\x22" + xd[-34:]
+        self.dec = FlacDecoder(xd)
+        self.ti = ti
+
+    def feed(self, buf: Buffer) -> list:
+        if buf.data is None:
+            return []
+        from .audio.flac import _BR
+        pcm_i = self.dec._decode_frame(_BR(buf.data))
+        bits = self.dec.bits or 16
+        pcm = pcm_i.astype(np.float32) / float(1 << (bits - 1))
+        out = Buffer(track_kind="audio").copy_props(buf)
+        out.planes = [pcm]
+        out.data = None
+        return [out]
+
+
+# decoded by libavcodec in the reference (decavcodec.c:192-347), which is
+# not ported yet
+_AV_AUDIO = ("eac3", "dts", "dca", "truehd", "mlp", "mp3", "vorbis", "opus")
+
+
+def _make_audio_decoder(ti, spec=None):
+    """The track's decoder.  Where the reference falls back (an AAC
+    decoder that cannot start becomes passthrough; a codec it cannot
+    decode becomes a passthrough that the chain then drops), the port
+    raises with the codec's name."""
+    if spec is not None and str(spec.encoder).startswith("copy"):
+        # passthrough: keep the compressed packets intact (WORK_PASS
+        # role) — decoding would hand PCM to a chain that forwards data
+        return _CopyAudioDecoder()
+    if ti.codec in ("pcm_s16le", "lpcm"):
+        return _PcmDecoder(ti)
+    if ti.codec == "flac":
+        return _FlacPacketDecoder(ti)
+    if ti.codec == "aac":
+        try:
+            return _AacPacketDecoder(ti)
+        except (IndexError, ValueError) as e:   # the ASC does not parse
+            raise WorkError(f"aac: the decoder cannot start on this "
+                            f"track ({e!r})") from e
+    if ti.codec == "ac3":
+        return _Ac3PacketDecoder(ti)
+    if ti.codec in ("mp2", "mp1", "mpa"):
+        return _Mp2PacketDecoder(ti)
+    if ti.codec in _AV_AUDIO:
+        _unported(f"{ti.codec} audio decoding (the libavcodec catalog)")
+    raise WorkError(f"audio codec {ti.codec!r}: no decoder")
+
+
+def _make_audio_encoder(spec, ti):
+    """Audio chain per output track (resample/mixdown/gain/drc + encoder):
+    AAC-LC, AC-3, FLAC and PCM encode natively (audio/*.py); MP3, Opus
+    and Vorbis raise (the libavcodec catalog, a later slice)."""
+    from .audio.chain import AudioChain
+    return AudioChain(spec, ti)
 
 
 # ---------------------------------------------------------------------------
 # mux adapter
 # ---------------------------------------------------------------------------
 class _MuxAdapter:
-    """Wraps MP4Writer/MKVWriter behind one write_video API (muxcommon.c
-    role: track fan-in; interleave is the writers' concern).  The video
-    parts of the reference's adapter."""
+    """Wraps MP4Writer/MKVWriter behind one write_video/write_audio API
+    (muxcommon.c role: track fan-in; interleave is the writers' concern).
+    The reference's adapter without its subtitle tracks and journal."""
 
-    def __init__(self, job: Job, out_fi, src):
+    def __init__(self, job: Job, out_fi, audio_sel, src, aencs=None):
         self.kind = job.mux
+        self.aencs = aencs or {}
         path = job.file or "out.mp4"
+        self._amap = {}
         if job.vcodec in ("hevc_tpu", "x265", "hevc", "h265"):
             mux_vcodec = "hevc"
         elif job.vcodec in ("av1_tpu", "svt_av1", "av1"):
@@ -481,6 +813,26 @@ class _MuxAdapter:
                 codec=mux_vcodec, width=out_fi.geometry.width,
                 height=out_fi.geometry.height,
                 fps=float(out_fi.vrate))
+            for si, spec in audio_sel:
+                ti = src.tracks[si]
+                chain = self.aencs.get(si)
+                priv = b""
+                if chain is not None and chain.out_codec() == "flac":
+                    from .audio.flac import FLAC_MARKER
+                    priv = FLAC_MARKER + chain.extradata(initial=True)
+                elif chain is not None and chain.out_codec() == "aac":
+                    priv = chain.extradata()   # AudioSpecificConfig
+                elif chain is not None and chain.out_codec() in (
+                        "opus", "vorbis"):
+                    priv = chain.extradata()   # passthrough: OpusHead /
+                                               # Xiph lacing
+                elif chain is not None and chain.is_passthrough():
+                    priv = ti.extradata
+                self._amap[si] = self.w.add_audio_track(
+                    codec=chain.out_codec() if chain else ti.codec,
+                    sample_rate=chain.sr_out if chain else ti.sample_rate,
+                    channels=chain.out_channels if chain else ti.channels,
+                    private=priv, language=ti.language)
         else:
             from .mux.mp4 import MP4Writer
             self.w = MP4Writer(path)
@@ -497,6 +849,52 @@ class _MuxAdapter:
                 "Transfer": tcolor.get("Transfer", 1),
                 "Matrix": tcolor.get("Matrix", 1),
                 "Range": tcolor.get("Range", 1)}
+            for si, spec in audio_sel:
+                ti = src.tracks[si]
+                chain = self.aencs.get(si)
+                xd = b""
+                if chain is not None and chain.out_codec() == "aac":
+                    xd = chain.extradata()     # AudioSpecificConfig
+                elif chain is not None and chain.out_codec() == "ac3":
+                    xd = chain.extradata()     # dac3 payload
+                    if not xd:
+                        # passthrough: synthesize dac3 from track info
+                        # (fscod/bsid/bsmod/acmod/lfeon packed fields)
+                        fscod = {48000: 0, 44100: 1,
+                                 32000: 2}.get(ti.sample_rate, 0)
+                        acmod = {1: 1, 2: 2, 6: 7}.get(ti.channels, 2)
+                        lfe = 1 if ti.channels == 6 else 0
+                        v = (fscod << 22) | (8 << 17) | (acmod << 11) \
+                            | (lfe << 10) | (11 << 5)   # ~192 kbps
+                        xd = v.to_bytes(3, "big")
+                elif chain is not None and chain.out_codec() == "opus":
+                    # passthrough: dOps payload = OpusHead minus the
+                    # 8-byte magic, version byte first (RFC 7845 /
+                    # ISO-BMFF Opus)
+                    oh = chain.extradata()
+                    if len(oh) >= 19 and oh[:8] == b"OpusHead":
+                        xd = b"\x00" + oh[9:]
+                elif chain is not None and chain.out_codec() in (
+                        "mp3", "vorbis"):
+                    xd = chain.extradata()
+                elif chain is not None and chain.is_passthrough():
+                    xd = ti.extradata
+                    if ti.codec == "aac" and not xd:
+                        # ADTS sources carry no ASC: build AAC-LC
+                        # AudioSpecificConfig from the track info
+                        srates = [96000, 88200, 64000, 48000, 44100,
+                                  32000, 24000, 22050, 16000, 12000,
+                                  11025, 8000, 7350]
+                        sfi = srates.index(ti.sample_rate) \
+                            if ti.sample_rate in srates else 3
+                        ch = max(1, min(7, ti.channels))
+                        v = (2 << 11) | (sfi << 7) | (ch << 3)
+                        xd = v.to_bytes(2, "big")
+                self._amap[si] = self.w.add_audio_track(
+                    codec=chain.out_codec() if chain else ti.codec,
+                    sample_rate=chain.sr_out if chain else ti.sample_rate,
+                    channels=chain.out_channels if chain else ti.channels,
+                    extradata=xd, language=ti.language)
         if job.chapter_markers:
             for i, (start, name) in enumerate(getattr(src, "chapters", [])):
                 title = job.chapter_names[i] \
@@ -536,5 +934,49 @@ class _MuxAdapter:
             self.w.write_sample(self.vtrack, au, duration=dur, sync=idr,
                                 cts_offset=cts, annexb=annexb)
 
+    @staticmethod
+    def _strip_adts(data: bytes) -> bytes:
+        """ADTS framing → raw AAC AUs (the aac_adtstoasc BSF role):
+        containers index access units, not the self-framing stream."""
+        out = bytearray()
+        i = 0
+        n = len(data)
+        while i + 7 <= n and data[i] == 0xFF and \
+                (data[i + 1] & 0xF0) == 0xF0:
+            ln = ((data[i + 3] & 3) << 11) | (data[i + 4] << 3) \
+                | (data[i + 5] >> 5)
+            hdr = 7 if (data[i + 1] & 1) else 9    # +CRC
+            if ln < hdr or i + ln > n:
+                break
+            out += data[i + hdr:i + ln]
+            i += ln
+        return bytes(out) if i and i == n else data
+
+    def write_audio(self, sid: int, pkt: Buffer):
+        tr = self._amap.get(sid)
+        if tr is None or pkt.data is None:
+            return
+        data = pkt.data
+        tcodec = self.w.tracks[tr]
+        if getattr(tcodec, "codec", getattr(tcodec, "codec_id", "")) \
+                in ("aac", "A_AAC"):
+            data = self._strip_adts(bytes(data))
+        if self.kind in ("mkv", "webm"):
+            self.w.write_sample(tr, data, pts_90k=pkt.pts or 0,
+                                duration_90k=pkt.duration or 0)
+        else:
+            t = self.w.tracks[tr]
+            dur = (pkt.duration or 0) * t.timescale // CLOCK
+            self.w.write_sample(tr, data, duration=dur)
+
     def finalize(self):
+        # late extradata (FLAC STREAMINFO carries final MD5/total-samples;
+        # mp4 writes sample entries in moov at finalize so this is exact)
+        if self.kind not in ("mkv", "webm"):
+            for si, tr in self._amap.items():
+                chain = self.aencs.get(si)
+                if chain is not None:
+                    xd = chain.extradata()
+                    if xd:
+                        self.w.tracks[tr].extradata = xd
         self.w.finalize()

@@ -294,7 +294,8 @@ def test_unported_job_raises(src, tmp_path, change):
         work.do_job(j, device="cpu")
 
 
-@pytest.mark.parametrize("opts", [["-E", "aac"], ["-a", "1"], ["-s", "1"],
+@pytest.mark.parametrize("opts", [["-E", "opus"], ["-a", "1", "-E", "mp3"],
+                                  ["-s", "1"],
                                   ["--srt-file", "a.srt"],
                                   ["--bframes", "2"],
                                   ["--gop-parallel", "2"],

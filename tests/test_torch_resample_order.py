@@ -18,9 +18,11 @@ the port's rule for it (``filters/kernels.py`` ``vertical_order``,
   whose vertical band crosses a block and a seeded sample of the rest.
 
 Not matched, and printed as the map's open part: a product with one
-output row (a matrix-vector product), a vertical product with few output
-rows (8 here) and fewer than 1024 input rows, and the narrow last column
-tile of a vertical product with many output rows (999x1777 to 541 rows).
+output row (a matrix-vector product), and a vertical product with few
+output rows (up to 50) and fewer than 1024 input rows.  From 51 output
+rows on, the vertical product takes the horizontal product's kernels by
+the plane's width, which covers a plane whose width is not a multiple of
+64 (999x1777 to 541 rows, the DVD upscales).
 """
 import jax
 import jax.numpy as jnp
@@ -89,17 +91,25 @@ PRESET_SHAPES = [("v", 720, 1080, 1920), ("h", 720, 1920, 1280),
                  ("v", 804, 1608, 3840), ("h", 804, 3840, 1920),
                  ("v", 402, 804, 1920), ("h", 402, 1920, 960)]
 # lanes 2 and 4, blocks of 2048 and 4096 with a tail, narrow planes, a
-# narrow last column tile, and few output rows
+# narrow last column tile, few output rows, and a vertical product with
+# many output rows on a plane whose width is not a multiple of 64
 RULE_SHAPES = [("h", 8, 3001, 20), ("h", 8, 2051, 40), ("h", 6, 2050, 88),
                ("h", 4, 1777, 1103), ("h", 3, 600, 12), ("h", 2, 97, 50),
                ("v", 6, 1203, 12), ("v", 4, 1100, 40), ("v", 8, 1100, 80),
-               ("v", 8, 1030, 129), ("v", 100, 900, 128)]
+               ("v", 8, 1030, 129), ("v", 100, 900, 128),
+               ("v", 541, 999, 1777), ("v", 51, 480, 720),
+               ("v", 300, 1500, 84), ("v", 50, 1500, 720)]
+# the DVD upscales to 1080p: 720x480 to 1440x1080 and 720x576 to
+# 1920x1080, with their 4:2:0 chroma
+DVD_SHAPES = [("v", 1080, 480, 720), ("h", 1080, 720, 1440),
+              ("v", 540, 240, 360), ("h", 540, 360, 720),
+              ("v", 1080, 576, 720), ("h", 1080, 720, 1920),
+              ("v", 540, 288, 360), ("h", 540, 360, 960)]
 # where the rule is known not to hold (ROADMAP §3): one output row (a
-# matrix-vector product); a vertical product with few output rows and
-# fewer than 1024 input rows, which XLA splits into other blocks; and the
-# narrow last column tile of a vertical product with many output rows
+# matrix-vector product); a vertical product with few output rows (up to
+# 50) and fewer than 1024 input rows, which XLA splits into other blocks
 LEFT_SHAPES = [("h", 1, 97, 50), ("v", 8, 900, 80), ("v", 2, 600, 129),
-               ("v", 8, 540, 960), ("v", 541, 999, 1777)]
+               ("v", 8, 540, 960), ("v", 50, 480, 720)]
 
 
 def _map_case(which, m, k, n, seed):
@@ -110,7 +120,7 @@ def _map_case(which, m, k, n, seed):
         want = np.asarray(_vertical(a, x))
         rows = np.sort(rng.choice(m, min(m, 2), replace=False))
         got, chain, rule = np.zeros((rows.size, n), np.float32), None, []
-        for c0, c1, lanes, block, main in tk.vertical_order(k, n):
+        for c0, c1, lanes, block, main in tk.vertical_order(k, n, m):
             got[:, c0:c1] = ordered_dot(a[rows], x[:, c0:c1].T, lanes,
                                         block, main)
             rule.append((c0, c1, lanes, block, main))
@@ -133,7 +143,7 @@ def _map_case(which, m, k, n, seed):
 
 
 @pytest.mark.parametrize("which,m,k,n", TEST_SHAPES + PRESET_SHAPES
-                         + RULE_SHAPES)
+                         + RULE_SHAPES + DVD_SHAPES)
 def test_xla_order_map(which, m, k, n):
     assert _map_case(which, m, k, n, m * 131 + k * 7 + n) == 0.0
 
@@ -152,7 +162,11 @@ GEOMETRIES = {"1080p-720p-luma": (1080, 1920, 720, 1280, 0.0),
               "2160p-1080p-luma": (2160, 3840, 1080, 1920, 0.0),
               "2160p-1080p-chroma": (1080, 1920, 540, 960, -0.25),
               "letterbox-luma": (1608, 3840, 804, 1920, 0.0),
-              "letterbox-chroma": (804, 1920, 402, 960, -0.25)}
+              "letterbox-chroma": (804, 1920, 402, 960, -0.25),
+              "ntsc-dvd-1080p-luma": (480, 720, 1080, 1440, 0.0),
+              "ntsc-dvd-1080p-chroma": (240, 360, 540, 720, -0.25),
+              "pal-dvd-1080p-luma": (576, 720, 1080, 1920, 0.0),
+              "pal-dvd-1080p-chroma": (288, 360, 540, 960, -0.25)}
 
 
 def _plane(h, w, bits, seed):
@@ -176,7 +190,7 @@ def test_band_passes_equal_xla(geometry, bits):
     lo_h, taps_h = tk.resample_band(in_w, out_w, "lanczos", sh, sh)
     # the rows whose vertical band crosses a block of the vertical order,
     # and a seeded sample of the others
-    blocks = {b for *_c, _l, b, _m in tk.vertical_order(in_h, in_w)}
+    blocks = {b for *_c, _l, b, _m in tk.vertical_order(in_h, in_w, out_h)}
     cross = [o for o in range(out_h) for b in blocks
              if lo_v[o] // b != (lo_v[o] + taps_v.shape[0] - 1) // b]
     rng = np.random.default_rng(bits)
@@ -186,7 +200,8 @@ def test_band_passes_equal_xla(geometry, bits):
     lo_s = torch.from_numpy(lo_v[rows])
     taps_s = torch.from_numpy(np.ascontiguousarray(taps_v[:, rows]))
     p1 = torch.cat([tk._band_pass(x[:, c0:c1], lo_s, taps_s, (ln, b, mn))
-                    for c0, c1, ln, b, mn in tk.vertical_order(in_h, in_w)],
+                    for c0, c1, ln, b, mn
+                    in tk.vertical_order(in_h, in_w, out_h)],
                    dim=1).numpy()
     want1 = np.asarray(_vertical(av, plane.astype(np.float32)))
     assert np.array_equal(p1.view(np.uint32), want1[rows].view(np.uint32))
