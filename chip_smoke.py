@@ -205,7 +205,9 @@ HQ_PROBE_STEPS = 1 << 16   # dependent steps of the chain probe
 HQ_OPS_PER_SAMPLE = 3 * 12
 # the resample kernel's cases against its plain version (5 (b)): (label,
 # in_h, in_w, out_h, out_w, horizontal chroma siting shift); (a)'s planes
-# are added from the job's own settings
+# are added from the job's own settings.  The narrow upscales are planes
+# under 64 wide with many output rows, whose vertical order takes four,
+# two and four lanes
 RS_CASES = (("odd down", 999, 1777, 541, 1103, -0.25),
             ("odd up", 37, 53, 91, 129, 0.0),
             ("1080p to 720p", 1080, 1920, 720, 1280, 0.0),
@@ -213,7 +215,10 @@ RS_CASES = (("odd down", 999, 1777, 541, 1103, -0.25),
             ("NTSC DVD to 1080p", 480, 720, 1080, 1440, 0.0),
             ("NTSC DVD chroma", 240, 360, 540, 720, -0.25),
             ("PAL DVD to 1080p", 576, 720, 1080, 1920, 0.0),
-            ("PAL DVD chroma", 288, 360, 540, 960, -0.25))
+            ("PAL DVD chroma", 288, 360, 540, 960, -0.25),
+            ("narrow up 20", 15, 20, 120, 160, -0.25),
+            ("narrow up 30", 23, 30, 240, 160, -0.25),
+            ("narrow up 40", 30, 40, 240, 320, -0.25))
 # the DVD upscales (4:2:0 frames) whose kernel time 5 (d) also prints: a
 # plane width that is not a multiple of 64, four lanes in the vertical
 # order: (label, in_h, in_w, out_h, out_w)
@@ -1640,7 +1645,7 @@ def encoder_speed():
             "ac3": t_ac3, "flac": t_flac}
 
 
-def phase_audio(tmp, label, stream, device_args=()):
+def phase_audio(tmp, label, stream):
     """8: audio jobs on the card: (a) the source; (b) the CLI's default
     preset (AAC stereo 160 from track 1) to mp4, and the same job with -a
     none; (c) three tracks to mkv (copy:aac, 5.1 AC-3 to stereo FLAC, 44.1
@@ -1660,8 +1665,7 @@ def phase_audio(tmp, label, stream, device_args=()):
     print(f"audio (a): {W}x{H} H.264 mp4 of {n} frames with "
           + ", ".join(f"{c} {sr} Hz {ch} ch ({len(p)} packets)"
                       for c, sr, ch, _x, p in tracks), flush=True)
-    argv = ["-e", "h264", "-q", "28", "--encoder-profile", "high",
-            *device_args]
+    argv = ["-e", "h264", "-q", "28", "--encoder-profile", "high"]
 
     def job(out, *extra):
         with pj.JobSpy() as spy, pj.StageTimers() as st:
@@ -1671,7 +1675,7 @@ def phase_audio(tmp, label, stream, device_args=()):
         if rc != 0:
             raise RuntimeError(f"the audio job {extra} failed: exit {rc}")
         want = spy.p_frames() + spy.enc.n_redo
-        if device_args == () and (launches == 0 or launches != want):
+        if launches == 0 or launches != want:
             raise RuntimeError(f"the audio job {extra} did not launch "
                                f"deblock264 once per analysed P frame "
                                f"({launches}, {want})")

@@ -27,6 +27,17 @@ ONLY_LONG, LONG_START, EIGHT_SHORT, LONG_STOP = 0, 1, 2, 3
 ZERO_HCB, NOISE_HCB, INTENSITY_HCB2, INTENSITY_HCB = 0, 13, 14, 15
 SF_OFFSET = 100
 
+# object types whose core this decoder reads: LC, and HE-AAC (SBR) and
+# HE-AAC v2 (PS) over an LC core
+DECODABLE_AOTS = (2, 5, 29)
+
+
+class AACUnsupported(ValueError):
+    """A tool that AAC-LC does not have (Main's prediction, SSR's gain
+    control): every frame of such a stream would fail alike, so it is a
+    fault of the track, not a corrupt frame."""
+
+
 SAMPLE_RATES = [96000, 88200, 64000, 48000, 44100, 32000, 24000, 22050,
                 16000, 12000, 11025, 8000, 7350]
 
@@ -284,7 +295,7 @@ class AACDecoder:
         else:
             ics.max_sfb = br.u(6)
             if br.u(1):                # predictor_data_present (not LC)
-                raise ValueError("aacdec: prediction not supported (LC)")
+                raise AACUnsupported("aacdec: prediction not supported (LC)")
             ics.num_windows = 1
             ics.groups = [1]
             ics.swb_offset = SWB_LONG_48
@@ -500,7 +511,7 @@ class AACDecoder:
         if br.u(1):                    # tns_data_present
             self._tns_data(br, ics)
         if br.u(1):                    # gain_control_data_present
-            raise ValueError("aacdec: gain control not supported")
+            raise AACUnsupported("aacdec: gain control not supported")
         q = self._spectral_data(br, ics)
         if pulse is not None:
             start_sfb, offs, amps = pulse

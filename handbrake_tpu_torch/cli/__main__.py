@@ -155,12 +155,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--drc", default="0",
                    help="dynamic range compression (1.0-4.0), one a "
                         "track")
-    p.add_argument("--audio-copy-mask",
-                   help="codecs a copy may pass through, e.g. aac,ac3 "
-                        "(the job's Audio.CopyMask)")
-    p.add_argument("--audio-fallback",
-                   help="encoder where a copy cannot pass a track "
-                        "through (the job's Audio.FallbackEncoder)")
     p.add_argument("--acompressor", type=float, default=0.0,
                    help="compressor ratio (acompressor)")
     p.add_argument("--agate", type=float, default=0.0,
@@ -373,12 +367,6 @@ def apply_cli_overrides(job: Job, args) -> Job:
                                    compressor=args.acompressor,
                                    gate=args.agate)
                      for i, t in enumerate(tracks)]
-    if args.audio_copy_mask:
-        job.audio_copy_mask = [
-            c if c.startswith("copy") else f"copy:{c}"
-            for c in args.audio_copy_mask.split(",")]
-    if args.audio_fallback:
-        job.audio_fallback = args.audio_fallback
 
     # range
     if args.chapters:

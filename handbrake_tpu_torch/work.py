@@ -27,6 +27,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
+from .audio.aacdec import DECODABLE_AOTS, AACDecoder, AACUnsupported
 from .codecs.registry import create_video_decoder
 from .core.buffer import Buffer, CLOCK, Geometry, PIX_FMTS
 from .core.pipeline import WorkObject
@@ -578,8 +579,11 @@ class _AacPacketDecoder:
 
     def __init__(self, ti):
         import collections
-        from .audio.aacdec import AACDecoder
         self.dec = AACDecoder(ti.extradata or None)
+        aot = getattr(self.dec, "aot", 2)
+        if aot not in DECODABLE_AOTS:
+            raise WorkError(f"aac: audio object type {aot} cannot be "
+                            f"decoded (AAC-LC, object type 2, can)")
         self.ti = ti
         self._pend = b""
         self._adts = None
@@ -593,6 +597,9 @@ class _AacPacketDecoder:
         if self._adts is None:
             self._adts = (len(data) >= 2 and data[0] == 0xFF
                           and (data[1] & 0xF0) == 0xF0)
+            if self._adts and len(data) >= 3 and data[2] >> 6 != 1:
+                raise WorkError(f"aac: ADTS profile {data[2] >> 6} cannot "
+                                f"be decoded (AAC-LC, profile 1, can)")
         if self._adts:
             self._pend += data
             frames = []
@@ -616,6 +623,8 @@ class _AacPacketDecoder:
         for k, fr in enumerate(frames):
             try:
                 pcm = self.dec.decode_frame(fr)
+            except AACUnsupported as e:   # a fault of the track
+                raise WorkError(f"aac: {e}") from e
             except Exception as e:  # noqa: BLE001 — corrupt AU: skip
                 log("aac decode error: %s" % e)
                 continue

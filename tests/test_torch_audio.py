@@ -486,6 +486,61 @@ def test_undecodable_tracks_raise():
             _ti(TrackInfo, codec, 48000, 2), spec), cls)
 
 
+def _asc(aot, sfi=3, ch=2):
+    return ((aot << 11) | (sfi << 7) | (ch << 3)).to_bytes(2, "big")
+
+
+@pytest.mark.parametrize("aot", [1, 3, 4])
+def test_aac_object_types_other_than_lc_raise(aot):
+    """AAC Main, SSR and LTP: the decoder reads their ASC, and each frame
+    that uses the object type's own tool would then fail, so the track
+    would be silence; the port refuses the track when it starts."""
+    spec = AudioJobTrack(track=0, encoder="aac")
+    with pytest.raises(work.WorkError, match=f"object type {aot}"):
+        work._make_audio_decoder(_ti(TrackInfo, "aac", 48000, 2, _asc(aot)),
+                                 spec)
+    for ok in (2, 5):           # LC, and HE-AAC's LC core
+        assert isinstance(work._make_audio_decoder(
+            _ti(TrackInfo, "aac", 48000, 2, _asc(ok)), spec),
+            work._AacPacketDecoder)
+
+
+def test_adts_main_profile_raises():
+    dec = work._make_audio_decoder(_ti(TrackInfo, "aac", 48000, 2),
+                                   AudioJobTrack(track=0, encoder="aac"))
+    # an ADTS header of profile 0 (Main), 48 kHz stereo, 64 bytes
+    hdr = bytes([0xFF, 0xF1, (0 << 6) | (3 << 2), (2 << 6), 64 >> 3,
+                 ((64 & 7) << 5) | 0x1F, 0xFC])
+    buf = Buffer(track_kind="audio")
+    buf.data, buf.pts = hdr + bytes(57), 0
+    with pytest.raises(work.WorkError, match="ADTS profile 0"):
+        dec.feed(buf)
+
+
+def test_aac_frame_with_an_unsupported_tool_raises():
+    """A mono LC frame whose predictor_data_present bit (bit 25: after
+    the SCE's id, tag, global gain and the long ics_info's fields) is
+    set: the reference logs and drops each such frame, so a stream of
+    them becomes silence; the port's job raises."""
+    (asc, aus), _ = _aac_streams(48000, 1, 96)
+    bad = bytearray(aus[1])
+    bad[3] |= 0x40
+    with pytest.raises(aacdec.AACUnsupported, match="prediction"):
+        aacdec.AACDecoder(asc).decode_frame(bytes(bad))
+    jdec = jwork._make_audio_decoder(
+        _ti(JTrackInfo, "aac", 48000, 1, asc),
+        JAudioJobTrack(track=0, encoder="aac"))
+    jbuf = JBuffer(track_kind="audio")
+    jbuf.data, jbuf.pts = bytes(bad), 0
+    assert jdec.feed(jbuf) == []
+    dec = work._make_audio_decoder(_ti(TrackInfo, "aac", 48000, 1, asc),
+                                   AudioJobTrack(track=0, encoder="aac"))
+    buf = Buffer(track_kind="audio")
+    buf.data, buf.pts = bytes(bad), 0
+    with pytest.raises(work.WorkError, match="prediction"):
+        dec.feed(buf)
+
+
 def test_audio_modules_import_with_jax_blocked():
     """The audio modules are among those that import with jax and
     handbrake_tpu blocked (the walk of tests/test_torch_imports.py)."""

@@ -11,6 +11,15 @@ from handbrake_tpu_torch.cli.__main__ import main as cli
 from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
 from handbrake_tpu_torch.utils.synth import make_interlaced_clip, write_y4m
 
+
+@pytest.fixture(autouse=True)
+def _reference_device_path(monkeypatch):
+    """The JAX package's jobs run on its device path, as the port's do:
+    some of its own tests leave HB_TPU_DISABLE_DEVICE=1 set for the rest
+    of their process, which switches it to its host encoder."""
+    monkeypatch.delenv("HB_TPU_DISABLE_DEVICE", raising=False)
+
+
 W, H, N = 64, 48, 4
 BASE_ARGV = ["-e", "h264", "-q", "28", "--encoder-profile", "high"]
 # flag → (argv, computes in integers)

@@ -33,6 +33,15 @@ from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
 from handbrake_tpu_torch.sources.raw import Y4MReader
 from handbrake_tpu_torch.utils.synth import write_y4m
 
+
+@pytest.fixture(autouse=True)
+def _reference_device_path(monkeypatch):
+    """The JAX package's jobs run on its device path, as the port's do:
+    some of its own tests leave HB_TPU_DISABLE_DEVICE=1 set for the rest
+    of their process, which switches it to its host encoder."""
+    monkeypatch.delenv("HB_TPU_DISABLE_DEVICE", raising=False)
+
+
 W, H, N = 64, 48, 12
 FPS = (30000, 1001)
 BAR = 8                 # black rows above and below in the letterboxed y4m

@@ -12,9 +12,10 @@ H.264 mp4 and mkv files that the port's own encoders and muxers write
   CLI's; the same job through ``hb.Handle``;
 - adding audio changes no video byte;
 - the refusals: an opus encoder, an E-AC-3 or Opus source track, bad AAC
-  extradata and a FLAC track without STREAMINFO raise, where the
-  reference falls back (FLAC instead of opus, a passthrough the chain
-  drops); no output file is left that would hide it.
+  extradata, an AAC Main track and a FLAC track without STREAMINFO
+  raise, where the reference falls back (FLAC instead of opus, a
+  passthrough the chain drops, frames dropped for silence); no output
+  file is left that would hide it.
 
 No test here loads libavcodec."""
 import functools
@@ -48,8 +49,12 @@ FRAME = 3003                    # 90 kHz ticks a frame at 30000/1001
 @pytest.fixture(scope="module", autouse=True)
 def _shared_jax_analyzers():
     """Every reference encoder of one shape shares one jitted analyzer
-    (the build functions are pure), so each compiles once per module."""
+    (the build functions are pure), so each compiles once per module.
+    The reference encodes on its device path, as the port does: some of
+    the JAX package's tests set HB_TPU_DISABLE_DEVICE=1 for the rest of
+    their process, which would switch it to its host path."""
     with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("HB_TPU_DISABLE_DEVICE", raising=False)
         for name in ("build_p_analyzer", "build_p_analyzer_batch"):
             mp.setattr(encoder_tpu, name,
                        functools.lru_cache(None)(getattr(encoder_tpu, name)))
@@ -150,6 +155,9 @@ def sources(tmp_path_factory):
         "av": _write_mp4(str(d / "av.mp4"), tracks),
         "bad-asc": _write_mp4(str(d / "bad.mp4"), [
             ("aac", 48000, 2, b"\x12", tracks[0][4])]),
+        # the LC track's packets, its ASC naming AAC Main (object type 1)
+        "aac-main": _write_mp4(str(d / "main.mp4"), [
+            ("aac", 48000, 2, b"\x09\x90", tracks[0][4])]),
         "eac3": _write_mkv(str(d / "eac3.mkv"), "eac3"),
         "opus": _write_mkv(str(d / "opus.mkv"), "opus",
                            b"OpusHead\x01\x02" + bytes(9)),
@@ -284,9 +292,8 @@ def test_cli_per_track_audio_lists(sources, tmp_path):
     out = str(tmp_path / "cli.mkv")
     assert cli(_cli_args(sources["av"], out, "-a", "1,2,3", "-E",
                          "copy:aac,flac,ac3", "-B", "160,160,192", "-6",
-                         "stereo", "-R", "auto,auto,48",
-                         "--audio-copy-mask", "aac,ac3", "--audio-fallback",
-                         "ac3", "--device", "cpu")) == 0
+                         "stereo", "-R", "auto,auto,48", "--device",
+                         "cpu")) == 0
     tracks, pk = _packets(out)
     assert [t[1] for t in tracks] == ["h264", "aac", "flac", "ac3"]
     assert [t[2] for t in tracks[1:]] == [48000, 48000, 48000]
@@ -347,6 +354,17 @@ def test_bad_aac_extradata_raises(sources, tmp_path):
         work.do_job(_job(S, sources["bad-asc"], tout, "mp4", tracks),
                     device="cpu")
     assert not os.path.exists(tout)
+
+
+def test_aac_main_track_raises(sources, tmp_path):
+    """An AAC Main track: the decoder reads LC syntax, and each frame that
+    uses Main's prediction would be dropped and filled with silence, so
+    the port refuses the track before the job writes a file."""
+    out = str(tmp_path / "x.mp4")
+    with pytest.raises(work.WorkError, match="object type 1"):
+        work.do_job(_job(S, sources["aac-main"], out, "mp4",
+                         [dict(track=0, encoder="aac")]), device="cpu")
+    assert not os.path.exists(out)
 
 
 def test_flac_track_without_streaminfo_raises(sources, tmp_path):

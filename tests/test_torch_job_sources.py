@@ -34,8 +34,12 @@ FPS = (30000, 1001)
 @pytest.fixture(scope="module", autouse=True)
 def _shared_jax_analyzers():
     """Every reference encoder of one shape shares one jitted analyzer
-    (the build functions are pure), so each compiles once per module."""
+    (the build functions are pure), so each compiles once per module.
+    The reference encodes on its device path, as the port does: some of
+    the JAX package's tests set HB_TPU_DISABLE_DEVICE=1 for the rest of
+    their process, which would switch it to its host path."""
     with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("HB_TPU_DISABLE_DEVICE", raising=False)
         for name in ("build_p_analyzer", "build_p_analyzer_batch"):
             mp.setattr(encoder_tpu, name,
                        functools.lru_cache(None)(getattr(encoder_tpu, name)))

@@ -5,7 +5,11 @@ the DVD upscales to 1080p: 720x480 to 1440x1080 and 720x576 to
 -0.25), 8 and 10 bits.  These planes are 720 and 360 wide, not multiples
 of 64, and have more output rows than input rows: XLA:CPU sums their
 vertical product with four lanes (``vertical_order``), where the rule
-before it kept one chain and 8-10 samples of a luma plane differed."""
+before it kept one chain and 8-10 samples of a luma plane differed.
+
+The same holds for a source so small that its planes are under 64 wide,
+upscaled to 320x240: XLA sums their vertical product with four or two
+lanes, by the plane's width, from 51 output rows on."""
 import numpy as np
 import pytest
 
@@ -16,7 +20,10 @@ from handbrake_tpu_torch.filters import kernels as tk
 DVD = {"ntsc-luma": (480, 720, 1080, 1440, 0.0),
        "ntsc-chroma": (240, 360, 540, 720, -0.25),
        "pal-luma": (576, 720, 1080, 1920, 0.0),
-       "pal-chroma": (288, 360, 540, 960, -0.25)}
+       "pal-chroma": (288, 360, 540, 960, -0.25),
+       "40x30-to-320x240-luma": (30, 40, 240, 320, 0.0),
+       "40x30-to-320x240-chroma": (15, 20, 120, 160, -0.25),
+       "60x46-to-320x240-chroma": (23, 30, 120, 160, -0.25)}
 
 
 def _plane(h, w, bits, seed):

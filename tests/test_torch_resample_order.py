@@ -22,7 +22,9 @@ output row (a matrix-vector product), and a vertical product with few
 output rows (up to 50) and fewer than 1024 input rows.  From 51 output
 rows on, the vertical product takes the horizontal product's kernels by
 the plane's width, which covers a plane whose width is not a multiple of
-64 (999x1777 to 541 rows, the DVD upscales).
+64 (999x1777 to 541 rows, the DVD upscales) and a plane under 64 wide
+(the chroma of a small source upscaled); the 50/51-row boundary is held
+at widths 20, 30, 40, 720 and 1777 and at 240 to 4500 input rows.
 """
 import jax
 import jax.numpy as jnp
@@ -92,13 +94,19 @@ PRESET_SHAPES = [("v", 720, 1080, 1920), ("h", 720, 1920, 1280),
                  ("v", 402, 804, 1920), ("h", 402, 1920, 960)]
 # lanes 2 and 4, blocks of 2048 and 4096 with a tail, narrow planes, a
 # narrow last column tile, few output rows, and a vertical product with
-# many output rows on a plane whose width is not a multiple of 64
+# many output rows on a plane whose width is not a multiple of 64: wide,
+# and under 64 wide (20, 30 and 40: four, two and four lanes, where the
+# tile rule of fewer rows keeps one), on both sides of 51 output rows
 RULE_SHAPES = [("h", 8, 3001, 20), ("h", 8, 2051, 40), ("h", 6, 2050, 88),
                ("h", 4, 1777, 1103), ("h", 3, 600, 12), ("h", 2, 97, 50),
                ("v", 6, 1203, 12), ("v", 4, 1100, 40), ("v", 8, 1100, 80),
                ("v", 8, 1030, 129), ("v", 100, 900, 128),
                ("v", 541, 999, 1777), ("v", 51, 480, 720),
-               ("v", 300, 1500, 84), ("v", 50, 1500, 720)]
+               ("v", 300, 1500, 84), ("v", 50, 1500, 720),
+               ("v", 51, 240, 20), ("v", 100, 480, 30), ("v", 540, 240, 40),
+               ("v", 51, 4500, 30), ("v", 51, 1500, 40),
+               ("v", 51, 480, 1777), ("v", 51, 2100, 720),
+               ("v", 50, 240, 20), ("v", 50, 4500, 30), ("v", 50, 1500, 40)]
 # the DVD upscales to 1080p: 720x480 to 1440x1080 and 720x576 to
 # 1920x1080, with their 4:2:0 chroma
 DVD_SHAPES = [("v", 1080, 480, 720), ("h", 1080, 720, 1440),
@@ -109,7 +117,7 @@ DVD_SHAPES = [("v", 1080, 480, 720), ("h", 1080, 720, 1440),
 # matrix-vector product); a vertical product with few output rows (up to
 # 50) and fewer than 1024 input rows, which XLA splits into other blocks
 LEFT_SHAPES = [("h", 1, 97, 50), ("v", 8, 900, 80), ("v", 2, 600, 129),
-               ("v", 8, 540, 960), ("v", 50, 480, 720)]
+               ("v", 8, 540, 960), ("v", 50, 480, 720), ("v", 50, 480, 1777)]
 
 
 def _map_case(which, m, k, n, seed):
@@ -166,7 +174,10 @@ GEOMETRIES = {"1080p-720p-luma": (1080, 1920, 720, 1280, 0.0),
               "ntsc-dvd-1080p-luma": (480, 720, 1080, 1440, 0.0),
               "ntsc-dvd-1080p-chroma": (240, 360, 540, 720, -0.25),
               "pal-dvd-1080p-luma": (576, 720, 1080, 1920, 0.0),
-              "pal-dvd-1080p-chroma": (288, 360, 540, 960, -0.25)}
+              "pal-dvd-1080p-chroma": (288, 360, 540, 960, -0.25),
+              "40x30-to-320x240-luma": (30, 40, 240, 320, 0.0),
+              "40x30-to-320x240-chroma": (15, 20, 120, 160, -0.25),
+              "60x46-to-320x240-chroma": (23, 30, 120, 160, -0.25)}
 
 
 def _plane(h, w, bits, seed):
