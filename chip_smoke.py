@@ -132,7 +132,28 @@ Phases (none is caught; any failure exits non-zero before the last line):
    and FLAC encoders' host seconds per second of 48 kHz stereo audio
    (AAC also with its MDCT matrix rebuilt on every call, as the JAX
    package does, which must give the same bytes).
-9. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+9. Subtitles (``filters/rendersub.py``'s blend is torch operations, not
+   a kernel): (a) ``blend_rgba`` on the card against the CPU, byte for
+   byte, on 1920x1080 and 3840x2160 frames, 8 and 10 bits, 4:2:0, 4:2:2
+   and 4:4:4, with four patches: a two-line cue from the machine's
+   rasterizer (its name printed), a 1600x240 PGS card decoded by the
+   port's ``PgsDecoder``, a 1400x200 random-alpha patch at an odd
+   offset, and one clamped at the right and bottom edges; each patch's
+   warm ms a call (CUDA events) and launches a call (``torch.profiler``)
+   on a 1080p 8-bit 4:2:0 frame, beside its bytes bound at the card's
+   own memory rate; (b) step 7's stream in an mkv with an S_HDMV/PGS
+   track (a card shown at frame 5, cleared at frame 25) and an
+   S_TEXT/UTF8 track, through the CLI's default preset with ``-s 1,2
+   --subtitle-burned 1`` to mp4: its first 6 samples equal the CPU run's
+   (``--device cpu``, the source's first 6 frames), the tx3g samples
+   equal the cues (gaps filled), the decoded frames show the card's
+   colour in its rectangle for 20 frames from frame 5 or 6 and not
+   before; the fps with and without ``-s`` and render_sub's share of the
+   filter graph's host time; (c) job (a)'s letterboxed source with
+   ``--srt-file`` and ``--srt-burn 1``: its first 3 samples equal the
+   CPU run's, and the burned text's box in the decoded 1920x804 output
+   is horizontally centred and in the bottom fifth.
+10. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
    time; hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s
@@ -140,8 +161,8 @@ Phases (none is caught; any failure exits non-zero before the last line):
    are 5 (d)'s kernel times on (a)'s planes, ``ms_dvd`` its times on the
    DVD frames beside ``bound_dvd_ms``, ``launches`` 5 (a)'s count, one a
    frame, ``library_ms`` the dense products' time, ``regs``,
-   ``local_bytes`` and ``smem_bytes`` the kernel's), step 8's numbers,
-   the card's name and power limit, and the result line.
+   ``local_bytes`` and ``smem_bytes`` the kernel's), steps 8's and 9's
+   numbers, the card's name and power limit, and the result line.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -207,7 +228,11 @@ HQ_OPS_PER_SAMPLE = 3 * 12
 # in_h, in_w, out_h, out_w, horizontal chroma siting shift); (a)'s planes
 # are added from the job's own settings.  The narrow upscales are planes
 # under 64 wide with many output rows, whose vertical order takes four,
-# two and four lanes
+# two and four lanes; "few rows 720" is a vertical product of 50 rows in
+# tiles of 128 columns and a last one of 80; the narrow last tile (one
+# column, two rows) rounds every product; the one-row products are a
+# matrix-vector kernel's order (eight lanes, halves in the last columns,
+# an fma tail)
 RS_CASES = (("odd down", 999, 1777, 541, 1103, -0.25),
             ("odd up", 37, 53, 91, 129, 0.0),
             ("1080p to 720p", 1080, 1920, 720, 1280, 0.0),
@@ -218,7 +243,10 @@ RS_CASES = (("odd down", 999, 1777, 541, 1103, -0.25),
             ("PAL DVD chroma", 288, 360, 540, 960, -0.25),
             ("narrow up 20", 15, 20, 120, 160, -0.25),
             ("narrow up 30", 23, 30, 240, 160, -0.25),
-            ("narrow up 40", 30, 40, 240, 320, -0.25))
+            ("narrow up 40", 30, 40, 240, 320, -0.25),
+            ("few rows 720", 480, 720, 50, 360, 0.0),
+            ("few rows, narrow last tile", 600, 129, 2, 60, 0.0),
+            ("one row, tail of 5", 3, 101, 1, 127, 0.0))
 # the DVD upscales (4:2:0 frames) whose kernel time 5 (d) also prints: a
 # plane width that is not a multiple of 64, four lanes in the vertical
 # order: (label, in_h, in_w, out_h, out_w)
@@ -244,6 +272,19 @@ SRC_N = 33              # frames of the H.264-source job (step 7)
 FRAME_TICKS = 3003      # 90 kHz ticks of a frame at 30000/1001
 AC3_SRC_BPS = 384000    # the audio source's 5.1 AC-3 track (step 8)
 SPEED_SECONDS = 1.0     # audio each encoder's speed is measured on
+# step 9: the blend's timing reps; the subtitle job's PGS card (Y, Cr, Cb
+# of its palette entry, its rectangle x, y, w, h), shown at frame SUB_SHOW
+# and cleared at SUB_CLEAR; its text cues (first frame, frames, text); the
+# frames of its CPU run; how far (8-bit levels) the decoded rectangle's
+# mean may be from the card's colour; the two-line cue of 9 (a) and (c)
+BLEND_REPS = 25
+SUB_CARD_YCRCB = (180, 200, 70)
+SUB_RECT = (760, 860, 400, 120)
+SUB_SHOW, SUB_CLEAR = 5, 25
+SUB_TEXT_CUES = ((3, 6, "First soft cue"), (12, 5, "Second soft cue"))
+SUB_CPU_FRAMES = 6
+SUB_CARD_TOL = 8.0
+SUB_CUE = "A burned subtitle\nin two lines"
 
 
 def smi(query):
@@ -645,7 +686,7 @@ def read_mp4(path):
     from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
     d = MP4Demuxer(path)
     try:
-        return d.tracks[0], [bytes(b.data) for _, b in d.packets()]
+        return d.tracks[0], [bytes(b.data) for t, b in d.packets() if t == 0]
     finally:
         d.close()
 
@@ -1779,6 +1820,376 @@ def phase_audio(tmp, label, stream):
             "encoder_s_per_s": speed}
 
 
+def card_bandwidth() -> float:
+    """The card's own memory rate, bytes/s: its memory clock times its bus
+    width, two transfers a clock."""
+    import torch
+    p = torch.cuda.get_device_properties(0)
+    return p.memory_clock_rate * 1e3 * p.memory_bus_width / 8 * 2
+
+
+def sub_patches(w, h, seed):
+    """9 (a)'s patches for a w x h frame, [(label, RGBA uint8, (x0, y0))],
+    (x0, y0) clamped into the frame as the filter clamps it: a two-line
+    cue from the machine's rasterizer at 1920x1080, a 1600x240 PGS card
+    decoded by the port's PgsDecoder, a 1400x200 random-alpha patch at an
+    odd offset, and a patch past the right and bottom edges."""
+    from handbrake_tpu_torch.filters.rendersub import clamp_site
+    from handbrake_tpu_torch.subtitles.pgs import (PgsDecoder,
+                                                   build_display_set)
+    from handbrake_tpu_torch.subtitles.raster import render_text_rgba
+    rng = np.random.default_rng(seed)
+    text, (tx, ty) = render_text_rgba(SUB_CUE, 1920, 1080)
+    pal = np.zeros((256, 4), np.uint8)
+    pal[1:4] = [(235, 128, 128, 255), (81, 90, 240, 200), (40, 200, 90, 128)]
+    # blocks of the three colours on a transparent field (one ODS
+    # segment holds at most 64 KiB of run-length code)
+    yy, xx = np.mgrid[0:240, 0:1600]
+    idx = ((yy // 40 + xx // 40) % 4).astype(np.uint8)
+    ev = [e for e in PgsDecoder().feed(build_display_set(
+        0, idx, pal, 160, 800, screen=(w, h)), 0) if e.rgba is not None][0]
+    rand = rng.integers(0, 256, (200, 1400, 4)).astype(np.uint8)
+    edge = rng.integers(0, 256, (100, 300, 4)).astype(np.uint8)
+    out = []
+    for label, rgba, (x0, y0) in (("text", text, (tx, ty)),
+                                  ("pgs", ev.rgba, (ev.x, ev.y)),
+                                  ("random", rand, (261, 811)),
+                                  ("edge", edge, (w - 150, h - 40))):
+        out.append((label, np.ascontiguousarray(rgba),
+                    clamp_site(x0, y0, rgba.shape[1], rgba.shape[0], w, h)))
+    return out
+
+
+def blend_bound_ms(rgba, sub, bytes_per_sample, bw):
+    """The blend's bytes bound: the RGBA read (4P), luma read and written
+    (2 P b) and both chroma planes read and written (4 (P / (sw sh)) b),
+    at the card's memory rate."""
+    ph, pw = rgba.shape[:2]
+    p = ph * pw
+    sw, sh = sub
+    n = 4 * p + 2 * p * bytes_per_sample \
+        + 4 * (ph // sh) * (pw // sw) * bytes_per_sample
+    return n / bw * 1e3
+
+
+def phase_blend(label):
+    """9 (a): the burn-in's blend on the card against the CPU, byte for
+    byte, at 1080p and 2160p, 8 and 10 bits, 4:2:0, 4:2:2 and 4:4:4, on
+    each patch; its warm ms and launches per call and bytes bound.
+    Returns its numbers."""
+    import torch
+    from handbrake_tpu_torch.filters.rendersub import blend_rgba
+    from handbrake_tpu_torch.subtitles.raster import rasterizer
+    dev = torch.device("cuda")
+    bw = card_bandwidth()
+    print(f"subtitles: text cues are rasterized with {rasterizer()}; the "
+          f"card's memory rate {bw / 1e12:.3f} TB/s (clock x bus width; "
+          f"the data sheet's {MEM_BW / 1e12:.2f})", flush=True)
+    n_cases, timed = 0, {}
+    for (w, h) in ((1920, 1080), (3840, 2160)):
+        patches = sub_patches(w, h, w)
+        for bits in (8, 10):
+            mx = (1 << bits) - 1
+            dt = np.uint8 if bits == 8 else np.uint16
+            for sub in ((2, 2), (2, 1), (1, 1)):
+                sw, sh = sub
+                rng = np.random.default_rng(w + bits + sw * 3 + sh)
+                planes = [rng.integers(0, mx + 1, s).astype(dt) for s in
+                          ((h, w), (h // sh, w // sw), (h // sh, w // sw))]
+                cpu = [torch.from_numpy(p) for p in planes]
+                card_planes = [p.to(dev) for p in cpu]
+                for what, rgba, (x0, y0) in patches:
+                    kw = dict(x0=x0, y0=y0, sw=sw, sh=sh, maxval=mx)
+                    r_cpu = torch.from_numpy(rgba)
+                    r_dev = r_cpu.to(dev)
+                    got = blend_rgba(*card_planes, r_dev, **kw)
+                    want = blend_rgba(*cpu, r_cpu, **kw)
+                    diff = [int((g.cpu() != t).sum())
+                            for g, t in zip(got, want)]
+                    n_cases += 1
+                    if any(diff):
+                        raise RuntimeError(
+                            f"the blend on the card differs from the CPU: "
+                            f"{what} {rgba.shape[1]}x{rgba.shape[0]} at "
+                            f"({x0}, {y0}) on {w}x{h} {bits}-bit {sw}x{sh},"
+                            f" samples differing Y/U/V {diff}")
+                    if (w, bits, sub) != (1920, 8, (2, 2)):
+                        continue
+                    call = (lambda p=card_planes, r=r_dev, k=kw:
+                            blend_rgba(*p, r, **k))
+                    ms = cuda_ms(call, BLEND_REPS)
+                    acts = [torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]
+                    with torch.profiler.profile(activities=acts) as prof:
+                        for _ in range(3):
+                            call()
+                        torch.cuda.synchronize()
+                    kern = [e for e in prof.key_averages() if e.device_type
+                            == torch.autograd.DeviceType.CUDA]
+                    timed[what] = {
+                        "size": [rgba.shape[1], rgba.shape[0]], "ms": ms,
+                        "launches": sum(e.count for e in kern) / 3,
+                        "device_ms": sum(e.self_device_time_total
+                                         for e in kern) / 3 / 1e3,
+                        "bound_ms": blend_bound_ms(rgba, sub, 1, bw)}
+    print(f"subtitles 9 (a): blend_rgba on the card equals the CPU byte for "
+          f"byte in {n_cases} cases (1080p and 2160p, 8 and 10 bits, 4:2:0, "
+          f"4:2:2, 4:4:4; a two-line text cue, a 1600x240 PGS card, a "
+          f"1400x200 random-alpha patch at an odd offset, a patch clamped "
+          f"at the right and bottom edges)", flush=True)
+    for what, t in timed.items():
+        print(f"subtitles 9 (a) ({label}): blend of the {what} patch "
+              f"{t['size'][0]}x{t['size'][1]} on a 1080p 8-bit 4:2:0 frame: "
+              f"{t['ms']:.4f} ms a call (CUDA events, warm), "
+              f"{t['launches']:.0f} launches a call, device "
+              f"{t['device_ms']:.4f} ms; bytes bound {t['bound_ms'] * 1e3:.3f}"
+              f" us", flush=True)
+    return {"cases": n_cases, "rasterizer": rasterizer(), "timed": timed,
+            "card_bandwidth": bw}
+
+
+def sub_source(path, stream, n):
+    """9 (b)'s source: the first n frames of step 7's 1080p stream in an
+    mkv with an S_HDMV/PGS track (a card shown at frame SUB_SHOW, cleared
+    at SUB_CLEAR) and an S_TEXT/UTF8 track of SUB_TEXT_CUES."""
+    from handbrake_tpu_torch.mux.mkv import MKVWriter
+    from handbrake_tpu_torch.subtitles.pgs import build_display_set
+    w = MKVWriter(path)
+    vi = w.add_video_track(codec="h264", width=W, height=H,
+                           fps=30000 / 1001)
+    pi = w.add_subtitle_track(codec="pgs")
+    ti = w.add_subtitle_track(codec="srt", language="eng")
+    pal = np.zeros((256, 4), np.uint8)
+    pal[1] = SUB_CARD_YCRCB + (255,)
+    card = np.ones((SUB_RECT[3], SUB_RECT[2]), np.uint8)
+    pgs = [(SUB_SHOW * FRAME_TICKS, build_display_set(
+               SUB_SHOW * FRAME_TICKS, card, pal, SUB_RECT[0], SUB_RECT[1],
+               screen=(W, H))),
+           (SUB_CLEAR * FRAME_TICKS, build_display_set(
+               SUB_CLEAR * FRAME_TICKS, card, pal, 0, 0, screen=(W, H),
+               clear=True))]
+    for i, au in enumerate(stream[:n]):
+        pts = i * FRAME_TICKS
+        w.write_sample(vi, au, pts_90k=pts, duration_90k=FRAME_TICKS,
+                       sync=i == 0, annexb=True)
+        for p, pkt in pgs:
+            if pts <= p < pts + FRAME_TICKS:
+                w.write_sample(pi, pkt, pts_90k=p)
+        for start, dur, text in SUB_TEXT_CUES:
+            if pts <= start * FRAME_TICKS < pts + FRAME_TICKS:
+                w.write_sample(ti, text.encode(), pts_90k=start * FRAME_TICKS,
+                               duration_90k=dur * FRAME_TICKS)
+    w.finalize()
+
+
+def card_colour():
+    """(Y, Cb, Cr) of 9 (b)'s PGS card once decoded by the port's
+    PgsDecoder and blended opaque by its blend on the CPU."""
+    import torch
+    from handbrake_tpu_torch.filters.rendersub import blend_rgba
+    from handbrake_tpu_torch.subtitles.pgs import (PgsDecoder,
+                                                   build_display_set)
+    pal = np.zeros((256, 4), np.uint8)
+    pal[1] = SUB_CARD_YCRCB + (255,)
+    ev = [e for e in PgsDecoder().feed(build_display_set(
+        0, np.ones((4, 4), np.uint8), pal, 0, 0, screen=(4, 4)), 0)
+        if e.rgba is not None][0]
+    planes = [torch.zeros((4, 4), dtype=torch.uint8),
+              torch.zeros((2, 2), dtype=torch.uint8),
+              torch.zeros((2, 2), dtype=torch.uint8)]
+    out = blend_rgba(*planes, torch.from_numpy(ev.rgba), x0=0, y0=0, sw=2,
+                     sh=2)
+    return np.array([float(p[0, 0]) for p in out])
+
+
+def read_sub_track(path):
+    """(payload, duration) of each sample of an mp4's subtitle track."""
+    from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
+    d = MP4Demuxer(path)
+    try:
+        si = [i for i, t in enumerate(d.tracks) if t.kind == "subtitle"]
+        return [(bytes(d.read_sample(i, k).data),
+                 d.read_sample(i, k).duration)
+                for i in si for k in range(d.n_samples(i))]
+    finally:
+        d.close()
+
+
+def phase_sub_job(tmp, label, stream):
+    """9 (b): step 7's stream with a PGS and a text track through the
+    CLI's default preset with ``-s 1,2 --subtitle-burned 1`` to mp4.
+    Returns its numbers."""
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.sources.mkv import MKVDemuxer
+    from handbrake_tpu_torch.tools import profile_job as pj
+    n = len(stream)
+    src = os.path.join(tmp, "subs.mkv")
+    sub_source(src, stream, n)
+    argv = ["-e", "h264", "-q", "28", "--encoder-profile", "high"]
+    sel = ["-s", "1,2", "--subtitle-burned", "1"]
+
+    def job(source, out, *extra):
+        with pj.JobSpy() as spy, pj.StageTimers() as st:
+            reset_counts()
+            rc = cli_main(["-i", source, "-o", out, *argv, *extra])
+            launches = deblock_cuda.launches
+        if rc != 0:
+            raise RuntimeError(f"the subtitle job {extra} failed: exit {rc}")
+        want = spy.p_frames() + spy.enc.n_redo
+        if launches == 0 or launches != want:
+            raise RuntimeError(f"the subtitle job {extra} did not launch "
+                               f"deblock264 once per analysed P frame "
+                               f"({launches}, {want})")
+        return spy, dict(st.sec), launches
+
+    out = os.path.join(tmp, "subs.mp4")
+    spy, sec, launches = job(src, out, *sel)
+    spy_n, _sec_n, _ = job(src, os.path.join(tmp, "nosubs.mp4"))
+    ti, samples = read_mp4(out)
+    # the same job on the CPU, on the source's first SUB_CPU_FRAMES frames
+    src_cpu = os.path.join(tmp, "subs_cpu.mkv")
+    sub_source(src_cpu, stream, SUB_CPU_FRAMES)
+    out_cpu = os.path.join(tmp, "subs_cpu.mp4")
+    t0 = time.perf_counter()
+    if cli_main(["-i", src_cpu, "-o", out_cpu, *argv, *sel, "--device",
+                 "cpu"]) != 0:
+        raise RuntimeError("the CPU run of the subtitle job failed")
+    t_cpu = time.perf_counter() - t0
+    ti_cpu, samples_cpu = read_mp4(out_cpu)
+    same = (ti_cpu.extradata == ti.extradata
+            and samples_cpu == samples[:SUB_CPU_FRAMES])
+    # the tx3g track: an empty lead-in, each cue, an empty gap between
+    d = MKVDemuxer(src)
+    try:
+        cues = [(bytes(b.data), b.duration) for t, b in d.packets()
+                if d.tracks[t].codec == "srt"]
+    finally:
+        d.close()
+    tx3g = read_sub_track(out)
+    texts = [(p[2:], dur) for p, dur in tx3g if p != b"\x00\x00"]
+    tx3g_ok = (texts == cues and tx3g[0][0] == b"\x00\x00"
+               and len(tx3g) == 2 * len(cues))
+    # the burned card in the decoded frames, beside its colour as the
+    # port's decoder and blend give it on the CPU
+    frames, _ = decode_all(samples, ti.extradata)
+    x, y, cw, ch = SUB_RECT
+    want = card_colour()
+
+    def rect_mean(f):
+        return np.array([f[0][y + 8:y + ch - 8, x + 8:x + cw - 8].mean(),
+                         f[1][(y + 8) // 2:(y + ch - 8) // 2,
+                              (x + 8) // 2:(x + cw - 8) // 2].mean(),
+                         f[2][(y + 8) // 2:(y + ch - 8) // 2,
+                              (x + 8) // 2:(x + cw - 8) // 2].mean()])
+    dist = [float(np.abs(rect_mean(f) - want).max()) for f in frames]
+    shown = [i for i, dd in enumerate(dist) if dd < SUB_CARD_TOL]
+    fps, fps_n = n / spy.seconds, n / spy_n.seconds
+    share = sec.get("render_sub", 0.0) / max(sec.get("filter graph", 0.0),
+                                             1e-9)
+    print(f"subtitles 9 (b) ({label}): {W}x{H} H.264 mkv of {n} frames with "
+          f"a PGS card (frames {SUB_SHOW}-{SUB_CLEAR - 1}) and a text track,"
+          f" CLI default preset {' '.join(sel)} to mp4: {len(samples)} "
+          f"samples; deblock264 launches {launches}; frames showing the "
+          f"card's colour in its rectangle: {shown[0] if shown else None}-"
+          f"{shown[-1] if shown else None} ({len(shown)}); the tx3g samples "
+          f"equal the cues: {tx3g_ok} ({len(tx3g)} samples); the first "
+          f"{SUB_CPU_FRAMES} samples equal the CPU run's byte for byte: "
+          f"{same} ({t_cpu:.1f} s on the CPU); {fps:.2f} fps with -s, "
+          f"{fps_n:.2f} without; render_sub {sec.get('render_sub', 0.0):.3f}"
+          f" s of the filter graph's {sec.get('filter graph', 0.0):.3f} s "
+          f"(host, {share:.3f})", flush=True)
+    # the card shows for as many frames as its display sets span, none
+    # before the first; it may start a frame late, as in the JAX package
+    # (the CPU tests hold such a job's file equal to the reference's)
+    run = shown and shown == list(range(shown[0], shown[-1] + 1))
+    if len(samples) != n or not same or not tx3g_ok or not run or \
+            len(shown) != SUB_CLEAR - SUB_SHOW or \
+            shown[0] not in (SUB_SHOW, SUB_SHOW + 1):
+        raise RuntimeError("the subtitle job's output is wrong")
+    return {"fps": fps, "fps_without_subtitles": fps_n,
+            "render_sub_s": sec.get("render_sub", 0.0),
+            "filter_graph_s": sec.get("filter graph", 0.0),
+            "render_sub_share": share, "launches": launches}
+
+
+def phase_letterbox_srt(tmp, label):
+    """9 (c): job (a)'s letterboxed source with an SRT burned in through
+    the CLI's default preset: the stream equals the CPU run's, and the
+    text is centred in the bottom fifth of the 1920x804 output.  Returns
+    its numbers."""
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.filters import resample_cuda
+    from handbrake_tpu_torch.tools import profile_job as pj
+    frames = pj.letterbox_frames(N_FRAMES)
+    src = os.path.join(tmp, "lb.y4m")
+    src_cpu = os.path.join(tmp, "lb_cpu.y4m")
+    pj.write_letterbox(src, frames)
+    pj.write_letterbox(src_cpu, frames[:N_CPU])
+    del frames
+    srt = os.path.join(tmp, "lb.srt")
+    with open(srt, "w", encoding="utf-8") as f:
+        f.write(f"1\n00:00:00,000 --> 00:00:05,000\n{SUB_CUE}\n\n")
+    burn = ["--srt-file", srt, "--srt-burn", "1"]
+    out = os.path.join(tmp, "lb.mp4")
+    with pj.JobSpy() as spy, pj.StageTimers() as st:
+        reset_counts()
+        rc = cli_main(pj.letterbox_argv(src, out) + burn)
+        rs_launches = resample_cuda.launches
+        launches = deblock_cuda.launches
+    if rc != 0 or rs_launches != N_FRAMES or launches == 0 or \
+            launches != spy.p_frames() + spy.enc.n_redo:
+        raise RuntimeError(f"the letterbox job with subtitles failed or "
+                           f"missed a kernel (exit {rc}, {rs_launches} "
+                           f"resample launches, {launches} deblock264)")
+    ti, samples = read_mp4(out)
+    outs = {}
+    for name, extra in (("cpu", burn + ["--device", "cpu"]), ("plain", [])):
+        outs[name] = os.path.join(tmp, f"lb_{name}.mp4")
+        if cli_main(pj.letterbox_argv(src_cpu, outs[name]) + extra) != 0:
+            raise RuntimeError(f"the letterbox job ({name}) failed")
+    ti_cpu, samples_cpu = read_mp4(outs["cpu"])
+    same = (ti_cpu.extradata == ti.extradata
+            and samples_cpu == samples[:N_CPU])
+    ti_p, plain = read_mp4(outs["plain"])
+    # the last frame of the CPU run (the cue starts at 0 but shows from a
+    # frame later, as in the JAX package)
+    k = N_CPU - 1
+    f_sub = decode_all(samples[:N_CPU], ti.extradata)[0][k][0].astype(
+        np.int32)
+    f_plain = decode_all(plain, ti_p.extradata)[0][k][0].astype(np.int32)
+    rows, cols = np.nonzero(np.abs(f_sub - f_plain) > 40)
+    oh, ow = f_sub.shape
+    box = ([int(rows.min()), int(rows.max()), int(cols.min()),
+            int(cols.max())] if rows.size else None)
+    centred = box is not None and abs((box[2] + box[3]) / 2 - ow / 2) \
+        <= ow * 0.02
+    bottom = box is not None and (box[0] + box[1]) / 2 >= oh * 0.8
+    print(f"subtitles 9 (c) ({label}): job (a)'s source with --srt-file "
+          f"--srt-burn 1: {len(samples)} samples at {ti.width}x{ti.height}; "
+          f"the first {N_CPU} equal the CPU run's byte for byte: {same}; the "
+          f"burned text's box in decoded frame {k}, rows/columns "
+          f"{box}: horizontally centred {centred}, in the bottom fifth "
+          f"{bottom}; {N_FRAMES / spy.seconds:.2f} fps; host s of the job's "
+          f"stages: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                  sorted(st.sec.items())), flush=True)
+    if (ti.width, ti.height) != JOB_OUT or len(samples) != N_FRAMES or \
+            not same or not centred or not bottom:
+        raise RuntimeError("the letterbox job's burned subtitle is wrong")
+    return {"fps": N_FRAMES / spy.seconds, "box": box,
+            "launches": launches, "resample_launches": rs_launches,
+            "stage_s": dict(st.sec)}
+
+
+def phase_subtitles(tmp, label, stream):
+    """9: the blend alone, then the two subtitle jobs."""
+    blend = phase_blend(label)
+    job_b = phase_sub_job(tmp, label, stream)
+    job_c = phase_letterbox_srt(tmp, label)
+    return {"blend": blend, "job": job_b, "letterbox": job_c}
+
+
 def one_card():
     """Make only the first visible card visible to this process (before
     CUDA starts), so the run uses, and reports, exactly one card."""
@@ -1811,6 +2222,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         job_s, stream = phase_h264_source(tmp, label)
         job_au = phase_audio(tmp, label, stream)
+        subs = phase_subtitles(tmp, label, stream)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -1822,7 +2234,11 @@ def main() -> int:
                                "audio_default_preset_cli":
                                    job_au["launches_default"],
                                "audio_three_tracks_mkv_cli":
-                                   job_au["launches_three_tracks"]})
+                                   job_au["launches_three_tracks"],
+                               "subtitles_pgs_text_cli":
+                                   subs["job"]["launches"],
+                               "letterbox_srt_burn_cli":
+                                   subs["letterbox"]["launches"]})
     rs_entry = {
         "name": "resample", "route": "cuda",
         "source": "handbrake_tpu_torch/csrc/resample.cu",
@@ -1837,9 +2253,13 @@ def main() -> int:
         "vpass_ms": None, "ms_dvd": rs["ms_dvd"],
         "bound_dvd_ms": rs["bound_dvd_ms"], "regs": rs["regs"],
         "local_bytes": rs["local_bytes"], "smem_bytes": rs["smem_bytes"],
-        "filter_ms": rs["filter_ms"]}
+        "filter_ms": rs["filter_ms"],
+        "job_launches": {"letterbox_2160p_cli": job_a["resample_launches"],
+                         "letterbox_srt_burn_cli":
+                             subs["letterbox"]["resample_launches"]}}
     print(f"job 7 numbers: {json.dumps(job_s)}", flush=True)
     print(f"audio numbers: {json.dumps(job_au)}", flush=True)
+    print(f"subtitle numbers: {json.dumps(subs)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

@@ -9,7 +9,7 @@ plus ``--device {cuda,cpu}`` (default cuda) for where the job runs.
 The audio options take comma lists, one value a track of ``-a`` (the
 last value repeats), as HandBrakeCLI's do; a single value gives every
 track the same setting, as the reference's parser does.  Options whose
-paths are not ported yet (subtitles, B-frames, GOP- and tile-parallel
+paths are not ported yet (B-frames, GOP- and tile-parallel
 encodes, checkpoint/resume, the libavcodec audio encoders mp3, opus and
 vorbis) raise NotImplementedError, as do unported filters, codecs and
 containers.
@@ -201,7 +201,6 @@ def check_ported(args):
     unported = (
         ("audio encoders mp3, opus and vorbis (-E)",
          any(e in ("mp3", "opus", "vorbis") for e in aencoders)),
-        ("subtitles (-s/--srt-file)", args.subtitle or args.srt_file),
         ("B-frames (--bframes)", args.bframes),
         ("GOP-parallel encoding (--gop-parallel)", args.gop_parallel),
         ("tile-parallel filters (--tile-parallel)", args.tile_parallel),
@@ -367,6 +366,22 @@ def apply_cli_overrides(job: Job, args) -> Job:
                                    compressor=args.acompressor,
                                    gate=args.agate)
                      for i, t in enumerate(tracks)]
+    # subtitles
+    if args.srt_file:
+        from ..job.schema import SubtitleJobTrack
+        files = args.srt_file.split(",")
+        langs = (args.srt_lang or "und").split(",")
+        offs = (args.srt_offset or "0").split(",")
+        job.subtitles = []
+        for i, f in enumerate(files):
+            ext = f.rsplit(".", 1)[-1].lower()
+            fmt = {"ass": "SSA", "ssa": "SSA", "vtt": "VTT"}.get(ext, "SRT")
+            job.subtitles.append(SubtitleJobTrack(
+                track=-1, import_file=f, import_format=fmt,
+                language=langs[i] if i < len(langs) else "und",
+                offset=int(offs[i]) if i < len(offs) else 0,
+                burn=(args.srt_burn == i + 1),
+                default=(args.srt_default == i + 1)))
 
     # range
     if args.chapters:
@@ -467,6 +482,29 @@ def main(argv=None) -> int:
         preset = preset_search("Fast 1080p30") or {}
     job = preset_to_job(title, preset)
     job = apply_cli_overrides(job, args)
+    if args.subtitle:
+        # map scanned subtitle indexes to demux tracks / the CC tap
+        from ..job.schema import SubtitleJobTrack
+        job.subtitles = list(job.subtitles)
+        for i, tok in enumerate(
+                x.strip() for x in args.subtitle.split(",") if x.strip()):
+            burn = (args.subtitle_burned == i + 1)
+            st = None
+            if tok.lower() != "cc":
+                idx = int(tok) - 1
+                st = title.subtitles[idx] \
+                    if 0 <= idx < len(title.subtitles) else None
+            if tok.lower() == "cc" or (st is not None
+                                       and st.source == "cc"):
+                job.subtitles.append(SubtitleJobTrack(
+                    cc=True, burn=burn,
+                    language=st.language if st else "und"))
+            else:
+                demux_idx = sum(1 for s2 in title.subtitles[:idx]
+                                if s2.source != "cc")
+                job.subtitles.append(SubtitleJobTrack(
+                    track=demux_idx, burn=burn,
+                    language=st.language if st else "und"))
     h.add(job)
     h.start()
     last = -1.0

@@ -15,10 +15,13 @@
 // sums the reference's product (filters/kernels.py vertical_order and
 // horizontal_order; mapped by tests/test_torch_resample_order.py): over
 // the absolute input index k, in blocks [0, B), [B, 2B), ... each summed
-// from 0 and added in order; within a block, lane k mod L (L = 1, 2 or 4)
-// as a chain acc = __fmaf_rn(w, x, acc), the lanes added as (l0 + l1) +
-// (l2 + l3); from main = n_in - n_in % L on, the tail, each product
-// rounded and added in order from 0 (__fmul_rn, __fadd_rn), added last.
+// from 0 and added in order; within a block, lane k mod L (L = 1, 2, 4 or
+// 8) as a chain acc = __fmaf_rn(w, x, acc), the lanes added as neighbours,
+// (l0 + l1) + (l2 + l3), or in the output columns from h_split on as
+// halves, (l0 + l4) + (l2 + l6) and (l1 + l5) + (l3 + l7); from main on
+// (n_in - n_in % L, or 0 for a run of columns that rounds every product),
+// the tail, each product rounded and added in order from 0 (__fmul_rn,
+// __fadd_rn; an fma chain where h_tail_fma), added last.
 // On job (a)'s planes that is L = 1, B = 512: a chain, cut where a band
 // crosses a multiple of 512.  A zero weight adds a zero (0 * x + acc is
 // acc; no sum here is ever -0), so the zero-padded band, and the blocks
@@ -124,8 +127,8 @@ struct Plane {
     float maxval;
     int tile_h, tile_w, tiles_y, tiles_x, first_tile;
     int win_h, win_w;       // window rows, columns (a multiple of 16 bytes)
-    int v_lanes, v_block, v_block2, v_split, v_main;
-    int h_lanes, h_block, h_main;
+    int v_lanes, v_block, v_block2, v_split, v_main, v_main2;
+    int h_lanes, h_block, h_main, h_split, h_tail_fma;
     int copy16, store16;
 };
 
@@ -163,23 +166,32 @@ __device__ __forceinline__ float4 vmuladd(float w, float4 x, float4 a) {
                        vmuladd(w, x.z, a.z), vmuladd(w, x.w, a.w));
 }
 
-// (l0 + l1) + (l2 + l3) over the absolute lanes; acc[r] holds lane
+// The lanes added over their absolute index, as neighbours ((l0 + l1) +
+// (l2 + l3)) or as halves ((l0 + l2) + (l1 + l3)); acc[r] holds lane
 // (phase + r) mod L.
 template <int L, typename V>
-__device__ __forceinline__ V lane_sum(const V (&acc)[L], int phase) {
+__device__ __forceinline__ V lane_sum(const V (&acc)[L], int phase,
+                                      bool halves) {
     if constexpr (L == 1) {
         return acc[0];
-    } else if constexpr (L == 2) {
-        return phase ? vadd(acc[1], acc[0]) : vadd(acc[0], acc[1]);
     } else {
-        V c[4];
+        V c[L];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-            const int r = (a - phase) & 3;
-            c[a] = r == 0 ? acc[0] : r == 1 ? acc[1] : r == 2 ? acc[2]
-                                                               : acc[3];
+        for (int a = 0; a < L; ++a) {
+            const int r = (a - phase) & (L - 1);
+            c[a] = acc[0];
+#pragma unroll
+            for (int q = 1; q < L; ++q)
+                if (q == r) c[a] = acc[q];
         }
-        return vadd(vadd(c[0], c[1]), vadd(c[2], c[3]));
+#pragma unroll
+        for (int n = L / 2; n >= 1; n /= 2) {
+#pragma unroll
+            for (int a = 0; a < n; ++a)
+                c[a] = halves ? vadd(c[a], c[a + n])
+                              : vadd(c[2 * a], c[2 * a + 1]);
+        }
+        return c[0];
     }
 }
 
@@ -187,7 +199,8 @@ __device__ __forceinline__ V lane_sum(const V (&acc)[L], int phase) {
 // k0 + t, weight w[t * ws] (shared memory), value load(t).
 template <int L, typename V, typename Load>
 __device__ V ordered_sum(Load load, const float* __restrict__ w, int ws,
-                         int n, int k0, int block, int main) {
+                         int n, int k0, int block, int main, bool halves,
+                         bool tail_fma) {
     V acc[L];
 #pragma unroll
     for (int r = 0; r < L; ++r) acc[r] = vzero(V());
@@ -203,10 +216,11 @@ __device__ V ordered_sum(Load load, const float* __restrict__ w, int ws,
                 const float wt = w[t * ws];
                 const V v = load(t);
                 if (k >= main) {
-                    tail = vmuladd(wt, v, tail);
+                    tail = tail_fma ? vfma(wt, v, tail)
+                                    : vmuladd(wt, v, tail);
                 } else {
                     if (k == next) {
-                        total = vadd(total, lane_sum<L>(acc, phase));
+                        total = vadd(total, lane_sum<L>(acc, phase, halves));
 #pragma unroll
                         for (int q = 0; q < L; ++q) acc[q] = vzero(V());
                         next += block;
@@ -216,16 +230,25 @@ __device__ V ordered_sum(Load load, const float* __restrict__ w, int ws,
             }
         }
     }
-    total = vadd(total, lane_sum<L>(acc, phase));
+    total = vadd(total, lane_sum<L>(acc, phase, halves));
     return vadd(total, tail);
 }
 
 template <typename V, typename Load>
 __device__ V ordered_any(Load load, const float* __restrict__ w, int ws,
-                         int n, int k0, int lanes, int block, int main) {
-    if (lanes == 4) return ordered_sum<4, V>(load, w, ws, n, k0, block, main);
-    if (lanes == 2) return ordered_sum<2, V>(load, w, ws, n, k0, block, main);
-    return ordered_sum<1, V>(load, w, ws, n, k0, block, main);
+                         int n, int k0, int lanes, int block, int main,
+                         bool halves = false, bool tail_fma = false) {
+    if (lanes == 8)
+        return ordered_sum<8, V>(load, w, ws, n, k0, block, main, halves,
+                                 tail_fma);
+    if (lanes == 4)
+        return ordered_sum<4, V>(load, w, ws, n, k0, block, main, halves,
+                                 tail_fma);
+    if (lanes == 2)
+        return ordered_sum<2, V>(load, w, ws, n, k0, block, main, halves,
+                                 tail_fma);
+    return ordered_sum<1, V>(load, w, ws, n, k0, block, main, halves,
+                             tail_fma);
 }
 
 // The chain from 0 when the band lies in one block and one lane (the
@@ -445,6 +468,7 @@ __device__ __forceinline__ void vertical(const Plane& P, const Tile& Tl,
         const int i1 = min(i0 + half, Tl.rows - 1);
         const int col = Tl.cw0 + g * kVec;
         const int block = col >= P.v_split ? P.v_block2 : P.v_block;
+        const int main = col >= P.v_split ? P.v_main2 : P.v_main;
         const int k0 = S.lv[i0], k1 = S.lv[i1];
         const float* w0 = S.wv + i0;
         const float* w1 = S.wv + i1;
@@ -458,8 +482,8 @@ __device__ __forceinline__ void vertical(const Plane& P, const Tile& Tl,
         };
         V r0 = vzero(V()), r1 = vzero(V());
         const int n = T > 0 ? T : P.tv;
-        const int cut0 = split_at(k0, n, P.v_lanes, block, P.v_main);
-        const int cut1 = split_at(k1, n, P.v_lanes, block, P.v_main);
+        const int cut0 = split_at(k0, n, P.v_lanes, block, main);
+        const int cut1 = split_at(k1, n, P.v_lanes, block, main);
         if (col < P.in_w) {
             if ((cut0 == n && cut1 == n) || !RESAMPLE_SLOW) {
 #pragma unroll
@@ -472,9 +496,9 @@ __device__ __forceinline__ void vertical(const Plane& P, const Tile& Tl,
                 r1 = split_chain<T, V>(load1, w1, P.tile_h, n, cut1);
             } else {
                 r0 = ordered_any<V>(load0, w0, P.tile_h, n, k0, P.v_lanes,
-                                    block, P.v_main);
+                                    block, main);
                 r1 = ordered_any<V>(load1, w1, P.tile_h, n, k1, P.v_lanes,
-                                    block, P.v_main);
+                                    block, main);
             }
         }
         *reinterpret_cast<V*>(mid + i0 * P.win_w + g * kVec) = r0;
@@ -553,7 +577,9 @@ __device__ __forceinline__ void horizontal(const Plane& P, const Tile& Tl,
                 const float* mq = m[q];
                 acc[q] = ordered_any<float>([&](int t) { return mq[t]; }, w,
                                             P.tile_w, n, k0, P.h_lanes,
-                                            P.h_block, P.h_main);
+                                            P.h_block, P.h_main,
+                                            Tl.c0 + cl >= P.h_split,
+                                            P.h_tail_fma != 0);
             }
         }
 #pragma unroll

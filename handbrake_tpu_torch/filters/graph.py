@@ -8,26 +8,21 @@ ported filter that refuses its settings with FilterError is disabled, not
 fatal — work.c:1852-1859), and processes buffers through the chain with
 fan-out (one input buffer may produce 0..n outputs at each stage).
 
-The one filter the reference package registers and the port has not
-ported yet, the subtitle burn-in (render_sub), raises NotImplementedError
-naming it: dropping it would change the video without an error.  An id
-no package registers (mt_frame, or an unknown one) is disabled and
-logged, as the reference does.
+Every filter the reference package registers is ported, the subtitle
+burn-in (render_sub) included.  An id no package registers (mt_frame, or
+an unknown one) is disabled and logged, as the reference does.
 """
 from __future__ import annotations
 
 from ..core.buffer import Buffer
 from ..job import schema as S
 from ..utils.logging import error
-from .base import FilterError, FilterInit, create_filter, registry
+from .base import FilterError, FilterInit, create_filter
 
-# the ported filter modules, so that their @register decorators run
+# the filter modules, so that their @register decorators run
 from . import (avfilter, bm3d, colorspace, comb_detect,  # noqa: F401
                cropscale, deband, deblock, decomb, deinterlace, denoise,
-               detelecine, nlmeans, rpu, sharp, simple, vfr)
-
-# registered by the reference package, not ported yet
-UNPORTED = (S.FILTER_RENDER_SUB,)
+               detelecine, nlmeans, rendersub, rpu, sharp, simple, vfr)
 
 
 class FilterGraph:
@@ -35,13 +30,6 @@ class FilterGraph:
         """filter_list: [{"ID": int, "Settings": dict}] (job JSON schema)."""
         order = {fid: i for i, fid in enumerate(S.FILTER_ORDER)}
         specs = sorted(filter_list, key=lambda f: order.get(f["ID"], 99))
-        for spec in specs:
-            fid = spec["ID"]
-            if fid in UNPORTED:
-                raise NotImplementedError(
-                    f"filter {S.FILTER_NAMES[fid]!r} (id {fid}) is not "
-                    f"ported yet; the port has "
-                    f"{sorted(S.FILTER_NAMES[i] for i in registry())}")
         self.filters: list = []
         self.fi_in = fi.copy()
         cur = fi.copy()
@@ -54,6 +42,15 @@ class FilterGraph:
                 # disabled, not fatal (work.c:1852-1859)
                 error(f"filter {spec['ID']} disabled: {e}")
         self.fi_out = cur
+
+    def queue_subtitle(self, ev: Buffer) -> bool:
+        """Route a subtitle event straight to the burn-in filter (subtitle
+        buffers never traverse the video chain — fifo routing analog)."""
+        for f in self.filters:
+            if getattr(f, "name", "") == "render_sub":
+                f.queue_subtitle(ev)
+                return True
+        return False
 
     def work(self, buf: Buffer) -> list:
         bufs = [buf]

@@ -143,14 +143,22 @@ def _band(n_in: int, n_out: int, kind: str, shift_in: float,
 # is tests/test_torch_resample_order.py).  Each output sums its K terms
 # (k the input index) in blocks of the K axis, [0, B), [B, 2B), ..., each
 # block from 0, the blocks added in order.  Within a block a term goes to
-# lane k mod L as an fma chain; the lanes are added as (l0 + l1) + (l2 +
-# l3).  Past the last multiple of L, the tail terms are multiplied and
-# added (two roundings each) in order from 0, and that sum is added last.
-# B is the K extent of a 128 KiB panel of the kernel's n columns.
+# lane k mod L as an fma chain; the lanes are added as neighbours, (l0 +
+# l1) + (l2 + l3), or, for the columns from `split` on, as halves of the
+# vector, (l0 + l4) + (l2 + l6) and (l1 + l5) + (l3 + l7).  Past the last
+# multiple of L, the tail terms are multiplied and added (two roundings
+# each; one, an fma chain, where `tail_fma`) in order from 0, and that sum
+# is added last.  B is the K extent of a 128 KiB panel of the kernel's n
+# columns.
 _PANEL = 32768          # f32 values of that panel
-_CHUNK = 64             # the vertical product's column tile
+_CHUNK = 64             # the vertical product's column tile, at least
+_FIT = 65536            # f32 of K x (rows + half its tile) it stays below
+_NARROW_LAST = 8        # columns up to which a last tile after wider ones
+                        # rounds each product (all of K a tail), for 2 to
+_NARROW_ROWS = 4        # this many rows
 _MANY_ROWS = 51         # output rows from which the vertical product
                         # takes the horizontal product's kernels
+_GEMV_LANES = 8         # lanes of the product with one output row
 
 
 def _block(n_cols: int, lanes: int) -> int:
@@ -158,11 +166,19 @@ def _block(n_cols: int, lanes: int) -> int:
     return b - b % 4 if lanes > 1 else b
 
 
-def horizontal_order(n_in: int, n_out: int) -> tuple:
-    """(lanes, block, main) of XLA:CPU's sum of the horizontal product
-    ``einsum("ow,cw->oc")`` over n_in terms into n_out columns (at least 2
-    output rows): the kernel XLA picks by the output width, and terms at
-    main = n_in - n_in % lanes and beyond form the tail."""
+def horizontal_order(n_in: int, n_out: int, rows: int = 2) -> tuple:
+    """(lanes, block, main, split, tail_fma) of XLA:CPU's sum of the
+    horizontal product ``einsum("ow,cw->oc")`` over n_in terms into n_out
+    columns of `rows` output rows: terms at main = n_in - n_in % lanes and
+    beyond form the tail; the columns from split on add their lanes as
+    halves.  From 2 rows on XLA picks the kernel by the output width, with
+    no split.  One row is a matrix-vector product: eight lanes, no blocks,
+    the columns in groups of eight adding neighbours and the last n_out %
+    8 halves, the tail an fma chain."""
+    if rows == 1:
+        lanes = _GEMV_LANES
+        return (lanes, max(n_in, 1), n_in - n_in % lanes,
+                n_out - n_out % lanes, True)
     r = (n_out - 1) % 64 + 1
     if n_out <= 24:
         lanes, cols = 4, (-(-n_out // 4) * 4 if n_out <= 16 else 8)
@@ -172,7 +188,7 @@ def horizontal_order(n_in: int, n_out: int) -> tuple:
         lanes, cols = 1, 64
     else:
         lanes, cols = 4, 16
-    return lanes, _block(cols, lanes), n_in - n_in % lanes
+    return lanes, _block(cols, lanes), n_in - n_in % lanes, n_out, False
 
 
 def vertical_order(n_in: int, width: int, n_out: int) -> list:
@@ -182,37 +198,62 @@ def vertical_order(n_in: int, width: int, n_out: int) -> list:
     shares it.  From _MANY_ROWS output rows on, XLA picks the kernel by the
     plane's width as ``horizontal_order`` does by the output width, for
     every column.  Below that, a plane up to 64 wide is one tile (four
-    lanes up to 16 columns); a wider one takes tiles of 64 columns, with a
-    narrower last tile."""
+    lanes up to 16 columns); a wider one takes tiles of n = 64 2^j columns,
+    the widest for which n_in x (the rows, rounded up to 32 or 64 past 16,
+    + n / 2) f32 stay below _FIT (64 where none does), with a narrower last
+    tile; a last tile of up to 8 columns of 2 to 4 rows rounds each
+    product (main 0).  One output row is one fma chain."""
+    if n_out == 1:
+        return [(0, width, 1, max(n_in, 1), n_in)]
     if n_out >= _MANY_ROWS:
-        return [(0, width, *horizontal_order(n_in, width))]
+        return [(0, width, *horizontal_order(n_in, width)[:3])]
     if width <= _CHUNK:
         lanes = 4 if width <= 16 else 1
         cols = -(-width // 4) * 4 if lanes > 1 else width
         return [(0, width, lanes, _block(cols, lanes),
                  n_in - n_in % lanes)]
-    split = width - width % _CHUNK
-    runs = [(0, split, 1, _block(_CHUNK, 1), n_in)]
+    rows = n_out if n_out <= 16 else 32 if n_out <= 32 else 64
+    tile = _CHUNK
+    while tile < width and n_in * (rows + tile) < _FIT:
+        tile *= 2
+    split = width - width % tile
+    runs = [(0, split, 1, _block(tile, 1), n_in)] if split else []
     if split < width:
-        runs.append((split, width, 1, _block(width - split, 1), n_in))
+        last = width - split
+        narrow = split and last <= _NARROW_LAST and n_out <= _NARROW_ROWS
+        runs.append((split, width, 1, _block(last, 1), 0 if narrow
+                     else n_in))
     return runs
 
 
-def _lane_sum(acc: torch.Tensor) -> torch.Tensor:
-    while acc.shape[0] > 1:
-        acc = acc[0::2] + acc[1::2]
-    return acc[0]
+def _lane_sum(acc: torch.Tensor, split=None) -> torch.Tensor:
+    """The lanes acc (L, n, m) added as neighbours, and for the outputs
+    from `split` on (axis 1) as halves of the vector."""
+    near = acc
+    while near.shape[0] > 1:
+        near = near[0::2] + near[1::2]
+    if split is None or split >= acc.shape[1]:
+        return near[0]
+    half = acc
+    while half.shape[0] > 1:
+        h = half.shape[0] // 2
+        half = half[:h] + half[h:]
+    far = (torch.arange(acc.shape[1], device=acc.device) >= split)[:, None]
+    return torch.where(far, half[0], near[0])
 
 
 def _band_pass(x: torch.Tensor, lo: torch.Tensor, taps: torch.Tensor,
                order=(1, None, None)) -> torch.Tensor:
     """out[o, :] = the sum of taps[k, o] * x[lo[o] + k, :] over the band in
-    f32 (x: (n_in, m) float32), in `order` = (lanes, block, main) over the
-    absolute input index lo[o] + k (``horizontal_order``,
-    ``vertical_order``); the default is one fma chain in ascending order
-    from 0.  A zero weight adds a zero, which changes no sum, so the
+    f32 (x: (n_in, m) float32), in `order` = (lanes, block, main[, split,
+    tail_fma]) over the absolute input index lo[o] + k
+    (``horizontal_order``, ``vertical_order``; the outputs o from split on
+    add their lanes as halves); the default is one fma chain in ascending
+    order from 0.  A zero weight adds a zero, which changes no sum, so the
     band's zero padding changes no bit."""
-    lanes, block, main = order
+    lanes, block, main = order[:3]
+    split = order[3] if len(order) > 3 else None
+    tail_fma = len(order) > 4 and order[4]
     n_in, n_out, m = x.shape[0], lo.shape[0], x.shape[1]
     block = block or n_in
     main = n_in if main is None else main
@@ -228,15 +269,16 @@ def _band_pass(x: torch.Tensor, lo: torch.Tensor, taps: torch.Tensor,
         flush = (k % block == 0) & (k < main)
         if bool(flush.any()):
             f = flush[:, None]
-            total = torch.where(f, total + _lane_sum(acc), total)
+            total = torch.where(f, total + _lane_sum(acc, split), total)
             acc = torch.where(f, torch.zeros_like(acc), acc)
         in_tail = (k >= main)[:, None]
         lane = k % lanes
         cur = acc[lane, rows]
         acc[lane, rows] = torch.where(in_tail, cur, fma32(w, v, cur))
         if bool(in_tail.any()):
-            tail = torch.where(in_tail, w * v + tail, tail)
-    return (total + _lane_sum(acc)) + tail
+            tail = torch.where(in_tail, fma32(w, v, tail) if tail_fma
+                               else w * v + tail, tail)
+    return (total + _lane_sum(acc, split)) + tail
 
 
 def resample_plain(img: torch.Tensor, lo_v, taps_v, lo_h, taps_h,
@@ -252,7 +294,7 @@ def resample_plain(img: torch.Tensor, lo_v, taps_v, lo_h, taps_h,
                    in vertical_order(in_h, in_w, lo_v.shape[0])],
                   dim=1)
     x = _band_pass(x.T, lo_h, taps_h,
-                   horizontal_order(in_w, lo_h.shape[0])).T
+                   horizontal_order(in_w, lo_h.shape[0], x.shape[0])).T
     return torch.clamp(torch.round(x), 0, maxval).to(out_dtype(maxval))
 
 

@@ -59,7 +59,8 @@ _INTS = ("in_h", "in_w", "out_h", "out_w", "tv", "th", "in_bytes",
          "out_bytes")
 _PLAN_INTS = ("tile_h", "tile_w", "tiles_y", "tiles_x", "first_tile",
               "win_h", "win_w", "v_lanes", "v_block", "v_block2", "v_split",
-              "v_main", "h_lanes", "h_block", "h_main", "copy16", "store16")
+              "v_main", "v_main2", "h_lanes", "h_block", "h_main", "h_split",
+              "h_tail_fma", "copy16", "store16")
 
 
 class Plane(ctypes.Structure):
@@ -317,7 +318,8 @@ def prepare(items, scratch=None):
             raise ValueError("resample_cuda: the planes of one call must "
                              "share their sample sizes")
         runs = vertical_order(in_h, in_w, out_h)
-        h_lanes, h_block, h_main = horizontal_order(in_w, out_w)
+        h_lanes, h_block, h_main, h_split, h_tail_fma = horizontal_order(
+            in_w, out_w, out_h)
         pl = prm.p[i]
         for name, t in (("x", x), ("out", out), ("lo_v", lo_v),
                         ("taps_v", taps_v), ("lo_h", lo_h),
@@ -335,8 +337,10 @@ def prepare(items, scratch=None):
                         ("win_w", p.win_w), ("v_lanes", runs[0][2]),
                         ("v_block", runs[0][3]), ("v_block2", runs[-1][3]),
                         ("v_split", runs[0][1]), ("v_main", runs[0][4]),
+                        ("v_main2", runs[-1][4]),
                         ("h_lanes", h_lanes), ("h_block", h_block),
-                        ("h_main", h_main),
+                        ("h_main", h_main), ("h_split", h_split),
+                        ("h_tail_fma", int(h_tail_fma)),
                         ("copy16", int(vector_path(x.data_ptr(), in_w,
                                                    p.in_bytes))),
                         ("store16", int(vector_path(out.data_ptr(), out_w,

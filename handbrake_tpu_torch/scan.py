@@ -11,8 +11,9 @@ Previews can be kept for GUI use (hb_save_preview analog).
 The counterpart of ``handbrake_tpu/scan.py``.  Previews decode for raw
 sources (y4m) and H.264 ones (annex-B, mp4, mkv; the native decoder);
 any other video codec raises NotImplementedError, since its decoder is a
-later slice.  CEA-608 caption detection is left out: a caption track
-asked of a job raises in ``work.do_job``.
+later slice.  CEA-608 captions in an H.264 stream (GA94 SEI) are found in
+its first 256 KiB and listed as a "cc" subtitle track; a malformed caption
+payload leaves them undetected (the reference skips any error there).
 """
 from __future__ import annotations
 
@@ -115,6 +116,25 @@ def scan_title(path: str, index: int = 1, preview_count: int = 10,
     if video_track is None:
         src.close()
         return None
+    # CEA-608 detection (scan-time preview decode role): GA94 cc_data in
+    # the first seconds of the video ES → a discoverable "cc" track
+    vti = src.tracks[video_track]
+    if vti.codec in ("mpeg2", "mpeg2video", "h264"):
+        es = bytearray()
+        for trk, buf in src.packets():
+            if trk == video_track and buf.data:
+                es += buf.data
+                if len(es) > (1 << 18):
+                    break
+        from .subtitles.cea608 import extract_cc_h264, extract_cc_mpeg2
+        try:
+            pairs = (extract_cc_h264(bytes(es)) if vti.codec == "h264"
+                     else extract_cc_mpeg2(bytes(es)))
+        except (ValueError, IndexError):
+            pairs = []      # a malformed caption payload: no track
+        if pairs:
+            t.subtitles.append(SubtitleTrack(
+                track=len(t.subtitles), source="cc", language="und"))
     # --- decode previews ---
     try:
         previews = _decode_previews(src, video_track, preview_count)

@@ -42,6 +42,7 @@ from ..cli.__main__ import main as cli_main
 from ..codecs.h264.encoder import H264Encoder
 from ..filters.cropscale import CropScaleFilter
 from ..filters.graph import FilterGraph
+from ..filters.rendersub import RenderSubFilter
 from ..filters.vfr import VFRFilter
 from ..job.schema import Job
 from ..sources.raw import Y4MReader
@@ -133,6 +134,7 @@ class StageTimers:
     METHODS = ((work._DecodeSyncStage, "work", "decode+sync"),
                (FilterGraph, "work", "filter graph"),
                (VFRFilter, "work", "framerate shaper"),
+               (RenderSubFilter, "work", "render_sub"),
                (work._EncodeStage, "_planes", "planes to host"),
                (H264Encoder, "begin_frame", "begin_frame"),
                (H264Encoder, "finish_frame", "finish_frame"),

@@ -13,12 +13,23 @@ on the same thread, on the host, as in the reference.
 
 The port runs H.264 jobs from y4m, H.264 (annex-B, mp4, mkv) sources into
 mp4, mkv or webm, with audio tracks decoded from PCM, AAC, AC-3, MP2 and
-FLAC and encoded to AAC, AC-3, FLAC or PCM, or passed through: the device
-comes only from the caller (``device=None`` is the CUDA card, which
-raises where there is none).  Subtitles, B-frames, GOP-parallel and
-tile-parallel encodes, checkpoint/resume and the libavcodec audio codecs
-raise NotImplementedError: they are later slices.  An audio track that
-cannot be decoded raises; none is passed through or dropped in its place.
+FLAC and encoded to AAC, AC-3, FLAC or PCM, or passed through, and with
+subtitles: SRT/SSA/VTT files imported, PGS, VobSub and text tracks of the
+source and CEA-608 captions of an H.264 stream decoded, each kept as a
+tx3g (mp4) or S_TEXT/UTF8 (mkv) track or burned in by the render_sub
+filter on the job's device.  The device comes only from the caller
+(``device=None`` is the CUDA card, which raises where there is none).
+B-frames, GOP-parallel and tile-parallel encodes, checkpoint/resume and
+the libavcodec audio codecs raise NotImplementedError: they are later
+slices.  An audio track that cannot be decoded raises, and so does a
+subtitle track; none is passed through or dropped in its place.
+
+A burned text cue is rasterized into the part of the source frame that
+the job's crop keeps, and placed there, so it lands bottom-centred in the
+output picture.  The reference lays it out for the output size but blends
+it onto the uncropped source frame (render_sub runs before crop_scale),
+which puts it elsewhere on a cropped or scaled job; on an uncropped,
+unscaled job the two agree.
 """
 from __future__ import annotations
 
@@ -130,8 +141,6 @@ def resolve_range(job: Job, src, vrate: Fraction) -> tuple:
 # ---------------------------------------------------------------------------
 def _check_ported(job: Job):
     """Raise for the job options whose paths are later slices."""
-    if job.subtitles or job.subtitle_search.get("Enable"):
-        _unported("subtitles (import, decode, burn-in and search)")
     if int(getattr(job, "gop_parallel", 0) or 0) > 1:
         _unported("GOP-parallel encoding")
     if int(getattr(job, "tile_parallel", 0) or 0) > 1:
@@ -194,6 +203,65 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
             sample_rate=ti.sample_rate if pcm else None,
             channels=max(1, ti.channels))
 
+    # ---- subtitles (SRT import + in-stream bitmap and text tracks) ----
+    sub_sel = []              # (key, SubtitleJobTrack, [SubEvent])
+    sdecs = {}                # source track idx -> (key, decoder)
+    sub_srcs = [i for i, t in enumerate(src.tracks)
+                if t.kind == "subtitle"]
+    cc_sel = None             # (key, Cea608Decoder) — captions ride
+                              # the VIDEO stream (deccc608sub.c role)
+    for k, sspec in enumerate(job.subtitles):
+        if getattr(sspec, "cc", False):
+            from .subtitles.cea608 import Cea608Decoder
+            cc_sel = (k, Cea608Decoder())
+        elif sspec.import_file:
+            from .subtitles import parse_textsub
+            with open(sspec.import_file, "rb") as f:
+                events = parse_textsub(f.read(),
+                                       fmt=sspec.import_format,
+                                       offset_ms=sspec.offset)
+            sub_sel.append((k, sspec, events))
+        elif 0 <= sspec.track < len(sub_srcs):
+            sti = src.tracks[sub_srcs[sspec.track]]
+            if sti.codec == "pgs":
+                # PGS bitmap decode (decavsub.c:739 personality)
+                from .subtitles.pgs import PgsDecoder
+                sdecs[sub_srcs[sspec.track]] = (k, PgsDecoder())
+            elif sti.codec == "vobsub":
+                # DVD subpicture decode (decavsub VOBSUB personality)
+                from .subtitles.vobsub import (VobSubDecoder,
+                                               parse_idx_palette)
+                pal = parse_idx_palette(sti.extradata or b"")
+                sdecs[sub_srcs[sspec.track]] = (k, VobSubDecoder(pal))
+            elif sti.codec in ("tx3g", "text", "srt", "subrip", "ass",
+                               "ssa"):
+                # in-stream text cues (dectx3gsub.c / decssasub.c roles)
+                sdecs[sub_srcs[sspec.track]] = (
+                    k, _TextCueDecoder(sti.codec))
+            else:
+                # the reference logs and drops such a track
+                raise WorkError(f"subtitle codec {sti.codec!r}: no decoder")
+    s_sync = {}
+    for k, sspec, events in sub_sel:
+        s_sync[k] = sync.add_stream("subtitle", sid=_SUB_SID0 + k)
+        for e in events:
+            b = Buffer(track_kind="subtitle", pts=e.pts, stop=e.stop,
+                       duration=e.duration)
+            b.data = e.text.encode("utf-8")
+            b.stream_id = _SUB_SID0 + k
+            sync.queue(s_sync[k], b)
+        sync.set_eof(s_sync[k])
+    for trk, (k, _dec) in sdecs.items():
+        s_sync[k] = sync.add_stream("subtitle", sid=_SUB_SID0 + k)
+    if cc_sel is not None:
+        s_sync[cc_sel[0]] = sync.add_stream(
+            "subtitle", sid=_SUB_SID0 + cc_sel[0])
+    sub_specs = {k: sspec for k, sspec, _ in sub_sel}
+    sub_specs.update({k: job.subtitles[k] for _t, (k, _d) in
+                      sdecs.items()})
+    if cc_sel is not None:
+        sub_specs[cc_sel[0]] = job.subtitles[cc_sel[0]]
+
     # ---- filters ----
     fi = FilterInit(geometry=Geometry(
         vti.width, vti.height, vti.par_num, vti.par_den),
@@ -231,6 +299,11 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
         job.par_num, job.par_den = gpar.numerator, gpar.denominator
         fi.geometry = Geometry(vti.width, vti.height,
                                gpar.numerator, gpar.denominator)
+    if any(s.burn for s in sub_specs.values()):
+        # auto-insert the burn-in filter (work.c subtitle sanitize analog)
+        from .job import schema as S
+        if not any(f["ID"] == S.FILTER_RENDER_SUB for f in filter_list):
+            filter_list.append({"ID": S.FILTER_RENDER_SUB, "Settings": {}})
     graph = FilterGraph(filter_list, fi)
     out_fi = graph.fi_out
     out_w, out_h = out_fi.geometry.width, out_fi.geometry.height
@@ -246,7 +319,7 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
 
     # ---- muxer (analysis pass writes nowhere — x264 pass-1 analog) ----
     mux = _NullMux() if job.pass_id == 1 else \
-        _MuxAdapter(job, out_fi, audio_sel, src, aencs)
+        _MuxAdapter(job, out_fi, audio_sel, src, aencs, sub_specs=sub_specs)
 
     # ---- threaded stage graph (work.c:2242-2280: one thread per work
     # object, bounded FIFOs between; reader → decode+sync → filters+encode
@@ -273,9 +346,12 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     reader = _ReaderStage(it, die, pause)
     reader.fifo_out = fifo_raw
     decsync = _DecodeSyncStage(video_track, vdec, adecs, sync, v_sync,
-                               a_sync, stats)
+                               a_sync, stats, vcodec=vti.codec,
+                               sdecs=sdecs, s_sync=s_sync, cc_sel=cc_sel)
     decsync.fifo_in, decsync.fifo_out = fifo_raw, fifo_sync
-    encst = _EncodeStage(graph, venc, aencs, rc, stats, progress)
+    encst = _EncodeStage(graph, venc, aencs, rc, stats, progress,
+                         sub_specs, text_area(filter_list, vti.width,
+                                              vti.height))
     encst.fifo_in, encst.fifo_out = fifo_sync, fifo_enc
     muxst = _MuxStage(mux, aencs)
     muxst.fifo_in = fifo_enc
@@ -294,6 +370,26 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
         state.update(progress=1.0)
     stats["width"], stats["height"] = out_w, out_h
     return stats
+
+
+_SUB_SID0 = 1000   # subtitle stream ids live above source track indexes
+
+
+def text_area(filter_list: list, width: int, height: int) -> tuple:
+    """(w, h, left, top): the part of a width x height source frame that
+    the job's crop keeps, where a burned text cue is rasterized and
+    placed.  render_sub runs before crop_scale on the source frame; only
+    rotate can come between them, and with it the whole frame is used."""
+    from .job import schema as S
+    ids = [f["ID"] for f in filter_list]
+    cs = next((f for f in filter_list
+               if f["ID"] == S.FILTER_CROP_SCALE), None)
+    if cs is None or S.FILTER_ROTATE in ids:
+        return width, height, 0, 0
+    st = cs.get("Settings") or {}
+    t, b, left, r = (int(st.get(k, 0)) for k in (
+        "crop-top", "crop-bottom", "crop-left", "crop-right"))
+    return width - left - r, height - t - b, left, t
 
 
 # ---------------------------------------------------------------------------
@@ -326,8 +422,9 @@ class _DecodeSyncStage(WorkObject):
     name = "decode+sync"
 
     def __init__(self, video_track, vdec, adecs, sync, v_sync, a_sync,
-                 stats):
+                 stats, vcodec="", sdecs=None, s_sync=None, cc_sel=None):
         super().__init__()
+        self.cc_sel = cc_sel       # (key, Cea608Decoder) or None
         self.video_track = video_track
         self.vdec = vdec
         self.adecs = adecs
@@ -335,6 +432,41 @@ class _DecodeSyncStage(WorkObject):
         self.v_sync = v_sync
         self.a_sync = a_sync
         self.stats = stats
+        self.vcodec = vcodec
+        self.sdecs = sdecs or {}
+        self.s_sync = s_sync or {}
+
+    def _feed_cc(self, es: bytes, pts):
+        """CEA-608 captions ride the video ES (deccc608sub.c role):
+        extract GA94 cc_data from MPEG-2 user_data or H.264 SEI and
+        decode to text cues on the caption subtitle stream."""
+        from .subtitles.cea608 import extract_cc_h264, extract_cc_mpeg2
+        key, dec = self.cc_sel
+        if self.vcodec in ("mpeg2", "mpeg2video"):
+            pairs = extract_cc_mpeg2(es)
+        elif self.vcodec == "h264":
+            pairs = extract_cc_h264(es)
+        else:
+            return
+        for ev in dec.feed(pairs, pts or 0):
+            b = Buffer(track_kind="subtitle", pts=ev.pts, stop=ev.stop,
+                       duration=ev.duration)
+            b.data = ev.text.encode("utf-8")
+            b.stream_id = _SUB_SID0 + key
+            self.sync.queue(self.s_sync[key], b)
+
+    def _emit_sub(self, key, ev):
+        """Queue one bitmap event (or clear marker) immediately: a PGS
+        display set replaces the screen, events persist until the next
+        set (render_sub's clear semantics)."""
+        b = Buffer(track_kind="subtitle", pts=ev.pts, stop=None)
+        if ev.rgba is None:
+            b.sub_clear = True
+        else:
+            b.planes = [ev.rgba]
+            b.rect = (ev.x, ev.y)
+        b.stream_id = _SUB_SID0 + key
+        self.sync.queue(self.s_sync[key], b)
 
     def work(self, buf):
         if buf.is_eof():
@@ -350,14 +482,32 @@ class _DecodeSyncStage(WorkObject):
             self.stats["cadence"] = cad["cadence"]
             self.stats["cadence_breaks"] = cad["breaks"]
             return out + [buf]
-        if buf.stream_id == self.video_track:
+        trk = buf.stream_id
+        if trk == self.video_track:
+            if self.cc_sel is not None and buf.data:
+                self._feed_cc(bytes(buf.data), buf.pts)
             frames = [buf] if buf.planes is not None else self.vdec.feed(buf)
             for f in frames:
                 self.sync.queue(self.v_sync, f)
                 self.stats["frames_in"] += 1
-        elif buf.stream_id in self.adecs:
-            for ab in self.adecs[buf.stream_id].feed(buf):
-                self.sync.queue(self.a_sync[buf.stream_id], ab)
+        elif trk in self.adecs:
+            for ab in self.adecs[trk].feed(buf):
+                self.sync.queue(self.a_sync[trk], ab)
+        elif trk in self.sdecs and buf.data is not None:
+            key, dec = self.sdecs[trk]
+            if isinstance(dec, _TextCueDecoder):
+                txt = dec.parse(bytes(buf.data))
+                if txt:
+                    b = Buffer(track_kind="subtitle", pts=buf.pts,
+                               duration=buf.duration)
+                    b.stop = (buf.pts + buf.duration) \
+                        if buf.pts is not None and buf.duration else None
+                    b.data = txt.encode("utf-8")
+                    b.stream_id = _SUB_SID0 + key
+                    self.sync.queue(self.s_sync[key], b)
+            else:
+                for ev in dec.feed(bytes(buf.data), buf.pts or 0):
+                    self._emit_sub(key, ev)
         return self.sync.poll()
 
 
@@ -371,11 +521,16 @@ class _EncodeStage(WorkObject):
     """Filter graph + encoders. Video uses the encoder's begin/finish
     pipelining so the device analyses frame N+1 while this thread
     entropy-codes frame N (encx264 lookahead role); each audio track's
-    chain encodes its PCM on the host between video frames."""
+    chain encodes its PCM on the host between video frames.  A burned
+    subtitle event goes to the graph's render_sub (a text cue rasterized
+    first, into `text_area`), a kept one on to the mux."""
     name = "filter+encode"
 
-    def __init__(self, graph, venc, aencs, rc, stats, progress):
+    def __init__(self, graph, venc, aencs, rc, stats, progress,
+                 sub_specs=None, text_area=(0, 0, 0, 0)):
         super().__init__()
+        self.sub_specs = sub_specs or {}
+        self.text_area = text_area
         self.graph = graph
         self.venc = venc
         self.aencs = aencs
@@ -460,6 +615,26 @@ class _EncodeStage(WorkObject):
                     pkt.track_kind = "audio"
                     out.append(pkt)
             return out
+        if buf.track_kind == "subtitle":
+            spec = self.sub_specs.get(buf.stream_id - _SUB_SID0)
+            if spec is None:
+                return []
+            if not spec.burn:
+                return [buf]   # muxed subtitle track
+            if getattr(buf, "sub_clear", False) or buf.planes is not None:
+                # bitmap event / clear marker (PGS): blend layer
+                self.graph.queue_subtitle(buf)
+                return []
+            from .subtitles.raster import render_text_rgba
+            w, h, left, top = self.text_area
+            rgba, (x0, y0) = render_text_rgba(buf.data.decode("utf-8"), w,
+                                              h)
+            ev = Buffer(track_kind="subtitle", pts=buf.pts, stop=buf.stop,
+                        duration=buf.duration)
+            ev.planes = [rgba]
+            ev.rect = (x0 + left, y0 + top)
+            self.graph.queue_subtitle(ev)
+            return []
         return []
 
 
@@ -494,6 +669,9 @@ class _MuxStage(WorkObject):
             t = self._tmap.get(("audio", buf.stream_id))
             if t is not None:
                 self.muxer.queue(t, buf)
+        elif buf.track_kind == "subtitle":
+            # tx3g/S_TEXT cues are sparse; the adapter writes them directly
+            self.adapter.write_subtitle(buf.stream_id - _SUB_SID0, buf)
         return []
 
 
@@ -504,6 +682,9 @@ class _NullMux:
         pass
 
     def write_audio(self, sid, pkt):
+        pass
+
+    def write_subtitle(self, k, buf):
         pass
 
     def finalize(self):
@@ -685,6 +866,34 @@ class _Ac3PacketDecoder:
         return outs
 
 
+class _TextCueDecoder:
+    """In-stream text subtitle cues → plain text (dectx3gsub.c role for
+    mp4 tx3g samples; mkv S_TEXT/UTF8 raw cues; S_TEXT/ASS block lines
+    with the decssasub.c field split)."""
+
+    def __init__(self, codec):
+        self.codec = codec
+
+    def parse(self, data: bytes) -> str:
+        import re
+        if self.codec in ("tx3g", "text"):
+            if len(data) < 2:
+                return ""
+            n = int.from_bytes(data[:2], "big")
+            txt = data[2:2 + n].decode("utf-8", "replace")
+        elif self.codec in ("ass", "ssa"):
+            # mkv block line: ReadOrder,Layer,Style,Name,4xMargin,
+            # Effect,Text
+            parts = data.decode("utf-8", "replace").split(",", 8)
+            txt = parts[-1] if parts else ""
+            txt = txt.replace("\\N", "\n").replace("\\n", "\n") \
+                .replace("\\h", " ")
+        else:                              # srt/subrip: raw cue text
+            txt = data.decode("utf-8", "replace")
+        txt = re.sub(r"<[^>]{1,64}>|\{\\[^}]{0,64}\}", "", txt)
+        return txt.strip()
+
+
 class _Mp2PacketDecoder:
     """MPEG-1 Layer I/II audio decode (audio/mp2dec.py — the DVB/DVD
     broadcast personality of decavcodec.c): byte-stream sync, 1152
@@ -793,15 +1002,18 @@ def _make_audio_encoder(spec, ti):
 # mux adapter
 # ---------------------------------------------------------------------------
 class _MuxAdapter:
-    """Wraps MP4Writer/MKVWriter behind one write_video/write_audio API
-    (muxcommon.c role: track fan-in; interleave is the writers' concern).
-    The reference's adapter without its subtitle tracks and journal."""
+    """Wraps MP4Writer/MKVWriter behind one write_video/write_audio/
+    write_subtitle API (muxcommon.c role: track fan-in; interleave is the
+    writers' concern).  The reference's adapter without its journal."""
 
-    def __init__(self, job: Job, out_fi, audio_sel, src, aencs=None):
+    def __init__(self, job: Job, out_fi, audio_sel, src, aencs=None,
+                 sub_specs=None):
         self.kind = job.mux
         self.aencs = aencs or {}
         path = job.file or "out.mp4"
         self._amap = {}
+        self._smap = {}           # subtitle key → track index
+        self._sub_last_end = {}   # tx3g gap filling (90 kHz)
         if job.vcodec in ("hevc_tpu", "x265", "hevc", "h265"):
             mux_vcodec = "hevc"
         elif job.vcodec in ("av1_tpu", "svt_av1", "av1"):
@@ -904,6 +1116,16 @@ class _MuxAdapter:
                     sample_rate=chain.sr_out if chain else ti.sample_rate,
                     channels=chain.out_channels if chain else ti.channels,
                     extradata=xd, language=ti.language)
+        for k, sspec in (sub_specs or {}).items():
+            if sspec.burn:
+                continue
+            if self.kind in ("mkv", "webm"):
+                self._smap[k] = self.w.add_subtitle_track(
+                    codec="srt", language=sspec.language)
+            else:
+                self._smap[k] = self.w.add_subtitle_track(
+                    codec="tx3g", language=sspec.language)
+            self._sub_last_end[k] = 0
         if job.chapter_markers:
             for i, (start, name) in enumerate(getattr(src, "chapters", [])):
                 title = job.chapter_names[i] \
@@ -977,6 +1199,32 @@ class _MuxAdapter:
             t = self.w.tracks[tr]
             dur = (pkt.duration or 0) * t.timescale // CLOCK
             self.w.write_sample(tr, data, duration=dur)
+
+    def write_subtitle(self, k: int, buf: Buffer):
+        tr = self._smap.get(k)
+        if tr is None or buf.data is None:
+            return
+        text = buf.data
+        pts = buf.pts or 0
+        dur = buf.duration or 0
+        if self.kind in ("mkv", "webm"):
+            self.w.write_sample(tr, text, pts_90k=pts, duration_90k=dur)
+            return
+        # mp4 tx3g: consecutive samples; gaps carry empty cues and an
+        # OVERLAPPING cue is repaired by trimming its start to the
+        # previous cue's end (sync.c:1162 subtitle-overlap role — the
+        # tx3g sample model cannot express simultaneous cues)
+        last = self._sub_last_end.get(k, 0)
+        if pts > last:
+            self.w.write_sample(tr, b"\x00\x00", duration=pts - last)
+        elif pts < last:
+            dur = max(0, (pts + dur) - last)
+            pts = last
+            if dur == 0:
+                return
+        sample = len(text).to_bytes(2, "big") + text
+        self.w.write_sample(tr, sample, duration=dur)
+        self._sub_last_end[k] = pts + dur
 
     def finalize(self):
         # late extradata (FLAC STREAMINFO carries final MD5/total-samples;

@@ -164,8 +164,10 @@ def test_filter_graph_order_and_geometry(graph):
 
 def test_unported_filter_raises_in_graph():
     fi = FilterInit(geometry=Geometry(64, 48), device="cpu")
-    with pytest.raises(NotImplementedError, match="render_sub"):
+    # render_sub is ported; nlmeans's mesh-sharded path is not
+    with pytest.raises(NotImplementedError, match="tile_parallel"):
         FilterGraph([{"ID": S.FILTER_CROP_SCALE, "Settings": {}},
-                     {"ID": S.FILTER_RENDER_SUB, "Settings": {}}], fi)
+                     {"ID": S.FILTER_NLMEANS,
+                      "Settings": {"tile_parallel": 2}}], fi)
     # an id no package knows is dropped by both, as the reference does
     assert FilterGraph([{"ID": 999, "Settings": {}}], fi).filters == []

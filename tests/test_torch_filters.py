@@ -471,11 +471,10 @@ def test_rpu_active_area_equals_reference():
 # -- the graph ----------------------------------------------------------
 def test_graph_order_with_the_new_filters():
     """Every filter id the reference registers is accepted (render_sub
-    aside), in the reference's order; deband, missing from FILTER_ORDER,
-    goes last in both."""
+    included), in the reference's order; deband, missing from
+    FILTER_ORDER, goes last in both."""
     specs = [{"ID": fid, "Settings": {}} for fid in sorted(
-        jbase.registry()) if fid not in (S.FILTER_RENDER_SUB,
-                                         S.FILTER_AVFILTER)]
+        jbase.registry()) if fid != S.FILTER_AVFILTER]
     specs.reverse()
     fi_kw = dict(geometry=(64, 48))
     jg = jgraph.FilterGraph([dict(s) for s in specs], jbase.FilterInit(
@@ -486,8 +485,8 @@ def test_graph_order_with_the_new_filters():
     names = [f.name for f in tg.filters]
     assert names == [f.name for f in jg.filters]
     assert names[-1] == "deband"
-    assert set(tbase.registry()) == set(jbase.registry()) - {
-        S.FILTER_RENDER_SUB}
+    assert set(tbase.registry()) == set(jbase.registry())
+    assert "render_sub" in names
     a, b = tg.fi_out, jg.fi_out
     assert (a.geometry.width, a.geometry.height, a.vrate, a.cfr) == \
         (b.geometry.width, b.geometry.height, b.vrate, b.cfr)
@@ -495,7 +494,7 @@ def test_graph_order_with_the_new_filters():
 
 def test_mt_frame_is_disabled_like_the_reference():
     """mt_frame has a name but no filter class: both graphs disable it
-    (logged), neither raises; render_sub still raises in the port."""
+    (logged), neither raises; render_sub, ported, is kept by both."""
     specs = [{"ID": S.FILTER_MT_FRAME, "Settings": {}},
              {"ID": S.FILTER_GRAYSCALE, "Settings": {}}]
     jg = jgraph.FilterGraph([dict(s) for s in specs],
@@ -504,10 +503,14 @@ def test_mt_frame_is_disabled_like_the_reference():
         geometry=Geometry(64, 48), device="cpu"))
     assert [f.name for f in tg.filters] == [f.name for f in jg.filters] \
         == ["grayscale"]
-    with pytest.raises(NotImplementedError, match="render_sub"):
-        tgraph.FilterGraph([{"ID": S.FILTER_RENDER_SUB, "Settings": {}}],
-                           tbase.FilterInit(geometry=Geometry(64, 48),
-                                            device="cpu"))
+    specs = [{"ID": S.FILTER_MT_FRAME, "Settings": {}},
+             {"ID": S.FILTER_RENDER_SUB, "Settings": {}}]
+    jg = jgraph.FilterGraph([dict(s) for s in specs],
+                            jbase.FilterInit(geometry=JGeometry(64, 48)))
+    tg = tgraph.FilterGraph([dict(s) for s in specs], tbase.FilterInit(
+        geometry=Geometry(64, 48), device="cpu"))
+    assert [f.name for f in tg.filters] == [f.name for f in jg.filters] \
+        == ["render_sub"]
 
 
 def test_nlmeans_tile_parallel_raises():

@@ -66,7 +66,9 @@ JOB_PATH = ("core.buffer", "core.fifo", "core.pipeline", "core.state",
             "filters.detelecine", "filters.nlmeans", "filters.rpu",
             "filters.sharp", "filters.simple", "filters.resample_cuda",
             "sources.mkv", "mux.mkv", "codecs.h264.native_decoder",
-            "native.build")
+            "native.build", "filters.rendersub", "subtitles",
+            "subtitles.srt", "subtitles.raster", "subtitles.pgs",
+            "subtitles.vobsub", "subtitles.cea608")
 
 
 def test_port_imports_with_jax_blocked():

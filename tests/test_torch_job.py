@@ -276,10 +276,12 @@ def test_no_fallback_to_the_cpu(src, tmp_path, monkeypatch):
 
 # job changes whose paths are later slices of the port
 UNPORTED_JOBS = {
-    # decomb is ported; the subtitle burn-in beside it is not
-    "filter-decomb": lambda j: j.filters.extend([
+    # decomb and the subtitle burn-in are ported; tile-parallel filters
+    # are not
+    "filter-decomb": lambda j: (j.filters.extend([
         S.FilterSpec(S.FILTER_DECOMB, {}),
         S.FilterSpec(S.FILTER_RENDER_SUB, {})]),
+        setattr(j, "tile_parallel", 2)),
     # nlmeans is ported; its mesh-sharded path is not
     "filter-nlmeans": lambda j: j.filters.append(
         S.FilterSpec(S.FILTER_NLMEANS, {"tile_parallel": 2})),
@@ -290,8 +292,11 @@ UNPORTED_JOBS = {
     "bframes": lambda j: setattr(j, "bframes", 2),
     "gop-parallel": lambda j: setattr(j, "gop_parallel", 2),
     "checkpoint": lambda j: setattr(j, "checkpoint", True),
-    "subtitles": lambda j: j.subtitles.append(
+    # subtitles are ported; resuming a job (its journal's subtitle
+    # records) is not
+    "subtitles": lambda j: (j.subtitles.append(
         S.SubtitleJobTrack(track=-1, import_file="a.srt")),
+        setattr(j, "resume", True)),
 }
 
 
@@ -304,8 +309,8 @@ def test_unported_job_raises(src, tmp_path, change):
 
 
 @pytest.mark.parametrize("opts", [["-E", "opus"], ["-a", "1", "-E", "mp3"],
-                                  ["-s", "1"],
-                                  ["--srt-file", "a.srt"],
+                                  ["-e", "x265"],
+                                  ["-e", "svt_av1"],
                                   ["--bframes", "2"],
                                   ["--gop-parallel", "2"],
                                   ["--tile-parallel", "2"],

@@ -17,14 +17,16 @@ the port's rule for it (``filters/kernels.py`` ``vertical_order``,
   and the JAX package's ``_apply_separable``, bit for bit, on the rows
   whose vertical band crosses a block and a seeded sample of the rest.
 
-Not matched, and printed as the map's open part: a product with one
-output row (a matrix-vector product), and a vertical product with few
-output rows (up to 50) and fewer than 1024 input rows.  From 51 output
-rows on, the vertical product takes the horizontal product's kernels by
-the plane's width, which covers a plane whose width is not a multiple of
-64 (999x1777 to 541 rows, the DVD upscales) and a plane under 64 wide
-(the chroma of a small source upscaled); the 50/51-row boundary is held
-at widths 20, 30, 40, 720 and 1777 and at 240 to 4500 input rows.
+From 51 output rows on, the vertical product takes the horizontal
+product's kernels by the plane's width, which covers a plane whose width
+is not a multiple of 64 (999x1777 to 541 rows, the DVD upscales) and a
+plane under 64 wide (the chroma of a small source upscaled); the 50/51-row
+boundary is held at widths 20, 30, 40, 720 and 1777 and at 240 to 4500
+input rows.  With fewer rows, a plane wider than 64 is cut into column
+tiles of 128 or 64 by the size of its panels (``FEW_ROWS_SHAPES``, both
+sides of the cut).  A product with one output row has its own order:
+one fma chain if vertical (``ONE_ROW_SHAPES``), a matrix-vector kernel in
+eight lanes if horizontal (``GEMV_SHAPES``).
 """
 import jax
 import jax.numpy as jnp
@@ -55,24 +57,36 @@ def fma32(a, b, c):
     return np.where(up, r2.astype(np.float32), r)
 
 
-def ordered_dot(x, a, lanes, block, main):
+def _lanes_added(acc, split):
+    """The lanes added as neighbours, (l0 + l1) + (l2 + l3), and in the
+    columns from split on as halves, (l0 + l2) + (l1 + l3)."""
+    near, half = list(acc), list(acc)
+    while len(near) > 1:
+        near = [near[i] + near[i + 1] for i in range(0, len(near), 2)]
+        h = len(half) // 2
+        half = [half[i] + half[i + h] for i in range(h)]
+    return np.concatenate([near[0][:, :split], half[0][:, split:]], axis=1)
+
+
+def ordered_dot(x, a, lanes, block, main, split=None, tail_fma=False):
     """x (m, K) times a (n, K)^T in the rule's order: blocks of K from 0,
-    lane k mod lanes as fma chains added (l0 + l1) + (l2 + l3), the
-    blocks added in order, then the tail from main on (products rounded,
-    added in order from 0)."""
+    lane k mod lanes as fma chains, added as neighbours (the columns from
+    split on as halves), the blocks added in order, then the tail from
+    main on (products rounded, added in order from 0; an fma chain where
+    tail_fma)."""
     m, k_all = x.shape
     out = np.zeros((m, a.shape[0]), np.float32)
+    split = a.shape[0] if split is None else split
     for b0 in range(0, main, block):
         acc = [np.zeros_like(out) for _ in range(lanes)]
         for k in range(b0, min(b0 + block, main)):
             acc[k % lanes] = fma32(x[:, k, None], a[None, :, k],
                                    acc[k % lanes])
-        while len(acc) > 1:
-            acc = [acc[i] + acc[i + 1] for i in range(0, len(acc), 2)]
-        out = out + acc[0]
+        out = out + _lanes_added(acc, split)
     tail = np.zeros_like(out)
     for k in range(main, k_all):
-        tail = (x[:, k, None] * a[None, :, k]).astype(np.float32) + tail
+        tail = (fma32(x[:, k, None], a[None, :, k], tail) if tail_fma else
+                (x[:, k, None] * a[None, :, k]).astype(np.float32) + tail)
     return out + tail
 
 
@@ -113,11 +127,35 @@ DVD_SHAPES = [("v", 1080, 480, 720), ("h", 1080, 720, 1440),
               ("v", 540, 240, 360), ("h", 540, 360, 720),
               ("v", 1080, 576, 720), ("h", 1080, 720, 1920),
               ("v", 540, 288, 360), ("h", 540, 360, 960)]
-# where the rule is known not to hold (ROADMAP §3): one output row (a
-# matrix-vector product); a vertical product with few output rows (up to
-# 50) and fewer than 1024 input rows, which XLA splits into other blocks
-LEFT_SHAPES = [("h", 1, 97, 50), ("v", 8, 900, 80), ("v", 2, 600, 129),
-               ("v", 8, 540, 960), ("v", 50, 480, 720), ("v", 50, 480, 1777)]
+# a vertical product with few output rows (up to 50) on a plane wider
+# than 64: tiles of 128 columns where n_in x (the rows, rounded up to 32
+# or 64 past 16, + 64) f32 stay below 65536, wider ones (256, 512, 1024)
+# where n_in x (rows + half the tile) do, else of 64, each with a narrower
+# last tile (one of up to 8 columns of 2 to 4 rows rounds each product);
+# the six shapes PR 8 left open, both sides of the fit at 2, 8, 9, 16,
+# 17, 30, 40 and 50 rows, tiles of 256 to 1024, and last tiles of 1 to 12
+FEW_ROWS_SHAPES = [("v", 8, 900, 80), ("v", 2, 600, 129), ("v", 8, 540, 960),
+                   ("v", 50, 480, 720), ("v", 50, 480, 1777),
+                   ("v", 8, 910, 80), ("v", 8, 911, 80), ("v", 2, 992, 80),
+                   ("v", 2, 993, 80), ("v", 9, 897, 80), ("v", 9, 898, 80),
+                   ("v", 16, 819, 80), ("v", 16, 820, 80),
+                   ("v", 17, 682, 300), ("v", 17, 683, 300),
+                   ("v", 30, 682, 129), ("v", 30, 683, 129),
+                   ("v", 40, 512, 200), ("v", 40, 514, 200),
+                   ("v", 50, 512, 80), ("v", 50, 514, 80),
+                   ("v", 8, 500, 140), ("v", 8, 700, 200),
+                   ("v", 2, 990, 133), ("v", 8, 600, 137), ("v", 8, 600, 264),
+                   ("v", 2, 300, 300), ("v", 3, 100, 1500), ("v", 8, 200, 600),
+                   ("v", 2, 250, 520), ("v", 2, 300, 130), ("v", 2, 300, 257),
+                   ("v", 4, 300, 520), ("v", 5, 300, 520), ("v", 2, 1100, 65),
+                   ("v", 3, 1100, 70), ("v", 4, 1100, 72), ("v", 2, 700, 100)]
+# a vertical product with one output row: one fma chain
+ONE_ROW_SHAPES = [("v", 1, 1500, 300), ("v", 1, 300, 12), ("v", 1, 40, 20)]
+# a horizontal product with one output row (a matrix-vector product):
+# eight lanes, no blocks, the last n_out % 8 columns adding them as halves
+GEMV_SHAPES = [("h", 1, 97, 50), ("h", 1, 97, 4), ("h", 1, 97, 8),
+               ("h", 1, 101, 127), ("h", 1, 2100, 50), ("h", 1, 5003, 20),
+               ("h", 1, 300, 1281)]
 
 
 def _map_case(which, m, k, n, seed):
@@ -138,7 +176,7 @@ def _map_case(which, m, k, n, seed):
         a = rng.standard_normal((n, k)).astype(np.float32)
         want = np.asarray(_horizontal(x, a))
         rows = np.sort(rng.choice(m, min(m, 2), replace=False))
-        rule = tk.horizontal_order(k, n)
+        rule = tk.horizontal_order(k, n, m)
         got = ordered_dot(x[rows], a, *rule)
         chain = chain_dot(x[rows], a)
     want = want[rows]
@@ -151,16 +189,10 @@ def _map_case(which, m, k, n, seed):
 
 
 @pytest.mark.parametrize("which,m,k,n", TEST_SHAPES + PRESET_SHAPES
-                         + RULE_SHAPES + DVD_SHAPES)
+                         + RULE_SHAPES + DVD_SHAPES + FEW_ROWS_SHAPES
+                         + ONE_ROW_SHAPES + GEMV_SHAPES)
 def test_xla_order_map(which, m, k, n):
     assert _map_case(which, m, k, n, m * 131 + k * 7 + n) == 0.0
-
-
-@pytest.mark.parametrize("which,m,k,n", LEFT_SHAPES)
-def test_xla_order_map_left(which, m, k, n):
-    """The map's open part, printed with the rest: the rule differs from
-    XLA's order there (if it stops differing, ROADMAP §3 is stale)."""
-    assert _map_case(which, m, k, n, m * 131 + k * 7 + n) > 0.0
 
 
 # crop/scale geometries (in_h, in_w, out_h, out_w) of the presets, luma
