@@ -153,7 +153,26 @@ Phases (none is caught; any failure exits non-zero before the last line):
    ``--srt-file`` and ``--srt-burn 1``: its first 3 samples equal the
    CPU run's, and the burned text's box in the decoded 1920x804 output
    is horizontally centred and in the bottom fifth.
-10. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+10. B-frames on the job path (the walker, ``codecs/h264/encoder_b.py``,
+   is host code, as in the JAX package; the job's crop/scale runs the
+   resample kernel on the card): (a) job 5 (a)'s letterboxed source, its
+   first 9 frames, through ``cli.__main__.main(["-i", src, "-o", out.mp4,
+   "-e", "h264", "-q", "28", "--bframes", "3"])``, default preset and
+   device, under ``torch.profiler``: 9 samples at 1920x804, an IDR and
+   two groups of a P and three B frames, the decode order not the
+   display order and non-zero ctts offsets, the resample kernel launched
+   once a frame; (b) the mp4's stream decoded by the port's
+   ``NativeH264Decoder`` equals the walker's reconstructions (kept by a
+   spy on the job's adapter), frame for frame in display order, and the
+   planes the encoder received equal the port's ``CropScaleFilter`` on
+   the CPU for the same source frames; (c) five random-noise 320x192
+   frames, on which the JAX package's walker raises (its motion
+   compensation reads outside its padded reference), through
+   ``H264BEncoder(bframes=3)``: they encode and decode to its
+   reconstructions; (d) the job's wall time and fps, the walker's host
+   ms per I, P and B frame, the stream's bytes beside those of the same
+   job without ``--bframes``, and the card's busy share over the job.
+11. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
    time; hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s
@@ -161,7 +180,8 @@ Phases (none is caught; any failure exits non-zero before the last line):
    are 5 (d)'s kernel times on (a)'s planes, ``ms_dvd`` its times on the
    DVD frames beside ``bound_dvd_ms``, ``launches`` 5 (a)'s count, one a
    frame, ``library_ms`` the dense products' time, ``regs``,
-   ``local_bytes`` and ``smem_bytes`` the kernel's), steps 8's and 9's
+   ``local_bytes`` and ``smem_bytes`` the kernel's, ``job_launches``
+   its counts in jobs 5 (a), 9 (c) and 10 (a)), steps 7's to 10's
    numbers, the card's name and power limit, and the result line.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
@@ -285,6 +305,13 @@ SUB_TEXT_CUES = ((3, 6, "First soft cue"), (12, 5, "Second soft cue"))
 SUB_CPU_FRAMES = 6
 SUB_CARD_TOL = 8.0
 SUB_CUE = "A burned subtitle\nin two lines"
+# step 10: the B-frame job takes the letterbox source's first B_N frames
+# with --bframes B_FRAMES (x264-medium's bframes=3/ref=3): an IDR, then
+# two groups of a P and three B frames; the MC repair's noise frames
+# (tests/test_torch_bframes.py's generator and one of its cases: the JAX
+# package's walker raises on them)
+B_N, B_FRAMES, B_Q = 9, 3, 28
+NOISE_W, NOISE_H, NOISE_N, NOISE_SEED = 320, 192, 5, 0
 
 
 def smi(query):
@@ -2190,6 +2217,231 @@ def phase_subtitles(tmp, label, stream):
     return {"blend": blend, "job": job_b, "letterbox": job_c}
 
 
+class BFrameSpy:
+    """Records what a B-frame job builds and does, by wrapping the port's
+    work module and the walker for one drive: the job, the encoder
+    adapter, the planes the adapter is given, each frame's
+    reconstruction before the adapter drops it, the decode order,
+    do_job's wall time, the card's time under torch.profiler over that
+    same span, and the walker's host seconds per I, P and B frame."""
+
+    def __init__(self):
+        self.job = self.adapter = self.prof = None
+        self.planes, self.recons, self.order = [], {}, []
+        self.sec = {"I": [], "P": [], "B": []}
+        self.seconds = 0.0
+
+    def _timed(self, fn, kind):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.sec[kind].append(time.perf_counter() - t0)
+        return call
+
+    def __enter__(self):
+        from handbrake_tpu_torch import work
+        from handbrake_tpu_torch.codecs.h264.encoder_b import H264BEncoder
+        walker = (("I", "_encode_idr"), ("P", "_encode_p"),
+                  ("B", "_encode_b"))
+        self._orig = [(work, n, getattr(work, n))
+                      for n in ("create_video_encoder", "do_job")]
+        self._orig += [(H264BEncoder, n, getattr(H264BEncoder, n))
+                       for _k, n in walker]
+        make_enc, run_job = work.create_video_encoder, work.do_job
+
+        def create_video_encoder(job, *a, **k):
+            self.job = job
+            ad = self.adapter = make_enc(job, *a, **k)
+            push, release = ad.push_display_frame, ad._release
+
+            def push_display_frame(y, u, v):
+                self.planes.append((np.array(y), np.array(u), np.array(v)))
+                return push(y, u, v)
+
+            def _release(aus):
+                for d, _au in aus:
+                    self.recons[d] = ad.benc.recons[d]
+                    self.order.append(d)
+                return release(aus)
+
+            ad.push_display_frame, ad._release = push_display_frame, _release
+            return ad
+
+        def do_job(*a, **k):
+            import torch
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as self.prof:
+                t0 = time.perf_counter()
+                try:
+                    return run_job(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    self.seconds = time.perf_counter() - t0
+
+        work.create_video_encoder, work.do_job = create_video_encoder, do_job
+        for kind, name in walker:
+            setattr(H264BEncoder, name,
+                    self._timed(getattr(H264BEncoder, name), kind))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._orig:
+            setattr(obj, name, fn)
+
+
+def read_mp4_order(path):
+    """(track info, annex-B samples in decode order, cts offsets)."""
+    from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
+    d = MP4Demuxer(path)
+    try:
+        n = d.n_samples(0)
+        return (d.tracks[0], [bytes(d.read_sample(0, i).data)
+                              for i in range(n)],
+                list(d._samples[0].cts_offsets))
+    finally:
+        d.close()
+
+
+def decodes_to(stream, recons) -> bool:
+    """The port's decoder gives back `recons` (display index → the
+    walker's MB-aligned planes), in display order, cropped as coded."""
+    from handbrake_tpu_torch.codecs.h264.native_decoder import (
+        NativeH264Decoder)
+    got = NativeH264Decoder().decode(stream)
+    return len(got) == len(recons) and all(
+        np.array_equal(g, r[:g.shape[0], :g.shape[1]])
+        for d, planes in enumerate(got) for g, r in zip(planes, recons[d]))
+
+
+def phase_noise(label):
+    """10 (c): the noise frames through H264BEncoder(bframes=3) complete
+    and decode to its reconstructions."""
+    from handbrake_tpu_torch.codecs.h264.encoder import EncoderConfig
+    from handbrake_tpu_torch.codecs.h264.encoder_b import H264BEncoder
+    rng = np.random.default_rng(NOISE_SEED)
+    frames = [tuple(rng.integers(0, 256, shape, dtype=np.uint8)
+                    for shape in ((NOISE_H, NOISE_W),) + 2 * (
+                        (NOISE_H // 2, NOISE_W // 2),))
+              for _ in range(NOISE_N)]
+    enc = H264BEncoder(EncoderConfig(width=NOISE_W, height=NOISE_H),
+                       bframes=3)
+    t0 = time.perf_counter()
+    aus = []
+    for f in frames:
+        aus += enc.push_frame(*f)
+    aus += enc.flush()
+    sec = time.perf_counter() - t0
+    same = decodes_to(b"".join(au for _d, au in aus), enc.recons)
+    print(f"bframes (c): {NOISE_N} random-noise {NOISE_W}x{NOISE_H} frames "
+          f"(seed {NOISE_SEED}, on which the JAX package's walker raises) "
+          f"through H264BEncoder(bframes=3): {len(aus)} access units in "
+          f"{sec:.2f} s of host time ({label}); decoded equal to its "
+          f"reconstructions: {same}", flush=True)
+    if len(aus) != NOISE_N or not same:
+        raise RuntimeError("the noise frames did not encode and decode "
+                           "exactly")
+    return {"access_units": len(aus), "host_s": sec}
+
+
+def phase_bframes(tmp, label):
+    """10: the letterboxed source's first B_N frames through the CLI with
+    --bframes, its checks, the same job without B-frames, and the noise
+    frames.  Returns the numbers."""
+    import torch
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.filters import resample_cuda
+    from handbrake_tpu_torch.job import schema as S
+    from handbrake_tpu_torch.tools import profile_job as pj
+    frames = pj.letterbox_frames(B_N)
+    src = os.path.join(tmp, "bframes.y4m")
+    pj.write_letterbox(src, frames)
+    out, out_p = (os.path.join(tmp, f) for f in ("bframes.mp4",
+                                                 "bframes_none.mp4"))
+    argv = ["-i", src, "-e", "h264", "-q", str(B_Q)]
+    with BFrameSpy() as spy:
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli_main(argv + ["-o", out, "--bframes", str(B_FRAMES)])
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+        rs_launches = resample_cuda.launches
+        db_launches = deblock_cuda.launches
+    if rc != 0:
+        raise RuntimeError(f"the B-frame CLI job failed with exit code {rc}")
+    device_ms = sum(e.self_device_time_total
+                    for e in spy.prof.key_averages()) / 1e3
+    busy = device_ms / (spy.seconds * 1e3)
+    ti, samples, cts = read_mp4_order(out)
+    size = (ti.width, ti.height)
+    walker_ms = {k: 1e3 * statistics.mean(v) for k, v in spy.sec.items()
+                 if v}
+    n_kind = {k: len(v) for k, v in spy.sec.items()}
+    print(f"bframes (a): {pj.JOB_W}x{pj.JOB_H} letterboxed y4m, first {B_N} "
+          f"frames, CLI -e h264 -q {B_Q} --bframes {B_FRAMES}, preset Fast "
+          f"1080p30: mp4 {len(samples)} samples at {size[0]}x{size[1]}; "
+          f"decode order {spy.order}; cts offsets {cts}; frames I/P/B "
+          f"{n_kind['I']}/{n_kind['P']}/{n_kind['B']}; resample launches "
+          f"{rs_launches}, deblock264 launches {db_launches}", flush=True)
+    if len(samples) != B_N or size != JOB_OUT:
+        raise RuntimeError(f"the B-frame mp4 holds {len(samples)} samples "
+                           f"at {size}, not {B_N} at {JOB_OUT}")
+    if spy.order == sorted(spy.order) or not any(cts):
+        raise RuntimeError("the B-frame job's decode order is its display "
+                           "order")
+    if n_kind != {"I": 1, "P": 2, "B": 6}:
+        raise RuntimeError(f"the walker coded {n_kind}, not an IDR and two "
+                           "groups of P + 3 B")
+    if rs_launches != B_N:
+        raise RuntimeError("the B-frame job did not launch the resample "
+                           "kernel once a frame")
+    stream = avcc_parameter_sets(ti.extradata) + b"".join(samples)
+    same_recon = decodes_to(stream, spy.recons)
+    print(f"bframes (b): the mp4 decoded by the port's decoder equals the "
+          f"walker's reconstructions, frame for frame in display order: "
+          f"{same_recon}", flush=True)
+    if not same_recon:
+        raise RuntimeError("the B-frame stream does not decode to the "
+                           "walker's reconstructions")
+    cs = next(f.settings for f in spy.job.filters
+              if f.id == S.FILTER_CROP_SCALE)
+    f = crop_scale_filter(cs, "cpu")
+    t0 = time.perf_counter()
+    same_planes = len(spy.planes) == B_N and all(
+        np.array_equal(host(p), q) for k in range(B_N)
+        for p, q in zip(scale(f, with_bars(frames[k])), spy.planes[k]))
+    t_cpu = time.perf_counter() - t0
+    print(f"bframes (b): the planes the encoder received equal the port's "
+          f"CropScaleFilter on the CPU for the same {B_N} source frames: "
+          f"{same_planes} ({t_cpu:.1f} s on the CPU)", flush=True)
+    if not same_planes:
+        raise RuntimeError("the B-frame job's scaled planes differ from the "
+                           "CPU's")
+    rc = cli_main(argv + ["-o", out_p])
+    if rc != 0:
+        raise RuntimeError(f"the job without B-frames failed ({rc})")
+    _ti, samples_p, _cts = read_mp4_order(out_p)
+    nbytes, nbytes_p = sum(map(len, samples)), sum(map(len, samples_p))
+    noise = phase_noise(label)
+    rec = {"seconds": spy.seconds, "fps": B_N / spy.seconds,
+           "cli_s": t_cli, "walker_ms": walker_ms,
+           "stream_bytes": nbytes, "stream_bytes_no_bframes": nbytes_p,
+           "device_ms": device_ms, "busy_share": busy,
+           "resample_launches": rs_launches, "noise": noise}
+    print(f"bframes (d) ({label}): do_job {spy.seconds:.2f} s, "
+          f"{rec['fps']:.3f} fps ({B_N} frames, under torch.profiler); CLI "
+          f"in all (scan + job) {t_cli:.2f} s; the walker's host ms a frame "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walker_ms.items())
+          + f"; stream {nbytes} B, {nbytes_p} B without --bframes (the "
+          f"device path; both CAVLC, that one deblocked in the loop); the "
+          f"card busy {device_ms:.1f} ms of "
+          f"{spy.seconds * 1e3:.1f} ms, share {busy:.4f}", flush=True)
+    return rec
+
+
 def one_card():
     """Make only the first visible card visible to this process (before
     CUDA starts), so the run uses, and reports, exactly one card."""
@@ -2223,6 +2475,7 @@ def main() -> int:
         job_s, stream = phase_h264_source(tmp, label)
         job_au = phase_audio(tmp, label, stream)
         subs = phase_subtitles(tmp, label, stream)
+        bf = phase_bframes(tmp, label)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -2256,10 +2509,12 @@ def main() -> int:
         "filter_ms": rs["filter_ms"],
         "job_launches": {"letterbox_2160p_cli": job_a["resample_launches"],
                          "letterbox_srt_burn_cli":
-                             subs["letterbox"]["resample_launches"]}}
+                             subs["letterbox"]["resample_launches"],
+                         "letterbox_bframes_cli": bf["resample_launches"]}}
     print(f"job 7 numbers: {json.dumps(job_s)}", flush=True)
     print(f"audio numbers: {json.dumps(job_au)}", flush=True)
     print(f"subtitle numbers: {json.dumps(subs)}", flush=True)
+    print(f"bframes numbers: {json.dumps(bf)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

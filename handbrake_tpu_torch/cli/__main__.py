@@ -8,11 +8,12 @@ The counterpart of ``handbrake_tpu/cli/__main__.py``: the same parser,
 plus ``--device {cuda,cpu}`` (default cuda) for where the job runs.
 The audio options take comma lists, one value a track of ``-a`` (the
 last value repeats), as HandBrakeCLI's do; a single value gives every
-track the same setting, as the reference's parser does.  Options whose
-paths are not ported yet (B-frames, GOP- and tile-parallel
-encodes, checkpoint/resume, the libavcodec audio encoders mp3, opus and
-vorbis) raise NotImplementedError, as do unported filters, codecs and
-containers.
+track the same setting, as the reference's parser does.  ``--bframes N``
+codes IB..BP groups with the host walker (with ``-q``; a bitrate target
+raises).  Options whose paths are not ported yet (GOP- and
+tile-parallel encodes, checkpoint/resume, the libavcodec audio encoders
+mp3, opus and vorbis) raise NotImplementedError, as do unported
+filters, codecs and containers.
 
 Usage:
   python -m handbrake_tpu_torch.cli -i in.mp4 -o out.mkv [options]
@@ -201,7 +202,6 @@ def check_ported(args):
     unported = (
         ("audio encoders mp3, opus and vorbis (-E)",
          any(e in ("mp3", "opus", "vorbis") for e in aencoders)),
-        ("B-frames (--bframes)", args.bframes),
         ("GOP-parallel encoding (--gop-parallel)", args.gop_parallel),
         ("tile-parallel filters (--tile-parallel)", args.tile_parallel),
         ("checkpoint/resume (--checkpoint/--resume)",
@@ -246,6 +246,8 @@ def apply_cli_overrides(job: Job, args) -> Job:
         job.encoder_profile = args.encoder_profile
     if args.encoder_level:
         job.encoder_level = args.encoder_level
+    if args.bframes:
+        job.bframes = args.bframes
     if args.encopts:
         job.encoder_options = args.encopts
     if args.markers:

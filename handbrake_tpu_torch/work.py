@@ -19,10 +19,17 @@ source and CEA-608 captions of an H.264 stream decoded, each kept as a
 tx3g (mp4) or S_TEXT/UTF8 (mkv) track or burned in by the render_sub
 filter on the job's device.  The device comes only from the caller
 (``device=None`` is the CUDA card, which raises where there is none).
-B-frames, GOP-parallel and tile-parallel encodes, checkpoint/resume and
-the libavcodec audio codecs raise NotImplementedError: they are later
+GOP-parallel and tile-parallel encodes, checkpoint/resume and the
+libavcodec audio codecs raise NotImplementedError: they are later
 slices.  An audio track that cannot be decoded raises, and so does a
 subtitle track; none is passed through or dropped in its place.
+
+With ``bframes`` the video goes through the host B-frame walker
+(``codecs/h264/encoder_b.py``, CAVLC, constant qp) while the filter graph
+stays on the job's device; its access units come out in decode order,
+each stamped with its display frame's timestamps.  Such a job with a
+bitrate or multipass target raises WorkError: the walker has no rate
+control, and the reference ignores the target.
 
 A burned text cue is rasterized into the part of the source frame that
 the job's crop keeps, and placed there, so it lands bottom-centred in the
@@ -81,9 +88,24 @@ def create_video_encoder(job: Job, width: int, height: int,
                 (job.encoder_options or "").split(":") if "=" in kv)
     if "keyint" in opts:
         gop = max(1, int(opts["keyint"]))
+    bframes = int(getattr(job, "bframes", 0) or 0)
+    if job.vcodec in H264_NAMES and bframes > 0:
+        if job.vbitrate or job.multipass:
+            # the reference encodes such a job at cfg.qp and ignores
+            # the target
+            raise WorkError("a B-frame job encodes at a constant qp: it "
+                            "takes a quality, not a bitrate or multipass "
+                            "target")
+        # IB..BP GOP structure via the host B walker (encoder_b.py —
+        # x264-medium's bframes=3/ref=3 shape; CAVLC)
+        from .codecs.h264.encoder import EncoderConfig
+        from .codecs.h264.encoder_b import H264BEncoder
+        cfg = EncoderConfig(
+            width=width, height=height, qp=qp, gop=gop,
+            fps=(vrate.numerator, vrate.denominator), backend="host")
+        return _BFrameEncoderAdapter(
+            H264BEncoder(cfg, bframes=bframes, refs=min(3, bframes + 1)))
     if job.vcodec in H264_NAMES:
-        if int(getattr(job, "bframes", 0) or 0) > 0:
-            _unported("H.264 with B-frames (the host B-pyramid walker)")
         from .codecs.h264.encoder import EncoderConfig, H264Encoder
         # Entropy coder selection (encx264.c profile plumbing): main/high
         # profile or a cabac=1 option turns on CABAC
@@ -104,6 +126,31 @@ def create_video_encoder(job: Job, width: int, height: int,
                       "ffv1", "prores", "theora"):
         _unported(f"the {job.vcodec} video encoder")
     raise WorkError(f"unknown video encoder {job.vcodec!r}")
+
+
+class _BFrameEncoderAdapter:
+    """Wraps H264BEncoder for the encode stage: display frames in,
+    (display_idx, access_unit) pairs out in DECODE order — the caller
+    owns the DTS delay queue (encx264.c:30 role).  A frame's
+    reconstruction leaves the walker's ``recons`` once its access unit
+    is out, so a job holds no more than one group's besides the
+    walker's reference pictures (the reference keeps every one of them
+    for the whole job)."""
+
+    def __init__(self, benc):
+        self.benc = benc
+        self.cfg = benc.cfg
+
+    def _release(self, aus: list) -> list:
+        for d, _au in aus:
+            self.benc.recons.pop(d, None)
+        return aus
+
+    def push_display_frame(self, y, u, v):
+        return self._release(self.benc.push_frame(y, u, v))
+
+    def flush(self):
+        return self._release(self.benc.flush())
 
 
 # ---------------------------------------------------------------------------
@@ -435,6 +482,19 @@ class _DecodeSyncStage(WorkObject):
         self.vcodec = vcodec
         self.sdecs = sdecs or {}
         self.s_sync = s_sync or {}
+        self._hdr: dict = {}       # static + pending per-frame metadata
+
+    def _queue_video(self, f, flush=False):
+        """Queue a decoded frame with the source's HDR metadata: the
+        static SEIs on every frame, a T.35 payload on the next one
+        only, except at the EOF flush, which attaches all it holds to
+        every frame it drains."""
+        if self._hdr:
+            f.side_data.update(self._hdr)
+            if not flush:
+                self._hdr.pop("hdr10plus_t35", None)
+        self.sync.queue(self.v_sync, f)
+        self.stats["frames_in"] += 1
 
     def _feed_cc(self, es: bytes, pts):
         """CEA-608 captions ride the video ES (deccc608sub.c role):
@@ -471,8 +531,7 @@ class _DecodeSyncStage(WorkObject):
     def work(self, buf):
         if buf.is_eof():
             for f in self.vdec.flush():
-                self.sync.queue(self.v_sync, f)
-                self.stats["frames_in"] += 1
+                self._queue_video(f, flush=True)
             for idx in range(len(self.sync.streams)):
                 self.sync.set_eof(idx)
             out = self.sync.poll()
@@ -484,12 +543,16 @@ class _DecodeSyncStage(WorkObject):
             return out + [buf]
         trk = buf.stream_id
         if trk == self.video_track:
+            if buf.planes is None and buf.data and self.vcodec == "h264":
+                # HDR metadata rides SEI NALs in the source ES
+                # (hdr10plus.c:133 role)
+                from .codecs.hdr import extract_hdr_side_data
+                self._hdr.update(extract_hdr_side_data(buf.data, "h264"))
             if self.cc_sel is not None and buf.data:
                 self._feed_cc(bytes(buf.data), buf.pts)
             frames = [buf] if buf.planes is not None else self.vdec.feed(buf)
             for f in frames:
-                self.sync.queue(self.v_sync, f)
-                self.stats["frames_in"] += 1
+                self._queue_video(f)
         elif trk in self.adecs:
             for ab in self.adecs[trk].feed(buf):
                 self.sync.queue(self.a_sync[trk], ab)
@@ -520,10 +583,12 @@ def to_host(p) -> np.ndarray:
 class _EncodeStage(WorkObject):
     """Filter graph + encoders. Video uses the encoder's begin/finish
     pipelining so the device analyses frame N+1 while this thread
-    entropy-codes frame N (encx264 lookahead role); each audio track's
-    chain encodes its PCM on the host between video frames.  A burned
-    subtitle event goes to the graph's render_sub (a text cue rasterized
-    first, into `text_area`), a kept one on to the mux."""
+    entropy-codes frame N (encx264 lookahead role); a B-frame job's
+    walker takes display frames and returns decode-order access units.
+    Each audio track's chain encodes its PCM on the host between video
+    frames.  A burned subtitle event goes to the graph's render_sub (a
+    text cue rasterized first, into `text_area`), a kept one on to the
+    mux."""
     name = "filter+encode"
 
     def __init__(self, graph, venc, aencs, rc, stats, progress,
@@ -538,6 +603,12 @@ class _EncodeStage(WorkObject):
         self.stats = stats
         self.progress = progress
         self._pend = []   # (pending, fb, qp, is_idr)
+        self._b_fbs = {}  # display idx -> frame, B-frame job
+        self._b_disp = 0
+        from .codecs.h264.encoder import H264Encoder
+        # the reference matches the class name, so its B-frame adapter
+        # writes no SEI either
+        self._sei = isinstance(venc, H264Encoder)
 
     def _planes(self, fb):
         # the encoder takes host planes and pads and uploads them itself
@@ -551,6 +622,20 @@ class _EncodeStage(WorkObject):
         return y, u, v
 
     def _emit_video(self, au, fb, is_idr, qp):
+        sd = fb.side_data or {}
+        if sd and self._sei:
+            # the source's HDR metadata as SEI NALs ahead of the access
+            # unit: mastering display and content light on IDRs
+            from .codecs.hdr import hdr_nals
+            emit = {}
+            if is_idr:
+                emit.update({k: sd[k] for k in ("mastering_display",
+                                                "content_light")
+                             if k in sd})
+            if "hdr10plus_t35" in sd:
+                emit["hdr10plus_t35"] = sd["hdr10plus_t35"]
+            pre, _post = hdr_nals(emit, "h264")
+            au = pre + au
         self.rc.update(len(au) * 8, qp, is_idr)
         self.stats["frames_out"] += 1
         self.stats["bytes_out"] += len(au)
@@ -564,6 +649,10 @@ class _EncodeStage(WorkObject):
 
     def _encode(self, fb):
         y, u, v = self._planes(fb)
+        if isinstance(self.venc, _BFrameEncoderAdapter):
+            self._b_fbs[self._b_disp] = fb
+            self._b_disp += 1
+            return self._emit_b(self.venc.push_display_frame(y, u, v))
         is_idr = (self.venc.frame_idx % self.venc.cfg.gop) == 0
         out = []
         if is_idr:
@@ -588,11 +677,21 @@ class _EncodeStage(WorkObject):
         au = self.venc.finish_frame(p)
         return self._emit_video(au, fb, is_idr, qp)
 
+    def _emit_b(self, aus) -> list:
+        """The walker's decode-order access units, each emitted against
+        its display frame's timestamps (the muxers derive the cts
+        offsets from pts against the decode-order clock)."""
+        gop, qp = self.venc.cfg.gop, self.venc.cfg.qp
+        return [self._emit_video(au, self._b_fbs.pop(d), d % gop == 0, qp)
+                for d, au in aus]
+
     def work(self, buf):
         if buf.is_eof():
             out = []
             for fb in self.graph.flush():
                 out += self._encode(fb)
+            if isinstance(self.venc, _BFrameEncoderAdapter):
+                out += self._emit_b(self.venc.flush())
             while self._pend:
                 out.append(self._finish_one())
             for sid, enc in self.aencs.items():

@@ -174,18 +174,24 @@ def test_headers_match_jax():
 
 
 def test_unported_paths_raise():
+    """The host walker (backend="host", intra4x4, analysis=) is ported
+    and codes CAVLC only: under this CABAC config each raises instead of
+    the reference's silent switch to the device path or to CAVLC, and
+    the device path takes no hints.  The GOP-parallel entry is not
+    ported."""
     frames = _cut_clip()
     cfg = _cfg(tenc, 30, 8, 1)
     cfg.intra4x4 = True
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CAVLC"):
         tenc.H264Encoder(cfg, device="cpu")
     cfg = _cfg(tenc, 30, 8, 1)
     cfg.backend = "host"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CAVLC"):
         tenc.H264Encoder(cfg, device="cpu")
     enc = tenc.H264Encoder(_cfg(tenc, 30, 8, 1), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="host"):
         enc.begin_frame(*frames[0], analysis={})
+    assert not hasattr(enc, "encode_p_from_analysis")
 
 
 def test_finish_order_is_fifo():

@@ -68,7 +68,9 @@ JOB_PATH = ("core.buffer", "core.fifo", "core.pipeline", "core.state",
             "sources.mkv", "mux.mkv", "codecs.h264.native_decoder",
             "native.build", "filters.rendersub", "subtitles",
             "subtitles.srt", "subtitles.raster", "subtitles.pgs",
-            "subtitles.vobsub", "subtitles.cea608")
+            "subtitles.vobsub", "subtitles.cea608", "codecs.hdr",
+            "codecs.h264.cavlc", "codecs.h264.predict",
+            "codecs.h264.encoder_b")
 
 
 def test_port_imports_with_jax_blocked():

@@ -289,7 +289,6 @@ UNPORTED_JOBS = {
     "mux-mkv": lambda j: (setattr(j, "mux", "mkv"),
                           setattr(j, "vcodec", "vp9")),
     "vcodec-hevc": lambda j: setattr(j, "vcodec", "hevc_tpu"),
-    "bframes": lambda j: setattr(j, "bframes", 2),
     "gop-parallel": lambda j: setattr(j, "gop_parallel", 2),
     "checkpoint": lambda j: setattr(j, "checkpoint", True),
     # subtitles are ported; resuming a job (its journal's subtitle
@@ -311,7 +310,6 @@ def test_unported_job_raises(src, tmp_path, change):
 @pytest.mark.parametrize("opts", [["-E", "opus"], ["-a", "1", "-E", "mp3"],
                                   ["-e", "x265"],
                                   ["-e", "svt_av1"],
-                                  ["--bframes", "2"],
                                   ["--gop-parallel", "2"],
                                   ["--tile-parallel", "2"],
                                   ["--checkpoint"], ["--resume"],

@@ -8,11 +8,9 @@ encoder and muxer write (96x64, 10 frames of H.264):
 - an S_VOBSUB track with its idx palette in CodecPrivate, burned in;
 - CEA-608 captions in GA94 SEI NALs of an annex-B H.264 stream, decoded
   into an mkv text track, and ``scan_title`` listing the "cc" track that
-  the CLI's ``-s`` then selects.  The reference also copies each T.35 SEI
-  of an H.264 source into its output as HDR10+ metadata
-  (``handbrake_tpu/codecs/hdr.py``, not ported), so these files are held
-  equal packet by packet with those SEI NALs taken out of the reference's
-  video samples.
+  the CLI's ``-s`` then selects.  Both packages also copy each T.35 SEI
+  of an H.264 source into their output as HDR10+ metadata
+  (``codecs/hdr.py``), so the GA94 SEIs come through in both files.
 """
 import functools
 
@@ -119,29 +117,6 @@ def _job(Sm, src, out, subs):
     return j
 
 
-def _packets(path, strip_sei=False):
-    """Every track's (pts, payload) packets; with strip_sei the video
-    samples' SEI NALs are taken out."""
-    d = MKVDemuxer(path)
-    try:
-        out = {}
-        for t, b in d.packets():
-            data = bytes(b.data)
-            if strip_sei and d.tracks[t].kind == "video":
-                data = _without_sei(data)
-            out.setdefault(t, []).append((b.pts, data))
-        return out
-    finally:
-        d.close()
-
-
-def _without_sei(data: bytes) -> bytes:
-    """An annex-B sample (4-byte start codes) without its SEI NALs."""
-    code = b"\x00\x00\x00\x01"
-    return b"".join(code + n for n in data.split(code)[1:]
-                    if n and (n[0] & 0x1F) != 6)
-
-
 def _texts(path):
     d = MKVDemuxer(path)
     try:
@@ -163,9 +138,7 @@ def test_bitmap_and_caption_jobs_equal_reference(sources, tmp_path, src,
     work.do_job(_job(S, sources[src], tout, subs), device="cpu")
     if src == "cc":
         assert any(b"CAPTION ONE" in t for t in _texts(tout))
-        assert _packets(tout) == _packets(jout, strip_sei=True)
-    else:
-        assert _bytes(tout) == _bytes(jout)
+    assert _bytes(tout) == _bytes(jout)
 
 
 def test_burned_pgs_differs_from_the_plain_job(sources, tmp_path):
@@ -197,7 +170,4 @@ def test_cli_subtitle_selection_equals_reference(sources, tmp_path, src,
             "--encoder-profile", "high", "--crop", "0:0:0:0", *extra]
     assert jcli([*args, "-o", jout]) == 0
     assert cli([*args, "-o", tout, "--device", "cpu"]) == 0
-    if src == "cc":
-        assert _packets(tout) == _packets(jout, strip_sei=True)
-    else:
-        assert _bytes(tout) == _bytes(jout)
+    assert _bytes(tout) == _bytes(jout)

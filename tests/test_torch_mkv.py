@@ -112,8 +112,45 @@ def test_mkv_writer_bytes_and_demuxer_equal_reference(tmp_path, case):
     src.close()
 
 
-# every file this slice copies from the JAX package, and the lines a
-# copy may change (its imports)
+# the port's motion compensation reads reference samples at coordinates
+# clamped to the picture (spec 8.4.2.2.1); the reference slices its padded
+# plane without bounds (test_torch_bframes holds the two)
+_MC_CLAMP = (
+    ("def mc_luma_block(",
+     '''def _window(ref_pad: np.ndarray, pad: int, y: int, x: int, h: int,
+            w: int) -> np.ndarray:
+    """The h x w reference samples from picture coordinate (x, y), each
+    read at its coordinate clamped to the picture (8.4.2.2.1), as int32.
+    Inside the padded plane that is a plain slice of it."""
+    r0, c0 = y + pad, x + pad
+    if 0 <= r0 and r0 + h <= ref_pad.shape[0] \\
+            and 0 <= c0 and c0 + w <= ref_pad.shape[1]:
+        return ref_pad[r0:r0 + h, c0:c0 + w].astype(np.int32)
+    rows = np.clip(np.arange(y, y + h), 0, ref_pad.shape[0] - 2 * pad - 1)
+    cols = np.clip(np.arange(x, x + w), 0, ref_pad.shape[1] - 2 * pad - 1)
+    return ref_pad[(rows + pad)[:, None], (cols + pad)[None, :]].astype(
+        np.int32)
+
+
+def mc_luma_block('''),
+    ("""    r0, c0 = yi - 2 + pad, xi - 2 + pad
+    win = ref_pad[r0:r0 + h + 5, c0:c0 + w + 5].astype(np.int32)
+""", """    win = _window(ref_pad, pad, yi - 2, xi - 2, h + 5, w + 5)
+"""),
+    ("""    r0, c0 = yi + pad, xi + pad
+    A = ref_pad[r0:r0 + h, c0:c0 + w].astype(np.int32)
+    B = ref_pad[r0:r0 + h, c0 + 1:c0 + 1 + w].astype(np.int32)
+    C = ref_pad[r0 + 1:r0 + 1 + h, c0:c0 + w].astype(np.int32)
+    D = ref_pad[r0 + 1:r0 + 1 + h, c0 + 1:c0 + 1 + w].astype(np.int32)
+""", """    win = _window(ref_pad, pad, yi, xi, h + 1, w + 1)
+    A = win[:h, :w]
+    B = win[:h, 1:]
+    C = win[1:, :w]
+    D = win[1:, 1:]
+"""))
+
+# every file the port copies from the JAX package, and the lines a copy
+# may change
 COPIES = {
     "native/hbdec264.cpp": (),
     "mux/mkv.py": (),
@@ -121,6 +158,10 @@ COPIES = {
     "codecs/h264/native_decoder.py": (
         ("        from ...native import get_lib\n",
          "        from ...native import get_decoder_lib as get_lib\n"),),
+    "codecs/hdr.py": (),
+    "codecs/h264/cavlc.py": (),
+    "codecs/h264/encoder_b.py": (),
+    "codecs/h264/predict.py": _MC_CLAMP,
 }
 
 
