@@ -172,7 +172,34 @@ Phases (none is caught; any failure exits non-zero before the last line):
    reconstructions; (d) the job's wall time and fps, the walker's host
    ms per I, P and B frame, the stream's bytes beside those of the same
    job without ``--bframes``, and the card's busy share over the job.
-11. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+11. Scale-out paths on the card, one JSON line a part with the card's
+   name and power limit: (a) phase 7's stream decoded by 4 threads at
+   once, every decode equal to the serial one (the count that differ
+   printed, 0 or the run fails), and two ``work.do_job`` calls on
+   threads over phase 7's mp4 and mkv (their first 12 frames) equal to
+   the same jobs run one after the other; (b) a 1080p y4m of 33 frames
+   through ``work.do_job`` (H.264 High, ``keyint=8``) with
+   ``checkpoint``, its journal kept as a kill leaves it, cut after its
+   second GOP marker, the output deleted and the job resumed: the file
+   equal to the uninterrupted one, the two runs' times, deblock264's
+   launches in the resumed run (at least its P frames after the resume
+   point); (c) job (a)'s letterboxed source through the CLI's default
+   preset with ``--gop-parallel 4``: each GOP's stream equal to its
+   chunk encoded serially on the card by its own encoder, the mp4's
+   samples equal to the GOPs' access units, the resample kernel
+   launched once a frame, the first 8 encoded frames
+   cut to 2 GOPs equal between the card and the CPU, then ``-b 2000
+   --two-pass`` (the target and achieved kb/s), and fps and the card's
+   busy share (``torch.profiler``) beside the same job without
+   ``--gop-parallel``; (d) nlmeans with ``tile_parallel`` 2 and 4 (taken,
+   and run untiled on one card) on two 1080p 4:2:0 frames on the card,
+   equal to the filter without it bit for bit, and each one's ms a
+   frame, timed in turns; (e) two
+   ``WorkerServer``s on the card in this process and a ``Controller``
+   over them: phase 7's stream with a PCM track, to mkv with AAC; 33
+   video packets and the AAC track, and each worker's segment equal to a
+   ``do_job`` of its range on the card.
+12. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
    time; hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s
@@ -181,13 +208,15 @@ Phases (none is caught; any failure exits non-zero before the last line):
    DVD frames beside ``bound_dvd_ms``, ``launches`` 5 (a)'s count, one a
    frame, ``library_ms`` the dense products' time, ``regs``,
    ``local_bytes`` and ``smem_bytes`` the kernel's, ``job_launches``
-   its counts in jobs 5 (a), 9 (c) and 10 (a)), steps 7's to 10's
+   its counts in jobs 5 (a), 9 (c) and 10 (a); deblock264's
+   ``job_launches`` include 11 (b)'s resumed job), steps 7's to 11's
    numbers, the card's name and power limit, and the result line.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -312,6 +341,14 @@ SUB_CUE = "A burned subtitle\nin two lines"
 # package's walker raises on them)
 B_N, B_FRAMES, B_Q = 9, 3, 28
 NOISE_W, NOISE_H, NOISE_N, NOISE_SEED = 320, 192, 5, 0
+# step 11: decoder threads and two jobs on threads (their first frames);
+# the resumed job's keyint and the GOP marker its journal is cut after;
+# --gop-parallel, the cut held against the CPU, the two-pass target;
+# nlmeans tiles and the timing repetitions
+DEC_THREADS, THREAD_JOB_N = 4, 12
+RESUME_KEYINT, RESUME_CUT = 8, 2
+GP_N, GP_CPU_FRAMES, GP_CPU_GOPS, GP_KBPS = 4, 8, 2, 2000
+TILES, NL_REPS = (2, 4), 3
 
 
 def smi(query):
@@ -2442,6 +2479,382 @@ def phase_bframes(tmp, label):
     return rec
 
 
+@contextlib.contextmanager
+def kept_journal():
+    """Within it, a checkpointed job keeps its journal at the end, as a
+    kill would leave it (the finished output file stays)."""
+    from handbrake_tpu_torch import checkpoint
+    orig = checkpoint.CkptJournal.close
+    checkpoint.CkptJournal.close = lambda self, complete=False: self.f.close()
+    try:
+        yield
+    finally:
+        checkpoint.CkptJournal.close = orig
+
+
+def same_frames(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(p, q) for fa, fb in zip(a, b) for p, q in zip(fa, fb))
+
+
+def file_bytes(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def phase_decoder_threads(tmp, label, stream):
+    """11 (a): DEC_THREADS threads decode phase 7's stream at once, and two
+    do_job calls on threads over H.264 sources equal the serial runs."""
+    import threading
+
+    from handbrake_tpu_torch import work
+    from handbrake_tpu_torch.codecs.h264.native_decoder import (
+        NativeH264Decoder)
+    from handbrake_tpu_torch.tools import profile_job as pj
+    whole = b"".join(stream)
+    t0 = time.perf_counter()
+    serial = NativeH264Decoder().decode(whole)
+    t_serial = time.perf_counter() - t0
+    start = threading.Barrier(DEC_THREADS)
+
+    def decode(_k):
+        start.wait()
+        return NativeH264Decoder().decode(whole)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(DEC_THREADS) as pool:
+        got = list(pool.map(decode, range(DEC_THREADS)))
+    t_threads = time.perf_counter() - t0
+    differ = sum(1 for g in got if not same_frames(g, serial))
+    # two jobs on threads: phase 7's mp4 source and its mkv output
+    srcs = [os.path.join(tmp, "src.mp4"), os.path.join(tmp, "out.mkv")]
+
+    def job(k, tag):
+        out = os.path.join(tmp, f"threads_{tag}{k}.mp4")
+        j = pj.unscaled_job(srcs[k], out)
+        j.range.type, j.range.start, j.range.end = "frame", 1, THREAD_JOB_N
+        work.do_job(j)
+        return file_bytes(out)
+    serial_files = [job(k, "serial") for k in range(2)]
+    with ThreadPoolExecutor(2) as pool:
+        threaded_files = list(pool.map(lambda k: job(k, "thread"), range(2)))
+    same_jobs = threaded_files == serial_files
+    rec = {"phase": "11a", "card": label, "threads": DEC_THREADS,
+           "frames": len(serial), "decodes": len(got),
+           "differing_decodes": differ, "serial_decode_s": t_serial,
+           "threaded_decodes_s": t_threads, "jobs_equal_serial": same_jobs}
+    print(json.dumps(rec), flush=True)
+    if len(serial) != SRC_N or differ != 0:
+        raise RuntimeError(f"{differ} of {len(got)} threaded decodes differ "
+                           "from the serial decode")
+    if not same_jobs:
+        raise RuntimeError("do_job on two threads differs from the serial "
+                           "runs")
+    return rec
+
+
+def phase_resume(tmp, label):
+    """11 (b): the unscaled 1080p job with --checkpoint, its journal cut
+    after the RESUME_CUT-th GOP marker and resumed; the resumed file must
+    equal the uninterrupted one."""
+    import torch
+
+    from handbrake_tpu_torch import checkpoint, work
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.tools import profile_job as pj
+    from handbrake_tpu_torch.utils.synth import make_clip, write_y4m
+    src = os.path.join(tmp, "resume.y4m")
+    out = os.path.join(tmp, "resume.mp4")
+    write_y4m(src, make_clip(W, H, N_FRAMES, seed=21), W, H)
+
+    def job(**kw):
+        j = pj.unscaled_job(src, out)
+        j.encoder_options = f"keyint={RESUME_KEYINT}"
+        for k, v in kw.items():
+            setattr(j, k, v)
+        return j
+    with kept_journal():
+        reset_counts()
+        t0 = time.perf_counter()
+        work.do_job(job(checkpoint=True))
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        launches_full = deblock_cuda.launches
+    full = file_bytes(out)
+    data = file_bytes(out + ".ckpt")
+    marks = [end for tag, _s, end in checkpoint.spans(data) if tag == "g"]
+    with open(out + ".ckpt", "wb") as f:
+        f.write(data[:marks[RESUME_CUT - 1]])
+    os.unlink(out)
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = work.do_job(job(resume=True))
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    launches = deblock_cuda.launches
+    done = RESUME_CUT * RESUME_KEYINT
+    p_after = sum(1 for i in range(done, N_FRAMES) if i % RESUME_KEYINT)
+    equal = file_bytes(out) == full
+    rec = {"phase": "11b", "card": label, "frames": N_FRAMES,
+           "keyint": RESUME_KEYINT, "resumed_at_frame": done + 1,
+           "frames_coded_on_resume": stats["frames_out"],
+           "equal_to_uninterrupted": equal, "full_s": t_full,
+           "resume_s": t_resume, "deblock264_launches_full": launches_full,
+           "deblock264_launches_resume": launches,
+           "p_frames_after_resume_point": p_after,
+           "journal_left": os.path.exists(out + ".ckpt")}
+    print(json.dumps(rec), flush=True)
+    if not equal or rec["journal_left"]:
+        raise RuntimeError("the resumed 1080p file differs from the "
+                           "uninterrupted one")
+    if launches < p_after:
+        raise RuntimeError("the resumed job did not run deblock264 for each "
+                           "P frame after the resume point")
+    return rec
+
+
+class GopSpy:
+    """Records each call of parallel/gop.encode_gop_parallel (its frames,
+    geometry, qp and G, and its result) while a job runs."""
+
+    def __enter__(self):
+        from handbrake_tpu_torch.parallel import gop
+        self.calls = []
+        self._gop, self._orig = gop, gop.encode_gop_parallel
+
+        def spy(frames, width, height, qp, n_gops, fps=(30000, 1001),
+                device=None):
+            res = self._orig(frames, width, height, qp, n_gops, fps, device)
+            self.calls.append((list(frames), width, height, qp, n_gops, fps,
+                               res))
+            return res
+        gop.encode_gop_parallel = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._gop.encode_gop_parallel = self._orig
+
+
+def phase_gop_parallel(tmp, label):
+    """11 (c): job (a)'s letterboxed source with --gop-parallel GP_N; each
+    GOP equals its chunk encoded serially on the card by its own encoder;
+    GP_CPU_FRAMES frames cut to GP_CPU_GOPS GOPs equal the CPU's; the
+    two-pass rate run; fps and busy share beside the serial job."""
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.codecs.h264.encoder import (EncoderConfig,
+                                                         H264Encoder)
+    from handbrake_tpu_torch.filters import resample_cuda
+    from handbrake_tpu_torch.mux.nal import strip_parameter_sets
+    from handbrake_tpu_torch.parallel import gop
+    from handbrake_tpu_torch.tools import profile_job as pj
+    src = os.path.join(tmp, "gp.y4m")
+    pj.write_letterbox(src, pj.letterbox_frames(N_FRAMES))
+    out = os.path.join(tmp, "gp.mp4")
+    argv = pj.letterbox_argv(src, out) + ["--gop-parallel", str(GP_N)]
+    with GopSpy() as spy:
+        reset_counts()
+        dev_ms, wall_ms = pj._busy_ms(lambda: cli_main(argv))
+        rs_launches = resample_cuda.launches
+    if len(spy.calls) != 1:
+        raise RuntimeError(f"{len(spy.calls)} GOP-parallel windows, "
+                           "expected 1")
+    frames, w, h, qp, G, fps, (streams, _full, frame_aus) = spy.calls[0]
+    ti, samples = read_mp4(out)
+    want = [au for aus in frame_aus for au in aus]
+    muxed = len(samples) == N_FRAMES and all(
+        strip_parameter_sets(a) == s for a, s in zip(want, samples))
+    chunks = gop.split_gops(N_FRAMES, G)
+    serial_equal = []
+    for (s, ln), got in zip(chunks, streams):
+        enc = H264Encoder(EncoderConfig(width=w, height=h, qp=qp, gop=ln,
+                                        fps=fps))
+        serial_equal.append(got == b"".join(enc.encode_frame(*frames[i])
+                                            for i in range(s, s + ln)))
+    cut = frames[:GP_CPU_FRAMES]
+    t0 = time.perf_counter()
+    card_cut = gop.encode_gop_parallel(cut, w, h, qp, GP_CPU_GOPS, fps)[0]
+    cpu_cut = gop.encode_gop_parallel(cut, w, h, qp, GP_CPU_GOPS, fps,
+                                      device="cpu")[0]
+    t_cut = time.perf_counter() - t0
+    # the same job without --gop-parallel
+    out_serial = os.path.join(tmp, "gp_serial.mp4")
+    dev_ms_s, wall_ms_s = pj._busy_ms(
+        lambda: cli_main(pj.letterbox_argv(src, out_serial)))
+    # two passes to a bitrate
+    out_rate = os.path.join(tmp, "gp_rate.mp4")
+    t0 = time.perf_counter()
+    rc = cli_main(pj.letterbox_argv(src, out_rate)
+                  + ["--gop-parallel", str(GP_N), "-b", str(GP_KBPS),
+                     "--two-pass"])
+    t_rate = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"the two-pass GOP-parallel job failed ({rc})")
+    _ti, rate_samples = read_mp4(out_rate)
+    secs = N_FRAMES * FRAME_TICKS / 90000
+    rec = {"phase": "11c", "card": label, "gop_parallel": GP_N, "gops": G,
+           "chunks": chunks, "qp": qp, "size": [w, h],
+           "samples": len(samples), "muxed_equal_frame_aus": muxed,
+           "resample_launches": rs_launches,
+           "gops_equal_serial_encoders": serial_equal,
+           "cut_frames": GP_CPU_FRAMES, "cut_gops": GP_CPU_GOPS,
+           "cut_equal_cpu": card_cut == cpu_cut, "cut_s": t_cut,
+           "fps": N_FRAMES / (wall_ms / 1e3), "device_ms": dev_ms,
+           "busy_share": dev_ms / wall_ms,
+           "serial_fps": N_FRAMES / (wall_ms_s / 1e3),
+           "serial_device_ms": dev_ms_s,
+           "serial_busy_share": dev_ms_s / wall_ms_s,
+           "two_pass_target_kbps": GP_KBPS,
+           "two_pass_achieved_kbps": sum(map(len, rate_samples)) * 8
+           / secs / 1e3, "two_pass_samples": len(rate_samples),
+           "two_pass_cli_s": t_rate}
+    print(json.dumps(rec), flush=True)
+    if not muxed or not all(serial_equal) or len(serial_equal) != GP_N:
+        raise RuntimeError("the GOP-parallel job's GOPs differ from their "
+                           "chunks encoded serially")
+    if card_cut != cpu_cut:
+        raise RuntimeError("the GOP-parallel cut differs between the card "
+                           "and the CPU")
+    if len(rate_samples) != N_FRAMES:
+        raise RuntimeError("the two-pass GOP-parallel job lacks samples")
+    if rs_launches != N_FRAMES:
+        raise RuntimeError("the GOP-parallel job did not launch the resample "
+                           "kernel once a frame")
+    return rec
+
+
+def phase_tiles(label):
+    """11 (d): nlmeans with tile_parallel TILES (one card runs it untiled)
+    on a 1080p 4:2:0 frame (its temporal reference the frame before)
+    equals the filter without it on the card bit for bit; ms of each, timed in turns (untiled, the
+    tiled ones, then back in reverse) and averaged per variant."""
+    import torch
+
+    from handbrake_tpu_torch.core.buffer import PIX_FMTS, Buffer, Geometry
+    from handbrake_tpu_torch.filters import base
+    from handbrake_tpu_torch.job import schema as S
+    from handbrake_tpu_torch.utils.synth import make_clip
+    clip = make_clip(W, H, 2, seed=17)
+    planes = [[torch.from_numpy(p).cuda() for p in f] for f in clip]
+    variants = (0,) + TILES
+    filters, outs = {}, {}
+    for tp in variants:
+        f = base.create_filter(S.FILTER_NLMEANS, {"tile_parallel": tp})
+        f.init(base.FilterInit(geometry=Geometry(W, H), device="cuda",
+                               pix_fmt=PIX_FMTS["yuv420p"]))
+        filters[tp], outs[tp] = f, []
+        for k, p in enumerate(planes):
+            outs[tp] += f.work(Buffer(planes=list(p),
+                                      pix_fmt=PIX_FMTS["yuv420p"],
+                                      pts=k))[0].planes
+    turns = {tp: [] for tp in variants}
+    for tp in variants + variants[::-1]:
+        turns[tp].append(cuda_ms(lambda: filters[tp].work(Buffer(
+            planes=list(planes[1]), pix_fmt=PIX_FMTS["yuv420p"], pts=1)),
+            NL_REPS))
+    equal = {tp: all(torch.equal(a, b) for a, b in zip(outs[tp], outs[0]))
+             for tp in TILES}
+    rec = {"phase": "11d", "card": label, "size": [W, H],
+           "equal_untiled": {str(k): v for k, v in equal.items()},
+           "ms": {str(k): statistics.mean(v) for k, v in turns.items()},
+           "ms_turns": {str(k): v for k, v in turns.items()}}
+    print(json.dumps(rec), flush=True)
+    if not all(equal.values()):
+        raise RuntimeError("tiled nlmeans differs from the untiled filter")
+    return rec
+
+
+def phase_controller(tmp, label, stream):
+    """11 (e): two WorkerServers on the card in this process and a
+    Controller over them: phase 7's stream with a PCM track, to mkv with
+    AAC; every frame and the audio present, and each worker's segment
+    equal to a do_job of its range on the card."""
+    from handbrake_tpu_torch import work
+    from handbrake_tpu_torch.job.schema import Job
+    from handbrake_tpu_torch.mux.mkv import MKVWriter
+    from handbrake_tpu_torch.parallel.controller import (Controller,
+                                                         WorkerServer)
+    from handbrake_tpu_torch.parallel.gop import split_gops
+    from handbrake_tpu_torch.sources.mkv import MKVDemuxer
+    src = os.path.join(tmp, "ctl_src.mkv")
+    w = MKVWriter(src)
+    vi = w.add_video_track(codec="h264", width=W, height=H, fps=30000 / 1001)
+    ai = w.add_audio_track(codec="pcm_s16le", sample_rate=48000, channels=2)
+    per = 1600
+    pcm = tone(48000, 2, per * len(stream), 5)
+    pcm = np.clip(pcm * 32767, -32768, 32767).astype("<i2")
+    for i, au in enumerate(stream):
+        w.write_sample(vi, au, pts_90k=i * FRAME_TICKS,
+                       duration_90k=FRAME_TICKS, sync=i == 0, annexb=True)
+        w.write_sample(ai, pcm[i * per:(i + 1) * per].tobytes(),
+                       pts_90k=i * FRAME_TICKS, duration_90k=FRAME_TICKS)
+    w.finalize()
+    out = os.path.join(tmp, "ctl.mkv")
+    job_json = {"Source": {"Path": src},
+                "Destination": {"Mux": "mkv", "File": out},
+                "Video": {"Encoder": "h264", "Quality": 28.0,
+                          "Profile": "high"},
+                "Audio": {"AudioList": [{"Track": 1, "Encoder": "aac",
+                                         "Mixdown": "stereo",
+                                         "Bitrate": 128}]}}
+    segments = []
+
+    class Capture(Controller):
+        def _mux_segments(self, segs, dest):
+            segments.extend(segs)
+            Controller._mux_segments(segs, dest)
+    workers = [WorkerServer(token="chip").start() for _ in range(2)]
+    try:
+        t0 = time.perf_counter()
+        res = Capture([("127.0.0.1", s.port) for s in workers],
+                      token="chip").run(job_json, n_frames=len(stream))
+        t_run = time.perf_counter() - t0
+    finally:
+        for s in workers:
+            s.stop()
+    if res.get("error"):
+        raise RuntimeError(f"the controller failed: {res['error']}")
+    seg_equal = []
+    for k, (s, ln) in enumerate(split_gops(len(stream), 2)):
+        j = Job.from_json(job_json)
+        j.range.type, j.range.start, j.range.end = "frame", s + 1, s + ln
+        j.file, j.mux = os.path.join(tmp, f"ctl_seg{k}.mp4"), "mp4"
+        work.do_job(j)
+        seg_equal.append(file_bytes(j.file) == segments[k])
+    d = MKVDemuxer(out)
+    kinds = [t.kind for t in d.tracks]
+    counts = {}
+    for trk, _p in d.packets():
+        counts[trk] = counts.get(trk, 0) + 1
+    codecs = [t.codec for t in d.tracks]
+    d.close()
+    n_video = counts.get(kinds.index("video"), 0) if "video" in kinds else 0
+    n_audio = counts.get(kinds.index("audio"), 0) if "audio" in kinds else 0
+    rec = {"phase": "11e", "card": label, "frames_out": res["frames_out"],
+           "per_host": res["per_host"], "tracks": kinds, "codecs": codecs,
+           "video_packets": n_video, "audio_packets": n_audio,
+           "segments_equal_do_job": seg_equal, "run_s": t_run}
+    print(json.dumps(rec), flush=True)
+    if n_video != len(stream) or "aac" not in codecs or n_audio == 0:
+        raise RuntimeError("the controller's mkv lacks frames or its audio")
+    if not all(seg_equal):
+        raise RuntimeError("a worker's segment differs from a do_job of its "
+                           "range")
+    return rec
+
+
+def phase_scale_out(tmp, label, stream):
+    """11: decoder threads, resume, GOP-parallel, tiles and the
+    controller on the card.  Returns their numbers."""
+    t0 = time.perf_counter()
+    rec = {"decoder_threads": phase_decoder_threads(tmp, label, stream),
+           "resume": phase_resume(tmp, label),
+           "gop_parallel": phase_gop_parallel(tmp, label),
+           "tiles": phase_tiles(label),
+           "controller": phase_controller(tmp, label, stream)}
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"phase 11 ({label}): {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def one_card():
     """Make only the first visible card visible to this process (before
     CUDA starts), so the run uses, and reports, exactly one card."""
@@ -2476,6 +2889,7 @@ def main() -> int:
         job_au = phase_audio(tmp, label, stream)
         subs = phase_subtitles(tmp, label, stream)
         bf = phase_bframes(tmp, label)
+        scale_out = phase_scale_out(tmp, label, stream)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -2491,7 +2905,10 @@ def main() -> int:
                                "subtitles_pgs_text_cli":
                                    subs["job"]["launches"],
                                "letterbox_srt_burn_cli":
-                                   subs["letterbox"]["launches"]})
+                                   subs["letterbox"]["launches"],
+                               "resume_1080p_do_job":
+                                   scale_out["resume"]
+                                   ["deblock264_launches_resume"]})
     rs_entry = {
         "name": "resample", "route": "cuda",
         "source": "handbrake_tpu_torch/csrc/resample.cu",
@@ -2510,11 +2927,14 @@ def main() -> int:
         "job_launches": {"letterbox_2160p_cli": job_a["resample_launches"],
                          "letterbox_srt_burn_cli":
                              subs["letterbox"]["resample_launches"],
-                         "letterbox_bframes_cli": bf["resample_launches"]}}
+                         "letterbox_bframes_cli": bf["resample_launches"],
+                         "letterbox_gop_parallel_cli":
+                             scale_out["gop_parallel"]["resample_launches"]}}
     print(f"job 7 numbers: {json.dumps(job_s)}", flush=True)
     print(f"audio numbers: {json.dumps(job_au)}", flush=True)
     print(f"subtitle numbers: {json.dumps(subs)}", flush=True)
     print(f"bframes numbers: {json.dumps(bf)}", flush=True)
+    print(f"phase 11 seconds: {scale_out['seconds']:.1f}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

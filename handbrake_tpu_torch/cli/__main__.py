@@ -10,9 +10,12 @@ The audio options take comma lists, one value a track of ``-a`` (the
 last value repeats), as HandBrakeCLI's do; a single value gives every
 track the same setting, as the reference's parser does.  ``--bframes N``
 codes IB..BP groups with the host walker (with ``-q``; a bitrate target
-raises).  Options whose paths are not ported yet (GOP- and
-tile-parallel encodes, checkpoint/resume, the libavcodec audio encoders
-mp3, opus and vorbis) raise NotImplementedError, as do unported
+raises).  ``--checkpoint`` journals the job to ``<dest>.ckpt`` and
+``--resume`` continues a killed job from it; ``--gop-parallel N`` codes
+G = min(N, frames) keyframe-aligned GOPs a window (the port's one device
+runs the GOP axis as a batch), also with ``--two-pass -b``;
+``--tile-parallel N`` runs nlmeans in N row tiles.  The libavcodec audio
+encoders mp3, opus and vorbis raise NotImplementedError, as do unported
 filters, codecs and containers.
 
 Usage:
@@ -79,11 +82,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--encoder-profile", default=None)
     p.add_argument("--encoder-level", default=None)
     p.add_argument("--gop-parallel", type=int, default=0,
-                   help="shard the encode into N keyframe-aligned GOP "
-                        "chunks over the device mesh (h264)")
+                   help="code each window as min(N, frames) keyframe-"
+                        "aligned GOPs, batched on the device (h264)")
     p.add_argument("--tile-parallel", type=int, default=0,
-                   help="shard NLMeans-class filters across N devices "
-                        "with halo exchange (taskset analog)")
+                   help="NLMeans row tiles over N devices (taskset "
+                        "analog); one card runs the untiled filter")
     p.add_argument("--bframes", type=int, default=0,
                    help="B-frames between anchors (h264; IB..BP GOP "
                         "via the host walker, x264 bframes role)")
@@ -199,16 +202,9 @@ def check_ported(args):
     """Raise NotImplementedError for options whose paths are later
     slices of the port."""
     aencoders = _per_track(args.aencoder, 1)
-    unported = (
-        ("audio encoders mp3, opus and vorbis (-E)",
-         any(e in ("mp3", "opus", "vorbis") for e in aencoders)),
-        ("GOP-parallel encoding (--gop-parallel)", args.gop_parallel),
-        ("tile-parallel filters (--tile-parallel)", args.tile_parallel),
-        ("checkpoint/resume (--checkpoint/--resume)",
-         args.checkpoint or args.resume))
-    for what, asked in unported:
-        if asked:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if any(e in ("mp3", "opus", "vorbis") for e in aencoders):
+        raise NotImplementedError("audio encoders mp3, opus and vorbis (-E) "
+                                  "are not ported yet")
 
 
 def _per_track(value, n: int) -> list:
@@ -246,10 +242,18 @@ def apply_cli_overrides(job: Job, args) -> Job:
         job.encoder_profile = args.encoder_profile
     if args.encoder_level:
         job.encoder_level = args.encoder_level
+    if args.gop_parallel:
+        job.gop_parallel = args.gop_parallel
     if args.bframes:
         job.bframes = args.bframes
     if args.encopts:
         job.encoder_options = args.encopts
+    if args.tile_parallel:
+        job.tile_parallel = args.tile_parallel
+    if args.checkpoint or args.resume:
+        job.checkpoint = True
+    if args.resume:
+        job.resume = True
     if args.markers:
         job.chapter_markers = True
 

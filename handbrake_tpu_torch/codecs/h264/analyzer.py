@@ -638,3 +638,30 @@ def build_p_analyzer_batch(mb_w: int, mb_h: int, n_frames: int,
         return outs
 
     return analyze_batch
+
+
+def build_p_analyzer_gops(mb_w: int, mb_h: int, deblock: bool = False,
+                          transform8x8: bool = False):
+    """Analyzer of G independent frames, the counterpart of the
+    reference's ``jax.vmap(build_p_analyzer_fn(mb_w, mb_h))`` over GOPs
+    (``parallel/gop.py``): frame g is analysed against its own reference
+    at its own qp and qpc, and nothing chains between frames.
+
+    Returns fn(ys, us, vs, ref_ys, ref_us, ref_vs, qps, qpcs) → a list of
+    G single-frame output dicts, where ys/us/vs are (G, H, W) uint8
+    tensors, ref_* sequences of G planes on the same device, and qps and
+    qpcs sequences of G ints.  The frames are analysed one after another;
+    the GOP axis is not a batch dimension of the ops."""
+    fn = build_p_analyzer_fn(mb_w, mb_h, deblock=deblock,
+                             transform8x8=transform8x8)
+
+    def analyze_gops(ys, us, vs, ref_ys, ref_us, ref_vs, qps, qpcs):
+        n = len(ys)
+        if not all(len(a) == n for a in (us, vs, ref_ys, ref_us, ref_vs,
+                                          qps, qpcs)):
+            raise ValueError("analyze_gops: every argument needs one "
+                             "entry a GOP")
+        return [fn(*a) for a in zip(ys, us, vs, ref_ys, ref_us, ref_vs,
+                                    qps, qpcs)]
+
+    return analyze_gops

@@ -26,7 +26,9 @@ entropy coding of frame N::
     p1 = enc.begin_frame(y1, u1, v1)   # device starts frame 1
     out0 = enc.finish_frame(p0)         # host codes frame 0
 
-Not ported: the GOP-parallel entry (``encode_p_from_analysis``).
+``encode_p_from_analysis`` codes one P frame from analysis computed
+elsewhere: the GOP-parallel path (``parallel/gop.py``) analyses frame t
+of every GOP in one call and each GOP's encoder walks its own frames.
 """
 from __future__ import annotations
 
@@ -674,6 +676,23 @@ class H264Encoder:
         dev = p.dev if p.dev is not None else self._batched_dev(p)
         return p.done_bytes + self._encode_slice_device(
             p.src[0], p.src[1], p.src[2], dev, p.qp, p.frame_num)
+
+    def encode_p_from_analysis(self, yp, up, vp, dev, qp=None) -> bytes:
+        """Entropy-code one P frame from analyzer outputs computed
+        outside this encoder (the GOP-parallel path: the analysis of every
+        GOP's frame ran in one call; this owns the GOP's sequential walk
+        and state).  yp/up/vp are MB-aligned host planes; dev holds this
+        frame's analyzer outputs, whose recon becomes the reference."""
+        qp = self.cfg.qp if qp is None else int(qp)
+        self.recon_y = dev["recon_y"]
+        self.recon_u = dev["urec"]
+        self.recon_v = dev["vrec"]
+        out = self._encode_slice_device(yp, up, vp, dev, qp, self.frame_num)
+        self.frame_num = ((self.frame_num + 1)
+                          % (1 << self.sps.log2_max_frame_num))
+        self.frame_idx += 1
+        self.last_frame_was_idr = False
+        return out
 
     def _propagate_refs(self, old_dev, new_refs):
         """Re-point everything that referenced old_dev's recon planes."""

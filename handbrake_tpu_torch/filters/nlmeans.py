@@ -10,8 +10,10 @@ temporal search runs the same loop against a ring of previous frames
 20 a search offset and plane.
 
 Settings (param.c table names): {y,cb}_strength, _origin_tune, _patch_size,
-_range, _frame_count.  ``tile_parallel`` above 1 (the reference's
-mesh-sharded path) is not ported and raises NotImplementedError.
+_range, _frame_count.  ``tile_parallel`` is accepted and changes nothing:
+the reference cuts each plane into row tiles with halos to spread them
+over its devices, which on one card would compute this same function a
+second way, so every tile count runs the untiled filter.
 """
 from __future__ import annotations
 
@@ -86,11 +88,6 @@ class NLMeansFilter(Filter):
                       patch=int(s.get("cb_patch_size", 7)),
                       rng=int(s.get("cb_range", 3)),
                       frames=max(1, int(s.get("cb_frame_count", fc))))
-        tiles = int(s.get("tile_parallel", 0) or 0)
-        if tiles > 1:
-            raise NotImplementedError(
-                f"nlmeans: tile_parallel={tiles} (the mesh-sharded path) "
-                f"is not ported yet")
         self.hist: list = []  # ring of previous frames' planes
         self.maxval = (1 << fi.pix_fmt.bit_depth) - 1
         self.device = resolve_device(fi.device)

@@ -382,6 +382,14 @@ namespace hbdec {
 // ---------------------------------------------------------------------------
 // Decoder
 // ---------------------------------------------------------------------------
+struct PicCtx {
+    std::vector<uint8_t> blk_done;     // per luma 4x4: reconstructed
+    std::vector<uint8_t> blk_parsed;   // per luma 4x4: syntax consumed
+    std::vector<uint8_t> cblk_parsed[2];  // per chroma 4x4 (2x2 per MB)
+    std::vector<int> mb_slice;         // slice id per MB (-1 = none)
+    int slice_id = 0;
+};
+
 struct Dec {
     std::map<int, SPSd> spss;
     std::map<int, PPSd> ppss;
@@ -425,6 +433,7 @@ struct Dec {
     int prev_qp_delta_nz = 0;
     int cur_qp = 26;
     int slice_count_cur_pic = 0;
+    PicCtx pc;                         // this decoder's picture state
 
     CavlcTables vlc;
     CabacDec cb;
@@ -1711,15 +1720,10 @@ static int cavlc_residual(Dec& D, BR& br, int* coeffs, int maxcoeff,
 // ---------------------------------------------------------------------------
 struct MBDec;          // forward
 
-struct PicCtx {
-    std::vector<uint8_t> blk_done;     // per luma 4x4: reconstructed
-    std::vector<uint8_t> blk_parsed;   // per luma 4x4: syntax consumed
-    std::vector<uint8_t> cblk_parsed[2];  // per chroma 4x4 (2x2 per MB)
-    std::vector<int> mb_slice;         // slice id per MB (-1 = none)
-    int slice_id = 0;
-};
-
-static PicCtx g_pc;    // single-threaded decode state
+// Each decoder owns its picture state (Dec::pc), so decoders on
+// different threads share nothing; g_pc names the state of the decoder
+// D that every function below has in scope.
+#define g_pc (D.pc)
 
 static inline bool mb_avail(Dec& D, int mbx, int mby) {
     if (mbx < 0 || mby < 0 || mbx >= D.mb_w || mby >= D.mb_h) return false;

@@ -19,10 +19,26 @@ source and CEA-608 captions of an H.264 stream decoded, each kept as a
 tx3g (mp4) or S_TEXT/UTF8 (mkv) track or burned in by the render_sub
 filter on the job's device.  The device comes only from the caller
 (``device=None`` is the CUDA card, which raises where there is none).
-GOP-parallel and tile-parallel encodes, checkpoint/resume and the
-libavcodec audio codecs raise NotImplementedError: they are later
-slices.  An audio track that cannot be decoded raises, and so does a
+The libavcodec audio codecs raise NotImplementedError: they are a later
+slice.  An audio track that cannot be decoded raises, and so does a
 subtitle track; none is passed through or dropped in its place.
+
+``checkpoint`` journals every muxed sample to ``<dest>.ckpt``
+(``checkpoint.py``) with a marker at each GOP boundary; ``resume``
+replays the complete GOPs, cuts the journal there and restarts the
+pipeline at the boundary, with the rate controller's state and the
+encoder's ``idr_pic_id`` restored, so the resumed file equals the
+uninterrupted one.  A resume without a journal, or from a file that is
+not one, raises.
+
+``gop_parallel`` N codes each window of frames as G = min(N, frames)
+keyframe-aligned GOPs (``parallel/gop.py``).  The reference shards them
+over its devices and takes G = min(N, devices, frames); the port runs
+the GOP axis as a batch on its one device, so G does not depend on a
+device count.  With a multipass bitrate each window runs the two-pass
+GOP allocator.  ``tile_parallel`` N is handed to nlmeans, which on one
+card runs untiled: the reference's row tiles spread a plane over its
+devices, and one card has no second device to spread them to.
 
 With ``bframes`` the video goes through the host B-frame walker
 (``codecs/h264/encoder_b.py``, CAVLC, constant qp) while the filter graph
@@ -40,11 +56,13 @@ unscaled job the two agree.
 """
 from __future__ import annotations
 
+import os
 from fractions import Fraction
 
 import numpy as np
 import torch
 
+from . import checkpoint
 from .audio.aacdec import DECODABLE_AOTS, AACDecoder, AACUnsupported
 from .codecs.registry import create_video_decoder
 from .core.buffer import Buffer, CLOCK, Geometry, PIX_FMTS
@@ -141,6 +159,17 @@ class _BFrameEncoderAdapter:
         self.benc = benc
         self.cfg = benc.cfg
 
+    @property
+    def idr_pic_id(self) -> int:
+        """The walker's next IDR id, which a resume restores (the
+        reference's adapter has none, so its resumed B-frame job restarts
+        the count and differs from its uninterrupted run)."""
+        return self.benc.idr_pic_id
+
+    @idr_pic_id.setter
+    def idr_pic_id(self, v: int):
+        self.benc.idr_pic_id = int(v)
+
     def _release(self, aus: list) -> list:
         for d, _au in aus:
             self.benc.recons.pop(d, None)
@@ -186,21 +215,15 @@ def resolve_range(job: Job, src, vrate: Fraction) -> tuple:
 # ---------------------------------------------------------------------------
 # do_job
 # ---------------------------------------------------------------------------
-def _check_ported(job: Job):
-    """Raise for the job options whose paths are later slices."""
-    if int(getattr(job, "gop_parallel", 0) or 0) > 1:
-        _unported("GOP-parallel encoding")
-    if int(getattr(job, "tile_parallel", 0) or 0) > 1:
-        _unported("tile-parallel filters")
-    if getattr(job, "checkpoint", False) or getattr(job, "resume", False):
-        _unported("checkpoint/resume")
-
-
 def do_job(job: Job, state=None, die=None, pause=None, device=None) -> dict:
     """Run one pass of a job on `device` (None: the CUDA card; "cpu"
     runs on the CPU).  Returns stats dict (frames, bytes, ...)."""
     dev = resolve_device(device)
-    _check_ported(job)
+    if int(job.gop_parallel or 0) > 1 and int(job.bframes or 0) > 0:
+        # the reference's GOP-parallel path codes IDR + P GOPs and drops
+        # the B-frames it was asked for
+        raise WorkError("GOP-parallel encoding codes I and P frames only: "
+                        "it takes no B-frames")
     src = open_source(job.path)
     try:
         return _run(job, src, state, die, pause, dev)
@@ -351,6 +374,14 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
         from .job import schema as S
         if not any(f["ID"] == S.FILTER_RENDER_SUB for f in filter_list):
             filter_list.append({"ID": S.FILTER_RENDER_SUB, "Settings": {}})
+    tp = int(job.tile_parallel or 0)
+    if tp > 1:
+        # nlmeans takes the tile count (on one card it runs untiled)
+        from .job import schema as S
+        for f in filter_list:
+            if f["ID"] == S.FILTER_NLMEANS:
+                f["Settings"] = dict(f.get("Settings") or {},
+                                     tile_parallel=tp)
     graph = FilterGraph(filter_list, fi)
     out_fi = graph.fi_out
     out_w, out_h = out_fi.geometry.width, out_fi.geometry.height
@@ -364,9 +395,57 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     for si, spec in audio_sel:
         aencs[si] = _make_audio_encoder(spec, src.tracks[si])
 
+    # ---- checkpoint/resume: resume replays the journal's complete GOPs,
+    # restores the rate controller and restarts at the boundary ----
+    ckpt = None
+    replay = []
+    if (job.checkpoint or job.resume) and job.pass_id != 1:
+        ckpt_path = (job.file or "out") + ".ckpt"
+        n_done = 0
+        if job.resume:
+            if not os.path.exists(ckpt_path):
+                raise WorkError(f"resume: no checkpoint journal at "
+                                f"{ckpt_path}")
+            replay, n_done, rc_state, cut = checkpoint.load(ckpt_path)
+            # drop the torn tail before appending (the reference appends
+            # after it, and a second crash replays it)
+            checkpoint.cut_to(ckpt_path, cut)
+            if n_done > 0:
+                gops_done = rc_state.pop("_gops_done")
+                rc.__dict__.update(rc_state)
+                # the resumed encoder's idr_pic_id keeps counting
+                if hasattr(venc, "idr_pic_id"):
+                    venc.idr_pic_id = gops_done % 16
+                # continue n_done frames after the job's own start and
+                # keep its end (the reference restarts at source frame
+                # n_done + 1 and drops the end)
+                tick = CLOCK * vrate.denominator / vrate.numerator
+                if job.range.type == "frame":
+                    # on the frame grid, as resolve_range places it
+                    pts_start = int((max(1, job.range.start) - 1 + n_done)
+                                    * tick)
+                else:
+                    pts_start = int((pts_start or 0) + n_done * tick)
+                sync.pts_start = pts_start
+                sync.common_start = None
+                log(f"resume: {n_done} frames from checkpoint, "
+                    f"continuing {n_done} frames after the job's start")
+            else:
+                log("resume: the journal holds no complete GOP, "
+                    "starting at frame 1")
+        ckpt = checkpoint.CkptJournal(ckpt_path, rc, append=n_done > 0,
+                                      frames0=n_done)
+
     # ---- muxer (analysis pass writes nowhere — x264 pass-1 analog) ----
-    mux = _NullMux() if job.pass_id == 1 else \
-        _MuxAdapter(job, out_fi, audio_sel, src, aencs, sub_specs=sub_specs)
+    if job.pass_id == 1:
+        mux = _NullMux()
+    else:
+        mux = _MuxAdapter(job, out_fi, audio_sel, src, aencs,
+                          sub_specs=sub_specs)
+        if ckpt is not None:
+            mux.journal = ckpt
+            for rec in replay:
+                mux.replay(rec)
 
     # ---- threaded stage graph (work.c:2242-2280: one thread per work
     # object, bounded FIFOs between; reader → decode+sync → filters+encode
@@ -398,7 +477,11 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     decsync.fifo_in, decsync.fifo_out = fifo_raw, fifo_sync
     encst = _EncodeStage(graph, venc, aencs, rc, stats, progress,
                          sub_specs, text_area(filter_list, vti.width,
-                                              vti.height))
+                                              vti.height),
+                         gop_parallel=int(job.gop_parallel or 0),
+                         multipass=bool(job.multipass),
+                         target_kbps=float(job.vbitrate or 0),
+                         out_wh=(out_w, out_h), device=dev)
     encst.fifo_in, encst.fifo_out = fifo_sync, fifo_enc
     muxst = _MuxStage(mux, aencs)
     muxst.fifo_in = fifo_enc
@@ -588,12 +671,25 @@ class _EncodeStage(WorkObject):
     Each audio track's chain encodes its PCM on the host between video
     frames.  A burned subtitle event goes to the graph's render_sub (a
     text cue rasterized first, into `text_area`), a kept one on to the
-    mux."""
+    mux.  With gop_parallel > 1 the video is buffered a window at a time
+    and coded as independent GOPs (``parallel/gop.py``).  Each IDR's
+    buffer carries the rate controller's state from just before that
+    frame's qp was chosen, which the checkpoint journal keeps as a resume
+    point; in gop-parallel mode only a window's first frame does, since a
+    resume must find the windows the uninterrupted run cut."""
     name = "filter+encode"
 
     def __init__(self, graph, venc, aencs, rc, stats, progress,
-                 sub_specs=None, text_area=(0, 0, 0, 0)):
+                 sub_specs=None, text_area=(0, 0, 0, 0), gop_parallel=0,
+                 multipass=False, target_kbps=0.0, out_wh=(0, 0),
+                 device=None):
         super().__init__()
+        self.gop_parallel = int(gop_parallel or 0)
+        self._gp_frames = []   # buffered (planes, fb) in gop-parallel mode
+        self.multipass = bool(multipass)
+        self.target_kbps = float(target_kbps or 0.0)
+        self.out_wh = out_wh
+        self.device = device
         self.sub_specs = sub_specs or {}
         self.text_area = text_area
         self.graph = graph
@@ -602,7 +698,7 @@ class _EncodeStage(WorkObject):
         self.rc = rc
         self.stats = stats
         self.progress = progress
-        self._pend = []   # (pending, fb, qp, is_idr)
+        self._pend = []   # (pending, fb, qp, is_idr, rc state at an IDR)
         self._b_fbs = {}  # display idx -> frame, B-frame job
         self._b_disp = 0
         from .codecs.h264.encoder import H264Encoder
@@ -621,7 +717,7 @@ class _EncodeStage(WorkObject):
                        for p in (y, u, v))
         return y, u, v
 
-    def _emit_video(self, au, fb, is_idr, qp):
+    def _emit_video(self, au, fb, is_idr, qp, rc_state=None, mark=True):
         sd = fb.side_data or {}
         if sd and self._sei:
             # the source's HDR metadata as SEI NALs ahead of the access
@@ -636,6 +732,8 @@ class _EncodeStage(WorkObject):
                 emit["hdr10plus_t35"] = sd["hdr10plus_t35"]
             pre, _post = hdr_nals(emit, "h264")
             au = pre + au
+        if is_idr and mark and rc_state is None:
+            rc_state = checkpoint.rc_snapshot(self.rc)
         self.rc.update(len(au) * 8, qp, is_idr)
         self.stats["frames_out"] += 1
         self.stats["bytes_out"] += len(au)
@@ -645,10 +743,19 @@ class _EncodeStage(WorkObject):
         out.data = au
         out.side_data = dict(fb.side_data or {})
         out.frametype = 1 if is_idr else 0
+        out.rc_state = rc_state
         return out
 
     def _encode(self, fb):
         y, u, v = self._planes(fb)
+        if self.gop_parallel > 1:
+            # buffer one window of keyframe-aligned chunks, then code it
+            # (bounded memory, not the whole title)
+            self._gp_frames.append(((y, u, v), fb))
+            window = self.gop_parallel * max(1, min(self.venc.cfg.gop, 120))
+            if len(self._gp_frames) >= window:
+                return self._gp_flush()
+            return []
         if isinstance(self.venc, _BFrameEncoderAdapter):
             self._b_fbs[self._b_disp] = fb
             self._b_disp += 1
@@ -663,9 +770,10 @@ class _EncodeStage(WorkObject):
             # N+1 with host entropy of frame N (encx264 lookahead role).
             while self._pend:
                 out.append(self._finish_one())
+        rc_state = checkpoint.rc_snapshot(self.rc) if is_idr else None
         qp = self.rc.frame_qp(is_idr)
         self._pend.append((self.venc.begin_frame(y, u, v, qp=qp), fb, qp,
-                           is_idr))
+                           is_idr, rc_state))
         if out:
             return out
         if len(self._pend) > 1:
@@ -673,9 +781,47 @@ class _EncodeStage(WorkObject):
         return []
 
     def _finish_one(self):
-        p, fb, qp, is_idr = self._pend.pop(0)
+        p, fb, qp, is_idr, rc_state = self._pend.pop(0)
         au = self.venc.finish_frame(p)
-        return self._emit_video(au, fb, is_idr, qp)
+        return self._emit_video(au, fb, is_idr, qp, rc_state)
+
+    def _gp_flush(self):
+        """Code the buffered window as G = min(gop_parallel, frames)
+        keyframe-aligned GOPs and emit the access units in display order.
+        A single-pass window takes the controller's current qp; a
+        multipass bitrate job runs the two-pass GOP allocator per
+        window."""
+        from .parallel.gop import (encode_gop_parallel,
+                                   encode_gop_parallel_2pass)
+        if not self._gp_frames:
+            return []
+        frames = [p for p, _fb in self._gp_frames]
+        fbs = [fb for _p, fb in self._gp_frames]
+        self._gp_frames = []
+        G = max(1, min(self.gop_parallel, len(frames)))
+        w, h = self.out_wh
+        rc_state = checkpoint.rc_snapshot(self.rc)
+        qp = int(self.rc.frame_qp(True))
+        log(f"gop-parallel: {len(frames)} frames as {G} GOPs")
+        fps = self.venc.cfg.fps
+        if self.multipass and self.target_kbps > 0:
+            _, _, st = encode_gop_parallel_2pass(
+                frames, w, h, self.target_kbps, G, fps=fps,
+                qp1=min(51, qp + 6), device=self.device)
+            frame_aus = st["frame_aus"]
+        else:
+            _, _, frame_aus = encode_gop_parallel(frames, w, h, qp, G,
+                                                  fps=fps,
+                                                  device=self.device)
+        out = []
+        i = 0
+        for aus in frame_aus:
+            for k, au in enumerate(aus):
+                out.append(self._emit_video(au, fbs[i], k == 0, qp,
+                                            rc_state if i == 0 else None,
+                                            mark=i == 0))
+                i += 1
+        return out
 
     def _emit_b(self, aus) -> list:
         """The walker's decode-order access units, each emitted against
@@ -690,6 +836,7 @@ class _EncodeStage(WorkObject):
             out = []
             for fb in self.graph.flush():
                 out += self._encode(fb)
+            out += self._gp_flush()
             if isinstance(self.venc, _BFrameEncoderAdapter):
                 out += self._emit_b(self.venc.flush())
             while self._pend:
@@ -1103,10 +1250,12 @@ def _make_audio_encoder(spec, ti):
 class _MuxAdapter:
     """Wraps MP4Writer/MKVWriter behind one write_video/write_audio/
     write_subtitle API (muxcommon.c role: track fan-in; interleave is the
-    writers' concern).  The reference's adapter without its journal."""
+    writers' concern).  With a checkpoint journal (``journal``) every
+    sample written is journaled; ``replay`` writes a journaled one."""
 
     def __init__(self, job: Job, out_fi, audio_sel, src, aencs=None,
                  sub_specs=None):
+        self.journal = None
         self.kind = job.mux
         self.aencs = aencs or {}
         path = job.file or "out.mp4"
@@ -1234,7 +1383,10 @@ class _MuxAdapter:
         if hasattr(self.w, "metadata"):
             self.w.metadata = self.metadata
 
-    def write_video(self, au: bytes, fb: Buffer, idr: bool):
+    def write_video(self, au: bytes, fb: Buffer, idr: bool, _journal=True):
+        if _journal and self.journal is not None:
+            self.journal.video(bytes(au), fb.pts, fb.duration, idr,
+                               fb.side_data, getattr(fb, "rc_state", None))
         sd = fb.side_data or {}
         if sd and self.kind not in ("mkv", "webm"):
             t = self.w.tracks[self.vtrack]
@@ -1282,10 +1434,33 @@ class _MuxAdapter:
             i += ln
         return bytes(out) if i and i == n else data
 
-    def write_audio(self, sid: int, pkt: Buffer):
+    def replay(self, rec):
+        """Re-apply one checkpoint-journal record (resume path)."""
+        if rec[0] == "v":
+            _tag, au, pts, dur, idr, sd = rec
+            fb = Buffer(track_kind="video", pts=pts, duration=dur)
+            fb.side_data = dict(sd)
+            self.write_video(au, fb, idr, _journal=False)
+        elif rec[0] == "a":
+            _tag, sid, data, pts, dur, stop = rec
+            b = Buffer(track_kind="audio", pts=pts, duration=dur)
+            b.data = data
+            b.stop = stop
+            self.write_audio(sid, b, _journal=False)
+        elif rec[0] == "s":
+            _tag, k, data, pts, dur, stop = rec
+            b = Buffer(track_kind="subtitle", pts=pts, duration=dur)
+            b.data = data
+            b.stop = stop
+            self.write_subtitle(k, b, _journal=False)
+
+    def write_audio(self, sid: int, pkt: Buffer, _journal=True):
         tr = self._amap.get(sid)
         if tr is None or pkt.data is None:
             return
+        if _journal and self.journal is not None:
+            self.journal.audio(sid, bytes(pkt.data), pkt.pts, pkt.duration,
+                               pkt.stop)
         data = pkt.data
         tcodec = self.w.tracks[tr]
         if getattr(tcodec, "codec", getattr(tcodec, "codec_id", "")) \
@@ -1299,10 +1474,13 @@ class _MuxAdapter:
             dur = (pkt.duration or 0) * t.timescale // CLOCK
             self.w.write_sample(tr, data, duration=dur)
 
-    def write_subtitle(self, k: int, buf: Buffer):
+    def write_subtitle(self, k: int, buf: Buffer, _journal=True):
         tr = self._smap.get(k)
         if tr is None or buf.data is None:
             return
+        if _journal and self.journal is not None:
+            self.journal.subtitle(k, bytes(buf.data), buf.pts, buf.duration,
+                                  buf.stop)
         text = buf.data
         pts = buf.pts or 0
         dur = buf.duration or 0
@@ -1336,3 +1514,5 @@ class _MuxAdapter:
                     if xd:
                         self.w.tracks[tr].extradata = xd
         self.w.finalize()
+        if self.journal is not None:
+            self.journal.close(complete=True)

@@ -164,10 +164,12 @@ def test_filter_graph_order_and_geometry(graph):
 
 def test_unported_filter_raises_in_graph():
     fi = FilterInit(geometry=Geometry(64, 48), device="cpu")
-    # render_sub is ported; nlmeans's mesh-sharded path is not
-    with pytest.raises(NotImplementedError, match="tile_parallel"):
-        FilterGraph([{"ID": S.FILTER_CROP_SCALE, "Settings": {}},
+    # render_sub is ported, and nlmeans takes tile_parallel (one card
+    # runs every tile count as the untiled filter): the graph builds them
+    g = FilterGraph([{"ID": S.FILTER_CROP_SCALE, "Settings": {}},
                      {"ID": S.FILTER_NLMEANS,
                       "Settings": {"tile_parallel": 2}}], fi)
+    assert [f.name for f in g.filters] == ["nlmeans", "crop_scale"]
+    assert g.filters[0].settings["tile_parallel"] == 2
     # an id no package knows is dropped by both, as the reference does
     assert FilterGraph([{"ID": 999, "Settings": {}}], fi).filters == []

@@ -177,8 +177,8 @@ def test_unported_paths_raise():
     """The host walker (backend="host", intra4x4, analysis=) is ported
     and codes CAVLC only: under this CABAC config each raises instead of
     the reference's silent switch to the device path or to CAVLC, and
-    the device path takes no hints.  The GOP-parallel entry is not
-    ported."""
+    the device path takes no hints.  The GOP-parallel entry is ported
+    (tests/test_torch_parallel_gop.py holds it)."""
     frames = _cut_clip()
     cfg = _cfg(tenc, 30, 8, 1)
     cfg.intra4x4 = True
@@ -191,7 +191,7 @@ def test_unported_paths_raise():
     enc = tenc.H264Encoder(_cfg(tenc, 30, 8, 1), device="cpu")
     with pytest.raises(ValueError, match="host"):
         enc.begin_frame(*frames[0], analysis={})
-    assert not hasattr(enc, "encode_p_from_analysis")
+    assert callable(enc.encode_p_from_analysis)
 
 
 def test_finish_order_is_fifo():

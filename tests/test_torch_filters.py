@@ -513,10 +513,18 @@ def test_mt_frame_is_disabled_like_the_reference():
         == ["render_sub"]
 
 
-def test_nlmeans_tile_parallel_raises():
+def test_formerly_unported_nlmeans_tile_parallel_runs():
+    """tile_parallel raised NotImplementedError; now the filter takes it
+    and runs (on one card every tile count is the untiled filter)."""
     f = tbase.create_filter(S.FILTER_NLMEANS, {"tile_parallel": 2})
-    with pytest.raises(NotImplementedError, match="tile_parallel"):
-        f.init(tbase.FilterInit(geometry=Geometry(64, 48), device="cpu"))
+    f.init(tbase.FilterInit(geometry=Geometry(64, 48), device="cpu"))
+    rng = np.random.default_rng(1)
+    planes = [rng.integers(0, 256, (48, 64), np.uint8),
+              rng.integers(0, 256, (24, 32), np.uint8),
+              rng.integers(0, 256, (24, 32), np.uint8)]
+    out = f.work(Buffer(planes=planes, pix_fmt=PIX_FMTS["yuv420p"]))[0]
+    assert [tuple(p.shape) for p in out.planes] == [(48, 64), (24, 32),
+                                                    (24, 32)]
 
 
 def _cli_filters(argv, parser, apply):

@@ -276,26 +276,10 @@ def test_no_fallback_to_the_cpu(src, tmp_path, monkeypatch):
 
 # job changes whose paths are later slices of the port
 UNPORTED_JOBS = {
-    # decomb and the subtitle burn-in are ported; tile-parallel filters
-    # are not
-    "filter-decomb": lambda j: (j.filters.extend([
-        S.FilterSpec(S.FILTER_DECOMB, {}),
-        S.FilterSpec(S.FILTER_RENDER_SUB, {})]),
-        setattr(j, "tile_parallel", 2)),
-    # nlmeans is ported; its mesh-sharded path is not
-    "filter-nlmeans": lambda j: j.filters.append(
-        S.FilterSpec(S.FILTER_NLMEANS, {"tile_parallel": 2})),
     # mkv is ported; the catalog encoders that need it are not
     "mux-mkv": lambda j: (setattr(j, "mux", "mkv"),
                           setattr(j, "vcodec", "vp9")),
     "vcodec-hevc": lambda j: setattr(j, "vcodec", "hevc_tpu"),
-    "gop-parallel": lambda j: setattr(j, "gop_parallel", 2),
-    "checkpoint": lambda j: setattr(j, "checkpoint", True),
-    # subtitles are ported; resuming a job (its journal's subtitle
-    # records) is not
-    "subtitles": lambda j: (j.subtitles.append(
-        S.SubtitleJobTrack(track=-1, import_file="a.srt")),
-        setattr(j, "resume", True)),
 }
 
 
@@ -307,18 +291,91 @@ def test_unported_job_raises(src, tmp_path, change):
         work.do_job(j, device="cpu")
 
 
+def _srt(path):
+    with open(path, "w") as f:
+        f.write("1\n00:00:00,050 --> 00:00:00,200\ncue\n\n")
+    return path
+
+
+# job changes that raised NotImplementedError until their paths were
+# ported (tile-parallel nlmeans, GOP-parallel encoding, checkpoint and
+# resume); each now runs
+FORMERLY_UNPORTED_JOBS = {
+    "filter-decomb": lambda j, d: (j.filters.extend([
+        S.FilterSpec(S.FILTER_DECOMB, {}),
+        S.FilterSpec(S.FILTER_RENDER_SUB, {})]),
+        setattr(j, "tile_parallel", 2)),
+    "filter-nlmeans": lambda j, d: j.filters.append(
+        S.FilterSpec(S.FILTER_NLMEANS, {"tile_parallel": 2})),
+    "gop-parallel": lambda j, d: setattr(j, "gop_parallel", 2),
+    "checkpoint": lambda j, d: setattr(j, "checkpoint", True),
+    # a kept SRT track, resumed from a journal
+    "subtitles": lambda j, d: (j.subtitles.append(
+        S.SubtitleJobTrack(track=-1, import_file=_srt(str(d / "a.srt")))),
+        setattr(j, "resume", True)),
+}
+
+
+def _video_samples(path) -> int:
+    d = MP4Demuxer(path)
+    n = d.n_samples(0)
+    d.close()
+    return n
+
+
+def _killed_journal(monkeypatch, run):
+    """Run a checkpointed job as `run` does, keep its journal as a kill
+    would, and delete its output."""
+    from handbrake_tpu_torch import checkpoint
+
+    def keep(self, complete=False):
+        self.f.close()
+    with monkeypatch.context() as m:
+        m.setattr(checkpoint.CkptJournal, "close", keep)
+        run()
+
+
+@pytest.mark.parametrize("change", list(FORMERLY_UNPORTED_JOBS))
+def test_formerly_unported_job_runs(src, tmp_path, monkeypatch, change):
+    out = str(tmp_path / "x.mp4")
+    j = _job(S, src, out, "crop-only")
+    FORMERLY_UNPORTED_JOBS[change](j, tmp_path)
+    if j.resume:
+        first = j.clone()
+        first.resume, first.checkpoint = False, True
+        _killed_journal(monkeypatch,
+                        lambda: work.do_job(first, device="cpu"))
+        os.unlink(out)
+    stats = work.do_job(j, device="cpu")
+    assert stats["frames_out"] > 0
+    assert _video_samples(out) == N
+    assert not os.path.exists(out + ".ckpt")
+
+
 @pytest.mark.parametrize("opts", [["-E", "opus"], ["-a", "1", "-E", "mp3"],
                                   ["-e", "x265"],
                                   ["-e", "svt_av1"],
-                                  ["--gop-parallel", "2"],
-                                  ["--tile-parallel", "2"],
-                                  ["--checkpoint"], ["--resume"],
                                   ["-f", "webm", "-e", "vp9"],
                                   ["-f", "mkv", "-e", "mpeg2"]])
 def test_unported_cli_option_raises(src, tmp_path, opts):
     with pytest.raises(NotImplementedError):
         cli(["-i", src, "-o", str(tmp_path / "x.mp4"), "--device", "cpu",
              *opts])
+
+
+@pytest.mark.parametrize("opts", [["--gop-parallel", "2"],
+                                  ["--tile-parallel", "2"],
+                                  ["--checkpoint"], ["--resume"]])
+def test_formerly_unported_cli_option_runs(src, tmp_path, monkeypatch, opts):
+    out = str(tmp_path / "x.mp4")
+    argv = ["-i", src, "-o", out, "--device", "cpu"]
+    if opts == ["--resume"]:
+        _killed_journal(monkeypatch,
+                        lambda: cli(argv + ["--checkpoint"]))
+        os.unlink(out)
+    assert cli(argv + opts) == 0
+    assert _video_samples(out) == N
+    assert not os.path.exists(out + ".ckpt")
 
 
 def test_unported_sources_raise(tmp_path):

@@ -151,8 +151,41 @@ def mc_luma_block('''),
 
 # every file the port copies from the JAX package, and the lines a copy
 # may change
+# the decoder's picture state moves from one global into each decoder
+# (struct Dec), so decoders on different threads share nothing
+_DEC_STATE = (
+    ("""struct PicCtx {
+    std::vector<uint8_t> blk_done;     // per luma 4x4: reconstructed
+    std::vector<uint8_t> blk_parsed;   // per luma 4x4: syntax consumed
+    std::vector<uint8_t> cblk_parsed[2];  // per chroma 4x4 (2x2 per MB)
+    std::vector<int> mb_slice;         // slice id per MB (-1 = none)
+    int slice_id = 0;
+};
+
+static PicCtx g_pc;    // single-threaded decode state
+""", """// Each decoder owns its picture state (Dec::pc), so decoders on
+// different threads share nothing; g_pc names the state of the decoder
+// D that every function below has in scope.
+#define g_pc (D.pc)
+"""),
+    ("""struct Dec {
+""", """struct PicCtx {
+    std::vector<uint8_t> blk_done;     // per luma 4x4: reconstructed
+    std::vector<uint8_t> blk_parsed;   // per luma 4x4: syntax consumed
+    std::vector<uint8_t> cblk_parsed[2];  // per chroma 4x4 (2x2 per MB)
+    std::vector<int> mb_slice;         // slice id per MB (-1 = none)
+    int slice_id = 0;
+};
+
+struct Dec {
+"""),
+    ("""    int slice_count_cur_pic = 0;
+""", """    int slice_count_cur_pic = 0;
+    PicCtx pc;                         // this decoder's picture state
+"""))
+
 COPIES = {
-    "native/hbdec264.cpp": (),
+    "native/hbdec264.cpp": _DEC_STATE,
     "mux/mkv.py": (),
     "sources/mkv.py": (),
     "codecs/h264/native_decoder.py": (
