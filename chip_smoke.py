@@ -9,8 +9,9 @@ Phases (none is caught; any failure exits non-zero before the last line):
 1. Build the deblock kernel (``csrc/deblock264.cu``, nvcc, sm_90a), the
    hqdn3d kernel (``csrc/hqdn3d.cu``, nvcc, sm_90a), the resample kernel
    (``csrc/resample.cu``, nvcc, sm_90a, ``--fmad=false``), the native
-   slice coder (``native/hb264.cpp``, g++) and the native H.264 decoder
-   (``native/hbdec264.cpp``, g++), all at once.
+   slice coder (``native/hb264.cpp``, g++), the native H.264 decoder
+   (``native/hbdec264.cpp``, g++) and the native MJPEG decoder
+   (``native/hbdecmjpeg.cpp``, g++), all at once.
 2. Hold the deblock kernel (planes and per-MB side data in; it derives
    bS itself) against its plain PyTorch version, ``deblock_plain`` on
    ``compute_bs``, on the card, bit for bit: random planes with intra
@@ -199,7 +200,37 @@ Phases (none is caught; any failure exits non-zero before the last line):
    over them: phase 7's stream with a PCM track, to mkv with AAC; 33
    video packets and the AAC track, and each worker's segment equal to a
    ``do_job`` of its range on the card.
-12. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+12. Disc and stream sources on the card, each source built in a
+   temporary directory by ``tools/source_builders.py`` from the committed
+   fixtures (``tests/data/torch_sources``) and the port's encoders, one
+   JSON line a part with the card's name and power limit: (a) a
+   ``VIDEO_TS`` folder, the 720x480 MPEG-2 fixture (24 pictures, IBBP)
+   over two VOBs with an AC-3 2.0 and a 16-bit DVD LPCM track, a white
+   VobSub card on stream 0x20 and IFOs with a palette and two chapters,
+   through ``cli.__main__.main`` on the default preset and device with
+   ``--decomb -m -a 1,2 -E copy:ac3,aac -s 1 --subtitle-burned 1
+   --previews 2``: 24 samples, the card's rectangle brighter from its
+   frame on, two chapters, the AC-3 samples equal to the VOBs' frames,
+   the first 3 samples equal to the job the CLI built run on the CPU
+   over the folder's first 4 pictures, deblock264 launched at least once
+   for every P frame, the resample kernel once a frame if the preset
+   scales and never if not (which holds is printed); (b) a ``BDMV``
+   folder, phase 7's 1080p stream and an AC-3 5.1 track over two m2ts
+   clips and an MPLS with two chapter marks, through the CLI to mkv with
+   the AC-3 copied (``--previews 2``): 33 frames, two chapters, the AC-3
+   frames, no resample launch, deblock264 once per analysed P frame; (c)
+   phase 7's stream with the MP2 fixture in a 188-byte TS with a corrupt
+   sync byte (a null packet) mid-file, through ``work.do_job`` to mp4
+   with AAC: 33 samples, the first 3 equal to the CPU's run of the first
+   3 frames; (d) the committed MJPEG AVI (6 frames, 640x480) through
+   ``work.do_job``: 6 samples, and the planes its encoder was given
+   equal the port's MJPEG decoder run on the host; (e) each job's fps
+   and the card's busy share (``torch.profiler`` tracing the card, its
+   device events summed from the raw trace and held equal to
+   ``key_averages`` on (d)), the MPEG-2 decoder's host ms a 720x480 frame
+   (the fixture's first 8 pictures) and the MJPEG decoder's a 640x480
+   frame, beside deblock264's step 4 time.
+13. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
    time; hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s
@@ -209,7 +240,8 @@ Phases (none is caught; any failure exits non-zero before the last line):
    frame, ``library_ms`` the dense products' time, ``regs``,
    ``local_bytes`` and ``smem_bytes`` the kernel's, ``job_launches``
    its counts in jobs 5 (a), 9 (c) and 10 (a); deblock264's
-   ``job_launches`` include 11 (b)'s resumed job), steps 7's to 11's
+   ``job_launches`` include 11 (b)'s resumed job and the four jobs of
+   step 12; resample's those of 12 (a) and (b)), steps 7's to 12's
    numbers, the card's name and power limit, and the result line.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
@@ -217,6 +249,7 @@ Imports nothing of JAX and nothing of ``handbrake_tpu``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -349,6 +382,14 @@ DEC_THREADS, THREAD_JOB_N = 4, 12
 RESUME_KEYINT, RESUME_CUT = 8, 2
 GP_N, GP_CPU_FRAMES, GP_CPU_GOPS, GP_KBPS = 4, 8, 2, 2000
 TILES, NL_REPS = (2, 4), 3
+# step 12: the disc sources' first pts, the DVD's VobSub card (x, y, w,
+# h in the 720x480 picture) and the display frame it shows from, the
+# disc scans' previews (each a decode on the host), the pictures the
+# MPEG-2 decoder is timed on; the committed AVI's frames
+DVD_T0 = 4 * FRAME_TICKS
+DVD_CARD, DVD_CARD_AT = (300, 200, 64, 32), 6
+DVD_PREVIEWS, DVD_TIMED = 2, 8
+MJPEG_N = 6
 
 
 def smi(query):
@@ -482,7 +523,8 @@ def bounds(planes, bs_v, bs_h, mb_w, mb_h, clock_hz):
 def phase_build():
     from handbrake_tpu_torch.codecs.h264 import deblock_cuda
     from handbrake_tpu_torch.filters import hqdn3d_cuda, resample_cuda
-    from handbrake_tpu_torch.native import get_decoder_lib, get_lib
+    from handbrake_tpu_torch.native import (get_decoder_lib, get_lib,
+                                            get_mjpeg_lib)
 
     def timed(f):
         t0 = time.perf_counter()
@@ -493,7 +535,7 @@ def phase_build():
               "hqdn3d.cu (nvcc sm_90a)": hqdn3d_cuda.load,
               "resample.cu (nvcc sm_90a, --fmad=false)": resample_cuda.load,
               "hb264.cpp (g++)": get_lib, "hbdec264.cpp (g++)":
-              get_decoder_lib}
+              get_decoder_lib, "hbdecmjpeg.cpp (g++)": get_mjpeg_lib}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as ex:
         futures = {k: ex.submit(timed, f) for k, f in builds.items()}
@@ -2855,6 +2897,404 @@ def phase_scale_out(tmp, label, stream):
     return rec
 
 
+def disc_tone(ch, seconds, seed):
+    return tone(48000, ch, int(round(48000 * seconds)), seed)
+
+
+def dvd_folder(root, n_pictures=None):
+    """12 (a): a VIDEO_TS folder over two VOBs holding the 720x480 MPEG-2
+    fixture (its first n_pictures in stream order, or all), an AC-3 2.0
+    track and a 16-bit DVD LPCM track from the port's encoders (as long
+    as the video), a white VobSub card on stream 0x20 shown from display
+    frame DVD_CARD_AT on, and IFOs with a palette and two chapters.
+    Returns (folder, the AC-3 frames, pictures)."""
+    from handbrake_tpu_torch.audio.ac3enc import Ac3Encoder
+    from handbrake_tpu_torch.subtitles.vobsub import build_spu
+    from handbrake_tpu_torch.tools import source_builders as B
+    es = B.fixture("mpeg2_720x480.m2v")
+    if n_pictures:
+        es = b"".join(B.split_pictures(es)[:n_pictures])
+    units = B.video_units(es, DVD_T0, FRAME_TICKS)
+    n = len(units)
+    secs = n * FRAME_TICKS / 90000
+    ac3 = Ac3Encoder(48000, 2, 192000)
+    frames = ac3.encode(disc_tone(2, secs, 21)) + ac3.flush()
+    units += [(DVD_T0 + k * 2880, 0xBD, f, B.ac3_sub, DVD_T0 + k * 2880)
+              for k, f in enumerate(frames)]
+    lp = disc_tone(2, secs, 22)
+    units += [(DVD_T0 + k * 900, 0xBD,
+               B.s16be_lpcm(lp[k * 480:(k + 1) * 480]), B.lpcm_sub,
+               DVD_T0 + k * 900) for k in range(len(lp) // 480)]
+    x, y, w, h = DVD_CARD
+    spu = build_spu(np.ones((h, w), np.uint8), x=x, y=y,
+                    stop_delay=(n * FRAME_TICKS) // 1024)
+    at = DVD_T0 + DVD_CARD_AT * FRAME_TICKS
+    units.append((at, 0xBD, spu, B.spu_sub, at))
+    half = n * FRAME_TICKS / 90000 / 2
+    B.write_dvd(root, B.build_ps(units), 2, [half, half])
+    return root, frames, n
+
+
+def device_busy_ms(prof) -> float:
+    """The card's busy ms in a finished profile: its device events'
+    (kernels, copies, sets) durations summed from the raw trace.
+    ``key_averages`` gives the same sum, but building it takes ~20 s for
+    a job of a few thousand launches."""
+    import torch
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation()) / 1e6
+
+
+def disc_job(run, argv_or_job, device=None, keep=0, cross_check=False):
+    """One job (through the CLI or work.do_job) on the card under the
+    profiler, its launches read after, or on the CPU without it: (do_job
+    s, the card's busy ms in it, deblock264 and resample launches, the
+    JobSpy keeping the first `keep` frames' planes).  The profiler traces
+    the card alone (CUPTI).  With cross_check, the busy ms must equal
+    ``key_averages``' sum of device time."""
+    import torch
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.filters import resample_cuda
+    from handbrake_tpu_torch.tools import profile_job as pj
+    from handbrake_tpu_torch import work
+
+    def go():
+        if run == "cli":
+            rc = cli_main(argv_or_job)
+            if rc != 0:
+                raise RuntimeError(f"phase 12: the CLI job exited {rc}")
+        else:
+            work.do_job(argv_or_job, device=device)
+
+    with pj.JobSpy(keep) as spy:
+        if device == "cpu":
+            go()
+            return spy.seconds, 0.0, 0, 0, spy
+        reset_counts()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            go()
+            torch.cuda.synchronize()
+        dev_ms = device_busy_ms(prof)
+        if dev_ms <= 0:
+            raise RuntimeError("phase 12: the profiler saw no device time")
+        if cross_check:
+            ka_ms = sum(e.self_device_time_total
+                        for e in prof.key_averages()) / 1e3
+            print(f"phase 12: the card busy {dev_ms:.3f} ms from the raw "
+                  f"trace, {ka_ms:.3f} ms by key_averages", flush=True)
+            if abs(dev_ms - ka_ms) > 0.01 * ka_ms + 0.01:
+                raise RuntimeError("phase 12: the raw trace's device time "
+                                   "differs from key_averages'")
+        return (spy.seconds, dev_ms, deblock_cuda.launches,
+                resample_cuda.launches, spy)
+
+
+def luma_means(path, rect):
+    """The mean luma of `rect` (x, y, w, h) in each decoded frame of an
+    mp4's video track, in display order."""
+    from handbrake_tpu_torch.codecs.registry import create_video_decoder
+    from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
+    d = MP4Demuxer(path)
+    dec = create_video_decoder("h264", d.tracks[0].extradata)
+    frames = []
+    for i in range(d.n_samples(0)):
+        frames += dec.feed(d.read_sample(0, i))
+    frames += dec.flush()
+    d.close()
+    x, y, w, h = rect
+    return [float(np.asarray(f.planes[0])[y:y + h, x:x + w].mean())
+            for f in frames]
+
+
+def phase_dvd(tmp, label):
+    """12 (a): the DVD folder through the CLI's default preset and device
+    with --decomb -m, the card burned, AC-3 copied, LPCM to AAC."""
+    from handbrake_tpu_torch.job import schema as S
+    root, ac3_frames, n = dvd_folder(os.path.join(tmp, "dvd"))
+    out = os.path.join(tmp, "dvd.mp4")
+    argv = ["-e", "h264", "-q", "28", "--encoder-profile", "high",
+            "--decomb", "-m", "-a", "1,2", "-E", "copy:ac3,aac", "-s", "1",
+            "--subtitle-burned", "1", "--previews", str(DVD_PREVIEWS)]
+    t0 = time.perf_counter()
+    secs, dev_ms, db, rs, spy = disc_job("cli", ["-i", root, "-o", out]
+                                          + argv)
+    t_cli = time.perf_counter() - t0
+    tracks, pk = read_tracks(out)
+    ti = tracks[0]
+    samples = [p for _, p in pk[0]]
+    from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
+    d = MP4Demuxer(out)
+    chapters = list(d.chapters)
+    d.close()
+    cs = next((f.settings for f in spy.job.filters
+               if f.id == S.FILTER_CROP_SCALE), {})
+    crop = [int(cs.get(k, 0)) for k in ("crop-top", "crop-bottom",
+                                        "crop-left", "crop-right")]
+    scales = (ti.width, ti.height) != (720 - crop[2] - crop[3],
+                                       480 - crop[0] - crop[1])
+    sx = ti.width / (720 - crop[2] - crop[3])
+    sy = ti.height / (480 - crop[0] - crop[1])
+    x, y, w, h = DVD_CARD
+    rect = (int((x - crop[2] + 4) * sx), int((y - crop[0] + 4) * sy),
+            int((w - 8) * sx), int((h - 8) * sy))
+    means = luma_means(out, rect)
+    before = max(means[:DVD_CARD_AT - 1])
+    after = min(means[DVD_CARD_AT + 1:])
+    n_p = spy.p_frames()
+    # the same job (the one the CLI built) on the CPU over the first 4
+    # pictures (I P B B: display frames 0-3)
+    cut, _, _ = dvd_folder(os.path.join(tmp, "dvd_cut"), 4)
+    out_cpu = os.path.join(tmp, "dvd_cpu.mp4")
+    disc_job("do_job", dataclasses.replace(spy.job, path=cut, file=out_cpu),
+             device="cpu")
+    cpu_samples = [p for _, p in read_tracks(out_cpu)[1][0]]
+    rec = {"phase": "12a", "card": label, "pictures": n,
+           "samples": len(samples), "size": [ti.width, ti.height],
+           "crop": crop, "scaled": scales,
+           "tracks": [(t.kind, t.codec) for t in tracks],
+           "chapters": len(chapters),
+           "ac3_equal_vob": [p for _, p in pk[1]] == ac3_frames,
+           "card_luma_before_max": before, "card_luma_after_min": after,
+           "first3_equal_cpu": samples[:N_CPU] == cpu_samples[:N_CPU],
+           "deblock264_launches": db, "p_frames": n_p,
+           "redos": spy.enc.n_redo, "resample_launches": rs,
+           "do_job_s": secs, "fps": n / secs, "cli_s": t_cli,
+           "device_ms": dev_ms, "busy_share": dev_ms / (secs * 1e3)}
+    print(json.dumps(rec), flush=True)
+    print(f"dvd (a): the resample kernel "
+          + (f"launched {rs} times for {n} frames: the preset scales "
+             f"720x480 to {ti.width}x{ti.height}" if scales else
+             f"launched {rs} times: the preset keeps 720x480 (crop "
+             f"{crop}), so nothing scales"), flush=True)
+    if len(samples) != n or len(chapters) != 2 or not rec["ac3_equal_vob"]:
+        raise RuntimeError("the DVD job's mp4 lacks samples, chapters or "
+                           "the AC-3 frames")
+    if [t.codec for t in tracks[1:3]] != ["ac3", "aac"]:
+        raise RuntimeError(f"the DVD job's tracks are {rec['tracks']}")
+    if after < before + 60:
+        raise RuntimeError("the burned VobSub card does not show")
+    if not rec["first3_equal_cpu"]:
+        raise RuntimeError("the DVD job's first samples differ from the CPU")
+    if db < n_p or db == 0:
+        raise RuntimeError("the DVD job did not launch deblock264 for every "
+                           "P frame")
+    if rs != (n if scales else 0):
+        raise RuntimeError("the DVD job's resample launches do not match "
+                           "its geometry")
+    return rec
+
+
+def bd_folder(root, stream):
+    """12 (b): phase 7's 1080p stream and an AC-3 5.1 track in a TS (the
+    BD PIDs), as m2ts over two clips, an MPLS with two chapter marks."""
+    from handbrake_tpu_torch.audio.ac3enc import Ac3Encoder
+    from handbrake_tpu_torch.tools import source_builders as B
+    secs = len(stream) * FRAME_TICKS / 90000
+    ac3 = Ac3Encoder(48000, 6, AC3_SRC_BPS)
+    frames = ac3.encode(disc_tone(6, secs, 23)) + ac3.flush()
+    units = [(DVD_T0 + i * FRAME_TICKS, 0x1011, 0xE0, au,
+              DVD_T0 + i * FRAME_TICKS) for i, au in enumerate(stream)]
+    units += [(DVD_T0 + k * 2880, 0x1100, 0xBD, f, DVD_T0 + k * 2880)
+              for k, f in enumerate(frames)]
+    ts = B.build_ts([(0x1B, 0x1011, b""), (0x81, 0x1100, b"")], units)
+    return B.write_bd(root, ts, 2, secs, [(0, 0.0), (1, 0.1)]), frames
+
+
+def phase_bd(tmp, label, stream):
+    """12 (b): the BDMV folder through the CLI to mkv, AC-3 copied."""
+    from handbrake_tpu_torch.sources.mkv import MKVDemuxer
+    root, frames = bd_folder(os.path.join(tmp, "bd"), stream)
+    out = os.path.join(tmp, "bd.mkv")
+    argv = ["-i", root, "-o", out, "-e", "h264", "-q", "28",
+            "--encoder-profile", "high", "-m", "-a", "1", "-E", "copy:ac3",
+            "--previews", str(DVD_PREVIEWS)]
+    secs, dev_ms, db, rs, spy = disc_job("cli", argv)
+    d = MKVDemuxer(out)
+    tracks = [(t.kind, t.codec) for t in d.tracks]
+    size = (d.tracks[0].width, d.tracks[0].height)
+    chapters = list(d.chapters)
+    pk = {}
+    for t, b in d.packets():
+        pk.setdefault(t, []).append(bytes(b.data))
+    d.close()
+    n = len(stream)
+    n_p = spy.p_frames()
+    rec = {"phase": "12b", "card": label, "samples": len(pk.get(0, [])),
+           "size": list(size), "tracks": tracks, "chapters": len(chapters),
+           "ac3_equal_source": pk.get(1) == frames,
+           "deblock264_launches": db, "p_frames": n_p,
+           "redos": spy.enc.n_redo, "resample_launches": rs,
+           "do_job_s": secs, "fps": n / secs, "device_ms": dev_ms,
+           "busy_share": dev_ms / (secs * 1e3)}
+    print(json.dumps(rec), flush=True)
+    if rec["samples"] != n or size != (W, H) or len(chapters) != 2 \
+            or not rec["ac3_equal_source"]:
+        raise RuntimeError("the Blu-ray job's mkv lacks frames, chapters or "
+                           "the AC-3 frames")
+    if rs != 0 or db != n_p + spy.enc.n_redo or db == 0:
+        raise RuntimeError("the Blu-ray job's launches: resample "
+                           f"{rs} (0 expected), deblock264 {db} for {n_p} "
+                           f"P frames and {spy.enc.n_redo} redos")
+    return rec
+
+
+def broadcast_ts(path, stream):
+    """12 (c): the stream and the MP2 fixture's frames that sound under
+    it, 188-byte packets, with a null packet whose sync byte is corrupt
+    after the middle packet."""
+    from handbrake_tpu_torch.tools import source_builders as B
+    mp2 = B.fixture("mp2_48k_stereo.mp2")
+    n_mp2 = -(-len(stream) * FRAME_TICKS // 2160)
+    units = [(DVD_T0 + i * FRAME_TICKS, 0x100, 0xE0, au,
+              DVD_T0 + i * FRAME_TICKS) for i, au in enumerate(stream)]
+    units += [(DVD_T0 + k * 2160, 0x101, 0xC0, mp2[k * 384:(k + 1) * 384],
+               DVD_T0 + k * 2160) for k in range(n_mp2)]
+    ts = B.build_ts([(0x1B, 0x100, b""), (0x03, 0x101, b"")], units)
+    mid = len(ts) // 188 // 2 * 188
+    null = b"\x00\x1f\xff\x10" + b"\xff" * 184     # sync 0x47 corrupt
+    with open(path, "wb") as f:
+        f.write(ts[:mid] + null + ts[mid:])
+    return path
+
+
+def phase_ts(tmp, label, stream):
+    """12 (c): the broadcast TS through work.do_job to mp4 with AAC."""
+    from handbrake_tpu_torch.job import schema as S
+
+    def job(src, out):
+        j = S.Job(path=src, file=out, mux="mp4", vcodec="h264",
+                  quality=28.0, encoder_profile="high")
+        j.audio = [S.AudioJobTrack(track=0, encoder="aac")]
+        return j
+
+    src = broadcast_ts(os.path.join(tmp, "bc.ts"), stream)
+    out = os.path.join(tmp, "bc.mp4")
+    secs, dev_ms, db, rs, spy = disc_job("do_job", job(src, out))
+    tracks, pk = read_tracks(out)
+    cut = broadcast_ts(os.path.join(tmp, "bc_cut.ts"), stream[:N_CPU])
+    out_cpu = os.path.join(tmp, "bc_cpu.mp4")
+    disc_job("do_job", job(cut, out_cpu), device="cpu")
+    cpu_pk = read_tracks(out_cpu)[1]
+    n = len(stream)
+    n_p = spy.p_frames()
+    samples = [p for _, p in pk[0]]
+    rec = {"phase": "12c", "card": label, "samples": len(samples),
+           "tracks": [(t.kind, t.codec) for t in tracks],
+           "aac_packets": len(pk.get(1, [])),
+           "first3_equal_cpu": samples[:N_CPU] == [p for _, p in
+                                                  cpu_pk[0]][:N_CPU],
+           "deblock264_launches": db, "p_frames": n_p,
+           "redos": spy.enc.n_redo, "resample_launches": rs,
+           "do_job_s": secs, "fps": n / secs, "device_ms": dev_ms,
+           "busy_share": dev_ms / (secs * 1e3)}
+    print(json.dumps(rec), flush=True)
+    if len(samples) != n or not rec["first3_equal_cpu"] \
+            or rec["tracks"][1] != ("audio", "aac") \
+            or not rec["aac_packets"]:
+        raise RuntimeError("the TS job's mp4 lacks samples or its AAC "
+                           "track, or its first samples differ from the CPU")
+    if db != n_p + spy.enc.n_redo or db == 0:
+        raise RuntimeError("the TS job did not launch deblock264 once per "
+                           "analysed P frame")
+    return rec
+
+
+def phase_mjpeg(tmp, label):
+    """12 (d): the committed MJPEG AVI through work.do_job to mp4; the
+    planes the job's encoder was given equal the port's MJPEG decoder
+    run on the host over the AVI's packets."""
+    from handbrake_tpu_torch.codecs.registry import MJPEGVideoDecoder
+    from handbrake_tpu_torch.job import schema as S
+    from handbrake_tpu_torch.sources.avi import AVIDemuxer
+    from handbrake_tpu_torch.tools import source_builders as B
+    avi = os.path.join(B.FIXTURES, "mjpeg_640x480.avi")
+    out = os.path.join(tmp, "avi.mp4")
+    secs, dev_ms, db, rs, spy = disc_job(
+        "do_job", S.Job(path=avi, file=out, mux="mp4", vcodec="h264",
+                        quality=28.0, encoder_profile="high"), keep=MJPEG_N,
+        cross_check=True)
+    ti, samples = read_mp4(out)
+    d = AVIDemuxer(avi)
+    dec = MJPEGVideoDecoder()
+    host = [f.planes for _, b in d.packets() for f in dec.feed(b)]
+    d.close()
+    n_p = spy.p_frames()
+    rec = {"phase": "12d", "card": label, "samples": len(samples),
+           "size": [ti.width, ti.height],
+           "equal_cpu": same_frames([f[:3] for f in spy.frames], host),
+           "deblock264_launches": db, "p_frames": n_p,
+           "redos": spy.enc.n_redo, "do_job_s": secs,
+           "fps": len(samples) / secs, "device_ms": dev_ms,
+           "busy_share": dev_ms / (secs * 1e3)}
+    print(json.dumps(rec), flush=True)
+    if len(samples) != MJPEG_N or (ti.width, ti.height) != (640, 480) \
+            or not rec["equal_cpu"]:
+        raise RuntimeError("the MJPEG job's mp4 lacks frames, or the planes "
+                           "its encoder was given differ from the host "
+                           "decode")
+    if db != n_p + spy.enc.n_redo or db == 0:
+        raise RuntimeError("the MJPEG job did not launch deblock264 once "
+                           "per analysed P frame")
+    return rec
+
+
+def decoder_host_ms():
+    """12 (e): host ms a frame of the MPEG-2 decoder on the 720x480
+    fixture's first DVD_TIMED pictures (I P B B P B B P) and of the MJPEG
+    decoder on the AVI (6)."""
+    from handbrake_tpu_torch.codecs.mpeg2 import Mpeg2Decoder
+    from handbrake_tpu_torch.codecs.registry import MJPEGVideoDecoder
+    from handbrake_tpu_torch.sources.avi import AVIDemuxer
+    from handbrake_tpu_torch.tools import source_builders as B
+    es = b"".join(B.split_pictures(B.fixture("mpeg2_720x480.m2v"))
+                  [:DVD_TIMED])
+    t0 = time.perf_counter()
+    n2 = len(Mpeg2Decoder().decode(es))
+    mpeg2_ms = (time.perf_counter() - t0) / n2 * 1e3
+    d = AVIDemuxer(os.path.join(B.FIXTURES, "mjpeg_640x480.avi"))
+    pkts = [b for _, b in d.packets()]
+    d.close()
+    dec = MJPEGVideoDecoder()
+    dec.feed(pkts[0])
+    t0 = time.perf_counter()
+    for _ in range(3):
+        for b in pkts:
+            dec.feed(b)
+    mjpeg_ms = (time.perf_counter() - t0) / (3 * len(pkts)) * 1e3
+    return n2, mpeg2_ms, mjpeg_ms
+
+
+def phase_discs(tmp, label, stream, deblock_ms):
+    """12: DVD, Blu-ray, broadcast TS and MJPEG sources on the card, one
+    JSON line a part.  Returns their numbers."""
+    t0 = time.perf_counter()
+    rec = {}
+    for part, run in (("dvd", lambda: phase_dvd(tmp, label)),
+                      ("bd", lambda: phase_bd(tmp, label, stream)),
+                      ("ts", lambda: phase_ts(tmp, label, stream)),
+                      ("mjpeg", lambda: phase_mjpeg(tmp, label))):
+        t1 = time.perf_counter()
+        rec[part] = run()
+        rec[part]["part_s"] = time.perf_counter() - t1
+    n2, mpeg2_ms, mjpeg_ms = decoder_host_ms()
+    rec["timings"] = {
+        "phase": "12e", "card": label,
+        "fps": {k: rec[k]["fps"] for k in ("dvd", "bd", "ts", "mjpeg")},
+        "busy_share": {k: rec[k]["busy_share"]
+                       for k in ("dvd", "bd", "ts", "mjpeg")},
+        "part_s": {k: rec[k]["part_s"] for k in ("dvd", "bd", "ts", "mjpeg")},
+        "mpeg2_host_ms_per_720x480_frame": mpeg2_ms, "mpeg2_frames": n2,
+        "mjpeg_host_ms_per_640x480_frame": mjpeg_ms,
+        "deblock264_ms_main_path_p_frame": deblock_ms}
+    print(json.dumps(rec["timings"]), flush=True)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"phase 12 ({label}): {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def one_card():
     """Make only the first visible card visible to this process (before
     CUDA starts), so the run uses, and reports, exactly one card."""
@@ -2890,6 +3330,7 @@ def main() -> int:
         subs = phase_subtitles(tmp, label, stream)
         bf = phase_bframes(tmp, label)
         scale_out = phase_scale_out(tmp, label, stream)
+        discs = phase_discs(tmp, label, stream, ms)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -2908,7 +3349,15 @@ def main() -> int:
                                    subs["letterbox"]["launches"],
                                "resume_1080p_do_job":
                                    scale_out["resume"]
-                                   ["deblock264_launches_resume"]})
+                                   ["deblock264_launches_resume"],
+                               "dvd_720x480_cli":
+                                   discs["dvd"]["deblock264_launches"],
+                               "bluray_1080p_cli":
+                                   discs["bd"]["deblock264_launches"],
+                               "broadcast_ts_do_job":
+                                   discs["ts"]["deblock264_launches"],
+                               "mjpeg_avi_do_job":
+                                   discs["mjpeg"]["deblock264_launches"]})
     rs_entry = {
         "name": "resample", "route": "cuda",
         "source": "handbrake_tpu_torch/csrc/resample.cu",
@@ -2929,12 +3378,17 @@ def main() -> int:
                              subs["letterbox"]["resample_launches"],
                          "letterbox_bframes_cli": bf["resample_launches"],
                          "letterbox_gop_parallel_cli":
-                             scale_out["gop_parallel"]["resample_launches"]}}
+                             scale_out["gop_parallel"]["resample_launches"],
+                         "dvd_720x480_cli":
+                             discs["dvd"]["resample_launches"],
+                         "bluray_1080p_cli":
+                             discs["bd"]["resample_launches"]}}
     print(f"job 7 numbers: {json.dumps(job_s)}", flush=True)
     print(f"audio numbers: {json.dumps(job_au)}", flush=True)
     print(f"subtitle numbers: {json.dumps(subs)}", flush=True)
     print(f"bframes numbers: {json.dumps(bf)}", flush=True)
     print(f"phase 11 seconds: {scale_out['seconds']:.1f}", flush=True)
+    print(f"phase 12 seconds: {discs['seconds']:.1f}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

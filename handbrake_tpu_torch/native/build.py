@@ -1,9 +1,9 @@
 """Build + load the native host stages (g++, cached by source hash).
 
-Two libraries: the slice coder ``hb264.cpp`` (``get_lib``) and the H.264
-decoder ``hbdec264.cpp`` (``get_decoder_lib``), each a shared library of
-its own, so the two build in parallel.  ``hbdecmjpeg.cpp`` is not ported
-yet.  A library goes into the package's ``_build`` directory (listed in
+Three libraries: the slice coder ``hb264.cpp`` (``get_lib``), the H.264
+decoder ``hbdec264.cpp`` (``get_decoder_lib``) and the baseline JPEG
+decoder ``hbdecmjpeg.cpp`` (``get_mjpeg_lib``), each a shared library of
+its own, so they build in parallel.  A library goes into the package's ``_build`` directory (listed in
 ``.gitignore``), keyed by the sha256 of its sources and generated
 tables, so a rebuild happens only when they change.  A failed build
 raises: there is no pure-Python fallback.
@@ -24,6 +24,8 @@ _lock = threading.Lock()
 _lib = [None]
 _dec_lock = threading.Lock()
 _dec_lib = [None]
+_mjpeg_lock = threading.Lock()
+_mjpeg_lib = [None]
 
 
 def compile_shared(name: str, files: dict, cmd_for, timeout: int = 600
@@ -170,3 +172,27 @@ def get_decoder_lib():
                 _gxx("hbdec264.cpp"), timeout=300)
             _dec_lib[0] = _bind_decoder(ctypes.CDLL(so))
         return _dec_lib[0]
+
+
+def _bind_mjpeg(lib):
+    """The MJPEG decoder's entry points, bound as the reference binds
+    them (handbrake_tpu/native/build.py)."""
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.hbdecmjpeg_info.restype = ctypes.c_int
+    lib.hbdecmjpeg_info.argtypes = [u8p, ctypes.c_int, ip, ip, ip, ip]
+    lib.hbdecmjpeg_decode.restype = ctypes.c_int
+    lib.hbdecmjpeg_decode.argtypes = [u8p, ctypes.c_int, u8p, u8p, u8p]
+    return lib
+
+
+def get_mjpeg_lib():
+    """Build (once) and return the loaded native MJPEG decoder."""
+    with _mjpeg_lock:
+        if _mjpeg_lib[0] is None:
+            with open(os.path.join(_DIR, "hbdecmjpeg.cpp")) as f:
+                files = {"hbdecmjpeg.cpp": f.read()}
+            so = compile_shared("hbdecmjpeg", files, _gxx("hbdecmjpeg.cpp"),
+                                timeout=300)
+            _mjpeg_lib[0] = _bind_mjpeg(ctypes.CDLL(so))
+        return _mjpeg_lib[0]

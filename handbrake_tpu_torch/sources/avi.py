@@ -1,0 +1,160 @@
+"""AVI (RIFF) demuxer — the container OpenCV/cameras write MJPEG into.
+
+Role of the reference's libavformat AVI path consumed through stream.c's
+ffmpeg_open (stream.c:279): walk RIFF hdrl (avih/strl) for stream types
+and rates, then iterate movi chunks ('NNdc'/'NNwb') as packets.  Only the
+structures HandBrake actually consumes are implemented: video (MJPG/raw)
+and PCM audio tracks, idx1 ignored (sequential read).
+"""
+from __future__ import annotations
+
+import struct
+from fractions import Fraction
+
+from ..core.buffer import Buffer
+from .common import CLOCK, DemuxError, TrackInfo
+
+_VID_CODECS = {b"MJPG": "mjpeg", b"mjpg": "mjpeg", b"\x00\x00\x00\x00": "rawvideo"}
+
+
+def probe_is_avi(path: str) -> bool:
+    with open(path, "rb") as f:
+        head = f.read(12)
+    return len(head) == 12 and head[:4] == b"RIFF" and head[8:12] == b"AVI "
+
+
+class AVIDemuxer:
+    def __init__(self, path: str):
+        self.path = path
+        self.f = open(path, "rb")
+        self.tracks = []
+        self._stream_map = {}      # avi stream index → track index
+        self._rates = {}           # avi stream index → Fraction fps
+        self._movi = None          # (offset, size)
+        self.duration = 0
+        self.chapters = []
+        self._parse()
+
+    def _parse(self):
+        f = self.f
+        riff, size, fourcc = struct.unpack("<4sI4s", f.read(12))
+        if riff != b"RIFF" or fourcc != b"AVI ":
+            raise DemuxError("not an AVI")
+        end = 8 + size
+        self._walk(12, end, None)
+        if self._movi is None or not self.tracks:
+            raise DemuxError("no movi/streams in AVI")
+
+    def _walk(self, off, end, ctx):
+        f = self.f
+        stream_idx = [len(self._stream_map)]
+        while off + 8 <= end:
+            f.seek(off)
+            cid, csz = struct.unpack("<4sI", f.read(8))
+            body = off + 8
+            if cid == b"LIST":
+                ltype = f.read(4)
+                if ltype == b"movi":
+                    self._movi = (body + 4, csz - 4)
+                else:
+                    self._walk(body + 4, body + csz, ltype)
+            elif cid == b"strh":
+                data = f.read(csz)
+                fcc_type = data[0:4]
+                handler = data[4:8]
+                scale, rate = struct.unpack("<II", data[20:28])
+                length = struct.unpack("<I", data[32:36])[0]
+                sidx = len(self._stream_map) + len(
+                    [1 for t in self.tracks if False])
+                sidx = self._next_sidx = getattr(self, "_next_sidx", 0)
+                if fcc_type == b"vids":
+                    codec = _VID_CODECS.get(handler, None)
+                    if codec is None:
+                        codec = _VID_CODECS.get(handler.upper(), "unknown")
+                    fps = Fraction(rate, scale) if scale else Fraction(25, 1)
+                    ti = TrackInfo(kind="video", codec=codec,
+                                   frame_rate=(fps.numerator,
+                                               fps.denominator))
+                    self._stream_map[sidx] = len(self.tracks)
+                    self._rates[sidx] = fps
+                    self.tracks.append(ti)
+                    if fps:
+                        self.duration = int(length * CLOCK / float(fps))
+                elif fcc_type == b"auds":
+                    ti = TrackInfo(kind="audio", codec="pcm")
+                    self._stream_map[sidx] = len(self.tracks)
+                    self._rates[sidx] = Fraction(rate, max(1, scale))
+                    self.tracks.append(ti)
+                else:
+                    self._stream_map[sidx] = -1
+                self._next_sidx = sidx + 1
+            elif cid == b"strf":
+                data = f.read(csz)
+                # BITMAPINFOHEADER for the latest video track
+                if self.tracks and self.tracks[-1].kind == "video" \
+                        and len(data) >= 24:
+                    w, h = struct.unpack("<ii", data[4:12])
+                    self.tracks[-1].width = w
+                    self.tracks[-1].height = abs(h)
+                elif self.tracks and self.tracks[-1].kind == "audio" \
+                        and len(data) >= 16:
+                    fmt, ch, srate = struct.unpack("<HHI", data[0:8])
+                    bits = struct.unpack("<H", data[14:16])[0]
+                    t = self.tracks[-1]
+                    t.channels = ch
+                    t.sample_rate = srate
+                    t.codec = ("pcm_s16le" if bits == 16 else "pcm_u8") \
+                        if fmt == 1 else "unknown"
+            off = body + csz + (csz & 1)
+
+    # -- packets -------------------------------------------------------------
+    def packets(self, start_state=None):
+        f = self.f
+        off, size = self._movi
+        end = off + size
+        counts = {}
+        pos = off if not start_state else start_state
+        while pos + 8 <= end:
+            f.seek(pos)
+            hdr = f.read(8)
+            if len(hdr) < 8:
+                return
+            cid, csz = struct.unpack("<4sI", hdr)
+            pos_next = pos + 8 + csz + (csz & 1)
+            if cid == b"LIST":
+                pos = pos + 12          # descend into rec  lists
+                continue
+            try:
+                sidx = int(cid[:2])
+            except ValueError:
+                pos = pos_next
+                continue
+            kind = cid[2:4]
+            trk = self._stream_map.get(sidx, -1)
+            if trk < 0 or kind not in (b"dc", b"db", b"wb"):
+                pos = pos_next
+                continue
+            data = f.read(csz)
+            n = counts.get(sidx, 0)
+            counts[sidx] = n + 1
+            ti = self.tracks[trk]
+            b = Buffer(data=data)
+            b.track_kind = ti.kind
+            b.stream_id = trk
+            if ti.kind == "video":
+                fps = self._rates[sidx]
+                b.pts = int(n * CLOCK / float(fps))
+                b.dts = b.pts
+                b.duration = int((n + 1) * CLOCK / float(fps)) - b.pts
+                b.stop = b.pts + b.duration
+            else:
+                rate = self._rates.get(sidx) or 1
+                b.pts = None
+            yield trk, b
+            pos = pos_next
+
+    def seek(self, pts):
+        return None
+
+    def close(self):
+        self.f.close()

@@ -1,0 +1,215 @@
+"""DVD-Video folder scan (reference: libhb/dvd.c hb_dvdread_* — IFO
+walk without libdvdread).
+
+Parses VIDEO_TS.IFO (VMGI: title search pointer table TT_SRPT) and each
+VTS_xx_0.IFO (VTSI: program chain table VTS_PGCIT for playback time,
+chapter/program map, and the 16-color subpicture CLUT that feeds
+subtitles/vobsub.py), then exposes every title as a PSDemuxer over the
+concatenated VTS_xx_[1..9].VOB menuless program stream.
+
+Structures implemented (DVD-Video part 3 layout, offsets in bytes):
+  VMGI  0x00 "DVDVIDEO-VMG", 0xC4 TT_SRPT start sector
+  TT_SRPT  u16 count, u16 pad, u32 end; 12-byte entries
+           (type, angles, nr_ptts, parental, vts_nr, vts_ttn, vts_sect)
+  VTSI  0x00 "DVDVIDEO-VTS", 0xCC VTS_PGCIT start sector
+  VTS_PGCIT u16 count, u16 pad, u32 end; 8-byte srp entries
+           (category u32, pgc offset u32 from table start)
+  PGC   0x02 nr_programs, 0x03 nr_cells, 0x04 playback time (BCD
+        hh:mm:ss:ff + frame-rate bits), 0xA4 16x4-byte 0YCrCb palette,
+        0xE6 program map offset, 0xE8 cell playback info offset
+Cells/angles beyond the first PGC and menu domains are out of scope.
+"""
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+_SECTOR = 2048
+
+
+def _bcd(v: int) -> int:
+    return (v >> 4) * 10 + (v & 0x0F)
+
+
+def _playback_seconds(b: bytes) -> float:
+    """4-byte PGC playback time: BCD hh mm ss, frames byte with the
+    frame-rate code in bits 7-6 (11=30fps/10=25fps)."""
+    h, m, s = _bcd(b[0]), _bcd(b[1]), _bcd(b[2])
+    rate = 30.0 if (b[3] >> 6) == 3 else 25.0
+    f = _bcd(b[3] & 0x3F)
+    return h * 3600 + m * 60 + s + f / rate
+
+
+class DvdTitle:
+    def __init__(self, vts: int, ttn: int, duration_s: float,
+                 chapter_times: list, palette: list, vob_paths: list):
+        self.vts = vts
+        self.ttn = ttn
+        self.duration_s = duration_s
+        self.chapter_times = chapter_times     # start offsets, seconds
+        self.palette = palette                 # 16 RGB ints (vobsub)
+        self.vob_paths = vob_paths
+
+
+def _yuv_palette_to_rgb(entries: list) -> list:
+    out = []
+    for v in entries:
+        # studio-range BT.601 (DVD CLUT luma is 16-235)
+        y = (((v >> 16) & 0xFF) - 16) * 255.0 / 219.0
+        cr = (((v >> 8) & 0xFF) - 128) * 255.0 / 224.0
+        cb = ((v & 0xFF) - 128) * 255.0 / 224.0
+        r = max(0, min(255, round(y + 1.402 * cr)))
+        g = max(0, min(255, round(y - 0.344136 * cb - 0.714136 * cr)))
+        b = max(0, min(255, round(y + 1.772 * cb)))
+        out.append((r << 16) | (g << 8) | b)
+    return out
+
+
+def is_dvd_folder(path: str) -> bool:
+    vt = path if os.path.basename(path).upper() == "VIDEO_TS" \
+        else os.path.join(path, "VIDEO_TS")
+    return os.path.isfile(os.path.join(vt, "VIDEO_TS.IFO"))
+
+
+def scan_dvd(path: str) -> List[DvdTitle]:
+    """VIDEO_TS folder (or its parent) → list of DvdTitle."""
+    vt = path if os.path.basename(path).upper() == "VIDEO_TS" \
+        else os.path.join(path, "VIDEO_TS")
+    with open(os.path.join(vt, "VIDEO_TS.IFO"), "rb") as f:
+        vmg = f.read()
+    if not vmg.startswith(b"DVDVIDEO-VMG"):
+        raise ValueError("not a VMG IFO")
+    srpt_off = int.from_bytes(vmg[0xC4:0xC8], "big") * _SECTOR
+    n_titles = int.from_bytes(vmg[srpt_off:srpt_off + 2], "big")
+    titles = []
+    for t in range(n_titles):
+        e = srpt_off + 8 + t * 12
+        nr_ptts = int.from_bytes(vmg[e + 2:e + 4], "big")
+        vts_nr = vmg[e + 6]
+        vts_ttn = vmg[e + 7]
+        ti = _scan_vts(vt, vts_nr, vts_ttn, nr_ptts)
+        if ti is not None:
+            titles.append(ti)
+    return titles
+
+
+def _scan_vts(vt: str, vts_nr: int, ttn: int,
+              nr_ptts: int) -> Optional[DvdTitle]:
+    ifo = os.path.join(vt, f"VTS_{vts_nr:02d}_0.IFO")
+    if not os.path.isfile(ifo):
+        return None
+    with open(ifo, "rb") as f:
+        vtsi = f.read()
+    if not vtsi.startswith(b"DVDVIDEO-VTS"):
+        return None
+    pgcit_off = int.from_bytes(vtsi[0xCC:0xD0], "big") * _SECTOR
+    n_pgcs = int.from_bytes(vtsi[pgcit_off:pgcit_off + 2], "big")
+    if ttn < 1 or ttn > n_pgcs:
+        ttn = 1
+    srp = pgcit_off + 8 + (ttn - 1) * 8
+    pgc = pgcit_off + int.from_bytes(vtsi[srp + 4:srp + 8], "big")
+    duration = _playback_seconds(vtsi[pgc + 4:pgc + 8])
+    n_programs = vtsi[pgc + 2]
+    palette = _yuv_palette_to_rgb(
+        [int.from_bytes(vtsi[pgc + 0xA4 + 4 * i:pgc + 0xA8 + 4 * i],
+                        "big") for i in range(16)])
+    # chapters: program map (cell numbers) + cell playback table times
+    pm_off = pgc + int.from_bytes(vtsi[pgc + 0xE6:pgc + 0xE8], "big")
+    cp_off = pgc + int.from_bytes(vtsi[pgc + 0xE8:pgc + 0xEA], "big")
+    n_cells = vtsi[pgc + 3]
+    cell_dur = []
+    for c in range(n_cells):
+        cb = cp_off + c * 24                 # cell playback info, 24 B
+        cell_dur.append(_playback_seconds(vtsi[cb + 4:cb + 8]))
+    chapter_times = []
+    acc = 0.0
+    cell_starts = []
+    for d in cell_dur:
+        cell_starts.append(acc)
+        acc += d
+    for p in range(min(n_programs, max(1, nr_ptts))):
+        entry_cell = vtsi[pm_off + p] if pm_off + p < len(vtsi) else 1
+        idx = max(1, entry_cell) - 1
+        chapter_times.append(cell_starts[idx]
+                             if idx < len(cell_starts) else 0.0)
+    vobs = []
+    for k in range(1, 10):
+        p = os.path.join(vt, f"VTS_{vts_nr:02d}_{k}.VOB")
+        if os.path.isfile(p):
+            vobs.append(p)
+    if not vobs:
+        return None
+    return DvdTitle(vts_nr, ttn, duration, chapter_times, palette, vobs)
+
+
+class _ConcatFile:
+    """Read-only file object over the concatenation of several files
+    (a multi-VOB VTS behaves as one program stream)."""
+
+    def __init__(self, paths):
+        self.paths = paths
+        self.sizes = [os.path.getsize(p) for p in paths]
+        self.total = sum(self.sizes)
+        self._fs = [open(p, "rb") for p in paths]
+        self.pos = 0
+
+    def seek(self, off, whence=0):
+        if whence == 2:
+            off = self.total + off
+        elif whence == 1:
+            off = self.pos + off
+        self.pos = max(0, min(self.total, off))
+        return self.pos
+
+    def tell(self):
+        return self.pos
+
+    def read(self, n=-1):
+        if n < 0:
+            n = self.total - self.pos
+        out = bytearray()
+        while n > 0 and self.pos < self.total:
+            i, off = 0, self.pos
+            while off >= self.sizes[i]:
+                off -= self.sizes[i]
+                i += 1
+            f = self._fs[i]
+            f.seek(off)
+            chunk = f.read(min(n, self.sizes[i] - off))
+            if not chunk:
+                break
+            out += chunk
+            self.pos += len(chunk)
+            n -= len(chunk)
+        return bytes(out)
+
+    def close(self):
+        for f in self._fs:
+            f.close()
+
+
+def open_dvd_title(path: str, title_index: int = 1):
+    """→ (PSDemuxer over the title's VOBs, DvdTitle)."""
+    from .ps import PSDemuxer
+    titles = scan_dvd(path)
+    if not titles:
+        raise ValueError("no DVD titles")
+    t = titles[min(max(title_index, 1), len(titles)) - 1]
+    d = PSDemuxer.__new__(PSDemuxer)
+    d.path = t.vob_paths[0]
+    d.f = _ConcatFile(t.vob_paths)
+    d.size = d.f.total
+    d.tracks = []
+    d.duration = 0
+    d._sid_to_track = {}
+    d._scan()
+    if not d.duration and t.duration_s:
+        d.duration = int(t.duration_s * 90000)
+    # IFO CLUT → vobsub tracks (decvobsub palette source)
+    for ti in d.tracks:
+        if ti.kind == "subtitle" or ti.codec == "vobsub":
+            ti.extradata = ("palette: " + ", ".join(
+                f"{c:06x}" for c in t.palette)).encode()
+    d.chapters = [(int(s * 90000), f"Chapter {i + 1}")
+                  for i, s in enumerate(t.chapter_times)]
+    return d, t

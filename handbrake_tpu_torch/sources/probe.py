@@ -6,9 +6,10 @@ batch.c for directories).
 .duration / .close(). ``scan_paths`` expands a directory into per-file
 sources (hb_batch_init analog, batch.c).
 
-The port opens y4m, annex-B H.264, mp4 and Matroska/WebM.  AVI,
-MPEG-PS/TS, HEVC elementary streams and DVD/Blu-ray folders raise
-NotImplementedError: their demuxers are later slices.
+The port opens y4m, annex-B H.264, mp4, Matroska/WebM, AVI, MPEG-PS
+(VOB) and TS/m2ts files, and DVD-Video and Blu-ray folders, routed as
+the reference routes them.  HEVC elementary streams raise
+NotImplementedError: their decoder is ROADMAP item 1.9.
 """
 from __future__ import annotations
 
@@ -23,17 +24,17 @@ _VIDEO_EXTS = {".mp4", ".m4v", ".mov", ".mkv", ".webm", ".y4m", ".264", ".avi",
                ".h264", ".avc", ".265", ".h265", ".hevc", ".ts", ".m2ts"}
 
 
-def _unported(what: str, path: str):
-    raise NotImplementedError(
-        f"{what} sources are not ported yet ({path}); the port opens y4m, "
-        f"annex-B H.264, mp4 and Matroska/WebM")
-
-
 def open_source(path: str):
     if not os.path.exists(path):
         raise DemuxError(f"no such file: {path}")
     if os.path.isdir(path):
-        _unported("DVD/Blu-ray folder", path)
+        from .dvd import is_dvd_folder, open_dvd_title
+        if is_dvd_folder(path):
+            return open_dvd_title(path)[0]
+        from .bd import is_bd_folder, open_bd_title
+        if is_bd_folder(path):
+            return open_bd_title(path)[0]
+        raise DemuxError(f"directory is not a DVD/Blu-ray: {path}")
     with open(path, "rb") as f:
         head = f.read(16)
     if probe_is_mp4(head):
@@ -43,31 +44,38 @@ def open_source(path: str):
     if head.startswith(b"YUV4MPEG2"):
         return Y4MReader(path)
     if head.startswith(b"RIFF") and head[8:12] == b"AVI ":
-        _unported("AVI", path)
+        from .avi import AVIDemuxer
+        return AVIDemuxer(path)
+    if head.startswith(b"\x00\x00\x01\xba"):
+        from .ps import PSDemuxer
+        return PSDemuxer(path)
     ext = os.path.splitext(path)[1].lower()
-    if head.startswith(b"\x00\x00\x01\xba") or ext in (
-            ".ts", ".m2ts", ".mts", ".mpg", ".mpeg", ".vob", ".ps") \
-            or (head and head[0] == 0x47):
-        _unported("MPEG program/transport stream", path)
+    if ext in (".ts", ".m2ts", ".mts"):
+        from .ts import TSDemuxer
+        return TSDemuxer(path)
+    if ext in (".mpg", ".mpeg", ".vob", ".ps"):
+        from .ps import PSDemuxer
+        return PSDemuxer(path)
+    if head and head[0] == 0x47:
+        from .ts import TSDemuxer, probe_is_ts
+        if probe_is_ts(path):
+            return TSDemuxer(path)
     if ext in (".265", ".h265", ".hevc"):
-        _unported("HEVC elementary stream", path)
+        raise NotImplementedError(
+            f"HEVC elementary streams are not ported yet ({path}): their "
+            f"decoder is ROADMAP item 1.9")
     if b"\x00\x00\x01" in head or ext in (".264", ".h264", ".avc"):
         return AnnexBReader(path, codec="h264")
     raise DemuxError(f"unrecognized container: {path}")
 
 
-def _is_disc_folder(path: str) -> bool:
-    """A DVD-Video (VIDEO_TS) or Blu-ray (BDMV) folder, or its parent."""
-    name = os.path.basename(os.path.normpath(path)).upper()
-    return name in ("VIDEO_TS", "BDMV") or any(
-        os.path.isdir(os.path.join(path, d)) for d in ("VIDEO_TS", "BDMV"))
-
-
 def scan_paths(path: str) -> list:
-    """Directory → sorted list of media file paths (batch.c:268); a disc
-    folder is one source, which open_source refuses."""
+    """Directory → sorted list of media file paths (batch.c:268);
+    a DVD-Video folder is one source (dvd.c role)."""
     if os.path.isdir(path):
-        if _is_disc_folder(path):
+        from .dvd import is_dvd_folder
+        from .bd import is_bd_folder
+        if is_dvd_folder(path) or is_bd_folder(path):
             return [path]
         out = []
         for name in sorted(os.listdir(path)):

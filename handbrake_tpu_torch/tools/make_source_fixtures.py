@@ -1,0 +1,160 @@
+"""Write the committed source fixtures of the port's disc and stream
+tests (``tests/data/torch_sources/``), made by independent encoders.
+
+    python -m handbrake_tpu_torch.tools.make_source_fixtures [--out DIR]
+
+Run it from the repository root on a host with OpenCV (``cv2``) and the
+system libavcodec that ``tests/ffvideo.py`` and ``tests/ffdec.py`` load
+through ctypes.  The machine with the card has neither, so the files
+are made once and committed; the PS/VOB packs, IFOs, TS/m2ts and MPLS
+around them are built at run time.  It writes:
+
+- ``mpeg2_720x480.m2v``: 24 frames of a DVD's geometry, MPEG-2 MP@ML
+  from libavcodec's ``mpeg2video`` (IBBP, GOP 12, a 6 Mb/s target, 29.97
+  fps, progressive);
+- ``mpeg2_176x144.m2v``: 12 frames with B-frames, for the CPU tests;
+- ``mpeg2_ildct_176x160.m2v`` (6 frames) and ``mpeg2_ildct_176x144.m2v``
+  (1 frame): ``interlaced_noise``, coded with ``flags=+ildct`` (field
+  DCT) and no B-frames, with libavcodec's decode of each in the ``.npz``
+  beside it (``y``, ``u``, ``v``: frames x rows x columns, uint8);
+- ``mp2_48k_stereo.mp2``: 1.2 s of two tones, MPEG-1 Layer II at 128
+  kb/s from libavcodec's ``mp2`` (the port has no MP2 encoder);
+- ``mjpeg_640x480.avi``: 6 frames from ``cv2.VideoWriter`` (MJPG).
+
+About 0.68 MB in all.  The other frames are ``utils.synth``'s clips,
+blurred so the streams stay small.  ``--check`` also codes each
+interlaced clip without ``+ildct`` and prints the port decoder's
+largest differences from libavcodec on both codings.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+OUT = os.path.join(ROOT, "tests", "data", "torch_sources")
+
+
+def _blur(frames, cv2, sigma):
+    return [tuple(np.ascontiguousarray(cv2.GaussianBlur(p, (0, 0), sigma))
+                  for p in f) for f in frames]
+
+
+def _mpeg2(ffvideo, frames, w, h, opts, rate=6_000_000):
+    enc = ffvideo.FFVideoEncoder("mpeg2video", w, h, 30, bit_rate=rate,
+                                 opts=opts)
+    return enc.encode(frames)
+
+
+def interlaced_noise(w, h, n, seed=3):
+    """n woven frames: each takes its top field from frame t and its
+    bottom field from frame t + 1 of a clip of uniform luma noise that
+    pans 3 columns and 1 row a frame, over smooth chroma, so the two
+    fields of a frame differ and the encoder picks field DCT."""
+    rng = np.random.default_rng(seed)
+    luma = rng.integers(20, 230, (h + 64, w + 64)).astype(np.uint8)
+    xx = np.arange(w // 2 + 32)[None, :] + np.zeros((h // 2 + 32, 1))
+    cb = np.clip(128 + 40 * np.sin(xx / 9.0), 0, 255).astype(np.uint8)
+    src = []
+    for t in range(n + 1):
+        ox, oy = 8 + 3 * t, 8 + t
+        src.append((luma[oy:oy + h, ox:ox + w],
+                    cb[oy // 2:oy // 2 + h // 2, ox // 2:ox // 2 + w // 2],
+                    255 - cb[oy // 2:oy // 2 + h // 2,
+                             ox // 2:ox // 2 + w // 2]))
+    odd = np.arange(h)[:, None] % 2
+    return [tuple(np.ascontiguousarray(np.where(
+        odd[:p.shape[0]], q, p)) for p, q in zip(top, bot))
+        for top, bot in zip(src[:-1], src[1:])]
+
+
+def report(name, es, ff):
+    """--check: the largest |difference| of the port's MPEG-2 decoder
+    from libavcodec's decode, frame by frame."""
+    from handbrake_tpu_torch.codecs.mpeg2 import Mpeg2Decoder
+    try:
+        errs = [max(int(np.abs(f[k].astype(int) - g[k]).max())
+                    for k in range(3))
+                for f, g in zip(Mpeg2Decoder().decode(es), ff)]
+    except (ValueError, NotImplementedError) as e:
+        errs = repr(e)
+    print(f"{name}: {errs}")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--out", default=OUT)
+    p.add_argument("--check", action="store_true",
+                   help="print the port's MPEG-2 decoder's largest "
+                        "difference from libavcodec on the interlaced "
+                        "streams and their frame-DCT twins")
+    args = p.parse_args(argv)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import cv2
+    import ffdec
+    import ffvideo
+    from handbrake_tpu_torch.utils.synth import make_clip
+    if not ffvideo.available():
+        raise RuntimeError("libavcodec is not available on this host")
+    os.makedirs(args.out, exist_ok=True)
+
+    def write(name, data):
+        with open(os.path.join(args.out, name), "wb") as f:
+            f.write(data)
+        print(f"{name}: {len(data)} bytes")
+
+    ntsc = "1001/30000"
+    write("mpeg2_720x480.m2v", b"".join(_mpeg2(
+        ffvideo, _blur(make_clip(720, 480, 24, seed=12), cv2, 3.0),
+        720, 480, {"bf": 2, "g": 12, "time_base": ntsc})))
+    write("mpeg2_176x144.m2v", b"".join(_mpeg2(
+        ffvideo, _blur(make_clip(176, 144, 12, seed=13), cv2, 0.8),
+        176, 144, {"bf": 2, "g": 12, "time_base": ntsc}, rate=800_000)))
+    for (w, h), n in (((176, 160), 6), ((176, 144), 1)):
+        frames = interlaced_noise(w, h, n)
+        for name, flags in (("ildct", "+ildct"), ("frame_dct", None)):
+            opts = {"bf": 0, "time_base": ntsc}
+            if flags:
+                opts["flags"] = flags
+            pkts = _mpeg2(ffvideo, frames, w, h, opts, rate=1_500_000)
+            ff = ffdec.decode_yuv_packets(pkts, "mpeg2video")
+            if args.check:
+                report(f"mpeg2_{name}_{w}x{h}", b"".join(pkts), ff)
+            if not flags:
+                continue      # the frame-DCT twin is only measured
+            write(f"mpeg2_ildct_{w}x{h}.m2v", b"".join(pkts))
+            path = os.path.join(args.out, f"mpeg2_ildct_{w}x{h}.npz")
+            np.savez_compressed(path, **{
+                k: np.stack([f[i] for f in ff]) for i, k in enumerate("yuv")})
+            print(f"{os.path.basename(path)}: {os.path.getsize(path)} bytes")
+    import ffaudio
+    from handbrake_tpu_torch.audio.aac import AACEncoder
+    t = np.arange(int(48000 * 1.2)) / 48000
+    tone = np.stack([0.3 * np.sin(2 * np.pi * f * t) for f in (440, 660)],
+                    1).astype(np.float32)
+    # ffaudio finds its frame layout's offsets on a first decode
+    probe = AACEncoder(48000, 2, quality=120)
+    ffaudio.FFAudioDecoder("aac").decode_packets(
+        [ffaudio.adts_wrap([pk], sample_rate=48000, channels=2)
+         for pk in probe.encode(tone[:2048]) + probe.flush()])
+    write("mp2_48k_stereo.mp2", b"".join(ffaudio.FFAudioEncoder(
+        "mp2", sample_rate=48000, channels=2, bit_rate=128000,
+        sample_fmt="s16").encode(tone)))
+    avi = os.path.join(args.out, "mjpeg_640x480.avi")
+    vw = cv2.VideoWriter(avi, cv2.VideoWriter_fourcc(*"MJPG"), 25,
+                         (640, 480))
+    for y, u, v in _blur(make_clip(640, 480, 6, seed=15), cv2, 3.0):
+        yuv = cv2.merge([y, cv2.resize(v, (640, 480)),
+                         cv2.resize(u, (640, 480))])
+        vw.write(cv2.cvtColor(yuv, cv2.COLOR_YCrCb2BGR))
+    vw.release()
+    print(f"mjpeg_640x480.avi: {os.path.getsize(avi)} bytes")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,418 @@
+"""Builders of disc and stream sources around elementary streams: MPEG-2
+program-stream packs (VOB), DVD-Video IFOs, MPEG transport streams
+(188-byte TS and 192-byte m2ts) and Blu-ray MPLS playlists, with the
+substream headers the port's demuxers read (``sources/{ps,dvd,ts,bd}.py``).
+The port's disc tests and ``chip_smoke.py`` build their sources with them
+from the committed fixtures (``tests/data/torch_sources/``) and the
+port's own encoders.
+
+Host code with no dependency beyond numpy.  ``FIXTURES`` is the fixture
+directory of a checkout of the repository.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "tests", "data", "torch_sources")
+
+
+# PES payload bytes a pack carries at most (a DVD pack is 2048 bytes)
+PS_CHUNK = 2000
+
+
+def fixture(name: str) -> bytes:
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        return f.read()
+
+
+def split_pictures(es: bytes) -> list:
+    """An MPEG-2 elementary stream cut into access units: each picture
+    with the sequence and GOP headers that precede it."""
+    pics = []
+    i = 0
+    while True:
+        i = es.find(b"\x00\x00\x01\x00", i)
+        if i < 0:
+            break
+        pics.append(i)
+        i += 4
+    cuts = [0]
+    for prev, cur in zip(pics, pics[1:]):
+        hdrs = [j for j in (es.find(b"\x00\x00\x01\xb3", prev + 4, cur),
+                            es.find(b"\x00\x00\x01\xb8", prev + 4, cur))
+                if j >= 0]
+        cuts.append(min(hdrs) if hdrs else cur)
+    return [es[a:b] for a, b in zip(cuts, cuts[1:] + [len(es)])]
+
+
+def picture_types(es: bytes) -> list:
+    """The coding type (1 I, 2 P, 3 B) of each picture, in stream order."""
+    out = []
+    i = 0
+    while True:
+        i = es.find(b"\x00\x00\x01\x00", i)
+        if i < 0:
+            return out
+        out.append((es[i + 5] >> 3) & 7)
+        i += 4
+
+
+def display_pts(types: list, first: int, ticks: int) -> list:
+    """Each picture's presentation time in stream order: an anchor (I or
+    P) shows after the B pictures that follow it in the stream."""
+    order = []
+    pending = None
+    for k, t in enumerate(types):
+        if t == 3:
+            order.append(k)
+        else:
+            if pending is not None:
+                order.append(pending)
+            pending = k
+    if pending is not None:
+        order.append(pending)
+    pts = [0] * len(types)
+    for shown, k in enumerate(order):
+        pts[k] = first + shown * ticks
+    return pts
+
+
+def cc_user_data(pairs) -> bytes:
+    """ATSC A/53 caption user data (GA94, cc_data) carrying CEA-608
+    byte pairs of field 1."""
+    trips = b"".join(bytes([0xFC, a, b]) for a, b in pairs)
+    cc = bytes([0x40 | len(pairs), 0xFF]) + trips
+    return b"\x00\x00\x01\xb2GA94\x03" + cc + b"\xff"
+
+
+def cea608_popon(text: str) -> list:
+    """CEA-608 pairs that load ``text`` into the pop-on buffer: RCL
+    (doubled), ENM, a PAC on row 1, then the characters.  EOC (0x14,
+    0x2F) shows it and EDM (0x14, 0x2C) clears it."""
+    pairs = [(0x14, 0x20), (0x14, 0x20), (0x14, 0x2E), (0x14, 0x40)]
+    data = text.encode("ascii")
+    for i in range(0, len(data), 2):
+        pairs.append((data[i], data[i + 1] if i + 1 < len(data) else 0))
+    return pairs
+
+
+def insert_user_data(au: bytes, user: bytes) -> bytes:
+    """An MPEG-2 access unit with ``user`` after its picture header (and
+    its picture coding extension), before the first slice."""
+    i = au.find(b"\x00\x00\x01\x00")
+    j = i + 4
+    while True:
+        j = au.find(b"\x00\x00\x01", j)
+        if j < 0 or 0x01 <= au[j + 3] <= 0xAF:
+            break
+        j += 4
+    j = len(au) if j < 0 else j
+    return au[:j] + user + au[j:]
+
+
+# ---------------------------------------------------------------------------
+# MPEG-2 program stream (VOB)
+# ---------------------------------------------------------------------------
+def pack_header() -> bytes:
+    """An MPEG-2 pack header (14 bytes, SCR 0, no stuffing)."""
+    return b"\x00\x00\x01\xba" + bytes([0x44, 0, 4, 0, 4, 1, 0, 1, 0x89,
+                                         0xF8])
+
+
+def _ts33(pts: int, marker: int) -> bytes:
+    v = pts & ((1 << 33) - 1)
+    return bytes([marker | (((v >> 30) & 7) << 1) | 1, (v >> 22) & 0xFF,
+                  (((v >> 15) & 0x7F) << 1) | 1, (v >> 7) & 0xFF,
+                  ((v & 0x7F) << 1) | 1])
+
+
+def ps_pes(sid: int, payload: bytes, pts=None) -> bytes:
+    """One MPEG-2 PES packet with an explicit length (PS)."""
+    ext = _ts33(pts, 0x20) if pts is not None else b""
+    body = bytes([0x80, 0x80 if pts is not None else 0, len(ext)]) + ext \
+        + payload
+    return b"\x00\x00\x01" + bytes([sid]) + len(body).to_bytes(2, "big") \
+        + body
+
+
+def ac3_sub(payload: bytes) -> bytes:
+    """Private stream 1 AC-3 substream 0x80: id, frame count, first
+    access."""
+    return bytes([0x80, 1, 0, 1]) + payload
+
+
+def lpcm_sub(payload: bytes) -> bytes:
+    """Private stream 1 DVD LPCM substream 0xA0: id, frame count, first
+    access, emphasis/frame number, quantization/rate/channels (16-bit,
+    48 kHz, stereo), dynamic range: the 7 bytes PSDemuxer strips, byte 5
+    its header."""
+    return bytes([0xA0, 1, 0, 4, 0, 0x01, 0x80]) + payload
+
+
+def spu_sub(spu: bytes) -> bytes:
+    """Private stream 1 subpicture (VobSub) substream 0x20."""
+    return bytes([0x20]) + spu
+
+
+def build_ps(units) -> bytes:
+    """A program stream of ``units``, each (at, stream id, data, wrap,
+    pts), packed in the order of ``at`` (a video unit's decode time, an
+    audio or subpicture unit's pts; ties keep the given order).  Each
+    unit's data is cut into chunks of at most PS_CHUNK bytes, each a
+    pack and a PES packet whose payload is ``wrap(chunk)`` (a private
+    stream 1 substream header) or the chunk; the first carries ``pts``."""
+    out = bytearray()
+    for _at, sid, data, wrap, pts in sorted(units, key=lambda u: u[0]):
+        for off in range(0, max(1, len(data)), PS_CHUNK):
+            part = data[off:off + PS_CHUNK]
+            out += pack_header()
+            out += ps_pes(sid, wrap(part) if wrap else part,
+                          pts if off == 0 else None)
+    out += b"\x00\x00\x01\xb9"
+    return bytes(out)
+
+
+def video_units(es: bytes, first: int, ticks: int, sid: int = 0xE0,
+                user=None) -> list:
+    """build_ps units of an MPEG-2 stream: one a picture in stream
+    order, at its decode time, with its presentation time; ``user``
+    maps a picture's stream index to user data put before its slices."""
+    aus = split_pictures(es)
+    pts = display_pts(picture_types(es), first, ticks)
+    return [(first + (k - 1) * ticks, sid,
+             insert_user_data(au, user[k]) if user and k in user else au,
+             None, pts[k]) for k, au in enumerate(aus)]
+
+
+def s16be_lpcm(pcm: np.ndarray) -> bytes:
+    """float (n, ch) → big-endian 16-bit samples, as DVD LPCM holds them."""
+    return np.clip(np.round(pcm * 32767), -32768, 32767).astype(
+        ">i2").tobytes()
+
+
+# ---------------------------------------------------------------------------
+# DVD-Video IFOs
+# ---------------------------------------------------------------------------
+def _bcd(v):
+    return ((v // 10) << 4) | (v % 10)
+
+
+def pb_time(seconds, fps=30):
+    """A PGC/cell playback time: BCD hh mm ss, frames with the rate."""
+    s = int(seconds)
+    f = int(round((seconds - s) * fps))
+    return bytes([_bcd(s // 3600), _bcd((s % 3600) // 60), _bcd(s % 60),
+                  (0xC0 if fps == 30 else 0x40) | _bcd(f)])
+
+
+def make_vmg(entries) -> bytes:
+    """VIDEO_TS.IFO: entries (nr_ptts, vts_nr, vts_ttn), one a title."""
+    ifo = bytearray(2048)
+    ifo[0:12] = b"DVDVIDEO-VMG"
+    ifo[0xC4:0xC8] = (1).to_bytes(4, "big")     # TT_SRPT at sector 1
+    srpt = bytearray(8 + 12 * len(entries))
+    srpt[0:2] = len(entries).to_bytes(2, "big")
+    for i, (ptts, vts, ttn) in enumerate(entries):
+        e = 8 + i * 12
+        srpt[e] = 0x38                          # playback type
+        srpt[e + 1] = 1                         # angles
+        srpt[e + 2:e + 4] = ptts.to_bytes(2, "big")
+        srpt[e + 6] = vts
+        srpt[e + 7] = ttn
+    return bytes(ifo) + bytes(srpt).ljust(2048, b"\x00")
+
+
+def make_vts(duration_s, cell_secs, palette_yuv) -> bytes:
+    """VTS_xx_0.IFO: one PGC of ``cell_secs`` cells, one program each,
+    with its playback time and a 16-entry 0YCrCb palette."""
+    ifo = bytearray(2048)
+    ifo[0:12] = b"DVDVIDEO-VTS"
+    ifo[0xCC:0xD0] = (1).to_bytes(4, "big")     # VTS_PGCIT at sector 1
+    n_cells = len(cell_secs)
+    pgc = bytearray(0x100 + n_cells * 24)
+    pgc[2] = n_cells                            # programs == cells here
+    pgc[3] = n_cells
+    pgc[4:8] = pb_time(duration_s)
+    for i, v in enumerate(palette_yuv):
+        pgc[0xA4 + 4 * i:0xA8 + 4 * i] = v.to_bytes(4, "big")
+    pm_off, cp_off = 0xF0, 0x100
+    pgc[0xE6:0xE8] = pm_off.to_bytes(2, "big")
+    pgc[0xE8:0xEA] = cp_off.to_bytes(2, "big")
+    for p in range(n_cells):
+        pgc[pm_off + p] = p + 1                 # program p → cell p+1
+    for c, dur in enumerate(cell_secs):
+        pgc[cp_off + c * 24 + 4:cp_off + c * 24 + 8] = pb_time(dur)
+    pgcit = bytearray(16)
+    pgcit[0:2] = (1).to_bytes(2, "big")
+    pgcit[12:16] = (16).to_bytes(4, "big")      # pgc offset from table
+    return bytes(ifo) + (bytes(pgcit) + bytes(pgc)).ljust(2048, b"\x00")
+
+
+# palette: 0 black, 1 white (0YCrCb), the rest black
+WHITE_CARD_PALETTE = [0x108080, 0xEB8080] + [0x108080] * 14
+
+
+def write_dvd(root: str, ps: bytes, n_vobs: int, cell_secs) -> str:
+    """A DVD-Video folder ``root``/VIDEO_TS: title 1 in VTS 1 over
+    ``ps`` cut into ``n_vobs`` VOBs at 2048-byte boundaries, with one
+    chapter a cell.  Returns ``root``."""
+    vt = os.path.join(root, "VIDEO_TS")
+    os.makedirs(vt, exist_ok=True)
+    step = ((len(ps) + n_vobs - 1) // n_vobs + 2047) // 2048 * 2048
+    for k in range(n_vobs):
+        with open(os.path.join(vt, f"VTS_01_{k + 1}.VOB"), "wb") as f:
+            f.write(ps[k * step:(k + 1) * step])
+    with open(os.path.join(vt, "VTS_01_0.IFO"), "wb") as f:
+        f.write(make_vts(sum(cell_secs), cell_secs, WHITE_CARD_PALETTE))
+    with open(os.path.join(vt, "VIDEO_TS.IFO"), "wb") as f:
+        f.write(make_vmg([(len(cell_secs), 1, 1)]))
+    return root
+
+
+# ---------------------------------------------------------------------------
+# MPEG transport stream
+# ---------------------------------------------------------------------------
+def crc32_mpeg(data: bytes) -> int:
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc ^= b << 24
+        for _ in range(8):
+            crc = ((crc << 1) ^ 0x04C11DB7) if crc & 0x80000000 \
+                else (crc << 1)
+            crc &= 0xFFFFFFFF
+    return crc
+
+
+def psi_packet(pid: int, table: bytes, cc: int = 0) -> bytes:
+    sec = table + crc32_mpeg(table).to_bytes(4, "big")
+    payload = b"\x00" + sec                       # pointer_field
+    hdr = bytes([0x47, 0x40 | (pid >> 8), pid & 0xFF, 0x10 | cc])
+    return hdr + payload + b"\xff" * (184 - len(payload))
+
+
+def pat(pmt_pid: int = 0x20, cc: int = 0) -> bytes:
+    body = (b"\x00" + (0xB000 | 13).to_bytes(2, "big") + b"\x00\x01"
+            + b"\xc1\x00\x00" + b"\x00\x01"
+            + bytes([0xE0 | (pmt_pid >> 8), pmt_pid & 0xFF]))
+    return psi_packet(0, body, cc)
+
+
+def pmt(streams, pmt_pid: int = 0x20, cc: int = 0) -> bytes:
+    """streams: (stream_type, pid, descriptors bytes)."""
+    es = b"".join(bytes([st, 0xE0 | (pid >> 8), pid & 0xFF,
+                         0xF0 | (len(d) >> 8), len(d) & 0xFF]) + d
+                  for st, pid, d in streams)
+    pcr = streams[0][1]
+    body = (b"\x02" + (0xB000 | (9 + 4 + len(es))).to_bytes(2, "big")
+            + b"\x00\x01\xc1\x00\x00"
+            + bytes([0xE0 | (pcr >> 8), pcr & 0xFF]) + b"\xf0\x00" + es)
+    return psi_packet(pmt_pid, body, cc)
+
+
+def lang_descriptor(code: str) -> bytes:
+    return bytes([0x0A, 4]) + code.encode("latin-1") + b"\x00"
+
+
+def ts_pes(stream_id: int, pts: int, data: bytes) -> bytes:
+    """A TS-borne PES packet with a pts (length 0: unbounded)."""
+    return (b"\x00\x00\x01" + bytes([stream_id]) + b"\x00\x00"
+            + b"\x80\x80\x05" + _ts33(pts, 0x20) + data)
+
+
+def ts_packets(pid: int, pes: bytes, cc: int) -> tuple:
+    """A PES packet cut into 188-byte TS packets, the last padded by an
+    adaptation field; returns (bytes, next continuity counter)."""
+    out = bytearray()
+    pos = 0
+    first = True
+    while pos < len(pes):
+        chunk = pes[pos:pos + 184]
+        pos += len(chunk)
+        flags = (0x40 if first else 0x00) | (pid >> 8)
+        if len(chunk) == 184:
+            out += bytes([0x47, flags, pid & 0xFF, 0x10 | (cc & 0xF)]) + chunk
+        else:
+            af_len = 183 - len(chunk)
+            af = bytes([af_len]) + (bytes([0]) + b"\xff" * (af_len - 1)
+                                    if af_len >= 1 else b"")
+            out += bytes([0x47, flags, pid & 0xFF, 0x30 | (cc & 0xF)]) \
+                + af + chunk
+        cc = (cc + 1) & 0xF
+        first = False
+    return bytes(out), cc
+
+
+def build_ts(streams, units) -> bytes:
+    """A single-program TS: PAT and PMT (``streams``: (stream_type, pid,
+    descriptors)), then ``units`` — (at, pid, stream_id, data, pts) — in
+    the order of ``at``, one PES packet each, with per-PID continuity
+    counters."""
+    out = bytearray(pat() + pmt(streams))
+    cc = {}
+    for _at, pid, sid, data, pts in sorted(units, key=lambda u: u[0]):
+        pk, cc[pid] = ts_packets(pid, ts_pes(sid, pts, data), cc.get(pid, 0))
+        out += pk
+    return bytes(out)
+
+
+def m2ts_wrap(ts: bytes) -> bytes:
+    """188-byte TS → m2ts (a 4-byte arrival timestamp before each)."""
+    out = bytearray()
+    for i in range(0, len(ts), 188):
+        out += (i // 188).to_bytes(4, "big") + ts[i:i + 188]
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# Blu-ray
+# ---------------------------------------------------------------------------
+def make_mpls(clips, item_ticks, marks) -> bytes:
+    """An MPLS playlist: play items (clip id, in 0, out ``item_ticks``
+    at 45 kHz) and entry marks (item index, clip-time ticks)."""
+    def play_item(clip):
+        # clip(5) codec(4) flags(2) stc_id(1) in(4) out(4)
+        body = (clip.encode() + b"M2TS" + b"\x00\x00\x00"
+                + (0).to_bytes(4, "big") + item_ticks.to_bytes(4, "big")
+                + b"\x00" * 8)
+        return len(body).to_bytes(2, "big") + body
+
+    items = b"".join(play_item(c) for c in clips)
+    playlist = (b"\x00\x00\x00\x00" + b"\x00\x00"
+                + len(clips).to_bytes(2, "big") + (0).to_bytes(2, "big")
+                + items)
+    mk = b"".join(bytes([0, 1]) + item.to_bytes(2, "big")
+                  + ticks.to_bytes(4, "big") + b"\xff\xff"
+                  + (0).to_bytes(4, "big") for item, ticks in marks)
+    marks_sec = b"\x00\x00\x00\x00" + len(marks).to_bytes(2, "big") + mk
+    hdr = b"MPLS0200" + (40).to_bytes(4, "big") \
+        + (40 + len(playlist)).to_bytes(4, "big") + (0).to_bytes(4, "big")
+    return hdr.ljust(40, b"\x00") + playlist + marks_sec
+
+
+def write_bd(root: str, ts: bytes, n_clips: int, seconds: float,
+             marks) -> str:
+    """A BDMV folder under ``root``: ``ts`` as m2ts cut into ``n_clips``
+    clips at packet boundaries, one playlist over them whose items last
+    ``seconds`` / n_clips each, with ``marks`` (item, seconds into the
+    item) as chapters.  Returns ``root``."""
+    bd = os.path.join(root, "BDMV")
+    os.makedirs(os.path.join(bd, "PLAYLIST"), exist_ok=True)
+    os.makedirs(os.path.join(bd, "STREAM"), exist_ok=True)
+    m2 = m2ts_wrap(ts)
+    n_pk = len(m2) // 192
+    names = []
+    for k in range(n_clips):
+        a = k * n_pk // n_clips * 192
+        b = (k + 1) * n_pk // n_clips * 192
+        names.append(f"{k + 1:05d}")
+        with open(os.path.join(bd, "STREAM", names[-1] + ".m2ts"),
+                  "wb") as f:
+            f.write(m2[a:b])
+    ticks = int(round(seconds / n_clips * 45000))
+    with open(os.path.join(bd, "PLAYLIST", "00000.mpls"), "wb") as f:
+        f.write(make_mpls(names, ticks, [(i, int(round(s * 45000)))
+                                         for i, s in marks]))
+    return root

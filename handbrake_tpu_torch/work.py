@@ -11,13 +11,15 @@ encoder share the ``filter+encode`` thread, so one CUDA stream carries
 the crop/scale products and the encoder's analysis; the audio chains run
 on the same thread, on the host, as in the reference.
 
-The port runs H.264 jobs from y4m, H.264 (annex-B, mp4, mkv) sources into
-mp4, mkv or webm, with audio tracks decoded from PCM, AAC, AC-3, MP2 and
-FLAC and encoded to AAC, AC-3, FLAC or PCM, or passed through, and with
+The port runs H.264 jobs from y4m, H.264 (annex-B, mp4, mkv, TS, PS),
+MPEG-2 (PS/VOB, TS, DVD and Blu-ray folders) and MJPEG (AVI) sources into
+mp4, mkv or webm, with audio tracks decoded from PCM, DVD LPCM, AAC,
+AC-3, MP2 and FLAC and encoded to AAC, AC-3, FLAC or PCM, or passed through, and with
 subtitles: SRT/SSA/VTT files imported, PGS, VobSub and text tracks of the
 source and CEA-608 captions of an H.264 stream decoded, each kept as a
 tx3g (mp4) or S_TEXT/UTF8 (mkv) track or burned in by the render_sub
-filter on the job's device.  The device comes only from the caller
+filter on the job's device.  A DVD's VobSub tracks take the IFO's
+palette, and CEA-608 captions also come from MPEG-2 user data.  The device comes only from the caller
 (``device=None`` is the CUDA card, which raises where there is none).
 The libavcodec audio codecs raise NotImplementedError: they are a later
 slice.  An audio track that cannot be decoded raises, and so does a
@@ -1217,6 +1219,12 @@ def _make_audio_decoder(ti, spec=None):
         # passthrough: keep the compressed packets intact (WORK_PASS
         # role) — decoding would hand PCM to a chain that forwards data
         return _CopyAudioDecoder()
+    if ti.codec == "lpcm" and not ti.extradata:
+        # an LPCM track without the DVD substream header that PSDemuxer
+        # reads (TS stream type 0x80, Blu-ray LPCM, has a header of its
+        # own): the reference decodes it as DVD LPCM, which it is not
+        raise WorkError("lpcm: no DVD LPCM header on this track (Blu-ray "
+                        "LPCM has no decoder)")
     if ti.codec in ("pcm_s16le", "lpcm"):
         return _PcmDecoder(ti)
     if ti.codec == "flac":
@@ -1232,7 +1240,8 @@ def _make_audio_decoder(ti, spec=None):
     if ti.codec in ("mp2", "mp1", "mpa"):
         return _Mp2PacketDecoder(ti)
     if ti.codec in _AV_AUDIO:
-        _unported(f"{ti.codec} audio decoding (the libavcodec catalog)")
+        _unported(f"{ti.codec} audio decoding (the libavcodec catalog, "
+                  f"ROADMAP item 1.10)")
     raise WorkError(f"audio codec {ti.codec!r}: no decoder")
 
 

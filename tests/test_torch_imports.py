@@ -17,6 +17,9 @@ from handbrake_tpu_torch.utils.device import resolve_device
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(handbrake_tpu_torch.__file__))
 BLOCKED = ("jax", "jaxlib", "handbrake_tpu")
+# what only the fixture generator's main() may import: OpenCV and the
+# libavcodec loaders of tests/, which the machine with the card lacks
+HOST_ONLY = ("cv2", "ffvideo", "ffdec", "ffaudio")
 
 _IMPORT_ALL = r"""
 import importlib, importlib.util, pkgutil, sys
@@ -70,11 +73,14 @@ JOB_PATH = ("core.buffer", "core.fifo", "core.pipeline", "core.state",
             "subtitles.srt", "subtitles.raster", "subtitles.pgs",
             "subtitles.vobsub", "subtitles.cea608", "codecs.hdr",
             "codecs.h264.cavlc", "codecs.h264.predict",
-            "codecs.h264.encoder_b")
+            "codecs.h264.encoder_b", "sources.ps", "sources.dvd",
+            "sources.ts", "sources.bd", "sources.avi", "codecs.mpeg2",
+            "tools.source_builders", "tools.make_source_fixtures")
 
 
 def test_port_imports_with_jax_blocked():
-    code = _IMPORT_ALL % (BLOCKED, os.path.join(ROOT, "chip_smoke.py"))
+    code = _IMPORT_ALL % (BLOCKED + HOST_ONLY,
+                          os.path.join(ROOT, "chip_smoke.py"))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
@@ -127,3 +133,20 @@ def test_tf32_is_off():
     resolve_device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_host_only_modules_are_imported_inside_functions():
+    """cv2 and the libavcodec loaders are imported only in function
+    bodies (the fixture generator's main()), never by a module."""
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in HOST_ONLY, (path, n)

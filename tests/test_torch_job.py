@@ -379,9 +379,13 @@ def test_formerly_unported_cli_option_runs(src, tmp_path, monkeypatch, opts):
 
 
 def test_unported_sources_raise(tmp_path):
-    """mp4, mkv and annex-B H.264 sources are ported (test_torch_job_sources
-    and test_torch_h264dec hold them); AVI, MPEG-TS, HEVC elementary
-    streams and disc folders are not."""
+    """AVI, MPEG-TS/PS and disc folders are ported (test_torch_sources and
+    test_torch_job_discs hold them): a malformed AVI, a TS without sync
+    and an empty VIDEO_TS raise what the JAX package's do_job raises on
+    them, and the CLI exits as its CLI does.  HEVC elementary streams are
+    not ported (ROADMAP item 1.9)."""
+    from handbrake_tpu.sources.common import DemuxError as JDemuxError
+    from handbrake_tpu_torch.sources.common import DemuxError
     avi = tmp_path / "a.avi"
     avi.write_bytes(b"RIFF" + bytes(4) + b"AVI " + bytes(64))
     ts = tmp_path / "a.ts"
@@ -390,10 +394,15 @@ def test_unported_sources_raise(tmp_path):
     hevc.write_bytes(b"\x00\x00\x00\x01\x40\x01" + bytes(32))
     disc = tmp_path / "VIDEO_TS"
     disc.mkdir()
-    for path in (str(avi), str(ts), str(hevc), str(disc)):
-        with pytest.raises(NotImplementedError):
+    for path in (str(avi), str(ts), str(disc)):
+        with pytest.raises(JDemuxError) as want:
+            jwork.do_job(_job(JS, path, str(tmp_path / "r.mp4"), "unscaled"))
+        with pytest.raises(DemuxError) as got:
             work.do_job(_job(S, path, str(tmp_path / "x.mp4"), "unscaled"),
                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        cli(["-i", str(avi), "-o", str(tmp_path / "y.mp4"), "--device",
-             "cpu"])
+        assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError, match="item 1.9"):
+        work.do_job(_job(S, str(hevc), str(tmp_path / "x.mp4"), "unscaled"),
+                    device="cpu")
+    args = ["-i", str(avi), "-o", str(tmp_path / "y.mp4")]
+    assert cli([*args, "--device", "cpu"]) == jcli(args) != 0

@@ -1,0 +1,482 @@
+"""The port's disc and stream demuxers (``sources/{ps,dvd,ts,bd,avi}.py``)
+held against the JAX package's on the same files: tracks, durations,
+chapters and every packet (track, pts, dts, duration, bytes).  The files
+are built here from the committed fixtures (``tests/data/torch_sources``)
+and the port's H.264 and AC-3 encoders, by
+``handbrake_tpu_torch/tools/source_builders.py``.  Also the copies: each
+new module equals its original, with each intended edit listed; and
+``open_source``'s routing.  The shared faults that stay so the files equal
+the reference's are shown here too (ROADMAP §3.4)."""
+import filecmp
+import functools
+import os
+
+import numpy as np
+import pytest
+
+import handbrake_tpu
+import handbrake_tpu_torch
+from handbrake_tpu.sources import bd as jbd
+from handbrake_tpu.sources import dvd as jdvd
+from handbrake_tpu.sources.avi import AVIDemuxer as JAVIDemuxer
+from handbrake_tpu.sources.probe import open_source as jopen
+from handbrake_tpu.sources.ps import PSDemuxer as JPSDemuxer
+from handbrake_tpu.sources.ts import TSDemuxer as JTSDemuxer
+from handbrake_tpu_torch.audio.ac3enc import Ac3Encoder
+from handbrake_tpu_torch.codecs.h264.encoder import EncoderConfig, H264Encoder
+from handbrake_tpu_torch.codecs.registry import (Mpeg2VideoDecoder,
+                                                 create_video_decoder)
+from handbrake_tpu_torch.core.buffer import Buffer
+from handbrake_tpu_torch.sources import bd, dvd
+from handbrake_tpu_torch.sources.avi import AVIDemuxer
+from handbrake_tpu_torch.sources.probe import open_source, scan_paths
+from handbrake_tpu_torch.sources.ps import PSDemuxer
+from handbrake_tpu_torch.sources.ts import TSDemuxer
+from handbrake_tpu_torch.subtitles.vobsub import build_spu
+from handbrake_tpu_torch.tools import source_builders as B
+from handbrake_tpu_torch.utils.synth import make_clip
+
+FRAME = 3003
+T0 = 4 * FRAME
+
+
+@functools.lru_cache(None)
+def h264_aus(w=64, h=48, n=8):
+    enc = H264Encoder(EncoderConfig(width=w, height=h, qp=28, gop=4),
+                      device="cpu")
+    return tuple(enc.encode_frame(*f) for f in make_clip(w, h, n, seed=4))
+
+
+def tone(sr, ch, n, seed):
+    t = np.arange(n) / sr
+    rng = np.random.default_rng(seed)
+    return np.stack([0.4 * np.sin(2 * np.pi * (440 + 110 * c) * t)
+                     + 0.02 * rng.standard_normal(n) for c in range(ch)],
+                    1).astype(np.float32)
+
+
+@functools.lru_cache(None)
+def ac3_frames(ch=2, seconds=0.5, seed=1):
+    enc = Ac3Encoder(48000, ch, 192000 if ch == 2 else 384000)
+    return tuple(enc.encode(tone(48000, ch, int(48000 * seconds), seed))
+                 + enc.flush())
+
+
+def mp2_frames():
+    data = B.fixture("mp2_48k_stereo.mp2")       # 128 kb/s: 384 B frames
+    return [data[i:i + 384] for i in range(0, len(data), 384)]
+
+
+def read(d):
+    """Everything a demuxer gives, closed after."""
+    try:
+        tracks = [(t.kind, t.codec, t.width, t.height, t.frame_rate,
+                   t.par_num, t.par_den, t.sample_rate, t.channels,
+                   t.extradata, t.language) for t in d.tracks]
+        pkts = [(trk, b.pts, b.dts, b.duration, b.stop, b.track_kind,
+                 bytes(b.data)) for trk, b in d.packets()]
+        return tracks, pkts, d.duration, list(getattr(d, "chapters", []))
+    finally:
+        d.close()
+
+
+def same(Port, Ref, path):
+    got, want = read(Port(path)), read(Ref(path))
+    assert got == want
+    return got
+
+
+# ---------------------------------------------------------------------------
+# MPEG transport streams
+# ---------------------------------------------------------------------------
+def h264_ts(n=8, audio=()):
+    """H.264 on PID 0x100 and the ``audio`` tracks: (stream_type, pid,
+    stream_id, descriptors, frames, ticks a frame)."""
+    streams = [(0x1B, 0x100, b"")] + [(st, pid, desc)
+                                       for st, pid, _, desc, _, _ in audio]
+    units = [(T0 + i * FRAME, 0x100, 0xE0, au, T0 + i * FRAME)
+             for i, au in enumerate(h264_aus(n=n))]
+    for st, pid, sid, desc, frames, ticks in audio:
+        units += [(T0 + k * ticks, pid, sid, f, T0 + k * ticks)
+                  for k, f in enumerate(frames)]
+    return B.build_ts(streams, units)
+
+
+@pytest.fixture(scope="module")
+def ts_files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tsrc")
+    ts = h264_ts(audio=[
+        (0x03, 0x101, 0xC0, B.lang_descriptor("fre"), mp2_frames()[:10],
+         2160),
+        (0x06, 0x102, 0xBD, bytes([0x6A, 1, 0]) + B.lang_descriptor("eng"),
+         ac3_frames(), 2880)])
+    files = {"ts": ts, "m2ts": B.m2ts_wrap(ts)}
+    # a corrupt sync byte of the 6th packet, after the PSI
+    bad = bytearray(files["m2ts"])
+    bad[5 * 192 + 4] = 0x00
+    files["m2ts-corrupt-sync"] = bytes(bad)
+    bad = bytearray(ts)
+    bad[(len(ts) // 188 // 2) * 188] = 0x11
+    files["ts-corrupt-sync"] = bytes(bad)
+    # a non-PUSI video packet dropped mid-stream (a continuity gap)
+    pkts = [ts[i:i + 188] for i in range(0, len(ts), 188)]
+    k = next(i for i, p in enumerate(pkts[20:], 20)
+             if ((p[1] & 0x1F) << 8 | p[2]) == 0x100 and not p[1] & 0x40)
+    files["ts-cc-gap"] = b"".join(pkts[:k] + pkts[k + 1:])
+    # a PES header split across two TS packets by a long adaptation field
+    pes = B.ts_pes(0xE0, 123456, b"\xAB" * 100)
+    room, pid = 7, 0x100
+    af_len = 183 - room
+    p1 = bytes([0x47, 0x40 | (pid >> 8), pid & 0xFF, 0x30]) \
+        + bytes([af_len, 0]) + b"\xff" * (af_len - 1) + pes[:room]
+    rest = pes[room:]
+    pad = 184 - len(rest)
+    p2 = bytes([0x47, pid >> 8, pid & 0xFF, 0x31]) + bytes([pad - 1, 0]) \
+        + b"\xff" * (pad - 2) + rest
+    files["ts-split-pes-header"] = B.pat() + B.pmt([(0x1B, pid, b"")]) \
+        + p1 + p2
+    paths = {}
+    for name, data in files.items():
+        ext = ".m2ts" if name.startswith("m2ts") else ".ts"
+        paths[name] = str(d / (name + ext))
+        with open(paths[name], "wb") as f:
+            f.write(data)
+    return paths
+
+
+@pytest.mark.parametrize("name", ["ts", "m2ts", "m2ts-corrupt-sync",
+                                  "ts-corrupt-sync", "ts-cc-gap",
+                                  "ts-split-pes-header"])
+def test_ts_demuxer_equals_reference(ts_files, name):
+    tracks, pkts, duration, _ = same(TSDemuxer, JTSDemuxer, ts_files[name])
+    video = [p for p in pkts if p[0] == 0]
+    if name == "ts-split-pes-header":
+        assert [(p[1], p[6]) for p in video] == [(123456, b"\xAB" * 100)]
+        return
+    assert [t[:2] for t in tracks] == [("video", "h264"), ("audio", "mp2"),
+                                       ("audio", "ac3")]
+    assert [t[10] for t in tracks] == ["und", "fre", "eng"]
+    assert tracks[0][2:4] == (64, 48)
+    if name in ("ts", "m2ts"):
+        assert [p[1] for p in video] == [T0 + i * FRAME for i in range(8)]
+        assert b"".join(p[6] for p in video) == b"".join(h264_aus())
+        assert [p[6] for p in pkts if p[0] == 2] == list(ac3_frames())
+        assert TSDemuxer(ts_files[name]).psz == (192 if name == "m2ts"
+                                                 else 188)
+    else:
+        assert len(video) >= 6       # one PES lost at most a fault
+
+
+def test_open_source_routes_ts(ts_files):
+    for name in ("ts", "m2ts"):
+        src = open_source(ts_files[name])
+        assert isinstance(src, TSDemuxer)
+        src.close()
+
+
+# ---------------------------------------------------------------------------
+# MPEG program streams and DVD folders
+# ---------------------------------------------------------------------------
+def dvd_units(es, spu_at=1):
+    """The 176x144 fixture's pictures, a 0.4 s AC-3 track, DVD LPCM in
+    pts-stamped packs of 480 samples and a white VobSub card."""
+    units = B.video_units(es, T0, FRAME)
+    units += [(T0 + k * 2880, 0xBD, f, B.ac3_sub, T0 + k * 2880)
+              for k, f in enumerate(ac3_frames())]
+    lp = tone(48000, 2, 48000 * 2 // 5, 2)
+    units += [(T0 + k * 900, 0xBD, B.s16be_lpcm(lp[k * 480:(k + 1) * 480]),
+               B.lpcm_sub, T0 + k * 900) for k in range(len(lp) // 480)]
+    card = np.ones((16, 32), np.uint8)
+    spu = build_spu(card, x=30, y=20, stop_delay=(6 * 3000) // 1024)
+    at = T0 + spu_at * FRAME
+    units.append((at, 0xBD, spu, B.spu_sub, at))
+    return units
+
+
+@pytest.fixture(scope="module")
+def ps_files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("psrc")
+    es = B.fixture("mpeg2_176x144.m2v")
+    paths = {}
+    ps = B.build_ps(dvd_units(es))
+    paths["dvd"] = B.write_dvd(str(d / "disc"), ps, 2, [0.2, 0.2])
+    paths["vob"] = str(d / "a.vob")
+    with open(paths["vob"], "wb") as f:
+        f.write(ps)
+    # H.264 in a PS with an AC-3 substream (the reference's round trip)
+    units = [(T0 + i * FRAME, 0xE0, au, None, T0 + i * FRAME)
+             for i, au in enumerate(h264_aus())]
+    units += [(T0 + k * 2880, 0xBD, f, B.ac3_sub, T0 + k * 2880)
+              for k, f in enumerate(ac3_frames())]
+    paths["h264.mpg"] = str(d / "h264.mpg")
+    with open(paths["h264.mpg"], "wb") as f:
+        f.write(B.build_ps(units))
+    return paths
+
+
+@pytest.mark.parametrize("name", ["vob", "h264.mpg"])
+def test_ps_demuxer_equals_reference(ps_files, name):
+    tracks, pkts, duration, _ = same(PSDemuxer, JPSDemuxer, ps_files[name])
+    video = b"".join(p[6] for p in pkts if p[0] == 0)
+    if name == "vob":
+        assert [t[:2] for t in tracks] == [
+            ("video", "mpeg2"), ("audio", "ac3"), ("audio", "lpcm"),
+            ("subtitle", "vobsub")]
+        assert video == B.fixture("mpeg2_176x144.m2v")
+        assert tracks[2][7:10] == (48000, 2, bytes([16]))
+    else:
+        assert [t[:2] for t in tracks] == [("video", "h264"),
+                                           ("audio", "ac3")]
+        assert video == b"".join(h264_aus())
+        assert tracks[0][2:4] == (64, 48)
+    assert [p[6] for p in pkts if p[0] == 1] == list(ac3_frames())
+    src = open_source(ps_files[name])
+    assert isinstance(src, PSDemuxer)
+    src.close()
+
+
+def test_dvd_scan_equals_reference(ps_files):
+    got, want = dvd.scan_dvd(ps_files["dvd"]), jdvd.scan_dvd(ps_files["dvd"])
+    assert len(got) == len(want) == 1
+    assert vars(got[0]) == vars(want[0])
+    t = got[0]
+    assert abs(t.duration_s - 0.4) < 0.05
+    assert len(t.chapter_times) == 2 and abs(t.chapter_times[1] - 0.2) < 0.05
+    assert t.palette[:2] == [0x000000, 0xFFFFFF]
+    assert [os.path.basename(p) for p in t.vob_paths] == [
+        "VTS_01_1.VOB", "VTS_01_2.VOB"]
+    assert dvd.is_dvd_folder(ps_files["dvd"])
+    assert scan_paths(ps_files["dvd"]) == [ps_files["dvd"]]
+
+
+def test_dvd_title_demuxer_equals_reference(ps_files):
+    """open_dvd_title builds its PSDemuxer through __new__: every packet
+    across the two VOBs, the palette extradata and the chapters."""
+    got = read(dvd.open_dvd_title(ps_files["dvd"])[0])
+    assert got == read(jdvd.open_dvd_title(ps_files["dvd"])[0])
+    assert got == read(jopen(ps_files["dvd"]))
+    tracks, pkts, duration, chapters = got
+    assert tracks[3][9].startswith(b"palette: 000000, ffffff")
+    assert chapters == [(0, "Chapter 1"), (18000, "Chapter 2")]
+    assert b"".join(p[6] for p in pkts if p[0] == 0) == \
+        B.fixture("mpeg2_176x144.m2v")
+    # the folder's packets equal the single VOB's
+    assert pkts == read(PSDemuxer(ps_files["vob"]))[1]
+    src = open_source(ps_files["dvd"])
+    assert isinstance(src, PSDemuxer) and src.chapters == chapters
+    src.close()
+
+
+def test_ps_demuxer_attributes_match_its_init(ps_files):
+    """open_dvd_title makes its demuxer without __init__: it must hold
+    every attribute __init__ gives one."""
+    a = vars(PSDemuxer(ps_files["vob"]))
+    b = vars(dvd.open_dvd_title(ps_files["dvd"])[0])
+    assert set(a) <= set(b)
+
+
+# ---------------------------------------------------------------------------
+# Blu-ray folders
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def bd_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("bdsrc")
+    ts = h264_ts(n=8, audio=[(0x81, 0x1100, 0xBD, b"", ac3_frames(), 2880)])
+    root = B.write_bd(str(d / "disc"), ts, 2, 8 / 30, [(0, 0.0), (1, 0.05)])
+    # a shorter playlist that the longest-first order puts second
+    short = B.make_mpls(["00001"], 1000, [(0, 0)])
+    with open(os.path.join(root, "BDMV", "PLAYLIST", "00001.mpls"),
+              "wb") as f:
+        f.write(short)
+    return root
+
+
+def test_bd_scan_equals_reference(bd_dir):
+    got, want = bd.scan_bd(bd_dir), jbd.scan_bd(bd_dir)
+    assert [vars(t) for t in got] == [vars(t) for t in want]
+    assert [t.playlist for t in got] == ["00000.mpls", "00001.mpls"]
+    t = got[0]
+    assert len(t.clip_paths) == 2 and abs(t.duration_s - 8 / 30) < 0.01
+    assert len(t.chapter_times) == 2
+    assert abs(t.chapter_times[1] - (4 / 30 + 0.05)) < 0.01
+    assert bd.is_bd_folder(bd_dir) and scan_paths(bd_dir) == [bd_dir]
+
+
+def test_bd_title_demuxer_equals_reference(bd_dir):
+    got = read(bd.open_bd_title(bd_dir)[0])
+    assert got == read(jbd.open_bd_title(bd_dir)[0]) == read(jopen(bd_dir))
+    tracks, pkts, duration, chapters = got
+    assert [t[:2] for t in tracks] == [("video", "h264"), ("audio", "ac3")]
+    assert b"".join(p[6] for p in pkts if p[0] == 0) == \
+        b"".join(h264_aus())
+    assert len(chapters) == 2
+    src = open_source(bd_dir)
+    assert isinstance(src, TSDemuxer) and src.psz == 192
+    assert set(vars(TSDemuxer(src.path))) <= set(vars(src))
+    src.close()
+
+
+# ---------------------------------------------------------------------------
+# AVI
+# ---------------------------------------------------------------------------
+AVI = os.path.join(B.FIXTURES, "mjpeg_640x480.avi")
+
+
+def test_avi_demuxer_equals_reference():
+    tracks, pkts, duration, _ = same(AVIDemuxer, JAVIDemuxer, AVI)
+    assert tracks[0][:5] == ("video", "mjpeg", 640, 480, (25, 1))
+    assert len(pkts) == 6 and all(p[6][:2] == b"\xff\xd8" for p in pkts)
+    assert [p[1] for p in pkts] == [i * 3600 for i in range(6)]
+    src = open_source(AVI)
+    assert isinstance(src, AVIDemuxer)
+    src.close()
+
+
+def test_hevc_elementary_stream_still_raises(tmp_path):
+    p = tmp_path / "a.265"
+    p.write_bytes(b"\x00\x00\x00\x01\x40\x01" + bytes(32))
+    with pytest.raises(NotImplementedError, match="item 1.9"):
+        open_source(str(p))
+
+
+# ---------------------------------------------------------------------------
+# shared faults, left as the reference has them (ROADMAP §3.4)
+# ---------------------------------------------------------------------------
+def _patched_vob(tmp_path, aspect=None, rate=None, extra=()):
+    es = bytearray(B.fixture("mpeg2_176x144.m2v"))
+    i = es.find(b"\x00\x00\x01\xb3")
+    if aspect is not None:
+        es[i + 7] = (aspect << 4) | (es[i + 7] & 15)
+    if rate is not None:
+        es[i + 7] = (es[i + 7] & 0xF0) | rate
+    units = B.video_units(bytes(es), T0, FRAME) + list(extra)
+    p = str(tmp_path / "p.vob")
+    with open(p, "wb") as f:
+        f.write(B.build_ps(units))
+    return p, bytes(es)
+
+
+def test_shared_fault_16_9_dvd_reads_as_square_pixels(tmp_path):
+    """aspect_ratio_information 3 (16:9) is not read: the track and the
+    decoder's info say 1:1, in both packages (ps.py:271-275,
+    registry.py:263-268)."""
+    from handbrake_tpu.codecs.registry import create_video_decoder as jcvd
+    p, es = _patched_vob(tmp_path, aspect=3)
+    for D in (PSDemuxer, JPSDemuxer):
+        d = D(p)
+        assert (d.tracks[0].par_num, d.tracks[0].par_den) == (1, 1)
+        d.close()
+    for make in (create_video_decoder, jcvd):
+        dec = make("mpeg2")
+        dec.feed(Buffer(data=es, pts=0))
+        assert dec.info()["sar"] == (1, 1)
+
+
+def test_shared_fault_pal_vob_is_labelled_ntsc(tmp_path):
+    """frame_rate_code 3 (25 fps): the decoder's durations follow it,
+    but the demuxer's track says 30000/1001, in both packages."""
+    p, es = _patched_vob(tmp_path, rate=3)
+    tracks = read(PSDemuxer(p))[0]
+    assert tracks == read(JPSDemuxer(p))[0]
+    assert tracks[0][4] == (30000, 1001)
+    dec = Mpeg2VideoDecoder()
+    frames = dec.feed(Buffer(data=es, pts=0)) + dec.flush()
+    assert dec.dec.frame_rate == (25, 1)
+    assert {f.duration for f in frames} == {3600}
+
+
+def test_shared_fault_dts_substream_is_not_listed(tmp_path):
+    """A DVD DTS substream (private stream 1, 0x88) gets no track."""
+    def dts_sub(payload):
+        return bytes([0x88, 1, 0, 1]) + payload
+
+    dts = [(T0 + k * 3000, 0xBD, bytes(1000), dts_sub, T0 + k * 3000)
+           for k in range(4)]
+    p, _ = _patched_vob(tmp_path, extra=dts)
+    for D in (PSDemuxer, JPSDemuxer):
+        d = D(p)
+        assert [t.kind for t in d.tracks] == ["video"]
+        d.close()
+
+
+# ---------------------------------------------------------------------------
+# the copies
+# ---------------------------------------------------------------------------
+_MPEG2_FIELD_DCT = (
+    ("""frame prediction + frame DCT (progressive sequences; field/interlaced
+tools raise), custom quant matrices, full VLC layer (Tables B.1-B.15),
+half-pel MC, mismatch control.
+""", """frame prediction with frame or field DCT (the interlaced DVD's frame
+pictures; field pictures and field motion raise), custom quant
+matrices, full VLC layer (Tables B.1-B.15), half-pel MC, mismatch
+control.
+"""),
+    ("""                    self.mb_h = (self.h + 15) // 16
+            i += 4
+""", """                    # an interlaced sequence codes whole field pairs of
+                    # MB rows (6.3.3: 2 * ceil(h / 32))
+                    self.mb_h = (self.h + 15) // 16 if self.progressive \\
+                        else 2 * ((self.h + 31) // 32)
+            i += 4
+"""),
+    ("""        if not st["frame_pred"] and (intra or pattern):
+            br.u(1)                    # dct_type (frame DCT assumed)
+""", """        field_dct = 0
+        if not st["frame_pred"] and (intra or pattern):
+            field_dct = br.u(1)        # dct_type: 1 = field DCT
+"""),
+    ("""            self._add_block(planes, mb_x, mb_row, blk, blkpix, intra)
+""", """            self._add_block(planes, mb_x, mb_row, blk, blkpix, intra,
+                            field_dct)
+"""),
+    ("""    def _add_block(self, planes, mb_x, mb_row, blk, blkpix, intra):
+        y, u, v = planes
+        if blk < 4:
+            x0 = mb_x * 16 + (blk & 1) * 8
+            y0 = mb_row * 16 + (blk >> 1) * 8
+""", """    def _add_block(self, planes, mb_x, mb_row, blk, blkpix, intra,
+                   field_dct=0):
+        y, u, v = planes
+        step = 1
+        if blk < 4:
+            x0 = mb_x * 16 + (blk & 1) * 8
+            if field_dct:
+                # field DCT (6.1.3, Figure 6-13): luma blocks 0-1 hold the
+                # top field's lines of the MB, 2-3 the bottom field's
+                y0 = mb_row * 16 + (blk >> 1)
+                step = 2
+            else:
+                y0 = mb_row * 16 + (blk >> 1) * 8
+"""),
+    ("""        base = 0 if intra else tgt[y0:y0 + 8, x0:x0 + 8].astype(np.int32)
+        tgt[y0:y0 + 8, x0:x0 + 8] = np.clip(base + blkpix, 0, 255)""",
+     """        rows = slice(y0, y0 + 8 * step, step)
+        base = 0 if intra else tgt[rows, x0:x0 + 8].astype(np.int32)
+        tgt[rows, x0:x0 + 8] = np.clip(base + blkpix, 0, 255)"""))
+
+COPIES = {
+    "sources/ps.py": (),
+    "sources/dvd.py": (),
+    "sources/ts.py": (),
+    "sources/bd.py": (),
+    "sources/avi.py": (),
+    "native/hbdecmjpeg.cpp": (),
+    "codecs/mpeg2.py": _MPEG2_FIELD_DCT,
+}
+
+
+@pytest.mark.parametrize("rel", list(COPIES))
+def test_copy_equals_original(rel):
+    port = os.path.join(os.path.dirname(handbrake_tpu_torch.__file__), rel)
+    ref = os.path.join(os.path.dirname(handbrake_tpu.__file__), rel)
+    if not COPIES[rel]:
+        assert filecmp.cmp(port, ref, shallow=False)
+        return
+    with open(port) as f:
+        got = f.read()
+    with open(ref) as f:
+        want = f.read()
+    for old, new in COPIES[rel]:
+        assert want.count(old) == 1 and got.count(new) == 1
+        want = want.replace(old, new)
+    assert got == want
