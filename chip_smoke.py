@@ -230,7 +230,32 @@ Phases (none is caught; any failure exits non-zero before the last line):
    ``key_averages`` on (d)), the MPEG-2 decoder's host ms a 720x480 frame
    (the fixture's first 8 pictures) and the MJPEG decoder's a 640x480
    frame, beside deblock264's step 4 time.
-13. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+13. HEVC and AV1 at 1080p on the card, one JSON line for the phase with
+   the card's name and power limit: (a) the HEVC CTU analyzer
+   (``codecs/hevc/analyzer.py``, torch ops) on two ``make_clip`` frames
+   padded to 1920x1088, Main and (the planes x 4) Main 10, and the AV1
+   motion search (``codecs/av1/analyzer.py``, search range 8) on the
+   same planes, each on the card and on the CPU (mv and sad equal), timed
+   (CUDA events, median of 20 calls), beside its bytes and
+   integer-operation bounds, and one call's device ms and kernels traced
+   by ``tools/profile_analyzers.py`` in a fresh process; (b) a 5-frame
+   1080p y4m (an IDR and 4 P) through ``cli.__main__.main(["-i", src,
+   "-o", out.mkv, "-Z", "H.265 MKV 1080p30"])`` under ``torch.profiler``,
+   in a card process of its own: 5 samples of 1920x1080 with an hvcC,
+   the first 3 equal to the same CLI job on the CPU (``--device cpu``,
+   the source's first 3 frames, in a process of its own), the analyzer
+   called once a P frame, each access unit decoded as it comes by the
+   port's HEVC decoder (a child process) to the encoder's
+   reconstruction, the mkv's samples those access units; fps, the card's
+   busy share, the walker's host seconds an I and a P frame, the
+   decoder's host ms a frame; (c) the same with ``-Z "AV1 MKV 1080p30"``
+   (av1C in the CodecPrivate), beside (b); (d) (b)'s mkv through the CLI
+   to H.264 High mp4 (``--previews 1``): 5 samples, the planes the H.264
+   encoder was given equal to the HEVC encoder's reconstructions; and a
+   3-frame 10-bit y4m with ``-e x265 --encoder-profile main10``: a 10-bit
+   encoder, the mkv decoded (in a process of its own) to 16-bit frames
+   equal to its reconstructions.
+14. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
    time; hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s
@@ -241,8 +266,14 @@ Phases (none is caught; any failure exits non-zero before the last line):
    ``local_bytes`` and ``smem_bytes`` the kernel's, ``job_launches``
    its counts in jobs 5 (a), 9 (c) and 10 (a); deblock264's
    ``job_launches`` include 11 (b)'s resumed job and the four jobs of
-   step 12; resample's those of 12 (a) and (b)), steps 7's to 12's
+   step 12; resample's those of 12 (a) and (b)), steps 7's to 13's
    numbers, the card's name and power limit, and the result line.
+
+Step 13's helper processes run this script with arguments: ``--decode-check
+CODEC MKV NPZ`` decodes an mkv's video with the port's decoder and
+prints one JSON line (frames, equal to the reconstructions in NPZ, host
+ms a frame); ``--walker-job CODEC SRC DIR`` runs (b)'s or (c)'s job on
+the card and prints its numbers and its decode's as one JSON line.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -390,6 +421,15 @@ DVD_T0 = 4 * FRAME_TICKS
 DVD_CARD, DVD_CARD_AT = (300, 200, 64, 32), 6
 DVD_PREVIEWS, DVD_TIMED = 2, 8
 MJPEG_N = 6
+# step 13: HEVC and AV1 at 1080p.  The analyzers' coded planes (1088
+# rows: 34 CTUs of 32, 68 blocks of 16) and their timing reps; the jobs'
+# frames (an IDR and 4 P), the frames of their CPU runs and of the Main
+# 10 job; the presets; the integer operations of a sample's SAD (a
+# difference, its absolute value, an add)
+HV_ROWS, AN_REPS = 1088, 20
+HV_N, HV_CPU, HV_M10_N = 5, 3, 3
+HV_PRESETS = {"hevc": "H.265 MKV 1080p30", "av1": "AV1 MKV 1080p30"}
+SAD_OPS = 3
 
 
 def smi(query):
@@ -1543,12 +1583,12 @@ def read_mkv(path):
         d.close()
 
 
-def decode_all(samples, extradata=b""):
+def decode_all(samples, extradata=b"", codec="h264"):
     """The port's decoder (the registry's, fed as a job feeds it) on a
     track's samples; returns the frames' planes and the host seconds."""
     from handbrake_tpu_torch.codecs.registry import create_video_decoder
     from handbrake_tpu_torch.core.buffer import Buffer
-    dec = create_video_decoder("h264", extradata)
+    dec = create_video_decoder(codec, extradata)
     frames = []
     t0 = time.perf_counter()
     for i, smp in enumerate(samples):
@@ -3295,6 +3335,431 @@ def phase_discs(tmp, label, stream, deblock_ms):
     return rec
 
 
+def hevc_analyzer_ops(cw, ch) -> int:
+    """Integer operations of one HEVC CTU analysis on these inputs: the
+    4x4 decimation of both planes, the 121 coarse shifts, the 49
+    full-pel candidates, the 16 quarter-pel grids (8 taps, a multiply and
+    an add each: 3 horizontal phases on 40x33, 4 x 3 vertical on 33x33)
+    and the 25 quarter-pel candidates of every CTU."""
+    n, h, w = cw * ch, 32 * ch, 32 * cw
+    return (2 * h * w + 121 * (h // 4) * (w // 4) * SAD_OPS
+            + n * 49 * 1024 * SAD_OPS
+            + n * (40 * 33 * 3 + 33 * 33 * 4 * 3) * 8 * 2
+            + n * 25 * 1024 * SAD_OPS)
+
+
+def analyzer_bound(nbytes, ops) -> dict:
+    t_bytes = nbytes / MEM_BW * 1e3
+    t_ops = ops / SCALAR_RATE * 1e3
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": t_bytes,
+            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_analyzers(label):
+    """13 (a): the HEVC CTU analyzer (Main, Main 10) and the AV1 motion
+    search on 1080p coded planes, on the card against the CPU (mv and sad
+    equal), timed by CUDA events.  Returns their numbers."""
+    import torch
+    from handbrake_tpu_torch.codecs.av1.analyzer import motion_search
+    from handbrake_tpu_torch.codecs.hevc.analyzer import analyze_ctus
+    from handbrake_tpu_torch.utils.synth import make_clip
+    ref, src = (np.pad(f[0], ((0, HV_ROWS - H), (0, 0)), mode="edge")
+                for f in make_clip(W, H, 2, seed=13))
+    cw, ch = W // 32, HV_ROWS // 32
+    cases = {
+        "hevc_main": (lambda a, b: analyze_ctus(a, b, cw, ch, 255),
+                      src, ref, 1),
+        "hevc_main10": (lambda a, b: analyze_ctus(a, b, cw, ch, 1023),
+                        src.astype(np.int16) << 2,
+                        ref.astype(np.int16) << 2, 2),
+        "av1": (lambda a, b: motion_search(a, b, 8), src, ref, 1)}
+    rec = {}
+    for name, (fn, s_np, r_np, bps) in cases.items():
+        s_cpu, r_cpu = torch.from_numpy(s_np), torch.from_numpy(r_np)
+        t0 = time.perf_counter()
+        want = fn(s_cpu, r_cpu)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        s_dev, r_dev = s_cpu.cuda(), r_cpu.cuda()
+        got = fn(s_dev, r_dev)
+        if isinstance(want, dict):
+            want, got = (want["mv"], want["sad"]), (got["mv"], got["sad"])
+        equal = all(torch.equal(a, b.cpu()) for a, b in zip(want, got))
+        ms = cuda_ms(lambda: fn(s_dev, r_dev), AN_REPS)
+        if name.startswith("hevc"):
+            ops = hevc_analyzer_ops(cw, ch)
+            out_bytes = cw * ch * 12          # mv (2 x int32), sad (f32)
+        else:
+            ops = (17 * 17) * HV_ROWS * W * SAD_OPS
+            out_bytes = (HV_ROWS // 16) * (W // 16) * 12
+        b = analyzer_bound(2 * HV_ROWS * W * bps + out_bytes, ops)
+        rec[name] = {"equal": equal, "ms": ms, "cpu_ms": cpu_ms, **b}
+        print(f"13 (a) {name} ({label}): {W}x{HV_ROWS} planes, card and "
+              f"CPU equal (mv, sad): {equal}; {ms:.4f} ms a call (events, "
+              f"median of {AN_REPS}); bound "
+              f"{b['bound_ms'] * 1e3:.2f} us by {b['bound_by']} "
+              f"({b['bytes'] / 1e6:.2f} MB, {b['ops'] / 1e9:.3f} G int "
+              f"ops); the CPU {cpu_ms:.1f} ms", flush=True)
+        if not equal:
+            raise RuntimeError(f"13 (a): the {name} analysis on the card "
+                               f"differs from the CPU's")
+    return rec
+
+
+def analyzers_traced(label, rec, fresh):
+    """13 (a): one call's device ms, kernels and copies/sets of the Main
+    HEVC analyzer and the AV1 search, traced by
+    ``tools/profile_analyzers.py`` in a fresh process (a trace taken here,
+    after phases 1-12, has lacked a call's first few dozen kernels)."""
+    for name, key in (("hevc_main", "hevc"), ("av1", "av1")):
+        f = fresh[key]
+        rec[name].update(device_ms=f["device_ms"], kernels=f["kernels"],
+                         copies_sets=f["copies_sets"],
+                         fresh_events_ms=f["events_ms"])
+        print(f"13 (a) {name} ({label}): a fresh process's trace of one "
+              f"call: device {f['device_ms']:.4f} ms, {f['kernels']} "
+              f"kernels and {f['copies_sets']} copies/sets; events there "
+              f"{f['events_ms']:.4f} ms", flush=True)
+        if f["kernels"] <= 0 or f["device_ms"] <= 0:
+            raise RuntimeError(f"13 (a): the trace saw no {name} kernel")
+
+
+def write_y4m10(path, frames, w, h):
+    """A 4:2:0 10-bit y4m (C420p10, little-endian samples) of 8-bit
+    frames scaled by 4."""
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F30000:1001 Ip A1:1 "
+                f"C420p10\n".encode())
+        for planes in frames:
+            f.write(b"FRAME\n")
+            for p in planes:
+                f.write((p.astype("<u2") << 2).tobytes())
+    return path
+
+
+PROCS = []        # step 13's helper processes, stopped when it ends
+
+
+def start_process(tmp, name, argv, card=False):
+    """A process of its own beside this one's run: on the CPU (no card
+    visible to it), or with card=True on this process's card.
+    (Popen, log file)."""
+    log = open(os.path.join(tmp, f"{name}.log"), "w")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=root)
+    if not card:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    p = subprocess.Popen([sys.executable, *argv], cwd=root, env=env,
+                         stdout=log, stderr=subprocess.STDOUT)
+    PROCS.append(p)
+    return p, log
+
+
+def finish_process(run) -> str:
+    """Wait for a process of start_process; its output's last line."""
+    p, log = run
+    rc = p.wait()
+    log.close()
+    with open(log.name) as f:
+        text = f.read()
+    if rc != 0:
+        print(text[-4000:], flush=True)
+        raise RuntimeError(f"13: the process of {log.name} exited {rc}")
+    return text.strip().splitlines()[-1]
+
+
+def start_cpu_run(tmp, codec, src):
+    """The CLI job of the codec's preset on the CPU: (process, mkv)."""
+    out = os.path.join(tmp, f"{codec}_cpu.mkv")
+    return start_process(tmp, f"{codec}_cpu", [
+        "-m", "handbrake_tpu_torch.cli", "-i", src, "-o", out, "-Z",
+        HV_PRESETS[codec], "--device", "cpu"]), out
+
+
+def save_recons(npz, recons):
+    """Reconstructions cropped to the picture, for a decode check."""
+    np.savez(npz, **{f"{i}_{k}": p for i, r in enumerate(recons)
+                     for k, p in enumerate(crop(r))})
+
+
+def load_recons(npz) -> list:
+    z = np.load(npz)
+    return [tuple(z[f"{i}_{k}"] for k in range(3))
+            for i in range(len(z.files) // 3)]
+
+
+def start_decode_check(tmp, name, codec, mkv, npz):
+    """decode_check (below) in a process of its own, on an mkv and the
+    reconstructions save_recons wrote to npz."""
+    return start_process(tmp, f"{name}_decode", [
+        os.path.abspath(__file__), "--decode-check", codec, mkv, npz])
+
+
+def decode_result(codec, mkv, recons) -> dict:
+    """The port's decoder (the registry's) on an mkv's video samples
+    against reconstructions: frames, equal, host ms a frame, dtype."""
+    ti, samples = read_mkv(mkv)
+    frames, sec = decode_all(samples, bytes(ti.extradata or b""), codec)
+    return {"codec": codec, "frames": len(frames),
+            "equal": recons_equal(frames, recons),
+            "ms": sec / max(1, len(frames)) * 1e3,
+            "dtype": str(frames[0][0].dtype) if frames else None}
+
+
+def decode_check(codec, mkv, npz) -> int:
+    """Step 13's decode-check process: decode_result on reconstructions
+    saved by start_decode_check, printed as one JSON line."""
+    print(json.dumps(decode_result(codec, mkv, load_recons(npz))))
+    return 0
+
+
+def recons_equal(frames, recons) -> bool:
+    """Decoded frames equal to the encoder's reconstructions, cropped
+    to the pictures' size."""
+    return len(frames) == len(recons) and all(
+        all(np.array_equal(d, r[:d.shape[0], :d.shape[1]])
+            for d, r in zip(f, rc)) for f, rc in zip(frames, recons))
+
+
+def card_walker_job(tmp, codec, src, on_frame=None):
+    """13 (b), (c): the 1080p clip through the CLI with the codec's MKV
+    preset on the card, under the profiler, each frame's access unit and
+    encoder handed to `on_frame`.  Returns its numbers, the mkv and the
+    encoder's reconstructions."""
+    import torch
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.codecs.av1 import analyzer as av1_an
+    from handbrake_tpu_torch.codecs.hevc import analyzer as hevc_an
+    from handbrake_tpu_torch.tools import profile_job as pj
+    an = hevc_an if codec == "hevc" else av1_an
+    out = os.path.join(tmp, f"{codec}.mkv")
+    with pj.JobSpy(recons=True, on_frame=on_frame) as spy:
+        reset_counts()
+        an.calls = 0
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            rc = cli_main(["-i", src, "-o", out, "-Z", HV_PRESETS[codec]])
+            torch.cuda.synchronize()
+        calls = an.calls
+    if rc != 0:
+        raise RuntimeError(f"13: the {codec} job exited {rc}")
+    busy = device_busy_ms(prof)
+    rec = {"do_job_s": spy.seconds, "busy_ms": busy,
+           "busy_share": busy / (spy.seconds * 1e3),
+           "walker_i_s": statistics.mean(t for i, t in spy.walker if i),
+           "walker_p_s": statistics.mean(t for i, t in spy.walker if not i),
+           "analyzer_calls": calls, "p_frames": spy.p_frames()}
+    return rec, out, spy.recons
+
+
+def crop(planes) -> tuple:
+    """A frame's planes cut to the picture, as 8- or 16-bit samples."""
+    return tuple(p[:H >> (k > 0), :W >> (k > 0)].astype(
+        np.uint8 if p.dtype == np.uint8 else np.uint16)
+        for k, p in enumerate(planes))
+
+
+def stream_decode(codec, conn):
+    """The port's decoder (the registry's) on access units as a walker
+    codes them, each held to the encoder's reconstruction sent with it;
+    None ends the stream.  Sends back frames, equal, host ms a frame."""
+    from handbrake_tpu_torch.codecs.registry import create_video_decoder
+    from handbrake_tpu_torch.core.buffer import Buffer
+    dec = create_video_decoder(codec)
+    n, equal, sec = 0, True, 0.0
+    while (item := conn.recv()) is not None:
+        au, recon = item
+        t0 = time.perf_counter()
+        frames = [f.planes for f in dec.feed(Buffer(data=au, pts=n))]
+        sec += time.perf_counter() - t0
+        equal = equal and recons_equal(frames, [recon])
+        n += len(frames)
+    conn.send({"codec": codec, "frames": n, "equal": equal,
+               "ms": sec / max(1, n) * 1e3, "dtype": "uint8"})
+
+
+def walker_job_process(codec, src, tmp) -> int:
+    """Step 13's card process: card_walker_job with its access units
+    decoded as they come, in a process of its own, against the
+    reconstructions; the reconstructions saved to
+    ``<tmp>/<codec>_recons.npz``; its numbers printed as one JSON
+    line."""
+    import multiprocessing
+    one_card()
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe()
+    dec = ctx.Process(target=stream_decode, args=(codec, child))
+    dec.start()
+    aus = []
+
+    def on_frame(au, enc):
+        aus.append(au)
+        conn.send((au, crop((enc.recon_y, enc.recon_u, enc.recon_v))))
+    ok = False
+    try:
+        rec, out, recons = card_walker_job(tmp, codec, src, on_frame)
+        conn.send(None)
+        rec["decode"] = conn.recv()
+        ok = True
+    finally:
+        if not ok:
+            dec.kill()
+        dec.join()
+    save_recons(os.path.join(tmp, f"{codec}_recons.npz"), recons)
+    _ti, samples = read_mkv(out)
+    # the mkv's samples are the access units decoded above (HEVC's
+    # without the parameter sets, which went to its hvcC)
+    rec["samples_are_the_aus"] = samples == aus if codec == "av1" else \
+        samples[1:] == aus[1:]
+    print(json.dumps(rec))
+    return 0
+
+
+def check_walker_job(label, codec, rec, out, cpu_run):
+    """The walker job's mkv: its samples, size and configuration, its
+    first samples against the CPU run's, the analyzer once a P frame."""
+    ti, samples = read_mkv(out)
+    priv = bytes(ti.extradata or b"")
+    cfg_ok = (priv[:1] == b"\x01" and len(priv) > 23) if codec == "hevc" \
+        else priv[:1] == b"\x81"
+    cpu_proc, cpu_out = cpu_run
+    finish_process(cpu_proc)
+    _ti, cpu_samples = read_mkv(cpu_out)
+    same_cpu = samples[:HV_CPU] == cpu_samples[:HV_CPU] and \
+        len(cpu_samples) == HV_CPU
+    rec["fps"] = len(samples) / rec["do_job_s"]
+    rec["bytes"] = sum(map(len, samples))
+    print(f"13 ({codec}, {label}): {W}x{H} y4m, CLI -Z \"{HV_PRESETS[codec]}"
+          f"\": mkv {len(samples)} samples at {ti.width}x{ti.height} "
+          f"({ti.codec}, CodecPrivate {'hvcC' if codec == 'hevc' else 'av1C'}"
+          f": {cfg_ok}), {rec['bytes']} bytes; the first {HV_CPU} samples "
+          f"equal to the CPU run's: {same_cpu}; analyzer calls "
+          f"{rec['analyzer_calls']} for {rec['p_frames']} P frames; do_job "
+          f"{rec['do_job_s']:.2f} s, {rec['fps']:.3f} fps; the walker "
+          f"{rec['walker_i_s']:.2f} s an I frame, {rec['walker_p_s']:.2f} s "
+          f"a P frame (host); the card busy {rec['busy_ms']:.2f} ms, "
+          f"{100 * rec['busy_share']:.3f} % of do_job", flush=True)
+    if len(samples) != HV_N or (ti.width, ti.height) != (W, H) or \
+            ti.codec != codec or not cfg_ok:
+        raise RuntimeError(f"13: the {codec} mkv lacks samples or its "
+                           f"configuration, or has another size")
+    if not same_cpu or not rec["samples_are_the_aus"]:
+        raise RuntimeError(f"13: the {codec} stream differs from the CPU's, "
+                           f"or the mkv's samples from the encoder's "
+                           f"access units")
+    if rec["analyzer_calls"] != rec["p_frames"] or not rec["p_frames"]:
+        raise RuntimeError(f"13: the {codec} analyzer ran "
+                           f"{rec['analyzer_calls']} times for "
+                           f"{rec['p_frames']} P frames")
+
+
+def decoded(rec, name, d, label, dtype="uint8"):
+    """Hold a decode result (decode_result's) to the reconstructions."""
+    rec["decoder_ms"] = d["ms"]
+    print(f"13 ({name}, {label}): its stream decoded by the port's "
+          f"{d['codec']} decoder: {d['frames']} frames ({d['dtype']}), equal "
+          f"to the encoder's reconstructions: {d['equal']}; "
+          f"{d['ms']:.0f} ms a 1080p frame on the host", flush=True)
+    if not d["equal"] or d["dtype"] != dtype:
+        raise RuntimeError(f"13: the {name} stream does not decode to the "
+                           f"encoder's reconstructions")
+
+
+def phase_hevc_av1(tmp, label):
+    """13: HEVC and AV1 at 1080p on the card, one JSON line for the
+    phase.  Returns its numbers.  Its helper processes are stopped when
+    it ends, whether it passes or fails."""
+    try:
+        return hevc_av1_parts(tmp, label)
+    finally:
+        for p in PROCS:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def hevc_av1_parts(tmp, label):
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.tools import profile_job as pj
+    from handbrake_tpu_torch.utils.synth import make_clip, write_y4m
+    t0 = time.perf_counter()
+    frames = make_clip(W, H, HV_N, seed=13)
+    src = write_y4m(os.path.join(tmp, "hv.y4m"), frames, W, H)
+    src3 = write_y4m(os.path.join(tmp, "hv3.y4m"), frames[:HV_CPU], W, H)
+    # the same jobs on the CPU over the first frames, and (b), (c) on the
+    # card, each in a process of its own (a walker holds its process's
+    # GIL; a fresh process's trace is whole)
+    cpu = {c: start_cpu_run(tmp, c, src3) for c in HV_PRESETS}
+    cards = {c: start_process(tmp, f"{c}_card", [
+        os.path.abspath(__file__), "--walker-job", c, src, tmp], card=True)
+        for c in HV_PRESETS}
+    # (a) card against CPU here while those start, then the analyzers'
+    # device time traced in a fresh process
+    rec = {"analyzers": phase_analyzers(label)}
+    fresh = json.loads(finish_process(start_process(tmp, "analyzers", [
+        "-m", "handbrake_tpu_torch.tools.profile_analyzers", "--json"],
+        card=True)))
+    analyzers_traced(label, rec["analyzers"], fresh)
+    # (d) a Main 10 job from a 10-bit y4m
+    src10 = write_y4m10(os.path.join(tmp, "hv10.y4m"), frames[:HV_M10_N],
+                        W, H)
+    out10 = os.path.join(tmp, "main10.mkv")
+    with pj.JobSpy(recons=True) as spy:
+        rc = cli_main(["-i", src10, "-o", out10, "-e", "x265", "-q", "28",
+                       "--encoder-profile", "main10"])
+    ti, samples = read_mkv(out10)
+    npz10 = os.path.join(tmp, "main10_recons.npz")
+    save_recons(npz10, spy.recons)
+    m10_check = start_decode_check(tmp, "main10", "hevc", out10, npz10)
+    rec["main10"] = {"fps": len(samples) / spy.seconds,
+                     "walker_s": [t for _i, t in spy.walker]}
+    print(f"13 (d) ({label}): a 10-bit y4m through the CLI with -e x265 "
+          f"--encoder-profile main10: {len(samples)} samples at "
+          f"{ti.width}x{ti.height}, encoder bit depth {spy.enc.bd}; do_job "
+          f"{spy.seconds:.2f} s, {rec['main10']['fps']:.3f} fps", flush=True)
+    if rc != 0 or len(samples) != HV_M10_N or spy.enc.bd != 10:
+        raise RuntimeError("13 (d): the Main 10 job failed")
+
+    def collect(c):
+        rec[c] = json.loads(finish_process(cards[c]))
+        check_walker_job(label, c, rec[c], os.path.join(tmp, f"{c}.mkv"),
+                         cpu[c])
+        decoded(rec[c], c, rec[c].pop("decode"), label)
+    collect("hevc")
+    hevc_source(label, rec, tmp, cli_main, pj)
+    collect("av1")
+    decoded(rec["main10"], "main10", json.loads(finish_process(m10_check)),
+            label, "uint16")
+    rec["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "13", "card": label, **rec}), flush=True)
+    print(f"phase 13 ({label}): {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
+def hevc_source(label, rec, tmp, cli_main, pj):
+    """13 (d): (b)'s mkv through the CLI to H.264 High mp4; the planes
+    the H.264 encoder is given must equal the HEVC encoder's
+    reconstructions."""
+    out = os.path.join(tmp, "from_hevc.mp4")
+    with pj.JobSpy(keep=HV_N) as spy:
+        rc = cli_main(["-i", os.path.join(tmp, "hevc.mkv"), "-o", out, "-e",
+                       "h264", "-q", "28", "--encoder-profile", "high",
+                       "--previews", "1"])
+    ti, samples = read_mp4(out)
+    same = recons_equal([f[:3] for f in spy.frames],
+                        load_recons(os.path.join(tmp, "hevc_recons.npz")))
+    rec["hevc_source"] = {"fps": len(samples) / spy.seconds,
+                          "do_job_s": spy.seconds}
+    print(f"13 (d) ({label}): the HEVC mkv through the CLI to H.264 mp4: "
+          f"{len(samples)} samples at {ti.width}x{ti.height}; the planes "
+          f"the encoder was given equal the HEVC encoder's "
+          f"reconstructions: {same}; do_job {spy.seconds:.2f} s, "
+          f"{rec['hevc_source']['fps']:.3f} fps", flush=True)
+    if rc != 0 or len(samples) != HV_N or (ti.width, ti.height) != (W, H) \
+            or not same:
+        raise RuntimeError("13 (d): the HEVC source did not transcode to "
+                           "its decoded frames")
+
 def one_card():
     """Make only the first visible card visible to this process (before
     CUDA starts), so the run uses, and reports, exactly one card."""
@@ -3304,6 +3769,10 @@ def one_card():
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--decode-check"]:
+        return decode_check(*sys.argv[2:5])   # step 13's helper processes
+    if sys.argv[1:2] == ["--walker-job"]:
+        return walker_job_process(*sys.argv[2:])
     one_card()
     import torch
     if not torch.cuda.is_available():
@@ -3331,6 +3800,7 @@ def main() -> int:
         bf = phase_bframes(tmp, label)
         scale_out = phase_scale_out(tmp, label, stream)
         discs = phase_discs(tmp, label, stream, ms)
+        hv = phase_hevc_av1(tmp, label)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -3389,6 +3859,7 @@ def main() -> int:
     print(f"bframes numbers: {json.dumps(bf)}", flush=True)
     print(f"phase 11 seconds: {scale_out['seconds']:.1f}", flush=True)
     print(f"phase 12 seconds: {discs['seconds']:.1f}", flush=True)
+    print(f"phase 13 seconds: {hv['seconds']:.1f}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

@@ -14,7 +14,10 @@ raises).  ``--checkpoint`` journals the job to ``<dest>.ckpt`` and
 ``--resume`` continues a killed job from it; ``--gop-parallel N`` codes
 G = min(N, frames) keyframe-aligned GOPs a window (the port's one device
 runs the GOP axis as a batch), also with ``--two-pass -b``;
-``--tile-parallel N`` runs nlmeans in N row tiles.  The libavcodec audio
+``--tile-parallel N`` runs nlmeans in N row tiles.  ``-e x265`` (Main 10
+with ``--encoder-profile main10``) and ``-e svt_av1`` code HEVC and AV1
+on the host walkers with their motion search on the device; they take
+no ``--bframes`` and no ``--gop-parallel``.  The libavcodec audio
 encoders mp3, opus and vorbis raise NotImplementedError, as do unported
 filters, codecs and containers.
 

@@ -4,12 +4,18 @@ Buffers and yields raw-frame Buffers with propagated timing.
 
 The port has the raw-video decoder (y4m sources), the H.264 decoder
 (the native ``hbdec264.cpp``, through ``h264/native_decoder.py``), the
-MPEG-2 decoder (host numpy, ``mpeg2.py``) and the MJPEG decoder (the
-native ``hbdecmjpeg.cpp``).  HEVC and AV1 raise NotImplementedError
-(ROADMAP item 1.9), and so do the libavcodec personality's codecs (item
-1.10).  Unlike the reference, no decoder falls back or drops a frame
-without a word: a native library that does not build raises, and so
-does an MJPEG frame that does not decode.
+MPEG-2 decoder (host numpy, ``mpeg2.py``), the MJPEG decoder (the native
+``hbdecmjpeg.cpp``) and the HEVC and AV1 decoders (host numpy,
+``hevc/decoder.py`` and ``av1/decoder.py``).  The libavcodec
+personality's codecs raise NotImplementedError (ROADMAP item 1.10).
+Unlike the reference, no decoder falls back or drops a frame without a
+word: a native library that does not build raises, and so does an MJPEG
+frame that does not decode.  An HEVC stream beyond the native decoder's
+subset (SAO, scaling lists, CU quadtrees, NxN intra, B slices, ...)
+raises ValueError naming the feature; the reference switches such a
+stream to libavcodec without a word (``ResilientHEVCDecoder``), which is
+item 1.10.  A 10- or 12-bit stream's frames carry their bit depth (the
+reference labels them 8-bit).
 """
 from __future__ import annotations
 
@@ -80,6 +86,94 @@ class H264VideoDecoder(VideoDecoder):
 
     def info(self) -> dict:
         return dict(self._info)
+
+
+class HEVCVideoDecoder(VideoDecoder):
+    def __init__(self, extradata: bytes = b""):
+        from .hevc.decoder import HEVCDecoder
+        self.dec = HEVCDecoder()
+        self._info: dict = {}
+        if extradata:
+            self._feed_hvcc_config(extradata)
+
+    def _decode(self, data: bytes) -> list:
+        """The native decoder; its parsers' assertions, which name the
+        feature (``hevc/syntax.py``, ``hevc/decoder.py``), become a
+        stated error."""
+        try:
+            return self.dec.decode(data)
+        except AssertionError as e:
+            raise ValueError(
+                f"hevc: the stream is beyond the native decoder's subset "
+                f"({e or 'unsupported syntax'}); decoding it needs the "
+                f"libavcodec personality, ROADMAP item 1.10") from e
+
+    def _feed_hvcc_config(self, hvcc: bytes):
+        """Parse VPS/SPS/PPS NALs out of an hvcC box payload."""
+        if len(hvcc) < 23 or hvcc[0] != 1:
+            return
+        i = 22
+        n_arrays = hvcc[i]
+        i += 1
+        for _ in range(n_arrays):
+            if i + 3 > len(hvcc):
+                return
+            n_nals = int.from_bytes(hvcc[i + 1:i + 3], "big")
+            i += 3
+            for _ in range(n_nals):
+                ln = int.from_bytes(hvcc[i:i + 2], "big")
+                i += 2
+                self._decode(b"\x00\x00\x00\x01" + hvcc[i:i + ln])
+                i += ln
+
+    def feed(self, buf: Buffer) -> list:
+        if buf.data is None:
+            return []
+        frames = self._decode(buf.data)
+        fmt = PIX_FMTS[{8: "yuv420p", 10: "yuv420p10",
+                        12: "yuv420p12"}[self.dec.bd]]
+        out = []
+        for (y, u, v) in frames:
+            fb = Buffer(planes=[y, u, v], pix_fmt=fmt).copy_props(buf)
+            fb.data = None
+            out.append(fb)
+        sps = self.dec.sps
+        if sps is not None and not self._info:
+            self._info = {"width": sps.width - sps.crop_right,
+                          "height": sps.height - sps.crop_bottom,
+                          "pix_fmt": fmt.name}
+        return out
+
+    def info(self) -> dict:
+        return dict(self._info)
+
+
+class AV1VideoDecoder(VideoDecoder):
+    def __init__(self, extradata: bytes = b""):
+        from .av1.decoder import AV1Decoder
+        self.dec = AV1Decoder()
+        if extradata and len(extradata) > 4:
+            # av1C: 4 config bytes then the sequence header OBU
+            self.dec.decode(extradata[4:])
+
+    def feed(self, buf: Buffer) -> list:
+        if buf.data is None:
+            return []
+        out = []
+        for (y, u, v) in self.dec.decode(buf.data):
+            fb = Buffer(planes=[y.astype("uint8"), u.astype("uint8"),
+                                v.astype("uint8")],
+                        pix_fmt=PIX_FMTS["yuv420p"]).copy_props(buf)
+            fb.data = None
+            out.append(fb)
+        return out
+
+    def info(self) -> dict:
+        if self.dec.seq:
+            return {"width": self.dec.seq["width"],
+                    "height": self.dec.seq["height"],
+                    "pix_fmt": "yuv420p"}
+        return {}
 
 
 class MJPEGVideoDecoder(VideoDecoder):
@@ -218,10 +312,8 @@ class Mpeg2VideoDecoder(VideoDecoder):
 
 
 # decoded by a later slice of the port: each names its ROADMAP item
-_LATER = {"hevc": "item 1.9 (the HEVC decoder and encoder)",
-          "av1": "item 1.9 (the AV1 decoder and encoder)"}
-_LATER.update({c: "item 1.10 (the libavcodec catalog)" for c in (
-    "vp9", "vp8", "theora", "mpeg4", "ffv1", "prores")})
+_LATER = {c: "item 1.10 (the libavcodec catalog)" for c in (
+    "vp9", "vp8", "theora", "mpeg4", "ffv1", "prores")}
 
 
 def create_video_decoder(codec: str, extradata: bytes = b"",
@@ -230,6 +322,10 @@ def create_video_decoder(codec: str, extradata: bytes = b"",
         return MJPEGVideoDecoder(extradata)
     if codec == "h264":
         return H264VideoDecoder(extradata)
+    if codec == "hevc":
+        return HEVCVideoDecoder(extradata)
+    if codec == "av1":
+        return AV1VideoDecoder(extradata)
     if codec in ("mpeg2", "mpeg2video"):
         return Mpeg2VideoDecoder(extradata)
     if codec == "rawvideo":

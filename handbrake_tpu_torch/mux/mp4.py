@@ -6,9 +6,6 @@ track; video = avc1+avcC (H.264), audio = mp4a+esds (AAC) or lpcm,
 text subtitles = tx3g. Sample tables: stts (durations), stss (sync),
 ctts (reorder offsets), stsc/stsz/stco. 90 kHz video timescale like the
 reference; audio timescale = sample rate.
-
-The port writes H.264 video only: an HEVC or AV1 video track raises
-NotImplementedError (their encoders are later slices).
 """
 from __future__ import annotations
 
@@ -27,16 +24,6 @@ def box(typ: bytes, payload: bytes) -> bytes:
 
 def fullbox(typ: bytes, version: int, flags: int, payload: bytes) -> bytes:
     return box(typ, struct.pack(">I", (version << 24) | flags) + payload)
-
-
-def colr_payload(color: dict) -> bytes:
-    """colr box payload, nclx form (a copy of the reference package's
-    codecs/hdr.py colr_payload)."""
-    return (b"nclx"
-            + struct.pack(">HHH", color.get("Primaries", 1),
-                          color.get("Transfer", 1),
-                          color.get("Matrix", 1))
-            + (0x80 if color.get("Range", 1) else 0).to_bytes(1, "big"))
 
 
 @dataclass
@@ -86,9 +73,6 @@ class MP4Writer:
                         height: int = 0, timescale: int = MOVIE_TIMESCALE,
                         extradata: bytes = b"",
                         language: str = "und") -> int:
-        if codec != "h264":
-            raise NotImplementedError(
-                f"mp4: {codec} video tracks are not ported yet (H.264 only)")
         t = Track(len(self.tracks) + 1, "video", timescale, codec,
                   width=width, height=height, extradata=extradata,
                   language=language)
@@ -128,12 +112,24 @@ class MP4Writer:
                      annexb: bool = False):
         self._header()
         t = self.tracks[track_idx]
-        if annexb and t.codec == "h264":
-            if not t.extradata:
+        if annexb and t.codec in ("h264", "hevc"):
+            if not t.extradata and t.codec == "h264":
                 sps, pps = extract_sps_pps(data)
                 if sps and pps:
                     t.extradata = build_avcc(sps, pps)
+            elif not t.extradata and t.codec == "hevc":
+                from .nal import build_hvcc, extract_vps_sps_pps
+                vps, sps, pps = extract_vps_sps_pps(data)
+                if vps and sps and pps:
+                    t.extradata = build_hvcc(vps[0], sps[0], pps[0])
             data = annexb_to_avcc(strip_parameter_sets(data, t.codec))
+        if t.codec == "av1" and not t.extradata:
+            from ..codecs.av1 import obu as av1_obu
+            for ot, payload in av1_obu.parse_obus(data):
+                if ot == av1_obu.OBU_SEQUENCE_HEADER:
+                    t.extradata = av1_obu.build_av1c(
+                        av1_obu.obu(ot, payload))
+                    break
         off = self.f.tell()
         self.f.write(data)
         t.samples.append(Sample(off, len(data), duration, sync, cts_offset))
@@ -304,6 +300,7 @@ class MP4Writer:
                 body += box(cfg[t.codec], t.extradata)
             # HDR metadata boxes (muxavformat.c track setup analog)
             if t.color:
+                from ..codecs.hdr import colr_payload
                 body += box(b"colr", colr_payload(t.color))
             if t.mastering:
                 body += box(b"mdcv", t.mastering[:24])

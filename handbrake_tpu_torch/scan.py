@@ -9,9 +9,9 @@ frames through the real decoder, and derives:
 Previews can be kept for GUI use (hb_save_preview analog).
 
 The counterpart of ``handbrake_tpu/scan.py``.  Previews decode for raw
-sources (y4m), H.264 (the native decoder), MPEG-2 (host numpy) and
-MJPEG (native) ones; HEVC, AV1 and the libavcodec catalog's codecs raise
-NotImplementedError, since their decoders are later slices.  CEA-608 captions in an H.264 stream (GA94 SEI) are found in
+sources (y4m), H.264 (the native decoder), MPEG-2, HEVC and AV1 (host
+numpy) and MJPEG (native) ones; the libavcodec catalog's codecs raise
+NotImplementedError, since their decoders are a later slice.  CEA-608 captions in an H.264 stream (GA94 SEI) are found in
 its first 256 KiB and listed as a "cc" subtitle track; a malformed caption
 payload leaves them undetected (the reference skips any error there).
 """

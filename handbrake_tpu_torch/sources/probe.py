@@ -6,10 +6,9 @@ batch.c for directories).
 .duration / .close(). ``scan_paths`` expands a directory into per-file
 sources (hb_batch_init analog, batch.c).
 
-The port opens y4m, annex-B H.264, mp4, Matroska/WebM, AVI, MPEG-PS
-(VOB) and TS/m2ts files, and DVD-Video and Blu-ray folders, routed as
-the reference routes them.  HEVC elementary streams raise
-NotImplementedError: their decoder is ROADMAP item 1.9.
+The port opens y4m, annex-B H.264 and HEVC, mp4, Matroska/WebM, AVI,
+MPEG-PS (VOB) and TS/m2ts files, and DVD-Video and Blu-ray folders,
+routed as the reference routes them.
 """
 from __future__ import annotations
 
@@ -61,9 +60,7 @@ def open_source(path: str):
         if probe_is_ts(path):
             return TSDemuxer(path)
     if ext in (".265", ".h265", ".hevc"):
-        raise NotImplementedError(
-            f"HEVC elementary streams are not ported yet ({path}): their "
-            f"decoder is ROADMAP item 1.9")
+        return AnnexBReader(path, codec="hevc")
     if b"\x00\x00\x01" in head or ext in (".264", ".h264", ".avc"):
         return AnnexBReader(path, codec="h264")
     raise DemuxError(f"unrecognized container: {path}")

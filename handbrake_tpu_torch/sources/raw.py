@@ -123,14 +123,10 @@ class AnnexBReader:
     """H.264/HEVC elementary stream → access-unit packets.
 
     Frame rate is unknown in an ES; default 25 fps like libavformat.
-    The port reads H.264 only: codec="hevc" raises NotImplementedError.
     """
 
     def __init__(self, path: str, codec: str = "h264",
                  fps: Fraction = Fraction(25, 1)):
-        if codec != "h264":
-            raise NotImplementedError(
-                f"{codec} elementary streams are not ported yet (H.264 only)")
         self.path = path
         self.codec = codec
         self.fps = fps
@@ -152,7 +148,7 @@ class AnnexBReader:
         from ..codecs.h264.bits import ebsp_to_rbsp, split_annexb
         try:
             for nal in split_annexb(self.data[:1 << 16]):
-                if (nal[0] & 0x1F) == 7:
+                if self.codec == "h264" and (nal[0] & 0x1F) == 7:
                     from ..codecs.h264.syntax import SPS
                     sps = SPS.parse(ebsp_to_rbsp(nal[1:]))
                     self.tracks[0].width = sps.width
@@ -162,21 +158,39 @@ class AnnexBReader:
                         self.tracks[0].frame_rate = (ts, nu * 2)
                         self.fps = Fraction(ts, nu * 2)
                     break
+                if self.codec == "hevc" and ((nal[0] >> 1) & 0x3F) == 33:
+                    from ..codecs.hevc.syntax import SPS as HSPS
+                    sps = HSPS.parse(ebsp_to_rbsp(nal[2:]))
+                    # the picture's size, not the coded size (the
+                    # reference takes the coded size, 32-aligned)
+                    self.tracks[0].width = sps.width - sps.crop_right
+                    self.tracks[0].height = sps.height - sps.crop_bottom
+                    break
         except Exception:
             pass
 
     def _split_access_units(self) -> list:
-        """Split on slice NALs whose first_mb_in_slice == 0."""
+        """Split on slice NALs whose first_mb_in_slice == 0 (H.264) or
+        first_slice_segment_in_pic_flag (HEVC)."""
         from ..codecs.h264.bits import split_annexb
         aus = []
         cur = []
         for nal in split_annexb(self.data):
             if not nal:
                 continue
-            is_slice = (nal[0] & 0x1F) in (1, 5)
-            # first_mb_in_slice==0 → ue(v) starts with bit 1
-            first = is_slice and len(nal) > 1 and bool(nal[1] & 0x80)
-            if first and any((n[0] & 0x1F) in (1, 5) for n in cur):
+            if self.codec == "h264":
+                t = nal[0] & 0x1F
+                is_slice = t in (1, 5)
+                # first_mb_in_slice==0 → ue(v) starts with bit 1
+                first = is_slice and len(nal) > 1 and bool(nal[1] & 0x80)
+            else:
+                t = (nal[0] >> 1) & 0x3F
+                is_slice = t <= 21
+                first = is_slice and len(nal) > 2 and bool(nal[2] & 0x80)
+            if first and any((n[0] & 0x1F if self.codec == "h264"
+                              else (n[0] >> 1) & 0x3F) in
+                             ((1, 5) if self.codec == "h264"
+                              else tuple(range(22))) for n in cur):
                 aus.append(cur)
                 cur = []
             cur.append(nal)
@@ -190,7 +204,8 @@ class AnnexBReader:
             au = self.aus[i]
             data = b"".join(b"\x00\x00\x00\x01" + n for n in au)
             pts = int(i * tick)
-            key = any((n[0] & 0x1F) == 5 for n in au)
+            key = any((n[0] & 0x1F) == 5 for n in au) \
+                if self.codec == "h264" else True
             b = Buffer(data=data, pts=pts, dts=pts,
                        duration=int((i + 1) * tick) - pts,
                        frametype=FrameType.KEY if key

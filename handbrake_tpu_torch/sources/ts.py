@@ -241,6 +241,21 @@ class TSDemuxer:
                         break
             except Exception:
                 pass
+        elif ti.codec == "hevc":
+            # the picture's size: the SPS's coded size less its
+            # conformance window (the reference reads no HEVC SPS here and
+            # leaves the track 0x0)
+            try:
+                from ..codecs.h264.bits import ebsp_to_rbsp, split_annexb
+                from ..codecs.hevc.syntax import SPS as HSPS
+                for nal in split_annexb(bytes(es)):
+                    if ((nal[0] >> 1) & 0x3F) == 33:
+                        sps = HSPS.parse(ebsp_to_rbsp(nal[2:]))
+                        ti.width = sps.width - sps.crop_right
+                        ti.height = sps.height - sps.crop_bottom
+                        break
+            except AssertionError:
+                pass            # beyond the native subset: the decoder says so
         if ti.frame_rate is None:
             ti.frame_rate = (30000, 1001)
 

@@ -83,13 +83,25 @@ def unscaled_job(src, out):
 class JobSpy:
     """Records the job and encoder that work.do_job builds, do_job's wall
     time, and the planes and qp of the first `keep` frames the encoder
-    is given, by wrapping the port's work module for one drive."""
+    is given, by wrapping the port's work module for one drive.  For an
+    encoder that codes a frame in one call (the HEVC and AV1 walkers) it
+    also records each call's (IDR, host seconds) in ``walker``, with
+    `recons` copies of the reconstruction planes after each call, and
+    hands each call's access unit and encoder to `on_frame`."""
 
-    def __init__(self, keep=0):
+    def __init__(self, keep=0, recons=False, on_frame=None):
         self.job = self.enc = None
         self.seconds = 0.0
         self.keep = keep
-        self.frames = []            # (y, u, v, qp) given to begin_frame
+        self.frames = []            # (y, u, v, qp) given to the encoder
+        self.walker = []            # (is_idr, host s) a one-call frame
+        self.keep_recons = recons
+        self.recons = []            # (y, u, v) after each one-call frame
+        self.on_frame = on_frame
+
+    def _keep(self, y, u, v, qp):
+        if len(self.frames) < self.keep:
+            self.frames.append((np.array(y), np.array(u), np.array(v), qp))
 
     def __enter__(self):
         self._orig = (work.create_video_encoder, work.do_job)
@@ -97,16 +109,33 @@ class JobSpy:
 
         def create_video_encoder(job, *a, **k):
             self.job, self.enc = job, make_enc(job, *a, **k)
-            begin = self.enc.begin_frame
+            enc = self.enc
+            if not hasattr(enc, "begin_frame"):
+                code = enc.encode_frame
+
+                def encode_frame(y, u, v, *a2, **k2):
+                    self._keep(y, u, v, k2.get("qp"))
+                    t0 = time.perf_counter()
+                    au = code(y, u, v, *a2, **k2)
+                    self.walker.append((enc.last_frame_was_idr,
+                                        time.perf_counter() - t0))
+                    if self.keep_recons:
+                        self.recons.append(tuple(np.array(p) for p in (
+                            enc.recon_y, enc.recon_u, enc.recon_v)))
+                    if self.on_frame is not None:
+                        self.on_frame(au, enc)
+                    return au
+
+                enc.encode_frame = encode_frame
+                return enc
+            begin = enc.begin_frame
 
             def begin_frame(y, u, v, *a2, **k2):
-                if len(self.frames) < self.keep:
-                    self.frames.append((np.array(y), np.array(u),
-                                        np.array(v), k2.get("qp")))
+                self._keep(y, u, v, k2.get("qp"))
                 return begin(y, u, v, *a2, **k2)
 
-            self.enc.begin_frame = begin_frame
-            return self.enc
+            enc.begin_frame = begin_frame
+            return enc
 
         def do_job(*a, **k):
             t0 = time.perf_counter()

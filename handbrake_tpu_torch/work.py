@@ -11,9 +11,10 @@ encoder share the ``filter+encode`` thread, so one CUDA stream carries
 the crop/scale products and the encoder's analysis; the audio chains run
 on the same thread, on the host, as in the reference.
 
-The port runs H.264 jobs from y4m, H.264 (annex-B, mp4, mkv, TS, PS),
-MPEG-2 (PS/VOB, TS, DVD and Blu-ray folders) and MJPEG (AVI) sources into
-mp4, mkv or webm, with audio tracks decoded from PCM, DVD LPCM, AAC,
+The port runs H.264, HEVC (Main and Main 10) and AV1 jobs from y4m,
+H.264 (annex-B, mp4, mkv, TS, PS), HEVC (annex-B, mp4, mkv, TS), AV1 (mp4,
+mkv), MPEG-2 (PS/VOB, TS, DVD and Blu-ray folders) and MJPEG (AVI)
+sources into mp4, mkv or webm, with audio tracks decoded from PCM, DVD LPCM, AAC,
 AC-3, MP2 and FLAC and encoded to AAC, AC-3, FLAC or PCM, or passed through, and with
 subtitles: SRT/SSA/VTT files imported, PGS, VobSub and text tracks of the
 source and CEA-608 captions of an H.264 stream decoded, each kept as a
@@ -49,6 +50,13 @@ each stamped with its display frame's timestamps.  Such a job with a
 bitrate or multipass target raises WorkError: the walker has no rate
 control, and the reference ignores the target.
 
+HEVC and AV1 jobs code each frame on the host walker
+(``codecs/hevc/encoder.py``, ``codecs/av1/encoder.py``), whose P frames'
+motion search runs on the job's device (``analyzer.py`` of each codec).
+They take no B-frames and no GOP-parallel encoding: each raises
+WorkError, where the reference codes I and P frames without a word, and
+logs that it ignores ``gop_parallel`` and codes the job serially.
+
 A burned text cue is rasterized into the part of the source frame that
 the job's crop keeps, and placed there, so it lands bottom-centred in the
 output picture.  The reference lays it out for the output size but blends
@@ -79,6 +87,8 @@ from .utils.device import resolve_device
 from .utils.logging import log
 
 H264_NAMES = ("h264_tpu", "x264", "h264")
+HEVC_NAMES = ("hevc_tpu", "x265", "hevc", "h265")
+AV1_NAMES = ("av1_tpu", "svt_av1", "av1")
 
 
 class WorkError(Exception):
@@ -99,9 +109,9 @@ def quality_to_qp(quality: float) -> int:
 
 def create_video_encoder(job: Job, width: int, height: int,
                          vrate: Fraction, device=None):
-    """The H.264 encoder of the job's settings, on `device` (None: the
-    CUDA card).  Its dispatch_batch stays 1, as on the reference's job
-    path."""
+    """The H.264, HEVC or AV1 encoder of the job's settings, on `device`
+    (None: the CUDA card).  The H.264 encoder's dispatch_batch stays 1,
+    as on the reference's job path."""
     qp = quality_to_qp(job.quality if job.quality is not None else 26)
     gop = max(1, int(round(float(vrate) * 10)))  # 10 s keyint, x264 dflt
     opts = dict(kv.split("=", 1) for kv in
@@ -109,6 +119,10 @@ def create_video_encoder(job: Job, width: int, height: int,
     if "keyint" in opts:
         gop = max(1, int(opts["keyint"]))
     bframes = int(getattr(job, "bframes", 0) or 0)
+    if bframes > 0 and job.vcodec in HEVC_NAMES + AV1_NAMES:
+        # the reference codes such a job P-only without a word
+        raise WorkError(f"the {job.vcodec} encoder codes I and P frames "
+                        f"only: it takes no B-frames")
     if job.vcodec in H264_NAMES and bframes > 0:
         if job.vbitrate or job.multipass:
             # the reference encodes such a job at cfg.qp and ignores
@@ -141,10 +155,23 @@ def create_video_encoder(job: Job, width: int, height: int,
             deblock=deblock, transform8x8=t8,
             fps=(vrate.numerator, vrate.denominator))
         return H264Encoder(cfg, device=device)
-    if job.vcodec in ("hevc_tpu", "x265", "hevc", "h265", "av1_tpu",
-                      "svt_av1", "av1", "mpeg2", "mpeg4", "vp9", "vp8",
-                      "ffv1", "prores", "theora"):
-        _unported(f"the {job.vcodec} video encoder")
+    if job.vcodec in HEVC_NAMES:
+        from .codecs.hevc.encoder import EncoderConfig, HEVCEncoder
+        bd = 10 if "10" in (job.encoder_profile or "") else 8
+        cfg = EncoderConfig(
+            width=width, height=height, qp=qp, gop=gop, bit_depth=bd,
+            fps=(vrate.numerator, vrate.denominator))
+        return HEVCEncoder(cfg, device=device)
+    if job.vcodec in AV1_NAMES:
+        from .codecs.av1.encoder import AV1Encoder, EncoderConfig
+        cfg = EncoderConfig(
+            width=width, height=height, qp=qp, gop=gop,
+            fps=(vrate.numerator, vrate.denominator))
+        return AV1Encoder(cfg, device=device)
+    if job.vcodec in ("mpeg2", "mpeg4", "vp9", "vp8", "ffv1", "prores",
+                      "theora"):
+        _unported(f"the {job.vcodec} video encoder (the libavcodec "
+                  f"catalog, ROADMAP item 1.10)")
     raise WorkError(f"unknown video encoder {job.vcodec!r}")
 
 
@@ -226,6 +253,12 @@ def do_job(job: Job, state=None, die=None, pause=None, device=None) -> dict:
         # the B-frames it was asked for
         raise WorkError("GOP-parallel encoding codes I and P frames only: "
                         "it takes no B-frames")
+    if int(job.gop_parallel or 0) > 1 \
+            and job.vcodec in HEVC_NAMES + AV1_NAMES:
+        # the reference logs that it ignores the request and codes the
+        # job serially
+        raise WorkError(f"GOP-parallel encoding codes H.264 only, not "
+                        f"{job.vcodec}")
     src = open_source(job.path)
     try:
         return _run(job, src, state, die, pause, dev)
@@ -571,13 +604,14 @@ class _DecodeSyncStage(WorkObject):
 
     def _queue_video(self, f, flush=False):
         """Queue a decoded frame with the source's HDR metadata: the
-        static SEIs on every frame, a T.35 payload on the next one
-        only, except at the EOF flush, which attaches all it holds to
-        every frame it drains."""
+        static SEIs on every frame, a T.35 payload and a Dolby Vision
+        RPU on the next one only, except at the EOF flush, which
+        attaches all it holds to every frame it drains."""
         if self._hdr:
             f.side_data.update(self._hdr)
             if not flush:
                 self._hdr.pop("hdr10plus_t35", None)
+                self._hdr.pop("dovi_rpu", None)
         self.sync.queue(self.v_sync, f)
         self.stats["frames_in"] += 1
 
@@ -628,11 +662,13 @@ class _DecodeSyncStage(WorkObject):
             return out + [buf]
         trk = buf.stream_id
         if trk == self.video_track:
-            if buf.planes is None and buf.data and self.vcodec == "h264":
-                # HDR metadata rides SEI NALs in the source ES
-                # (hdr10plus.c:133 role)
+            if buf.planes is None and buf.data \
+                    and self.vcodec in ("h264", "hevc"):
+                # HDR metadata rides SEI/RPU NALs in the source ES
+                # (hdr10plus.c:133, rpu.c:245 roles)
                 from .codecs.hdr import extract_hdr_side_data
-                self._hdr.update(extract_hdr_side_data(buf.data, "h264"))
+                self._hdr.update(extract_hdr_side_data(buf.data,
+                                                       self.vcodec))
             if self.cc_sel is not None and buf.data:
                 self._feed_cc(bytes(buf.data), buf.pts)
             frames = [buf] if buf.planes is not None else self.vdec.feed(buf)
@@ -704,36 +740,48 @@ class _EncodeStage(WorkObject):
         self._b_fbs = {}  # display idx -> frame, B-frame job
         self._b_disp = 0
         from .codecs.h264.encoder import H264Encoder
+        from .codecs.hevc.encoder import HEVCEncoder
         # the reference matches the class name, so its B-frame adapter
         # writes no SEI either
-        self._sei = isinstance(venc, H264Encoder)
+        self._sei = {H264Encoder: "h264", HEVCEncoder: "hevc"}.get(
+            type(venc))
 
     def _planes(self, fb):
         # the encoder takes host planes and pads and uploads them itself
         y, u, v = (to_host(p) for p in fb.planes)
+        enc_bd = getattr(self.venc, "bd", 8)
         src_bd = fb.pix_fmt.bit_depth if fb.pix_fmt else 8
-        if src_bd > 8:
+        if enc_bd != src_bd:
             # FORMAT-filter role (work.c:1506): scale to the encoder's
-            # 8 bits
-            y, u, v = ((p >> (src_bd - 8)).astype(np.uint8)
-                       for p in (y, u, v))
+            # bit depth
+            sh = abs(enc_bd - src_bd)
+            if enc_bd > src_bd:
+                y, u, v = (p.astype(np.uint16) << sh for p in (y, u, v))
+            else:
+                y, u, v = ((p >> sh).astype(np.uint8) for p in (y, u, v))
         return y, u, v
 
     def _emit_video(self, au, fb, is_idr, qp, rc_state=None, mark=True):
         sd = fb.side_data or {}
         if sd and self._sei:
             # the source's HDR metadata as SEI NALs ahead of the access
-            # unit: mastering display and content light on IDRs
+            # unit (mastering display and content light on IDRs), and an
+            # HEVC job's Dolby Vision RPU after it
             from .codecs.hdr import hdr_nals
             emit = {}
             if is_idr:
                 emit.update({k: sd[k] for k in ("mastering_display",
                                                 "content_light")
                              if k in sd})
-            if "hdr10plus_t35" in sd:
-                emit["hdr10plus_t35"] = sd["hdr10plus_t35"]
-            pre, _post = hdr_nals(emit, "h264")
-            au = pre + au
+            emit.update({k: sd[k] for k in ("hdr10plus_t35", "dovi_rpu")
+                         if k in sd})
+            pre, post = hdr_nals(emit, self._sei)
+            au = pre + au + post
+        ed = getattr(self.venc, "extradata", b"")
+        if ed:
+            # AV1's av1C: the mkv CodecPrivate
+            fb.side_data = dict(fb.side_data or {})
+            fb.side_data["codec_private"] = ed
         if is_idr and mark and rc_state is None:
             rc_state = checkpoint.rc_snapshot(self.rc)
         self.rc.update(len(au) * 8, qp, is_idr)
@@ -774,6 +822,12 @@ class _EncodeStage(WorkObject):
                 out.append(self._finish_one())
         rc_state = checkpoint.rc_snapshot(self.rc) if is_idr else None
         qp = self.rc.frame_qp(is_idr)
+        if not hasattr(self.venc, "begin_frame"):
+            # the HEVC and AV1 walkers code a frame in one call
+            au = self.venc.encode_frame(y, u, v, qp=qp)
+            return out + [self._emit_video(au, fb,
+                                           self.venc.last_frame_was_idr,
+                                           qp, rc_state)]
         self._pend.append((self.venc.begin_frame(y, u, v, qp=qp), fb, qp,
                            is_idr, rc_state))
         if out:

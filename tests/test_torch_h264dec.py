@@ -120,4 +120,4 @@ def test_no_python_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="build failed"):
         registry.create_video_decoder("h264")
     with pytest.raises(NotImplementedError):
-        registry.create_video_decoder("hevc")
+        registry.create_video_decoder("vp9")

@@ -274,20 +274,27 @@ def test_no_fallback_to_the_cpu(src, tmp_path, monkeypatch):
         cli(["-i", src, "-o", out])
 
 
-# job changes whose paths are later slices of the port
+# job changes whose paths are later slices of the port, or that the port
+# refuses, and what each raises
 UNPORTED_JOBS = {
     # mkv is ported; the catalog encoders that need it are not
-    "mux-mkv": lambda j: (setattr(j, "mux", "mkv"),
-                          setattr(j, "vcodec", "vp9")),
-    "vcodec-hevc": lambda j: setattr(j, "vcodec", "hevc_tpu"),
+    "mux-mkv": (lambda j: (setattr(j, "mux", "mkv"),
+                           setattr(j, "vcodec", "vp9")),
+                NotImplementedError),
+    # HEVC jobs run (tests/test_torch_job_hevc_av1.py); GOP-parallel
+    # encoding is H.264's alone
+    "vcodec-hevc": (lambda j: (setattr(j, "vcodec", "hevc_tpu"),
+                               setattr(j, "gop_parallel", 2)),
+                    work.WorkError),
 }
 
 
 @pytest.mark.parametrize("change", list(UNPORTED_JOBS))
 def test_unported_job_raises(src, tmp_path, change):
     j = _job(S, src, str(tmp_path / "x.mp4"), "crop-only")
-    UNPORTED_JOBS[change](j)
-    with pytest.raises(NotImplementedError):
+    change_job, exc = UNPORTED_JOBS[change]
+    change_job(j)
+    with pytest.raises(exc):
         work.do_job(j, device="cpu")
 
 
@@ -352,9 +359,11 @@ def test_formerly_unported_job_runs(src, tmp_path, monkeypatch, change):
     assert not os.path.exists(out + ".ckpt")
 
 
+# -e x265 and -e svt_av1 run now (tests/test_torch_job_hevc_av1.py);
+# their places hold other catalog options
 @pytest.mark.parametrize("opts", [["-E", "opus"], ["-a", "1", "-E", "mp3"],
-                                  ["-e", "x265"],
-                                  ["-e", "svt_av1"],
+                                  ["-f", "mkv", "-e", "ffv1"],
+                                  ["-E", "vorbis"],
                                   ["-f", "webm", "-e", "vp9"],
                                   ["-f", "mkv", "-e", "mpeg2"]])
 def test_unported_cli_option_raises(src, tmp_path, opts):
@@ -382,8 +391,10 @@ def test_unported_sources_raise(tmp_path):
     """AVI, MPEG-TS/PS and disc folders are ported (test_torch_sources and
     test_torch_job_discs hold them): a malformed AVI, a TS without sync
     and an empty VIDEO_TS raise what the JAX package's do_job raises on
-    them, and the CLI exits as its CLI does.  HEVC elementary streams are
-    not ported (ROADMAP item 1.9)."""
+    them, and the CLI exits as its CLI does.  An HEVC elementary stream
+    beyond the native decoder's subset (SAO on) raises ValueError naming
+    ROADMAP item 1.10 (its libavcodec decode)."""
+    from test_torch_hevc import sao_stream
     from handbrake_tpu.sources.common import DemuxError as JDemuxError
     from handbrake_tpu_torch.sources.common import DemuxError
     avi = tmp_path / "a.avi"
@@ -391,7 +402,7 @@ def test_unported_sources_raise(tmp_path):
     ts = tmp_path / "a.ts"
     ts.write_bytes(b"\x47" + bytes(187))
     hevc = tmp_path / "a.265"
-    hevc.write_bytes(b"\x00\x00\x00\x01\x40\x01" + bytes(32))
+    hevc.write_bytes(sao_stream())
     disc = tmp_path / "VIDEO_TS"
     disc.mkdir()
     for path in (str(avi), str(ts), str(disc)):
@@ -401,7 +412,7 @@ def test_unported_sources_raise(tmp_path):
             work.do_job(_job(S, path, str(tmp_path / "x.mp4"), "unscaled"),
                         device="cpu")
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="item 1.9"):
+    with pytest.raises(ValueError, match="item 1.10"):
         work.do_job(_job(S, str(hevc), str(tmp_path / "x.mp4"), "unscaled"),
                     device="cpu")
     args = ["-i", str(avi), "-o", str(tmp_path / "y.mp4")]

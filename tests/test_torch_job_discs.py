@@ -198,7 +198,7 @@ def test_scan_equals_reference(sources, name):
 # what the port leaves to later items raises, naming the item
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("stype,kind,exc,match", [
-    (0x24, "video", NotImplementedError, "item 1.9"),     # HEVC
+    (0x24, "video", ValueError, "item 1.10"),     # HEVC beyond the subset
     (0x10, "video", NotImplementedError, "item 1.10"),    # MPEG-4 part 2
     (0x87, "audio", NotImplementedError, "item 1.10"),    # E-AC-3
     (0x82, "audio", NotImplementedError, "item 1.10"),    # DTS
@@ -208,8 +208,11 @@ def test_scan_equals_reference(sources, name):
 def test_unported_ts_codecs_raise(tmp_path, stype, kind, exc, match):
     """A TS whose video, or whose selected audio track, the port cannot
     decode yet: the job raises before it encodes, naming the ROADMAP item
-    or the codec, and drops nothing without a word."""
-    aus = h264_aus()
+    or the codec, and drops nothing without a word.  HEVC decodes since
+    item 1.9; an HEVC stream beyond the native decoder's subset (SAO on)
+    waits for libavcodec, item 1.10."""
+    from test_torch_hevc import sao_stream
+    aus = [sao_stream()] if stype == 0x24 else h264_aus()
     if kind == "video":
         streams = [(stype, 0x100, b"")]
         units = [(T0 + i * FRAME, 0x100, 0xE0, au, T0 + i * FRAME)

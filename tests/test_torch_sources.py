@@ -333,10 +333,23 @@ def test_avi_demuxer_equals_reference():
 
 
 def test_hevc_elementary_stream_still_raises(tmp_path):
+    """HEVC elementary streams open since item 1.9; one beyond the native
+    decoder's subset (SAO on) opens as the reference opens it (no
+    geometry) and raises at its decode, naming ROADMAP item 1.10."""
+    from handbrake_tpu_torch.codecs.registry import create_video_decoder
+    from handbrake_tpu_torch.core.buffer import Buffer
+    from test_torch_hevc import sao_stream
     p = tmp_path / "a.265"
-    p.write_bytes(b"\x00\x00\x00\x01\x40\x01" + bytes(32))
-    with pytest.raises(NotImplementedError, match="item 1.9"):
-        open_source(str(p))
+    p.write_bytes(sao_stream())
+    src = open_source(str(p))
+    try:
+        ti = src.tracks[0]
+        assert (ti.codec, ti.width, ti.height) == ("hevc", 0, 0)
+        pkt = next(b for _t, b in src.packets())
+    finally:
+        src.close()
+    with pytest.raises(ValueError, match="item 1.10"):
+        create_video_decoder("hevc", ti.extradata).feed(pkt)
 
 
 # ---------------------------------------------------------------------------
@@ -454,10 +467,36 @@ control.
         base = 0 if intra else tgt[rows, x0:x0 + 8].astype(np.int32)
         tgt[rows, x0:x0 + 8] = np.clip(base + blkpix, 0, 255)"""))
 
+# an HEVC track's picture size from its SPS (the reference reads none
+# for HEVC and leaves the track 0x0)
+_TS_HEVC_GEOMETRY = (
+    ("""            except Exception:
+                pass
+        if ti.frame_rate is None:
+""", """            except Exception:
+                pass
+        elif ti.codec == "hevc":
+            # the picture's size: the SPS's coded size less its
+            # conformance window (the reference reads no HEVC SPS here and
+            # leaves the track 0x0)
+            try:
+                from ..codecs.h264.bits import ebsp_to_rbsp, split_annexb
+                from ..codecs.hevc.syntax import SPS as HSPS
+                for nal in split_annexb(bytes(es)):
+                    if ((nal[0] >> 1) & 0x3F) == 33:
+                        sps = HSPS.parse(ebsp_to_rbsp(nal[2:]))
+                        ti.width = sps.width - sps.crop_right
+                        ti.height = sps.height - sps.crop_bottom
+                        break
+            except AssertionError:
+                pass            # beyond the native subset: the decoder says so
+        if ti.frame_rate is None:
+"""),)
+
 COPIES = {
     "sources/ps.py": (),
     "sources/dvd.py": (),
-    "sources/ts.py": (),
+    "sources/ts.py": _TS_HEVC_GEOMETRY,
     "sources/bd.py": (),
     "sources/avi.py": (),
     "native/hbdecmjpeg.cpp": (),
