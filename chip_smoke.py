@@ -255,7 +255,25 @@ Phases (none is caught; any failure exits non-zero before the last line):
    3-frame 10-bit y4m with ``-e x265 --encoder-profile main10``: a 10-bit
    encoder, the mkv decoded (in a process of its own) to 16-bit frames
    equal to its reconstructions.
-14. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+14. Several ranks of one job (``parallel/mesh.py``), one JSON line with
+   the card's name and power limit: (a) step 11 (c)'s letterboxed
+   source with ``--gop-parallel 4`` through ``cli.__main__.main`` on 2
+   ranks of this card under ``python -m torch.distributed.run
+   --standalone --nproc-per-node 2`` (each rank this script with
+   ``--mesh-rank cli DIR ARGV``: the CLI under torch.profiler), over
+   gloo, and the same job in one fresh process (``--nproc-per-node 1``,
+   no process group) beside it: each mp4 equal to 11 (c)'s one-rank
+   file byte for byte; fps,
+   each rank's device ms and busy share over the job, the resample
+   launches on each rank (33 on rank 0, none elsewhere), each rank's
+   wire counters; (b) the same to ``-b 2000 --two-pass`` through
+   ``-m handbrake_tpu_torch.cli`` itself, equal to 11 (c)'s two-pass
+   file; (c) nlmeans with ``tile_parallel`` 2 on a 1080p 4:2:0 frame over
+   the two ranks (``--mesh-rank tiles``) equal to the untiled filter bit
+   for bit, each timed in turns; (d) where the run started with two or
+   more cards, (a) and (c) over NCCL on min(4, cards) of them in a
+   torchrun of their own, else a line that says why no NCCL world ran.
+15. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
    time; hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s
@@ -264,12 +282,14 @@ Phases (none is caught; any failure exits non-zero before the last line):
    DVD frames beside ``bound_dvd_ms``, ``launches`` 5 (a)'s count, one a
    frame, ``library_ms`` the dense products' time, ``regs``,
    ``local_bytes`` and ``smem_bytes`` the kernel's, ``job_launches``
-   its counts in jobs 5 (a), 9 (c) and 10 (a); deblock264's
+   its counts in jobs 5 (a), 9 (c), 10 (a), 11 (c) and on 14 (a)'s rank
+   0; deblock264's
    ``job_launches`` include 11 (b)'s resumed job and the four jobs of
    step 12; resample's those of 12 (a) and (b)), steps 7's to 13's
    numbers, the card's name and power limit, and the result line.
 
-Step 13's helper processes run this script with arguments: ``--decode-check
+Step 14's ranks run this script with ``--mesh-rank KIND DIR ARGV...``
+(above).  Step 13's helper processes run it with: ``--decode-check
 CODEC MKV NPZ`` decodes an mkv's video with the port's decoder and
 prints one JSON line (frames, equal to the reconstructions in NPZ, host
 ms a frame); ``--walker-job CODEC SRC DIR`` runs (b)'s or (c)'s job on
@@ -430,6 +450,11 @@ HV_ROWS, AN_REPS = 1088, 20
 HV_N, HV_CPU, HV_M10_N = 5, 3, 3
 HV_PRESETS = {"hevc": "H.265 MKV 1080p30", "av1": "AV1 MKV 1080p30"}
 SAD_OPS = 3
+# step 14: the ranks of one job on this card (gloo), the cards of an
+# NCCL world at most, a world's time limit; the cards this run could see
+# when it started (before one_card)
+MESH_RANKS, NCCL_MAX, MESH_LIMIT_S = 2, 4, 300
+CARDS_AT_START = []
 
 
 def smi(query):
@@ -2704,8 +2729,9 @@ class GopSpy:
         self._gop, self._orig = gop, gop.encode_gop_parallel
 
         def spy(frames, width, height, qp, n_gops, fps=(30000, 1001),
-                device=None):
-            res = self._orig(frames, width, height, qp, n_gops, fps, device)
+                device=None, mesh=None):
+            res = self._orig(frames, width, height, qp, n_gops, fps, device,
+                             mesh)
             self.calls.append((list(frames), width, height, qp, n_gops, fps,
                                res))
             return res
@@ -3760,6 +3786,212 @@ def hevc_source(label, rec, tmp, cli_main, pj):
         raise RuntimeError("13 (d): the HEVC source did not transcode to "
                            "its decoded frames")
 
+def cards_at_start() -> list:
+    """The card indexes this process may use, read before one_card()
+    hides all but the first (CUDA is not started yet)."""
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if vis is not None:
+        return [v.strip() for v in vis.split(",") if v.strip()]
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return [str(k) for k, line in enumerate(
+        x for x in out.splitlines() if x.startswith("GPU "))]
+
+
+def mesh_rank_process(kind, out_dir, *argv) -> int:
+    """One rank of a step 14 world, started by torchrun on its card
+    (``utils/device.py`` deals the ranks over the visible cards).  "cli":
+    ``cli.__main__.main(argv)`` under torch.profiler (rank 0 runs the
+    job, the others serve it), with the job's do_job seconds, the card's
+    busy ms from the raw trace and the resample launches; "tiles": rank 0
+    holds nlmeans with tile_parallel over the world against the untiled
+    filter.  Writes its numbers to out_dir/rank<r>.json."""
+    import torch
+
+    from handbrake_tpu_torch.parallel.mesh import init_world
+    from handbrake_tpu_torch.utils.device import resolve_device
+    world = init_world("cuda")      # None: a world of one, no group
+    rank = world.rank if world is not None else 0
+    rec = {"rank": rank, "rc": 0,
+           "device": str(world.device if world else resolve_device()),
+           "backend": world.backend if world is not None else None}
+    if kind == "cli":
+        from handbrake_tpu_torch.cli.__main__ import main as cli_main
+        from handbrake_tpu_torch.filters import resample_cuda
+        from handbrake_tpu_torch.tools.profile_job import JobSpy
+        reset_counts()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with JobSpy() as spy, torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            rec["rc"] = cli_main(list(argv))
+            torch.cuda.synchronize()
+            rec["wall_s"] = time.perf_counter() - t0
+        rec.update(job_s=spy.seconds, device_ms=device_busy_ms(prof),
+                   resample_launches=resample_cuda.launches,
+                   mesh=dict(world.stats) if world is not None else None)
+    elif world.rank != 0:
+        world.serve()
+    else:
+        try:
+            rec.update(mesh_tiles(world.size))
+        finally:
+            world.close()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return rec["rc"]
+
+
+def mesh_tiles(n) -> dict:
+    """Rank 0 of 14 (c): nlmeans with tile_parallel n over the world on
+    a 1080p 4:2:0 frame (the frame before as its temporal reference)
+    against the filter without it, bit for bit; each timed in turns."""
+    import torch
+
+    from handbrake_tpu_torch.core.buffer import PIX_FMTS, Buffer, Geometry
+    from handbrake_tpu_torch.filters import base
+    from handbrake_tpu_torch.job import schema as S
+    from handbrake_tpu_torch.utils.synth import make_clip
+    planes = [[torch.from_numpy(p).cuda() for p in f]
+              for f in make_clip(W, H, 2, seed=17)]
+    filters, outs = {}, {}
+    for tp in (0, n):
+        f = base.create_filter(S.FILTER_NLMEANS, {"tile_parallel": tp})
+        f.init(base.FilterInit(geometry=Geometry(W, H), device="cuda",
+                               pix_fmt=PIX_FMTS["yuv420p"]))
+        filters[tp], outs[tp] = f, []
+        for k, p in enumerate(planes):
+            outs[tp] += f.work(Buffer(planes=list(p),
+                                      pix_fmt=PIX_FMTS["yuv420p"],
+                                      pts=k))[0].planes
+    turns = {0: [], n: []}
+    for tp in (0, n, n, 0):
+        turns[tp].append(cuda_ms(lambda: filters[tp].work(Buffer(
+            planes=list(planes[1]), pix_fmt=PIX_FMTS["yuv420p"], pts=1)),
+            NL_REPS))
+    return {"tiles": n, "equal_untiled": all(
+        torch.equal(a, b) for a, b in zip(outs[n], outs[0])),
+        "ms_untiled": statistics.mean(turns[0]),
+        "ms_tiled": statistics.mean(turns[n]),
+        "ms_turns": {str(k): v for k, v in turns.items()}}
+
+
+def torchrun_ranks(tmp, name, n, kind, argv, env=None):
+    """This script's ``--mesh-rank`` on n ranks under torchrun (its own
+    session, killed at MESH_LIMIT_S); every rank's numbers, the
+    seconds."""
+    from handbrake_tpu_torch.parallel.launch import torchrun
+    out_dir = os.path.join(tmp, name)
+    os.makedirs(out_dir, exist_ok=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    rc, out = torchrun(n, [os.path.join(root, "chip_smoke.py"),
+                           "--mesh-rank", kind, out_dir, *argv],
+                       limit_s=MESH_LIMIT_S, cwd=root,
+                       env=dict(os.environ, PYTHONPATH=root, **(env or {})))
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        print(out[-6000:], flush=True)
+        raise RuntimeError(f"14: the {name} world of {n} ranks exited {rc}")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, secs
+
+
+def mesh_job(tmp, name, n, argv, out, want, env=None) -> dict:
+    """Job (a)'s --gop-parallel run over n ranks (n = 1: one process,
+    no process group), each a fresh process: its file against the
+    one-rank file, fps, each rank's device ms and busy share over the
+    job (an NCCL rank's receive kernels count as busy while they wait),
+    resample launches on each rank."""
+    ranks, secs = torchrun_ranks(tmp, name, n, "cli", argv, env)
+    job_s = ranks[0]["job_s"]
+    return {"ranks": n, "backend": ranks[0]["backend"],
+            "devices": [r["device"] for r in ranks],
+            "equal_one_rank": file_bytes(out) == want,
+            "fps": N_FRAMES / job_s, "job_s": job_s, "torchrun_s": secs,
+            "device_ms": [r["device_ms"] for r in ranks],
+            "busy_share": [r["device_ms"] / (job_s * 1e3) for r in ranks],
+            "resample_launches": [r["resample_launches"] for r in ranks],
+            "wire": [r["mesh"] for r in ranks]}
+
+
+def phase_mesh(tmp, label, gp) -> dict:
+    """14: job (a)'s letterboxed source with --gop-parallel GP_N over
+    MESH_RANKS ranks on this card (gloo) under torchrun, against phase 11
+    (c)'s one-rank files: (a) with per-rank numbers, (b) to a bitrate
+    with --two-pass through ``-m handbrake_tpu_torch.cli`` itself; (c)
+    nlmeans in row tiles over the ranks; (d) the same over NCCL on
+    min(NCCL_MAX, cards) cards, where the run started with two or
+    more."""
+    from handbrake_tpu_torch.parallel.launch import torchrun
+    from handbrake_tpu_torch.tools import profile_job as pj
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(tmp, "gp.y4m")
+    one = file_bytes(os.path.join(tmp, "gp.mp4"))
+    rec = {"phase": "14", "card": label}
+    out = os.path.join(tmp, "gp_ranks.mp4")
+    argv = pj.letterbox_argv(src, out) + ["--gop-parallel", str(GP_N)]
+    # the same job in one fresh process: torchrun's ranks start cold,
+    # while 11 (c) ran late in this warm one
+    out_1 = os.path.join(tmp, "gp_one.mp4")
+    rec["one"] = mesh_job(tmp, "mesh_one", 1, pj.letterbox_argv(src, out_1)
+                          + ["--gop-parallel", str(GP_N)], out_1, one)
+    rec["a"] = mesh_job(tmp, "mesh_a", MESH_RANKS, argv, out, one)
+    rec["a"]["warm_one_rank_fps"] = gp["fps"]
+    out_b = os.path.join(tmp, "gp_rate_ranks.mp4")
+    t1 = time.perf_counter()
+    rc, log = torchrun(MESH_RANKS, [
+        "-m", "handbrake_tpu_torch.cli", *pj.letterbox_argv(src, out_b),
+        "--gop-parallel", str(GP_N), "-b", str(GP_KBPS), "--two-pass"],
+        limit_s=MESH_LIMIT_S, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root))
+    if rc != 0:
+        print(log[-6000:], flush=True)
+        raise RuntimeError(f"14 (b): the two-pass world exited {rc}")
+    rec["b"] = {"equal_one_rank": file_bytes(out_b) == file_bytes(
+        os.path.join(tmp, "gp_rate.mp4")), "torchrun_s":
+        time.perf_counter() - t1}
+    ranks_c, secs_c = torchrun_ranks(tmp, "mesh_c", MESH_RANKS, "tiles", [])
+    rec["c"] = dict(ranks_c[0], torchrun_s=secs_c)
+    cards = CARDS_AT_START
+    k = min(NCCL_MAX, len(cards))
+    if k < 2:
+        why = (f"{len(cards)} card(s) visible when the run started; NCCL "
+               f"takes a card a rank, so a world needs two")
+        print(f"phase 14 (d): ran no NCCL world: {why}", flush=True)
+        rec["d"] = {"ran": False, "why": why}
+    else:
+        env = {"CUDA_VISIBLE_DEVICES": ",".join(cards[:k])}
+        out_d = os.path.join(tmp, "gp_nccl.mp4")
+        rec["d"] = mesh_job(tmp, "mesh_d", k, pj.letterbox_argv(src, out_d)
+                            + ["--gop-parallel", str(GP_N)], out_d, one, env)
+        ranks_t, secs_t = torchrun_ranks(tmp, "mesh_d_tiles", k, "tiles",
+                                         [], env)
+        rec["d"].update(ran=True, tiles=dict(ranks_t[0], torchrun_s=secs_t))
+    rec["seconds"] = time.perf_counter() - t0
+    print(json.dumps(rec), flush=True)
+    print(f"phase 14 ({label}): {rec['seconds']:.1f} s", flush=True)
+    checks = [rec["one"]["equal_one_rank"], rec["one"]["backend"] is None,
+              rec["a"]["equal_one_rank"], rec["a"]["backend"] == "gloo",
+              rec["a"]["resample_launches"] == [N_FRAMES]
+              + [0] * (MESH_RANKS - 1),
+              rec["b"]["equal_one_rank"], rec["c"]["equal_untiled"],
+              rec["c"]["backend"] == "gloo"]
+    if rec["d"]["ran"]:
+        checks += [rec["d"]["equal_one_rank"], rec["d"]["backend"] == "nccl",
+                   rec["d"]["tiles"]["equal_untiled"]]
+    if not all(checks):
+        raise RuntimeError(f"14: a check failed: {checks}")
+    return rec
+
+
 def one_card():
     """Make only the first visible card visible to this process (before
     CUDA starts), so the run uses, and reports, exactly one card."""
@@ -3773,6 +4005,9 @@ def main() -> int:
         return decode_check(*sys.argv[2:5])   # step 13's helper processes
     if sys.argv[1:2] == ["--walker-job"]:
         return walker_job_process(*sys.argv[2:])
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank_process(*sys.argv[2:])   # step 14's ranks
+    CARDS_AT_START[:] = cards_at_start()
     one_card()
     import torch
     if not torch.cuda.is_available():
@@ -3801,6 +4036,7 @@ def main() -> int:
         scale_out = phase_scale_out(tmp, label, stream)
         discs = phase_discs(tmp, label, stream, ms)
         hv = phase_hevc_av1(tmp, label)
+        mesh = phase_mesh(tmp, label, scale_out["gop_parallel"])
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -3849,6 +4085,8 @@ def main() -> int:
                          "letterbox_bframes_cli": bf["resample_launches"],
                          "letterbox_gop_parallel_cli":
                              scale_out["gop_parallel"]["resample_launches"],
+                         "letterbox_gop_parallel_2_ranks_cli_rank0":
+                             mesh["a"]["resample_launches"][0],
                          "dvd_720x480_cli":
                              discs["dvd"]["resample_launches"],
                          "bluray_1080p_cli":
@@ -3860,6 +4098,7 @@ def main() -> int:
     print(f"phase 11 seconds: {scale_out['seconds']:.1f}", flush=True)
     print(f"phase 12 seconds: {discs['seconds']:.1f}", flush=True)
     print(f"phase 13 seconds: {hv['seconds']:.1f}", flush=True)
+    print(f"phase 14 seconds: {mesh['seconds']:.1f}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

@@ -12,9 +12,12 @@ track the same setting, as the reference's parser does.  ``--bframes N``
 codes IB..BP groups with the host walker (with ``-q``; a bitrate target
 raises).  ``--checkpoint`` journals the job to ``<dest>.ckpt`` and
 ``--resume`` continues a killed job from it; ``--gop-parallel N`` codes
-G = min(N, frames) keyframe-aligned GOPs a window (the port's one device
-runs the GOP axis as a batch), also with ``--two-pass -b``;
-``--tile-parallel N`` runs nlmeans in N row tiles.  ``-e x265`` (Main 10
+G = min(N, frames) keyframe-aligned GOPs a window, also with
+``--two-pass -b``; ``--tile-parallel N`` runs nlmeans in N row tiles.
+Both spread over the ranks when torchrun starts the CLI on several
+cards (``parallel/mesh.py``): rank 0 runs the job and its exit code is
+the job's, the other ranks serve its work items and exit 0; one rank
+runs the GOPs as a loop and nlmeans untiled.  ``-e x265`` (Main 10
 with ``--encoder-profile main10``) and ``-e svt_av1`` code HEVC and AV1
 on the host walkers with their motion search on the device; they take
 no ``--bframes`` and no ``--gop-parallel``.  The libavcodec audio
@@ -23,6 +26,8 @@ filters, codecs and containers.
 
 Usage:
   python -m handbrake_tpu_torch.cli -i in.mp4 -o out.mkv [options]
+  torchrun --standalone --nproc-per-node 4 -m handbrake_tpu_torch.cli \
+      -i in.mp4 -o out.mp4 --gop-parallel 4 [options]
   python -m handbrake_tpu_torch.cli -i src --scan --json
   python -m handbrake_tpu_torch.cli --preset-list
 """
@@ -38,6 +43,7 @@ from ..job import schema as S
 from ..job.presets import (builtin_presets, flatten, import_preset_file,
                            preset_search, preset_to_job)
 from ..job.schema import AudioJobTrack, FilterSpec, Job, RangeSpec
+from ..parallel.mesh import init_world
 from ..utils.device import resolve_device
 
 
@@ -86,10 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--encoder-level", default=None)
     p.add_argument("--gop-parallel", type=int, default=0,
                    help="code each window as min(N, frames) keyframe-"
-                        "aligned GOPs, batched on the device (h264)")
+                        "aligned GOPs over torchrun's ranks (h264)")
     p.add_argument("--tile-parallel", type=int, default=0,
-                   help="NLMeans row tiles over N devices (taskset "
-                        "analog); one card runs the untiled filter")
+                   help="NLMeans row tiles over min(N, ranks) ranks "
+                        "(taskset analog); one rank runs it untiled")
     p.add_argument("--bframes", type=int, default=0,
                    help="B-frames between anchors (h264; IB..BP GOP "
                         "via the host walker, x264 bframes role)")
@@ -417,6 +423,20 @@ def main(argv=None) -> int:
         list_presets()
         return 0
     resolve_device(args.device)     # no card for "cuda": raise, here
+    world = init_world(args.device)  # torchrun's ranks, if it started us
+    if world is None:
+        return run(args)
+    if world.rank != 0:
+        world.serve()
+        return 0
+    try:
+        return run(args)
+    finally:
+        world.close()
+
+
+def run(args) -> int:
+    """The job (or scan, or queue) of parsed arguments; its exit code."""
     if args.queue_import_file:
         # run a saved queue: JSON list of job dicts (the Worker-process
         # queue import, test.c --queue-import-file role)

@@ -10,10 +10,12 @@ temporal search runs the same loop against a ring of previous frames
 20 a search offset and plane.
 
 Settings (param.c table names): {y,cb}_strength, _origin_tune, _patch_size,
-_range, _frame_count.  ``tile_parallel`` is accepted and changes nothing:
-the reference cuts each plane into row tiles with halos to spread them
-over its devices, which on one card would compute this same function a
-second way, so every tile count runs the untiled filter.
+_range, _frame_count.  ``tile_parallel`` N cuts each plane into row
+tiles over min(N, ranks) ranks of the process group
+(``parallel/mesh.py`` ``tile_shard_nlmeans``: each rank filters its tile
+with rng + patch rows of its neighbours, and the output equals the
+untiled filter bit for bit); a plane too small for the halo, or a job on
+one rank, runs untiled.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from ..core.buffer import Buffer
 from ..job import schema as S
 from ..utils.device import resolve_device
+from ..utils.logging import log
 from .base import Filter, FilterInit, register
 from .kernels import div, out_dtype, pad_edge, shift2, to_tensor
 
@@ -91,8 +94,34 @@ class NLMeansFilter(Filter):
         self.hist: list = []  # ring of previous frames' planes
         self.maxval = (1 << fi.pix_fmt.bit_depth) - 1
         self.device = resolve_device(fi.device)
+        self._tiles = int(s.get("tile_parallel", 0) or 0)
+        self._tile_fns: dict = {}
+        self._mesh = None
+        if self._tiles > 1:
+            from ..parallel.mesh import current_world, make_mesh
+            w = current_world()
+            n = min(self._tiles, w.size) if w is not None else 1
+            if n > 1:
+                self._mesh = make_mesh(n, tile=n, device=self.device)
+            log(f"nlmeans: tile_parallel={self._tiles}: "
+                + (f"{n} row tiles over {n} ranks (slower than the "
+                   f"untiled filter in every run on H100s so far: "
+                   f"PERF.md, ROADMAP.md)" if n > 1
+                   else "one rank, untiled"))
         self.fi = fi.copy()
         return self.fi
+
+    def _plane_fn(self, cfg):
+        """The filter of one plane: tiled over the mesh, or untiled."""
+        kw = dict(strength=cfg["strength"], origin_tune=cfg["origin_tune"],
+                  patch=cfg["patch"], rng=cfg["rng"], maxval=self.maxval)
+        if self._mesh is None:
+            return lambda cur, refs: nlmeans_plane(cur, refs, **kw)
+        key = tuple(kw.values())
+        if key not in self._tile_fns:
+            from ..parallel.mesh import tile_shard_nlmeans
+            self._tile_fns[key] = tile_shard_nlmeans(self._mesh, **kw)
+        return self._tile_fns[key]
 
     def work(self, buf: Buffer) -> list:
         if buf.is_eof() or buf.planes is None:
@@ -108,10 +137,7 @@ class NLMeansFilter(Filter):
             past = [h[i] for h in self.hist[-(cfg["frames"] - 1):]] \
                 if cfg["frames"] > 1 else []
             refs = torch.stack([pj] + past)
-            planes.append(nlmeans_plane(
-                pj, refs, strength=cfg["strength"],
-                origin_tune=cfg["origin_tune"], patch=cfg["patch"],
-                rng=cfg["rng"], maxval=self.maxval))
+            planes.append(self._plane_fn(cfg)(pj, refs))
         self.hist.append(cur)
         if len(self.hist) >= maxframes:
             self.hist = self.hist[-(maxframes - 1):] if maxframes > 1 else []

@@ -13,7 +13,10 @@ The counterpart of ``handbrake_tpu/hb.py``: a Handle takes ``device``
 (None: the CUDA card; "cpu" runs on the CPU) and hands it to every job
 and preview it runs.  A scan or a job that fails keeps its exception in
 ``scan_error`` or ``work_exception`` (an unported source, codec, filter
-or option raises NotImplementedError).
+or option raises NotImplementedError).  Under torchrun the jobs of every
+Handle on rank 0 share the process's world (``parallel/mesh.py``), which
+hands out one work item at a time, so jobs on threads never interleave
+their items.
 """
 from __future__ import annotations
 

@@ -35,13 +35,16 @@ uninterrupted one.  A resume without a journal, or from a file that is
 not one, raises.
 
 ``gop_parallel`` N codes each window of frames as G = min(N, frames)
-keyframe-aligned GOPs (``parallel/gop.py``).  The reference shards them
-over its devices and takes G = min(N, devices, frames); the port runs
-the GOP axis as a batch on its one device, so G does not depend on a
-device count.  With a multipass bitrate each window runs the two-pass
-GOP allocator.  ``tile_parallel`` N is handed to nlmeans, which on one
-card runs untiled: the reference's row tiles spread a plane over its
-devices, and one card has no second device to spread them to.
+keyframe-aligned GOPs (``parallel/gop.py``), dealt out over the ranks of
+the process group when ``torchrun`` started one (``parallel/mesh.py``:
+rank 0 runs the job, the other ranks serve its work items; on a rank
+other than 0 ``do_job`` serves until rank 0 closes the world, and
+returns).  The reference shards the GOPs over its devices and takes G =
+min(N, devices, frames); the port's G does not depend on the rank count,
+and one rank runs the GOPs as a loop.  With a multipass bitrate each
+window runs the two-pass GOP allocator.  ``tile_parallel`` N is handed to
+nlmeans, which cuts each plane into min(N, ranks) row tiles over the
+ranks, or runs untiled on one rank.
 
 With ``bframes`` the video goes through the host B-frame walker
 (``codecs/h264/encoder_b.py``, CAVLC, constant qp) while the filter graph
@@ -248,6 +251,12 @@ def do_job(job: Job, state=None, die=None, pause=None, device=None) -> dict:
     """Run one pass of a job on `device` (None: the CUDA card; "cpu"
     runs on the CPU).  Returns stats dict (frames, bytes, ...)."""
     dev = resolve_device(device)
+    from .parallel.mesh import init_world
+    world = init_world(device)
+    if world is not None and world.rank != 0:
+        world.serve()
+        return {"frames_in": 0, "frames_out": 0, "bytes_out": 0,
+                "served": dict(world.stats)}
     if int(job.gop_parallel or 0) > 1 and int(job.bframes or 0) > 0:
         # the reference's GOP-parallel path codes IDR + P GOPs and drops
         # the B-frames it was asked for
@@ -411,7 +420,7 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
             filter_list.append({"ID": S.FILTER_RENDER_SUB, "Settings": {}})
     tp = int(job.tile_parallel or 0)
     if tp > 1:
-        # nlmeans takes the tile count (on one card it runs untiled)
+        # nlmeans takes the tile count (on one rank it runs untiled)
         from .job import schema as S
         for f in filter_list:
             if f["ID"] == S.FILTER_NLMEANS:
@@ -849,6 +858,7 @@ class _EncodeStage(WorkObject):
         window."""
         from .parallel.gop import (encode_gop_parallel,
                                    encode_gop_parallel_2pass)
+        from .parallel.mesh import make_mesh
         if not self._gp_frames:
             return []
         frames = [p for p, _fb in self._gp_frames]
@@ -858,17 +868,20 @@ class _EncodeStage(WorkObject):
         w, h = self.out_wh
         rc_state = checkpoint.rc_snapshot(self.rc)
         qp = int(self.rc.frame_qp(True))
-        log(f"gop-parallel: {len(frames)} frames as {G} GOPs")
+        mesh = make_mesh(tile=1, device=self.device)
+        log(f"gop-parallel: {len(frames)} frames as {G} GOPs over "
+            f"{mesh.n} rank(s)")
         fps = self.venc.cfg.fps
         if self.multipass and self.target_kbps > 0:
             _, _, st = encode_gop_parallel_2pass(
                 frames, w, h, self.target_kbps, G, fps=fps,
-                qp1=min(51, qp + 6), device=self.device)
+                qp1=min(51, qp + 6), device=self.device, mesh=mesh)
             frame_aus = st["frame_aus"]
         else:
             _, _, frame_aus = encode_gop_parallel(frames, w, h, qp, G,
                                                   fps=fps,
-                                                  device=self.device)
+                                                  device=self.device,
+                                                  mesh=mesh)
         out = []
         i = 0
         for aus in frame_aus:
