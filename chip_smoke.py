@@ -8,7 +8,8 @@ Phases (none is caught; any failure exits non-zero before the last line):
 
 1. Build the deblock kernel (``csrc/deblock264.cu``, nvcc, sm_90a), the
    hqdn3d kernel (``csrc/hqdn3d.cu``, nvcc, sm_90a), the resample kernel
-   (``csrc/resample.cu``, nvcc, sm_90a, ``--fmad=false``), the native
+   (``csrc/resample.cu``, nvcc, sm_90a, ``--fmad=false``, a library for
+   each pair of 8- or 16-bit samples in and out), the native
    slice coder (``native/hb264.cpp``, g++), the native H.264 decoder
    (``native/hbdec264.cpp``, g++) and the native MJPEG decoder
    (``native/hbdecmjpeg.cpp``, g++), all at once.
@@ -273,7 +274,24 @@ Phases (none is caught; any failure exits non-zero before the last line):
    for bit, each timed in turns; (d) where the run started with two or
    more cards, (a) and (c) over NCCL on min(4, cards) of them in a
    torchrun of their own, else a line that says why no NCCL world ran.
-15. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+15. The libavcodec catalog (``codecs/avcodec.py``, ctypes on the system
+   library), one JSON line with the card's name and power limit: (a) the
+   libav*, libvpx, libopus, libmp3lame, libvorbis and libtheora sonames
+   that ``ldconfig -p`` lists, and the binding's ``missing()`` reason;
+   (b) where the library is missing, each catalog job must refuse, named,
+   before its pipeline starts (no frame read or decoded) and before its
+   output file exists, each timed: ``-Z "WebM 1080p30"`` on 11 (c)'s
+   letterboxed y4m and ``-a 1 -E opus`` on 8's source through
+   ``cli.__main__.main`` (exit code non-zero, the message on stderr),
+   and the committed catalog sources (``tests/data/torch_sources/``: a
+   VP9 webm, an MPEG-4 AVI with B-frames, an mkv with an E-AC-3 track,
+   a libx265 mkv beyond the native HEVC subset) to H.264 through
+   ``work.do_job`` (the stated exception); a job that runs fails the
+   phase; (c) where the library is present, the WebM 1080p30 job on 9
+   frames of that y4m (resample launches, fps, libvpx host ms a frame,
+   the card's busy share; the webm decodes to 9 frames) and the MPEG-4
+   AVI to H.264 (deblock264 launches; the mp4 decodes to 12 frames).
+16. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
    time; hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s
@@ -301,6 +319,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -455,6 +474,16 @@ SAD_OPS = 3
 # when it started (before one_card)
 MESH_RANKS, NCCL_MAX, MESH_LIMIT_S = 2, 4, 300
 CARDS_AT_START = []
+# step 15: the libraries whose sonames (a) lists; the committed catalog
+# sources that (b) opens; (c)'s WebM frames
+CATALOG_LIBS = ("libavcodec", "libavutil", "libavformat", "libswscale",
+                "libswresample", "libvpx", "libopus", "libmp3lame",
+                "libvorbis", "libtheora")
+CATALOG_SOURCES = {"vp9": "vp9_176x144.webm",
+                   "mpeg4_bframes": "mpeg4_bframes_176x144.avi",
+                   "eac3": "eac3_176x144.mkv",
+                   "x265": "x265_176x144.mkv"}
+WEBM_N = 9
 
 
 def smi(query):
@@ -598,9 +627,12 @@ def phase_build():
 
     builds = {"deblock264.cu (nvcc sm_90a)": deblock_cuda.load,
               "hqdn3d.cu (nvcc sm_90a)": hqdn3d_cuda.load,
-              "resample.cu (nvcc sm_90a, --fmad=false)": resample_cuda.load,
               "hb264.cpp (g++)": get_lib, "hbdec264.cpp (g++)":
               get_decoder_lib, "hbdecmjpeg.cpp (g++)": get_mjpeg_lib}
+    for ib, ob in resample_cuda.SAMPLE_BYTES:
+        builds[f"resample.cu {8 * ib}->{8 * ob} bit (nvcc sm_90a, "
+               f"--fmad=false)"] = functools.partial(resample_cuda.load,
+                                                     ib, ob)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as ex:
         futures = {k: ex.submit(timed, f) for k, f in builds.items()}
@@ -3992,6 +4024,192 @@ def phase_mesh(tmp, label, gp) -> dict:
     return rec
 
 
+def ldconfig_sonames() -> list:
+    """15 (a): the sonames of CATALOG_LIBS that ``ldconfig -p`` lists."""
+    try:
+        out = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return [f"ldconfig -p failed: {e!r}"]
+    return sorted({ln.split()[0] for ln in out.splitlines()
+                   if ln.strip().startswith(CATALOG_LIBS)})
+
+
+@contextlib.contextmanager
+def pipeline_starts():
+    """Counts the job pipelines started inside the block: a refused job
+    starts none, so it reads and decodes no frame."""
+    from handbrake_tpu_torch.core import pipeline
+    runs = [0]
+    run = pipeline.Pipeline.run
+
+    def counted(self, *a, **k):
+        runs[0] += 1
+        return run(self, *a, **k)
+    pipeline.Pipeline.run = counted
+    try:
+        yield runs
+    finally:
+        pipeline.Pipeline.run = run
+
+
+def refusal(name, drive, out, missing) -> dict:
+    """15 (b): `drive` (a CLI run or a do_job) must refuse naming the
+    missing library, start no pipeline and leave no `out`."""
+    import io
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with pipeline_starts() as runs, contextlib.redirect_stderr(err):
+        try:
+            rc = drive()
+            msg = err.getvalue().strip().splitlines()[-1:] or [""]
+            msg = msg[0]
+        except Exception as e:  # noqa: BLE001 — the stated refusal
+            rc, msg = type(e).__name__, str(e)
+    rec = {"job": name, "refuse_s": time.perf_counter() - t0,
+           "result": rc, "message": msg, "pipelines": runs[0],
+           "output_exists": os.path.exists(out)}
+    rec["ok"] = (rc not in (0, None) and missing in msg
+                 and runs[0] == 0 and not rec["output_exists"])
+    print(f"15 (b) {name}: {'refused' if rec['ok'] else 'NOT REFUSED'} "
+          f"in {rec['refuse_s'] * 1e3:.1f} ms: {msg}", flush=True)
+    return rec
+
+
+def catalog_refusals(tmp, missing) -> list:
+    """15 (b): each catalog job on a machine without the library."""
+    from handbrake_tpu_torch import work
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.job.schema import AudioJobTrack, Job
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "torch_sources")
+    recs = []
+    out = os.path.join(tmp, "webm_refused.webm")
+    recs.append(refusal("WebM 1080p30 preset (CLI)", lambda: cli_main(
+        ["-i", os.path.join(tmp, "gp.y4m"), "-o", out, "-Z",
+         "WebM 1080p30"]), out, missing))
+    out = os.path.join(tmp, "opus_refused.mkv")
+    recs.append(refusal("-a 1 -E opus on job 8's source (CLI)",
+                        lambda: cli_main(
+                            ["-i", os.path.join(tmp, "av.mp4"), "-o", out,
+                             "-e", "h264", "-q", "28", "-a", "1", "-E",
+                             "opus"]), out, missing))
+    for name, fn in CATALOG_SOURCES.items():
+        out = os.path.join(tmp, f"{name}_refused.mp4")
+        job = Job(path=os.path.join(data, fn), file=out, mux="mp4",
+                  vcodec="h264", quality=28.0, encoder_profile="high")
+        job.audio = [AudioJobTrack(track=0, encoder="aac")] \
+            if name == "eac3" else []
+        recs.append(refusal(f"{fn} to H.264 (do_job)", lambda job=job:
+                            work.do_job(job),
+                            out, missing))
+    return recs
+
+
+def catalog_jobs(tmp) -> dict:
+    """15 (c): the WebM 1080p30 job on WEBM_N frames of the letterboxed
+    y4m and the MPEG-4 AVI to H.264, where the library is present."""
+    import torch
+    from handbrake_tpu_torch import work
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.codecs import avcodec
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.codecs.registry import create_video_decoder
+    from handbrake_tpu_torch.core.buffer import Buffer
+    from handbrake_tpu_torch.filters import resample_cuda
+    from handbrake_tpu_torch.job.schema import Job
+    from handbrake_tpu_torch.sources.probe import open_source
+    rec = {}
+    out = os.path.join(tmp, "webm.webm")
+    host = [0.0]
+    push = work._AVVideoEncoderAdapter.push_display_frame
+
+    def timed(self, *a, **k):
+        t = time.perf_counter()
+        try:
+            return push(self, *a, **k)
+        finally:
+            host[0] += time.perf_counter() - t
+    work._AVVideoEncoderAdapter.push_display_frame = timed
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            rc = cli_main(["-i", os.path.join(tmp, "gp.y4m"), "-o", out,
+                           "-Z", "WebM 1080p30", "--stop-at",
+                           f"frame:{WEBM_N}"])
+        job_s = time.perf_counter() - t0
+    finally:
+        work._AVVideoEncoderAdapter.push_display_frame = push
+    if rc != 0:
+        raise RuntimeError(f"15 (c): the WebM job exited {rc}")
+    src = open_source(out)
+    try:
+        ti = src.tracks[0]
+        dec = avcodec.AVVideoDecoder("vp9", bytes(ti.extradata or b""))
+        frames = [f for _t, b in src.packets() if _t == 0
+                  for f in dec.decode(b.data, b.pts)] + dec.flush()
+    finally:
+        src.close()
+    rec["webm"] = {"frames": len(frames), "codec": ti.codec,
+                   "size": [ti.width, ti.height],
+                   "resample_launches": resample_cuda.launches,
+                   "fps": WEBM_N / job_s, "job_s": job_s,
+                   "libvpx_host_ms_a_frame": host[0] * 1e3 / WEBM_N,
+                   "busy_share": device_busy_ms(prof) / (job_s * 1e3)}
+    avi = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "data", "torch_sources",
+                       CATALOG_SOURCES["mpeg4_bframes"])
+    out = os.path.join(tmp, "mpeg4.mp4")
+    reset_counts()
+    t0 = time.perf_counter()
+    work.do_job(Job(path=avi, file=out, mux="mp4", vcodec="h264",
+                    quality=28.0, encoder_profile="high"))
+    job_s = time.perf_counter() - t0
+    src = open_source(out)
+    try:
+        dec = create_video_decoder("h264", src.tracks[0].extradata)
+        n = sum(len(dec.feed(Buffer(data=b.data, pts=b.pts)))
+                for _t, b in src.packets())
+    finally:
+        src.close()
+    rec["mpeg4"] = {"frames": n, "deblock264_launches": deblock_cuda.launches,
+                    "fps": 12 / job_s, "job_s": job_s}
+    ok = (rec["webm"]["frames"] == WEBM_N and rec["webm"]["codec"] == "vp9"
+          and rec["mpeg4"]["frames"] == 12
+          and rec["webm"]["resample_launches"] == WEBM_N
+          and rec["mpeg4"]["deblock264_launches"] > 0)
+    if not ok:
+        raise RuntimeError(f"15 (c): a check failed: {rec}")
+    return rec
+
+
+def phase_catalog(tmp, label) -> dict:
+    """15: the libavcodec catalog: (a) the machine's libraries; (b) the
+    refusals where the library is missing, or (c) the jobs where it is
+    there."""
+    from handbrake_tpu_torch.codecs import avcodec
+    t0 = time.perf_counter()
+    rec = {"phase": "15", "card": label, "ldconfig": ldconfig_sonames(),
+           "available": avcodec.available(), "missing": avcodec.missing()}
+    print(f"15 (a): ldconfig lists {rec['ldconfig'] or 'none of them'}; "
+          f"the binding: "
+          f"{'loads libavcodec' if rec['available'] else rec['missing']}",
+          flush=True)
+    if rec["available"]:
+        rec["jobs"] = catalog_jobs(tmp)
+    else:
+        rec["refusals"] = catalog_refusals(tmp, rec["missing"])
+        if not all(r["ok"] for r in rec["refusals"]):
+            raise RuntimeError("15 (b): a catalog job did not refuse")
+    rec["seconds"] = time.perf_counter() - t0
+    print(json.dumps(rec), flush=True)
+    print(f"phase 15 ({label}): {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def one_card():
     """Make only the first visible card visible to this process (before
     CUDA starts), so the run uses, and reports, exactly one card."""
@@ -4037,6 +4255,7 @@ def main() -> int:
         discs = phase_discs(tmp, label, stream, ms)
         hv = phase_hevc_av1(tmp, label)
         mesh = phase_mesh(tmp, label, scale_out["gop_parallel"])
+        catalog = phase_catalog(tmp, label)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -4091,6 +4310,11 @@ def main() -> int:
                              discs["dvd"]["resample_launches"],
                          "bluray_1080p_cli":
                              discs["bd"]["resample_launches"]}}
+    if "jobs" in catalog:        # 15 (c), where libavcodec is present
+        entry["job_launches"]["mpeg4_avi_do_job"] = \
+            catalog["jobs"]["mpeg4"]["deblock264_launches"]
+        rs_entry["job_launches"]["webm_1080p30_cli"] = \
+            catalog["jobs"]["webm"]["resample_launches"]
     print(f"job 7 numbers: {json.dumps(job_s)}", flush=True)
     print(f"audio numbers: {json.dumps(job_au)}", flush=True)
     print(f"subtitle numbers: {json.dumps(subs)}", flush=True)
@@ -4099,6 +4323,7 @@ def main() -> int:
     print(f"phase 12 seconds: {discs['seconds']:.1f}", flush=True)
     print(f"phase 13 seconds: {hv['seconds']:.1f}", flush=True)
     print(f"phase 14 seconds: {mesh['seconds']:.1f}", flush=True)
+    print(f"phase 15 seconds: {catalog['seconds']:.1f}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

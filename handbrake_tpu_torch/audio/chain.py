@@ -3,9 +3,10 @@ encoder (reference: work.c:2042-2109 per-audio-track filter chains +
 encavcodecaudio.c).
 
 The counterpart of ``handbrake_tpu/audio/chain.py``: AAC-LC, AC-3, FLAC,
-PCM and passthrough.  MP3, Opus and Vorbis ride the libavcodec catalog,
-which is not ported yet: asking for one raises NotImplementedError (the
-original encodes FLAC instead where libavcodec is missing).
+PCM and passthrough.  MP3, Opus and Vorbis ride the libavcodec catalog
+(``codecs/avcodec.py``); where the library is missing, asking for one
+raises WorkError naming what was not found (the original encodes FLAC
+instead).
 
 Encoders emit packet Buffers with sample-accurate 90 kHz timing derived
 from a running sample counter (the reference derives pts the same way
@@ -70,10 +71,22 @@ class AudioChain:
             br = int(self.spec.bitrate or 192) * 1000
             return Ac3Encoder(self.sr_out, self.out_channels, br)
         if self.codec in ("mp3", "opus", "vorbis"):
-            # the libavcodec catalog (encavcodecaudio.c:573 role)
-            raise NotImplementedError(
-                f"audio encoder {self.codec!r} (the libavcodec catalog) "
-                "is not ported yet")
+            # the libavcodec catalog (encavcodecaudio.c:573 role —
+            # upstream also routes these through lavc/LAME/libopus)
+            from ..codecs import avcodec as av
+            from ..work import WorkError
+            av.require(f"audio encoder {self.codec!r}", WorkError)
+            if self.codec == "opus" and self.sr_out not in (
+                    48000, 24000, 16000, 12000, 8000):
+                self.sr_out = 48000
+            if self.out_channels > 2:
+                self.mixdown = "stereo"
+                self.out_channels = 2
+            br = int(self.spec.bitrate or 160) * 1000
+            name = {"mp3": "libmp3lame", "opus": "libopus",
+                    "vorbis": "libvorbis"}[self.codec]
+            return av.AVAudioEncoder(name, self.sr_out,
+                                     self.out_channels, br)
         if self.codec in ("aac", "av_aac", "ca_aac"):
             from .aac import AACEncoder
             if self.sr_out not in (44100, 48000):
@@ -103,8 +116,9 @@ class AudioChain:
             return self.ti.codec
         return {"flac": "flac", "pcm": "pcm_s16le",
                 "pcm_s16le": "pcm_s16le", "aac": "aac", "av_aac": "aac",
-                "ca_aac": "aac", "ac3": "ac3",
-                "eac3": "ac3"}.get(self.codec, "pcm_s16le")
+                "ca_aac": "aac", "ac3": "ac3", "eac3": "ac3",
+                "mp3": "mp3", "opus": "opus",
+                "vorbis": "vorbis"}.get(self.codec, "pcm_s16le")
 
     def extradata(self, initial: bool = False) -> bytes:
         """Codec config for the muxer. ``initial=True`` (header written
@@ -129,6 +143,8 @@ class AudioChain:
                 | (e.acmod << 11) | (e.lfeon << 10) \
                 | ((e.frmsizecod >> 1) << 5)
             return v.to_bytes(3, "big")
+        if self.out_codec() in ("opus", "vorbis") and self._enc is not None:
+            return self._enc.extradata     # OpusHead / Xiph lacing
         if self.is_passthrough():
             return self.ti.extradata
         return b""
@@ -166,6 +182,9 @@ class AudioChain:
         return b
 
     def _encode(self, pcm: np.ndarray) -> list:
+        if self.out_codec() in ("mp3", "opus", "vorbis"):
+            return [self._packet(data, dur) for data, dur
+                    in self._enc.encode(np.clip(pcm, -1, 1))]
         if self.out_codec() == "ac3":
             return [self._packet(fr, 1536)
                     for fr in self._enc.encode(np.clip(pcm, -1, 1))]
@@ -191,6 +210,10 @@ class AudioChain:
         return [self._packet(data, len(pcm))]
 
     def flush(self) -> list:
+        if self.out_codec() in ("mp3", "opus", "vorbis") \
+                and self._enc is not None:
+            return [self._packet(data, dur) for data, dur
+                    in self._enc.flush()]
         if self.out_codec() == "aac" and self._enc is not None:
             return [self._packet(au, 1024) for au in self._enc.flush()]
         if self.out_codec() == "ac3" and self._enc is not None:

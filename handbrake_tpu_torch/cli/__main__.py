@@ -20,9 +20,14 @@ the job's, the other ranks serve its work items and exit 0; one rank
 runs the GOPs as a loop and nlmeans untiled.  ``-e x265`` (Main 10
 with ``--encoder-profile main10``) and ``-e svt_av1`` code HEVC and AV1
 on the host walkers with their motion search on the device; they take
-no ``--bframes`` and no ``--gop-parallel``.  The libavcodec audio
-encoders mp3, opus and vorbis raise NotImplementedError, as do unported
-filters, codecs and containers.
+no ``--bframes`` and no ``--gop-parallel``.  The libavcodec catalog
+(``-e mpeg2|mpeg4|vp8|vp9|ffv1|theora`` into mkv/webm, ``-E
+mp3|opus|vorbis``, and sources in VP8/9, Theora, MPEG-4 part 2, FFV1,
+ProRes, E-AC-3, DTS, TrueHD, MP3, Vorbis and Opus) runs on the system
+libavcodec; where it is missing, such a job exits non-zero with a
+message naming what was not found, before it reads a frame or makes the
+output file.  ``-e prores`` is refused.  Unported filters raise
+NotImplementedError.
 
 Usage:
   python -m handbrake_tpu_torch.cli -i in.mp4 -o out.mkv [options]
@@ -205,15 +210,6 @@ def list_presets():
                 print("  " * depth + f"{it['PresetName']}: "
                       + it.get("PresetDescription", ""))
     walk(builtin_presets())
-
-
-def check_ported(args):
-    """Raise NotImplementedError for options whose paths are later
-    slices of the port."""
-    aencoders = _per_track(args.aencoder, 1)
-    if any(e in ("mp3", "opus", "vorbis") for e in aencoders):
-        raise NotImplementedError("audio encoders mp3, opus and vorbis (-E) "
-                                  "are not ported yet")
 
 
 def _per_track(value, n: int) -> list:
@@ -418,7 +414,6 @@ def apply_cli_overrides(job: Job, args) -> Job:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    check_ported(args)
     if args.preset_list:
         list_presets()
         return 0
@@ -471,7 +466,9 @@ def run(args) -> int:
     if isinstance(h.scan_error, NotImplementedError):
         raise h.scan_error
     if not titles:
-        print("no valid titles found", file=sys.stderr)
+        print("no valid titles found"
+              + (f": {h.scan_error}" if h.scan_error else ""),
+              file=sys.stderr)
         return 2
     if args.scan:
         if args.json:
@@ -559,7 +556,9 @@ def run(args) -> int:
     if isinstance(h.work_exception, NotImplementedError):
         raise h.work_exception
     if err:
-        print(f"encode failed with error {err}", file=sys.stderr)
+        print(f"encode failed with error {err}"
+              + (f": {h.work_exception}" if h.work_exception else ""),
+              file=sys.stderr)
         return 3
     print(f"Encode done: {args.output}")
     return 0

@@ -6,16 +6,22 @@ The port has the raw-video decoder (y4m sources), the H.264 decoder
 (the native ``hbdec264.cpp``, through ``h264/native_decoder.py``), the
 MPEG-2 decoder (host numpy, ``mpeg2.py``), the MJPEG decoder (the native
 ``hbdecmjpeg.cpp``) and the HEVC and AV1 decoders (host numpy,
-``hevc/decoder.py`` and ``av1/decoder.py``).  The libavcodec
-personality's codecs raise NotImplementedError (ROADMAP item 1.10).
-Unlike the reference, no decoder falls back or drops a frame without a
-word: a native library that does not build raises, and so does an MJPEG
-frame that does not decode.  An HEVC stream beyond the native decoder's
-subset (SAO, scaling lists, CU quadtrees, NxN intra, B slices, ...)
-raises ValueError naming the feature; the reference switches such a
-stream to libavcodec without a word (``ResilientHEVCDecoder``), which is
-item 1.10.  A 10- or 12-bit stream's frames carry their bit depth (the
-reference labels them 8-bit).
+``hevc/decoder.py`` and ``av1/decoder.py``).  VP8/9, Theora, MPEG-4
+part 2, FFV1 and ProRes decode through the system libavcodec
+(``avcodec.py``, ``AVFallbackVideoDecoder``), each frame with its own
+packet's timestamps; where the library is missing they raise ValueError
+naming the codec and what was not found.  Unlike the reference, no
+decoder falls back or drops a frame without a word: a native library
+that does not build raises, and so does an MJPEG frame that does not
+decode.  An HEVC stream beyond the native decoder's subset (SAO, scaling
+lists, CU quadtrees, NxN intra, B slices, ...) switches to libavcodec,
+with a log line, if the native decoder says so before its first frame:
+the packets seen so far are replayed from the first one
+(``ResilientHEVCDecoder``).  After a frame, or without the library, it
+raises ValueError naming the feature (the reference switches at any
+error, and after a frame starts libavcodec mid-stream).  A 10- or
+12-bit stream's frames carry their bit depth (the reference labels them
+8-bit).
 """
 from __future__ import annotations
 
@@ -88,6 +94,42 @@ class H264VideoDecoder(VideoDecoder):
         return dict(self._info)
 
 
+def _hvcc_nals(hvcc: bytes) -> list:
+    """The VPS/SPS/PPS NAL units of an hvcC box payload, each with an
+    annex-B start code."""
+    out = []
+    if len(hvcc) < 23 or hvcc[0] != 1:
+        return out
+    i = 22
+    n_arrays = hvcc[i]
+    i += 1
+    for _ in range(n_arrays):
+        if i + 3 > len(hvcc):
+            return out
+        n_nals = int.from_bytes(hvcc[i + 1:i + 3], "big")
+        i += 3
+        for _ in range(n_nals):
+            ln = int.from_bytes(hvcc[i:i + 2], "big")
+            i += 2
+            out.append(b"\x00\x00\x00\x01" + hvcc[i:i + ln])
+            i += ln
+    return out
+
+
+class BeyondSubset(ValueError):
+    """The native HEVC decoder's stated refusal of a feature it does not
+    implement (its parsers' assertions name the feature)."""
+
+    def __init__(self, e):
+        from . import avcodec
+        gone = avcodec.missing()
+        super().__init__(
+            f"hevc: the stream is beyond the native decoder's subset "
+            f"({e or 'unsupported syntax'}); decoding it needs the "
+            f"libavcodec personality (ROADMAP item 1.10)"
+            + (f", and libavcodec is missing ({gone})" if gone else ""))
+
+
 class HEVCVideoDecoder(VideoDecoder):
     def __init__(self, extradata: bytes = b""):
         from .hevc.decoder import HEVCDecoder
@@ -103,28 +145,12 @@ class HEVCVideoDecoder(VideoDecoder):
         try:
             return self.dec.decode(data)
         except AssertionError as e:
-            raise ValueError(
-                f"hevc: the stream is beyond the native decoder's subset "
-                f"({e or 'unsupported syntax'}); decoding it needs the "
-                f"libavcodec personality, ROADMAP item 1.10") from e
+            raise BeyondSubset(e) from e
 
     def _feed_hvcc_config(self, hvcc: bytes):
         """Parse VPS/SPS/PPS NALs out of an hvcC box payload."""
-        if len(hvcc) < 23 or hvcc[0] != 1:
-            return
-        i = 22
-        n_arrays = hvcc[i]
-        i += 1
-        for _ in range(n_arrays):
-            if i + 3 > len(hvcc):
-                return
-            n_nals = int.from_bytes(hvcc[i + 1:i + 3], "big")
-            i += 3
-            for _ in range(n_nals):
-                ln = int.from_bytes(hvcc[i:i + 2], "big")
-                i += 2
-                self._decode(b"\x00\x00\x00\x01" + hvcc[i:i + ln])
-                i += ln
+        for nal in _hvcc_nals(hvcc):
+            self._decode(nal)
 
     def feed(self, buf: Buffer) -> list:
         if buf.data is None:
@@ -311,9 +337,129 @@ class Mpeg2VideoDecoder(VideoDecoder):
         return dict(self._info)
 
 
-# decoded by a later slice of the port: each names its ROADMAP item
-_LATER = {c: "item 1.10 (the libavcodec catalog)" for c in (
-    "vp9", "vp8", "theora", "mpeg4", "ffv1", "prores")}
+class AVFallbackVideoDecoder(VideoDecoder):
+    """libavcodec video personality (decavcodec.c:1709 role) for the
+    codecs without native decoders: VP8/VP9, Theora, MPEG-4 ASP, FFV1,
+    ProRes, and an HEVC stream beyond the native subset.  Each packet
+    goes in with its pts and each frame comes out with its own, carrying
+    the timing of the packet it came in; the reference stamps a frame
+    with the packet fed when it came out, so behind B-frames every frame
+    takes the next packet's pts and the one flushed at the end none."""
+
+    def __init__(self, codec: str, extradata: bytes = b"",
+                 width: int = 0, height: int = 0):
+        from . import avcodec
+        avcodec.require(f"{codec}: decoding it", ValueError)
+        self.dec = avcodec.AVVideoDecoder(
+            codec, extradata=bytes(extradata or b""), width=width,
+            height=height)
+        self._info: dict = {}
+        self._fed: dict = {}          # pts -> its packet, until its frame
+
+    def _wrap(self, frames):
+        out = []
+        for (y, u, v), pts in frames:
+            if not self._info:
+                self._info = {"width": y.shape[1], "height": y.shape[0],
+                              "pix_fmt": "yuv420p"}
+            fb = Buffer(planes=[y, u, v], pix_fmt=PIX_FMTS["yuv420p"])
+            pkt = self._fed.pop(pts, None)
+            if pkt is not None:
+                fb.copy_props(pkt)
+            if pts is not None:
+                # frames come out in display order: a packet fed with an
+                # earlier pts that has not come out never will (an
+                # invisible VP8/VP9 alt-ref, a frame the decoder dropped)
+                for p in [p for p in self._fed if p < pts]:
+                    del self._fed[p]
+            fb.pts = pts
+            fb.data = None
+            out.append(fb)
+        return out
+
+    def feed(self, buf: Buffer) -> list:
+        if buf.data is None:
+            return []
+        if buf.pts is not None:
+            self._fed[buf.pts] = buf
+        return self._wrap(self.dec.decode(bytes(buf.data), buf.pts))
+
+    def flush(self) -> list:
+        return self._wrap(self.dec.flush())
+
+    def info(self) -> dict:
+        return dict(self._info)
+
+
+class ResilientHEVCDecoder(VideoDecoder):
+    """HEVC input of any profile the system libavcodec takes: the native
+    decoder (``hevc/decoder.py``) decodes the subset it implements.
+    Where it states that the stream is beyond that subset before it has
+    emitted a frame, the decoder switches to libavcodec, says so in the
+    log, and replays the packets seen so far from the first one.  Where
+    it says so after a frame, the switch would start libavcodec
+    mid-stream, so the error is raised, naming the frame."""
+
+    def __init__(self, extradata: bytes = b""):
+        self.extradata = bytes(extradata or b"")
+        self._buffered: list = []        # packets until the first frame
+        self._frames = 0                 # frames out of the native decoder
+        self.inner = None
+        try:
+            self.inner = HEVCVideoDecoder(self.extradata)
+        except BeyondSubset as e:
+            self._switch(e)
+
+    def _switch(self, why):
+        from ..utils.logging import log
+        log(f"hevc: switching to the libavcodec decoder before the first "
+            f"frame, replaying {len(self._buffered)} packet(s): {why}")
+        self.inner = AVFallbackVideoDecoder("hevc")
+        hdrs = b"".join(_hvcc_nals(self.extradata))
+        if hdrs:
+            # the packets reach the decoder in annex-B, so the parameter
+            # sets go in that way, not as an hvcC
+            self.inner.feed(Buffer(track_kind="video", data=hdrs))
+
+    def _native(self, call, buf=None):
+        try:
+            return call()
+        except BeyondSubset as e:
+            if self._frames:
+                at = "at the end of the stream" if buf is None else \
+                    f"in the packet at pts {buf.pts}"
+                raise ValueError(
+                    f"hevc: frame {self._frames + 1} ({at}) is beyond the "
+                    f"native decoder's subset after {self._frames} frames "
+                    f"decoded natively; libavcodec would start mid-stream "
+                    f"there, so the job stops ({e})") from e
+            self._switch(e)
+            out = []
+            for b in self._buffered:
+                out += self.inner.feed(b)
+            self._buffered.clear()
+            return out if buf is not None else out + self.inner.flush()
+
+    def feed(self, buf: Buffer) -> list:
+        if isinstance(self.inner, AVFallbackVideoDecoder):
+            return self.inner.feed(buf)
+        if not self._frames:
+            self._buffered.append(buf)
+        out = self._native(lambda: self.inner.feed(buf), buf)
+        if not isinstance(self.inner, AVFallbackVideoDecoder):
+            self._frames += len(out)
+            if out:
+                self._buffered.clear()
+        return out
+
+    def flush(self) -> list:
+        return self._native(self.inner.flush)
+
+    def info(self) -> dict:
+        return self.inner.info()
+
+
+_AV_VIDEO = ("vp9", "vp8", "theora", "mpeg4", "ffv1", "prores")
 
 
 def create_video_decoder(codec: str, extradata: bytes = b"",
@@ -323,6 +469,9 @@ def create_video_decoder(codec: str, extradata: bytes = b"",
     if codec == "h264":
         return H264VideoDecoder(extradata)
     if codec == "hevc":
+        from .avcodec import available
+        if available():
+            return ResilientHEVCDecoder(extradata)
         return HEVCVideoDecoder(extradata)
     if codec == "av1":
         return AV1VideoDecoder(extradata)
@@ -330,7 +479,7 @@ def create_video_decoder(codec: str, extradata: bytes = b"",
         return Mpeg2VideoDecoder(extradata)
     if codec == "rawvideo":
         return RawVideoDecoder()
-    if codec in _LATER:
-        raise NotImplementedError(
-            f"no {codec} decoder in the port yet: ROADMAP {_LATER[codec]}")
+    if codec in _AV_VIDEO:
+        return AVFallbackVideoDecoder(codec, extradata,
+                                      width=width, height=height)
     raise ValueError(f"no decoder for codec {codec!r}")

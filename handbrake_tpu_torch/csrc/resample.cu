@@ -86,6 +86,10 @@
 // stores) leaves phases out, for their times alone (the taps and band
 // starts are staged in every variant); RESAMPLE_SLOW 0 runs every band as
 // one chain (wrong where a band crosses a block; its time only).
+// RESAMPLE_IN and RESAMPLE_OUT (1 or 2, the bytes of a sample in and out)
+// pick the one kernel a build holds: nvcc's cicc takes most of a minute
+// for each, so each pair is a library of its own, and the four build at
+// once in parallel processes (chip_smoke.py's build line, PERF.md §6).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -102,6 +106,12 @@
 #endif
 #ifndef RESAMPLE_SLOW
 #define RESAMPLE_SLOW 1
+#endif
+#ifndef RESAMPLE_IN
+#define RESAMPLE_IN 1
+#endif
+#ifndef RESAMPLE_OUT
+#define RESAMPLE_OUT 1
 #endif
 
 namespace {
@@ -703,78 +713,64 @@ int launch(const Params& prm, int smem, cudaStream_t st) {
     return static_cast<int>(cudaGetLastError());
 }
 
+using TIn = std::conditional<RESAMPLE_IN == 2, uint16_t, uint8_t>::type;
+using TOut = std::conditional<RESAMPLE_OUT == 2, uint16_t, uint8_t>::type;
+
 }  // namespace
 
 extern "C" {
 
-// The planes of one frame (all of one sample size in, one out), as the
-// wrapper (filters/resample_cuda.py) plans them: prm points to a Params on
-// the host; smem is the dynamic shared memory a block needs.  Launches
-// once on `stream` without synchronising; returns the launch's error, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// The planes of one frame (all of this build's sample sizes in and out),
+// as the wrapper (filters/resample_cuda.py) plans them: prm points to a
+// Params on the host; smem is the dynamic shared memory a block needs.
+// Launches once on `stream` without synchronising; returns the launch's
+// error, or cudaErrorInvalidValue for arguments the kernel does not take.
 int resample_frame_launch(const void* params, int smem, int device,
                           void* stream) {
     const Params* prm = static_cast<const Params*>(params);
     if (prm == nullptr || prm->n_planes < 1 || prm->n_planes > kMaxPlanes ||
         prm->n_tiles < 1 || smem < 1 || device < 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int ib = prm->p[0].in_bytes, ob = prm->p[0].out_bytes;
     for (int i = 0; i < prm->n_planes; ++i)
-        if (prm->p[i].in_bytes != ib || prm->p[i].out_bytes != ob)
+        if (prm->p[i].in_bytes != RESAMPLE_IN ||
+            prm->p[i].out_bytes != RESAMPLE_OUT)
             return static_cast<int>(cudaErrorInvalidValue);
-    if ((ib != 1 && ib != 2) || (ob != 1 && ob != 2))
-        return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (ib == 1 && ob == 1) return launch<uint8_t, uint8_t>(*prm, smem, st);
-    if (ib == 1) return launch<uint8_t, uint16_t>(*prm, smem, st);
-    if (ob == 1) return launch<uint16_t, uint8_t>(*prm, smem, st);
-    return launch<uint16_t, uint16_t>(*prm, smem, st);
+    return launch<TIn, TOut>(*prm, smem, static_cast<cudaStream_t>(stream));
 }
 
 // sizeof(Params), for the wrapper's check of its mirror of the struct.
 int resample_params_size() { return static_cast<int>(sizeof(Params)); }
 
 // The registers a thread and the local (spill) bytes of the kernel for
-// these sample sizes, as compiled; returns the query's error.
+// these sample sizes (this build's), as compiled; returns the query's
+// error.
 int resample_kernel_attrs(int in_bytes, int out_bytes, int* regs,
                           int* local_bytes) {
+    if (in_bytes != RESAMPLE_IN || out_bytes != RESAMPLE_OUT)
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaFuncAttributes a;
-    cudaError_t err;
-    if (in_bytes == 1 && out_bytes == 1)
-        err = cudaFuncGetAttributes(&a, resample_frame<uint8_t, uint8_t>);
-    else if (in_bytes == 1)
-        err = cudaFuncGetAttributes(&a, resample_frame<uint8_t, uint16_t>);
-    else if (out_bytes == 1)
-        err = cudaFuncGetAttributes(&a, resample_frame<uint16_t, uint8_t>);
-    else
-        err = cudaFuncGetAttributes(&a, resample_frame<uint16_t, uint16_t>);
+    const cudaError_t err =
+        cudaFuncGetAttributes(&a, resample_frame<TIn, TOut>);
     if (err != cudaSuccess) return static_cast<int>(err);
     *regs = a.numRegs;
     *local_bytes = static_cast<int>(a.localSizeBytes);
     return 0;
 }
 
-// The blocks an SM holds at `smem` bytes of dynamic shared memory.
+// The blocks an SM holds at `smem` bytes of dynamic shared memory (this
+// build's sample sizes).
 int resample_blocks_per_sm(int in_bytes, int out_bytes, int smem,
                            int* blocks) {
-    auto query = [&](auto kern) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return err;
-        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
-                                                             kThreads, smem);
-    };
-    cudaError_t err;
-    if (in_bytes == 1 && out_bytes == 1)
-        err = query(resample_frame<uint8_t, uint8_t>);
-    else if (in_bytes == 1)
-        err = query(resample_frame<uint8_t, uint16_t>);
-    else if (out_bytes == 1)
-        err = query(resample_frame<uint16_t, uint8_t>);
-    else
-        err = query(resample_frame<uint16_t, uint16_t>);
+    if (in_bytes != RESAMPLE_IN || out_bytes != RESAMPLE_OUT)
+        return static_cast<int>(cudaErrorInvalidValue);
+    auto kern = resample_frame<TIn, TOut>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
+                                                            kThreads, smem);
     return static_cast<int>(err);
 }
 

@@ -8,9 +8,10 @@ bands (``kernels.resample_band``), its summation order
 plan (``plan``: the output tile, the input window each tile row and
 column needs, and the shared memory that takes), passed as one kernel
 parameter; the source's note gives the design and its bounds.  The
-source is compiled with nvcc for sm_90a, with ``--fmad=false``, on first
-use into the package's ``_build`` directory (keyed by the source hash)
-and loaded with ctypes.  The kernel runs on the current stream and does
+source is compiled with nvcc for sm_90a, with ``--fmad=false``, once for
+each pair of sample sizes in and out (``SAMPLE_BYTES``, a library each,
+so that they build in parallel), on first use into the package's
+``_build`` directory (keyed by the source hash) and loaded with ctypes.  The kernel runs on the current stream and does
 not synchronise.  ``launches`` counts the calls of this process that
 launched it; its plain twin is ``kernels.resample_plain``.
 """
@@ -49,10 +50,14 @@ TILES = ((16, 128), (8, 128), (16, 64), (8, 64), (4, 64), (4, 32), (2, 32),
 # the window's four-column groups, exact up to 2048 of them
 MAX_WIN_W = 8192
 
+# the bytes of a sample in and out that a build holds (the source's
+# RESAMPLE_IN and RESAMPLE_OUT)
+SAMPLE_BYTES = ((1, 1), (1, 2), (2, 1), (2, 2))
+
 launches = 0
 
-_lock = threading.Lock()
-_lib = [None]
+_locks = {k: threading.Lock() for k in SAMPLE_BYTES}
+_libs = {}
 
 _ci, _cf, _vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _INTS = ("in_h", "in_w", "out_h", "out_w", "tv", "th", "in_bytes",
@@ -78,16 +83,23 @@ class Params(ctypes.Structure):
                 ("mid_floats", _ci)]
 
 
-def load():
-    """Build (once) and load the kernel library."""
-    with _lock:
-        if _lib[0] is None:
+def load(in_bytes: int = 1, out_bytes: int = 1):
+    """Build (once) and load the kernel library for these sample sizes."""
+    key = (in_bytes, out_bytes)
+    if key not in _locks:
+        raise ValueError(f"resample: no kernel for {in_bytes}-byte samples "
+                         f"in and {out_bytes}-byte out")
+    with _locks[key]:
+        if key not in _libs:
             with open(SOURCE) as f:
                 src = f.read()
-            so = compile_shared("resample", {"resample.cu": src},
-                                nvcc_command("resample.cu", NVCC_FLAGS))
-            _lib[0] = bind(ctypes.CDLL(so))
-        return _lib[0]
+            so = compile_shared(
+                f"resample{in_bytes}{out_bytes}", {"resample.cu": src},
+                nvcc_command("resample.cu", NVCC_FLAGS + (
+                    f"-DRESAMPLE_IN={in_bytes}",
+                    f"-DRESAMPLE_OUT={out_bytes}")))
+            _libs[key] = bind(ctypes.CDLL(so))
+        return _libs[key]
 
 
 def bind(lib):
@@ -112,9 +124,8 @@ def kernel_attrs(in_bytes: int = 1, out_bytes: int = 1, lib=None) -> dict:
     """The compiled kernel's registers a thread and local (spill) bytes
     for these sample sizes."""
     regs, local = _ci(), _ci()
-    rc = (lib or load()).resample_kernel_attrs(in_bytes, out_bytes,
-                                               ctypes.byref(regs),
-                                               ctypes.byref(local))
+    rc = (lib or load(in_bytes, out_bytes)).resample_kernel_attrs(
+        in_bytes, out_bytes, ctypes.byref(regs), ctypes.byref(local))
     if rc != 0:
         raise RuntimeError(f"resample kernel attributes: cudaError {rc}")
     return {"regs": regs.value, "local_bytes": local.value}
@@ -125,8 +136,8 @@ def blocks_per_sm(smem: int, in_bytes: int = 1, out_bytes: int = 1,
     """Blocks of the kernel an SM holds at `smem` bytes of shared memory
     (the persistent grid is this times the SMs)."""
     n = _ci()
-    rc = (lib or load()).resample_blocks_per_sm(in_bytes, out_bytes, smem,
-                                                ctypes.byref(n))
+    rc = (lib or load(in_bytes, out_bytes)).resample_blocks_per_sm(
+        in_bytes, out_bytes, smem, ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"resample occupancy: cudaError {rc}")
     return n.value
@@ -371,7 +382,8 @@ def resample_frame(items) -> list:
     is not checked here, as it would wait for the card."""
     global launches
     outs, args, _keep = prepare(items)
-    rc = load().resample_frame_launch(*args)
+    rc = load(items[0][0].element_size(),
+              outs[0].element_size()).resample_frame_launch(*args)
     if rc != 0:
         raise RuntimeError(f"resample launch failed: cudaError {rc}")
     launches += 1

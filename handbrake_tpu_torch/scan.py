@@ -10,8 +10,11 @@ Previews can be kept for GUI use (hb_save_preview analog).
 
 The counterpart of ``handbrake_tpu/scan.py``.  Previews decode for raw
 sources (y4m), H.264 (the native decoder), MPEG-2, HEVC and AV1 (host
-numpy) and MJPEG (native) ones; the libavcodec catalog's codecs raise
-NotImplementedError, since their decoders are a later slice.  CEA-608 captions in an H.264 stream (GA94 SEI) are found in
+numpy), MJPEG (native) and the libavcodec catalog's (VP8/9, Theora,
+MPEG-4 part 2, FFV1, ProRes, and HEVC beyond the native subset) ones.
+Where libavcodec is missing, a catalog source's scan raises ValueError
+naming the codec and what was not found (the reference scans it without
+previews).  CEA-608 captions in an H.264 stream (GA94 SEI) are found in
 its first 256 KiB and listed as a "cc" subtitle track; a malformed caption
 payload leaves them undetected (the reference skips any error there).
 """
@@ -138,7 +141,7 @@ def scan_title(path: str, index: int = 1, preview_count: int = 10,
     # --- decode previews ---
     try:
         previews = _decode_previews(src, video_track, preview_count)
-    except NotImplementedError:
+    except Exception:
         src.close()
         raise
     crops = []

@@ -5,6 +5,14 @@ ffmpeg_open (stream.c:279): walk RIFF hdrl (avih/strl) for stream types
 and rates, then iterate movi chunks ('NNdc'/'NNwb') as packets.  Only the
 structures HandBrake actually consumes are implemented: video (MJPG/raw)
 and PCM audio tracks, idx1 ignored (sequential read).
+
+The port also reads MPEG-4 part 2 video (XVID, DIVX, DX50, FMP4, MP4V),
+which libavcodec decodes.  AVI keeps one timestamp a chunk, in decode
+order; with B-frames the demuxer gives each VOP its display time, read
+from the VOP coding types, holding an anchor back until the next one is
+seen (the reference reads no MPEG-4 in AVI).  A packed bitstream
+(DivX's P-VOP and B-VOP in one chunk, then a chunk with an empty VOP)
+leaves a chunk's time to two VOPs, so it is refused by name.
 """
 from __future__ import annotations
 
@@ -14,7 +22,45 @@ from fractions import Fraction
 from ..core.buffer import Buffer
 from .common import CLOCK, DemuxError, TrackInfo
 
-_VID_CODECS = {b"MJPG": "mjpeg", b"mjpg": "mjpeg", b"\x00\x00\x00\x00": "rawvideo"}
+_VID_CODECS = {b"MJPG": "mjpeg", b"mjpg": "mjpeg", b"\x00\x00\x00\x00": "rawvideo",
+               b"XVID": "mpeg4", b"DIVX": "mpeg4", b"DX50": "mpeg4",
+               b"FMP4": "mpeg4", b"MP4V": "mpeg4"}
+
+
+def _vop_is_b(data: bytes) -> bool:
+    """An MPEG-4 part 2 chunk whose first VOP is a B-VOP
+    (vop_coding_type 2)."""
+    i = data.find(b"\x00\x00\x01\xb6")
+    return 0 <= i < len(data) - 4 and data[i + 4] >> 6 == 2
+
+
+class _DisplayOrder:
+    """One MPEG-4 track's chunks in decode order, each stamped with the
+    decode-order frame time, restamped with display times: a B-VOP shows
+    at the next free time and an anchor after the B-VOPs that follow it,
+    so each anchor is held until the next one arrives."""
+
+    def __init__(self):
+        self.times, self.held = [], []
+
+    def push(self, item) -> list:
+        b = item[1]
+        if b.data.count(b"\x00\x00\x01\xb6") > 1:
+            raise DemuxError("mpeg4 in AVI: a packed bitstream (several "
+                             "VOPs in one chunk) is not supported")
+        self.times.append((b.pts, b.duration))
+        out = []
+        if not _vop_is_b(b.data) and self.held:
+            out = self.flush()
+        self.held.append(item)
+        return out
+
+    def flush(self) -> list:
+        held, self.held = self.held, []
+        for _trk, b in held[1:] + held[:1]:
+            b.pts, b.duration = self.times.pop(0)
+            b.stop = b.pts + b.duration
+        return held
 
 
 def probe_is_avi(path: str) -> bool:
@@ -96,6 +142,10 @@ class AVIDemuxer:
                     w, h = struct.unpack("<ii", data[4:12])
                     self.tracks[-1].width = w
                     self.tracks[-1].height = abs(h)
+                    if self.tracks[-1].codec == "unknown":
+                        # the strh handler left blank: biCompression
+                        self.tracks[-1].codec = _VID_CODECS.get(
+                            data[16:20].upper(), "unknown")
                 elif self.tracks and self.tracks[-1].kind == "audio" \
                         and len(data) >= 16:
                     fmt, ch, srate = struct.unpack("<HHI", data[0:8])
@@ -109,6 +159,17 @@ class AVIDemuxer:
 
     # -- packets -------------------------------------------------------------
     def packets(self, start_state=None):
+        order = {i: _DisplayOrder() for i, t in enumerate(self.tracks)
+                 if t.codec == "mpeg4"}
+        for trk, b in self._chunks(start_state):
+            if trk in order:
+                yield from order[trk].push((trk, b))
+            else:
+                yield trk, b
+        for o in order.values():
+            yield from o.flush()
+
+    def _chunks(self, start_state=None):
         f = self.f
         off, size = self._movi
         end = off + size

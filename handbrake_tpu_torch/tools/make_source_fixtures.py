@@ -19,12 +19,20 @@ around them are built at run time.  It writes:
   beside it (``y``, ``u``, ``v``: frames x rows x columns, uint8);
 - ``mp2_48k_stereo.mp2``: 1.2 s of two tones, MPEG-1 Layer II at 128
   kb/s from libavcodec's ``mp2`` (the port has no MP2 encoder);
-- ``mjpeg_640x480.avi``: 6 frames from ``cv2.VideoWriter`` (MJPG).
+- ``mjpeg_640x480.avi``: 6 frames from ``cv2.VideoWriter`` (MJPG);
+- the libavcodec catalog's sources (``catalog_sources``), each 176x144,
+  12 frames at 30 fps: ``vp9_176x144.webm`` (``libvpx-vp9``),
+  ``mpeg4_bframes_176x144.avi`` (``mpeg4`` with 2 B-frames, in decode
+  order, FourCC FMP4), ``x265_176x144.mkv`` (``libx265``: CU quadtrees
+  and SAO, beyond the port's native HEVC subset) and
+  ``eac3_176x144.mkv`` (the port's H.264 encoder on the CPU, with 0.4 s
+  of E-AC-3 stereo at 96 kb/s from ``eac3``).
 
-About 0.68 MB in all.  The other frames are ``utils.synth``'s clips,
+About 0.75 MB in all.  The other frames are ``utils.synth``'s clips,
 blurred so the streams stay small.  ``--check`` also codes each
 interlaced clip without ``+ildct`` and prints the port decoder's
-largest differences from libavcodec on both codings.
+largest differences from libavcodec on both codings, and rebuilds the
+catalog's sources and says whether each equals the committed file.
 """
 from __future__ import annotations
 
@@ -70,6 +78,91 @@ def interlaced_noise(w, h, n, seed=3):
     return [tuple(np.ascontiguousarray(np.where(
         odd[:p.shape[0]], q, p)) for p, q in zip(top, bot))
         for top, bot in zip(src[:-1], src[1:])]
+
+
+def write_avi(path, w, h, fps, chunks, fourcc=b"FMP4"):
+    """A one-stream AVI of video chunks in decode order: hdrl (avih,
+    strh, BITMAPINFOHEADER), movi ('00dc' chunks) and idx1."""
+    import struct
+
+    def chunk(cid, body):
+        return cid + struct.pack("<I", len(body)) + body + b"\0" * (
+            len(body) & 1)
+
+    def lst(kind, body):
+        return chunk(b"LIST", kind + body)
+    n = len(chunks)
+    avih = struct.pack("<14I", 1_000_000 // fps, 0, 0, 0x10, n, 0, 1,
+                       max(map(len, chunks)), w, h, 0, 0, 0, 0)
+    strh = struct.pack("<4s4sI2HIIIIIIII4h", b"vids", fourcc, 0, 0, 0, 0,
+                       1, fps, 0, n, max(map(len, chunks)), 0xFFFFFFFF, 0,
+                       0, 0, w, h)
+    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, fourcc,
+                       w * h * 3, 0, 0, 0, 0)
+    hdrl = lst(b"hdrl", chunk(b"avih", avih) + lst(
+        b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
+    movi, idx, off = b"", b"", 4
+    for data in chunks:
+        key = 0x10 if data.find(b"\x00\x00\x01\xb6") >= 0 and \
+            data[data.find(b"\x00\x00\x01\xb6") + 4] >> 6 == 0 else 0
+        idx += struct.pack("<4sIII", b"00dc", key, off, len(data))
+        c = chunk(b"00dc", data)
+        movi += c
+        off += len(c)
+    body = b"AVI " + hdrl + lst(b"movi", movi) + chunk(b"idx1", idx)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def catalog_sources(out, ffvideo, ffaudio, cv2) -> list:
+    """Write the libavcodec catalog's sources into `out`; their names."""
+    from handbrake_tpu_torch.codecs.h264.encoder import (EncoderConfig,
+                                                         H264Encoder)
+    from handbrake_tpu_torch.mux.mkv import MKVWriter
+    from handbrake_tpu_torch.utils.synth import make_clip
+    w, h, n, fps = 176, 144, 12, 30
+    frames = _blur(make_clip(w, h, n, seed=21), cv2, 1.0)
+    tick = 90000 // fps
+
+    def mkv(name, codec, pkts, webm=False, audio=None):
+        wr = MKVWriter(os.path.join(out, name), webm=webm)
+        vi = wr.add_video_track(codec=codec, width=w, height=h,
+                                fps=float(fps))
+        if audio is not None:
+            ai = wr.add_audio_track(codec="eac3", sample_rate=48000,
+                                    channels=2)
+        for i, p in enumerate(pkts):
+            wr.write_sample(vi, p, pts_90k=i * tick, duration_90k=tick,
+                            sync=i % 12 == 0,
+                            annexb=codec in ("h264", "hevc"))
+        for k, p in enumerate(audio or []):
+            wr.write_sample(ai, p, pts_90k=k * 2880, duration_90k=2880)
+        wr.finalize()
+
+    enc = ffvideo.FFVideoEncoder("libvpx-vp9", w, h, fps, bit_rate=300_000,
+                                 opts={"lag-in-frames": 0, "g": 12,
+                                       "cpu-used": 4, "threads": 1})
+    mkv("vp9_176x144.webm", "vp9", enc.encode(frames), webm=True)
+    enc = ffvideo.FFVideoEncoder(
+        "libx265", w, h, fps, bit_rate=300_000,
+        opts={"x265-params": "bframes=0:keyint=12:pools=none:"
+                             "frame-threads=1:log-level=error"})
+    mkv("x265_176x144.mkv", "hevc", enc.encode(frames))
+    enc = ffvideo.FFVideoEncoder("mpeg4", w, h, fps, bit_rate=300_000,
+                                 opts={"bf": 2, "g": 12})
+    write_avi(os.path.join(out, "mpeg4_bframes_176x144.avi"), w, h, fps,
+              enc.encode(frames))
+    h264 = H264Encoder(EncoderConfig(width=w, height=h, qp=30, gop=n),
+                       device="cpu")
+    t = np.arange(int(48000 * 0.4)) / 48000
+    tone = np.stack([0.3 * np.sin(2 * np.pi * f * t) for f in (440, 660)],
+                    1).astype(np.float32)
+    mkv("eac3_176x144.mkv", "h264",
+        [h264.encode_frame(*f) for f in frames],
+        audio=ffaudio.FFAudioEncoder("eac3", sample_rate=48000, channels=2,
+                                     bit_rate=96000).encode(tone))
+    return ["vp9_176x144.webm", "x265_176x144.mkv",
+            "mpeg4_bframes_176x144.avi", "eac3_176x144.mkv"]
 
 
 def report(name, es, ff):
@@ -153,6 +246,18 @@ def main(argv=None) -> int:
         vw.write(cv2.cvtColor(yuv, cv2.COLOR_YCrCb2BGR))
     vw.release()
     print(f"mjpeg_640x480.avi: {os.path.getsize(avi)} bytes")
+    for name in catalog_sources(args.out, ffvideo, ffaudio, cv2):
+        print(f"{name}: {os.path.getsize(os.path.join(args.out, name))} "
+              f"bytes")
+    if args.check:
+        import filecmp
+        import tempfile
+        with tempfile.TemporaryDirectory() as again:
+            for name in catalog_sources(again, ffvideo, ffaudio, cv2):
+                same = filecmp.cmp(os.path.join(again, name),
+                                   os.path.join(args.out, name),
+                                   shallow=False)
+                print(f"{name}: rebuilt {'equal' if same else 'DIFFERS'}")
     return 0
 
 

@@ -22,9 +22,18 @@ tx3g (mp4) or S_TEXT/UTF8 (mkv) track or burned in by the render_sub
 filter on the job's device.  A DVD's VobSub tracks take the IFO's
 palette, and CEA-608 captions also come from MPEG-2 user data.  The device comes only from the caller
 (``device=None`` is the CUDA card, which raises where there is none).
-The libavcodec audio codecs raise NotImplementedError: they are a later
-slice.  An audio track that cannot be decoded raises, and so does a
-subtitle track; none is passed through or dropped in its place.
+The libavcodec catalog (``codecs/avcodec.py``, ctypes on the system
+library) adds the video encoders MPEG-2, MPEG-4, VP8, VP9, FFV1 and
+Theora (mkv/webm only), the audio encoders MP3, Opus and Vorbis, and
+sources in VP8/9, Theora, MPEG-4 part 2, FFV1, ProRes, E-AC-3, DTS,
+TrueHD, MP3, Vorbis and Opus.  Where the library is missing, a job that
+needs it raises where its encoders and decoders are built, naming what
+was not found, before a frame is read or the output file is made; the
+reference encodes FLAC in place of MP3/Opus/Vorbis there and passes an
+undecodable track through.  ProRes is refused: the catalog feeds
+yuv420p 8-bit, which libavcodec's prores does not take.  An audio track
+that cannot be decoded raises, and so does a subtitle track; none is
+passed through or dropped in its place.
 
 ``checkpoint`` journals every muxed sample to ``<dest>.ckpt``
 (``checkpoint.py``) with a marker at each GOP boundary; ``resume``
@@ -92,14 +101,12 @@ from .utils.logging import log
 H264_NAMES = ("h264_tpu", "x264", "h264")
 HEVC_NAMES = ("hevc_tpu", "x265", "hevc", "h265")
 AV1_NAMES = ("av1_tpu", "svt_av1", "av1")
+AV_VIDEO_NAMES = ("mpeg2", "mpeg4", "vp9", "vp8", "ffv1", "prores",
+                  "theora")        # the libavcodec catalog
 
 
 class WorkError(Exception):
     pass
-
-
-def _unported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +129,8 @@ def create_video_encoder(job: Job, width: int, height: int,
     if "keyint" in opts:
         gop = max(1, int(opts["keyint"]))
     bframes = int(getattr(job, "bframes", 0) or 0)
-    if bframes > 0 and job.vcodec in HEVC_NAMES + AV1_NAMES:
+    if bframes > 0 and job.vcodec in HEVC_NAMES + AV1_NAMES \
+            + AV_VIDEO_NAMES:
         # the reference codes such a job P-only without a word
         raise WorkError(f"the {job.vcodec} encoder codes I and P frames "
                         f"only: it takes no B-frames")
@@ -171,11 +179,84 @@ def create_video_encoder(job: Job, width: int, height: int,
             width=width, height=height, qp=qp, gop=gop,
             fps=(vrate.numerator, vrate.denominator))
         return AV1Encoder(cfg, device=device)
-    if job.vcodec in ("mpeg2", "mpeg4", "vp9", "vp8", "ffv1", "prores",
-                      "theora"):
-        _unported(f"the {job.vcodec} video encoder (the libavcodec "
-                  f"catalog, ROADMAP item 1.10)")
+    if job.vcodec == "prores":
+        # the reference opens libavcodec's prores on yuv420p, which it
+        # refuses ("open prores failed")
+        raise WorkError("prores: the catalog feeds yuv420p 8-bit; "
+                        "libavcodec's prores takes 4:2:2 10-bit")
+    if job.vcodec in AV_VIDEO_NAMES:
+        # the classic encoder catalog rides libavcodec, as the reference's
+        # encavcodec.c work object does
+        from .codecs import avcodec
+        avcodec.require(f"the {job.vcodec} video encoder", WorkError)
+        return _AVVideoEncoderAdapter(job, width, height, vrate, qp)
     raise WorkError(f"unknown video encoder {job.vcodec!r}")
+
+
+class _AVVideoEncoderAdapter:
+    """encavcodec.c work-object analog: the classic codec catalog
+    (MPEG-2/4, VP8/9, FFV1, Theora) through codecs/avcodec.py, without
+    B-frames and without lag, so packets come out in frame order.  An
+    encoder may still hold frames back (mpeg2video holds the first one
+    until the next), so, like the B-frame adapter, it takes frames with
+    ``push_display_frame`` and hands back [(frame index, packet)], none
+    or more, and ``flush`` drains the encoder at the end of the stream;
+    ``is_key`` reads a packet's keyframe flag.  The reference takes
+    exactly one packet a frame and fails the job on the first delayed
+    frame."""
+
+    class _Cfg:
+        pass
+
+    def __init__(self, job, width, height, vrate, qp):
+        from .codecs.avcodec import AVVideoEncoder
+        opts = {}
+        name = job.vcodec
+        quality = None
+        bit_rate = (job.vbitrate or 0) * 1000
+        if name in ("vp9", "vp8"):
+            opts.update({"lag-in-frames": 0, "cpu-used": 4,
+                         "deadline": "good"})
+            if job.quality is not None:
+                quality = job.quality
+                bit_rate = 0
+        elif not bit_rate:
+            # quality → rough bitrate for the classic MPEG coders
+            bpp = max(0.02, 0.7 * 2.0 ** (-(qp - 10) / 6.0))
+            bit_rate = int(width * height * float(vrate) * bpp / 8) * 8
+        # mkv sources yield ns-precision rates (1e9 denominators); the
+        # MPEG coders cap the timebase denominator at 65535
+        vr = vrate.limit_denominator(30000)
+        self.enc = AVVideoEncoder(
+            name, width, height, (vr.numerator, vr.denominator),
+            bit_rate=bit_rate, quality=quality, opts=opts)
+        self.cfg = self._Cfg()
+        self.cfg.qp = qp
+        self.cfg.fps = (vrate.numerator, vrate.denominator)
+        self.cfg.gop = max(1, int(round(float(vrate) * 10)))
+        self.extradata = self.enc.extradata
+        self.frame_idx = 0
+        self._n_out = 0           # packets handed back
+        self._keys = {}           # their keyframe flags, until read
+
+    def push_display_frame(self, y, u, v) -> list:
+        self.frame_idx += 1
+        return self._index(self.enc.encode(y, u, v))
+
+    def flush(self) -> list:
+        return self._index(self.enc.flush())
+
+    def is_key(self, d: int) -> bool:
+        """Packet d's keyframe flag (read once a packet)."""
+        return self._keys.pop(d)
+
+    def _index(self, pkts) -> list:
+        out = []
+        for data, key in pkts:
+            self._keys[self._n_out] = key
+            out.append((self._n_out, data))
+            self._n_out += 1
+        return out
 
 
 class _BFrameEncoderAdapter:
@@ -212,6 +293,9 @@ class _BFrameEncoderAdapter:
 
     def flush(self):
         return self._release(self.benc.flush())
+
+    def is_key(self, d: int) -> bool:
+        return d % self.cfg.gop == 0
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +347,7 @@ def do_job(job: Job, state=None, die=None, pause=None, device=None) -> dict:
         raise WorkError("GOP-parallel encoding codes I and P frames only: "
                         "it takes no B-frames")
     if int(job.gop_parallel or 0) > 1 \
-            and job.vcodec in HEVC_NAMES + AV1_NAMES:
+            and job.vcodec in HEVC_NAMES + AV1_NAMES + AV_VIDEO_NAMES:
         # the reference logs that it ignores the request and codes the
         # job serially
         raise WorkError(f"GOP-parallel encoding codes H.264 only, not "
@@ -746,8 +830,10 @@ class _EncodeStage(WorkObject):
         self.stats = stats
         self.progress = progress
         self._pend = []   # (pending, fb, qp, is_idr, rc state at an IDR)
-        self._b_fbs = {}  # display idx -> frame, B-frame job
-        self._b_disp = 0
+        # a delayed encoder's frames by index until their access units
+        # are out: (frame, qp, rate-control state at an IDR)
+        self._held = {}
+        self._n_held = 0
         from .codecs.h264.encoder import H264Encoder
         from .codecs.hevc.encoder import HEVCEncoder
         # the reference matches the class name, so its B-frame adapter
@@ -816,9 +902,9 @@ class _EncodeStage(WorkObject):
                 return self._gp_flush()
             return []
         if isinstance(self.venc, _BFrameEncoderAdapter):
-            self._b_fbs[self._b_disp] = fb
-            self._b_disp += 1
-            return self._emit_b(self.venc.push_display_frame(y, u, v))
+            # constant qp; an IDR's state is taken as it is emitted, after
+            # the frames that precede it in decode order
+            return self._push_held(y, u, v, fb, self.venc.cfg.qp, None)
         is_idr = (self.venc.frame_idx % self.venc.cfg.gop) == 0
         out = []
         if is_idr:
@@ -831,6 +917,8 @@ class _EncodeStage(WorkObject):
                 out.append(self._finish_one())
         rc_state = checkpoint.rc_snapshot(self.rc) if is_idr else None
         qp = self.rc.frame_qp(is_idr)
+        if isinstance(self.venc, _AVVideoEncoderAdapter):
+            return out + self._push_held(y, u, v, fb, qp, rc_state)
         if not hasattr(self.venc, "begin_frame"):
             # the HEVC and AV1 walkers code a frame in one call
             au = self.venc.encode_frame(y, u, v, qp=qp)
@@ -892,13 +980,23 @@ class _EncodeStage(WorkObject):
                 i += 1
         return out
 
-    def _emit_b(self, aus) -> list:
-        """The walker's decode-order access units, each emitted against
-        its display frame's timestamps (the muxers derive the cts
-        offsets from pts against the decode-order clock)."""
-        gop, qp = self.venc.cfg.gop, self.venc.cfg.qp
-        return [self._emit_video(au, self._b_fbs.pop(d), d % gop == 0, qp)
-                for d, au in aus]
+    def _push_held(self, y, u, v, fb, qp, rc_state) -> list:
+        self._held[self._n_held] = (fb, qp, rc_state)
+        self._n_held += 1
+        return self._emit_held(self.venc.push_display_frame(y, u, v))
+
+    def _emit_held(self, aus) -> list:
+        """A delayed encoder's access units [(frame index, au)] (the
+        walker's in decode order, the catalog's late), each emitted
+        against its frame's timestamps, qp and IDR state (the muxers
+        derive the cts offsets from pts against the decode-order
+        clock)."""
+        out = []
+        for d, au in aus:
+            fb, qp, rc_state = self._held.pop(d)
+            out.append(self._emit_video(au, fb, self.venc.is_key(d), qp,
+                                        rc_state))
+        return out
 
     def work(self, buf):
         if buf.is_eof():
@@ -906,8 +1004,9 @@ class _EncodeStage(WorkObject):
             for fb in self.graph.flush():
                 out += self._encode(fb)
             out += self._gp_flush()
-            if isinstance(self.venc, _BFrameEncoderAdapter):
-                out += self._emit_b(self.venc.flush())
+            if isinstance(self.venc, (_BFrameEncoderAdapter,
+                                      _AVVideoEncoderAdapter)):
+                out += self._emit_held(self.venc.flush())
             while self._pend:
                 out.append(self._finish_one())
             for sid, enc in self.aencs.items():
@@ -1272,16 +1371,61 @@ class _FlacPacketDecoder:
         return [out]
 
 
-# decoded by libavcodec in the reference (decavcodec.c:192-347), which is
-# not ported yet
+class _AVAudioPacketDecoder:
+    """libavcodec audio decode (decavcodec.c:192-347 personality) for
+    E-AC-3/DTS/TrueHD/MP3/Vorbis/Opus — one container packet (or
+    byte-stream chunk; lavc parses syncframes internally for the
+    self-framed codecs) in, float32 PCM out."""
+
+    def __init__(self, ti, name):
+        from .codecs.avcodec import AVAudioDecoder
+        self.dec = AVAudioDecoder(name, extradata=bytes(ti.extradata or b""),
+                                  sample_rate=ti.sample_rate or 0,
+                                  channels=ti.channels or 0)
+        self.ti = ti
+        self._next_pts = None
+
+    def _wrap(self, pcm, buf):
+        if pcm.shape[0] == 0:
+            return []
+        sr = self.ti.sample_rate or 48000
+        dur = int(round(pcm.shape[0] * 90000 / sr))
+        out = Buffer(track_kind="audio")
+        if buf is not None:
+            out.copy_props(buf)
+        out.pts = self._next_pts
+        out.duration = dur
+        out.stop = (self._next_pts + dur) \
+            if self._next_pts is not None else None
+        out.planes = [np.ascontiguousarray(pcm)]
+        out.data = None
+        if self._next_pts is not None:
+            self._next_pts += dur
+        return [out]
+
+    def feed(self, buf: Buffer) -> list:
+        if buf.data is None:
+            return []
+        if buf.pts is not None and (
+                self._next_pts is None
+                or abs(buf.pts - self._next_pts) > 9000):
+            self._next_pts = buf.pts     # resync on gaps > 100 ms
+        return self._wrap(self.dec.decode(bytes(buf.data)), buf)
+
+    def flush(self) -> list:
+        return self._wrap(self.dec.flush(), None)
+
+
+# decoded by libavcodec, as in the reference (decavcodec.c:192-347)
 _AV_AUDIO = ("eac3", "dts", "dca", "truehd", "mlp", "mp3", "vorbis", "opus")
 
 
 def _make_audio_decoder(ti, spec=None):
     """The track's decoder.  Where the reference falls back (an AAC
     decoder that cannot start becomes passthrough; a codec it cannot
-    decode becomes a passthrough that the chain then drops), the port
-    raises with the codec's name."""
+    decode, or a libavcodec codec where the library is missing or does
+    not start, becomes a passthrough that the chain then drops), the port
+    raises WorkError with the codec's name."""
     if spec is not None and str(spec.encoder).startswith("copy"):
         # passthrough: keep the compressed packets intact (WORK_PASS
         # role) — decoding would hand PCM to a chain that forwards data
@@ -1307,15 +1451,22 @@ def _make_audio_decoder(ti, spec=None):
     if ti.codec in ("mp2", "mp1", "mpa"):
         return _Mp2PacketDecoder(ti)
     if ti.codec in _AV_AUDIO:
-        _unported(f"{ti.codec} audio decoding (the libavcodec catalog, "
-                  f"ROADMAP item 1.10)")
+        from .codecs import avcodec
+        avcodec.require(f"{ti.codec}: decoding the track", WorkError)
+        name = {"dts": "dca", "mlp": "mlp"}.get(ti.codec, ti.codec)
+        try:
+            return _AVAudioPacketDecoder(ti, name)
+        except RuntimeError as e:
+            raise WorkError(f"{ti.codec}: libavcodec's decoder does not "
+                            f"start on this track ({e})") from e
     raise WorkError(f"audio codec {ti.codec!r}: no decoder")
 
 
 def _make_audio_encoder(spec, ti):
     """Audio chain per output track (resample/mixdown/gain/drc + encoder):
     AAC-LC, AC-3, FLAC and PCM encode natively (audio/*.py); MP3, Opus
-    and Vorbis raise (the libavcodec catalog, a later slice)."""
+    and Vorbis ride the libavcodec catalog, as upstream does
+    (encavcodecaudio.c:573), and raise WorkError where it is missing."""
     from .audio.chain import AudioChain
     return AudioChain(spec, ti)
 
@@ -1342,8 +1493,7 @@ class _MuxAdapter:
             mux_vcodec = "hevc"
         elif job.vcodec in ("av1_tpu", "svt_av1", "av1"):
             mux_vcodec = "av1"
-        elif job.vcodec in ("mpeg2", "mpeg4", "vp9", "vp8", "ffv1",
-                            "prores", "theora"):
+        elif job.vcodec in AV_VIDEO_NAMES:
             mux_vcodec = job.vcodec      # lavc catalog: raw samples
         else:
             mux_vcodec = "h264"

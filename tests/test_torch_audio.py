@@ -441,18 +441,25 @@ def test_audio_chain_copy_equal():
 
 # -- refusals ----------------------------------------------------------------
 @pytest.mark.parametrize("codec", ["mp3", "opus", "vorbis"])
-def test_libavcodec_encoders_raise(codec):
+def test_libavcodec_encoders_raise(codec, monkeypatch, tmp_path):
+    """With libavcodec missing, the chain raises naming it; the reference
+    encodes FLAC instead."""
+    from torch_catalog import MISSING, hide
+    hide(monkeypatch, tmp_path)
     spec = AudioJobTrack(track=0, encoder=codec)
-    with pytest.raises(NotImplementedError, match=codec):
+    with pytest.raises(work.WorkError, match=rf"{codec}.*{MISSING}"):
         chain.AudioChain(spec, _ti(TrackInfo, "pcm_s16le", 48000, 2))
 
 
 @pytest.mark.parametrize("codec", ["eac3", "opus", "dts", "truehd", "mp3",
                                    "vorbis"])
-def test_libavcodec_decoders_raise(codec):
+def test_libavcodec_decoders_raise(codec, monkeypatch, tmp_path):
     """The reference decodes these through libavcodec, or passes the
-    packets to a chain that drops them where libavcodec is missing."""
-    with pytest.raises(NotImplementedError, match=codec):
+    packets to a chain that drops them where libavcodec is missing; the
+    port raises naming the codec and the missing library there."""
+    from torch_catalog import MISSING, hide
+    hide(monkeypatch, tmp_path)
+    with pytest.raises(work.WorkError, match=rf"{codec}.*{MISSING}"):
         work._make_audio_decoder(_ti(TrackInfo, codec, 48000, 2),
                                  AudioJobTrack(track=0, encoder="aac"))
     # the copy of such a track needs no decoder, as in the reference

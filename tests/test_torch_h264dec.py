@@ -111,7 +111,7 @@ def test_registry_decoder_from_avcc():
         assert all(np.array_equal(a, b) for a, b in zip(f.planes, r))
 
 
-def test_no_python_fallback(monkeypatch):
+def test_no_python_fallback(monkeypatch, tmp_path):
     """A native build that fails raises; nothing decodes in Python."""
     def fail(*a, **k):
         raise RuntimeError("hbdec264: build failed")
@@ -119,5 +119,8 @@ def test_no_python_fallback(monkeypatch):
     monkeypatch.setattr(build, "compile_shared", fail)
     with pytest.raises(RuntimeError, match="build failed"):
         registry.create_video_decoder("h264")
-    with pytest.raises(NotImplementedError):
+    # nor does a catalog codec where libavcodec is missing
+    from torch_catalog import hide
+    hide(monkeypatch, tmp_path)
+    with pytest.raises(ValueError, match="vp9.*libavcodec.so.59 not found"):
         registry.create_video_decoder("vp9")

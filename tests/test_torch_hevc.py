@@ -323,15 +323,21 @@ BEYOND = {"sao": (sao_stream, "SAO unsupported"),
 
 
 @pytest.mark.parametrize("feature", list(BEYOND))
-def test_beyond_subset_raises_stated_error(feature):
-    """The port raises ValueError naming the feature and ROADMAP item
-    1.10; the reference's native decoder raises a bare AssertionError,
-    and its registry, where libavcodec is present, switches to it."""
+def test_beyond_subset_raises_stated_error(feature, monkeypatch, tmp_path):
+    """Where libavcodec is missing, the port raises ValueError naming the
+    feature, ROADMAP item 1.10 and the missing library; the reference's
+    native decoder raises a bare AssertionError, and its registry, where
+    libavcodec is present, switches to it.  (With the library the port
+    switches too, before the first frame: test_torch_avcodec_faults.)"""
+    from torch_catalog import hide
     build, words = BEYOND[feature]
     stream = build()
-    dec = registry.create_video_decoder("hevc")
-    with pytest.raises(ValueError, match=r"ROADMAP item 1\.10") as e:
-        dec.feed(Buffer(data=stream, pts=0))
+    with monkeypatch.context() as m:
+        hide(m, tmp_path)
+        dec = registry.create_video_decoder("hevc")
+        with pytest.raises(ValueError, match=r"ROADMAP item 1\.10\), and "
+                           r"libavcodec is missing") as e:
+            dec.feed(Buffer(data=stream, pts=0))
     assert words in str(e.value)
     with pytest.raises(AssertionError, match=words):
         jreg.HEVCVideoDecoder().feed(JBuffer(data=stream, pts=0))
@@ -343,9 +349,11 @@ def test_beyond_subset_raises_stated_error(feature):
         assert jdec._is_fallback
 
 
-def test_beyond_subset_hvcc_raises():
+def test_beyond_subset_hvcc_raises(monkeypatch, tmp_path):
     """The same refusal where the SPS arrives in an hvcC (an mp4 or mkv
-    track's configuration)."""
+    track's configuration), with libavcodec missing."""
+    from torch_catalog import hide
+    hide(monkeypatch, tmp_path)
     from handbrake_tpu_torch.mux.nal import build_hvcc, extract_vps_sps_pps
     vps, sps, pps = extract_vps_sps_pps(sao_stream())
     with pytest.raises(ValueError, match="SAO unsupported"):

@@ -277,10 +277,11 @@ def test_no_fallback_to_the_cpu(src, tmp_path, monkeypatch):
 # job changes whose paths are later slices of the port, or that the port
 # refuses, and what each raises
 UNPORTED_JOBS = {
-    # mkv is ported; the catalog encoders that need it are not
+    # mkv is ported, and so is the catalog; its ProRes encoder is
+    # refused (the catalog feeds yuv420p 8-bit)
     "mux-mkv": (lambda j: (setattr(j, "mux", "mkv"),
-                           setattr(j, "vcodec", "vp9")),
-                NotImplementedError),
+                           setattr(j, "vcodec", "prores")),
+                work.WorkError),
     # HEVC jobs run (tests/test_torch_job_hevc_av1.py); GOP-parallel
     # encoding is H.264's alone
     "vcodec-hevc": (lambda j: (setattr(j, "vcodec", "hevc_tpu"),
@@ -366,10 +367,22 @@ def test_formerly_unported_job_runs(src, tmp_path, monkeypatch, change):
                                   ["-E", "vorbis"],
                                   ["-f", "webm", "-e", "vp9"],
                                   ["-f", "mkv", "-e", "mpeg2"]])
-def test_unported_cli_option_raises(src, tmp_path, opts):
-    with pytest.raises(NotImplementedError):
-        cli(["-i", src, "-o", str(tmp_path / "x.mp4"), "--device", "cpu",
-             *opts])
+def test_unported_cli_option_raises(src, tmp_path, opts, monkeypatch,
+                                    capsys):
+    """The catalog's options run where libavcodec is (the
+    test_torch_avcodec files); where it is missing the CLI exits
+    non-zero naming it, and writes no file."""
+    from torch_catalog import hide, mkv_source, pcm_packets
+    if "-E" in opts:
+        # an audio encoder is needed only where -a selects a track
+        src = mkv_source(str(tmp_path / "av.mkv"), acodec="pcm_s16le",
+                         apackets=pcm_packets())
+        opts = opts if "-a" in opts else ["-a", "1", *opts]
+    hide(monkeypatch, tmp_path)
+    out = str(tmp_path / "x.mp4")
+    assert cli(["-i", src, "-o", out, "--device", "cpu", *opts]) != 0
+    assert "libavcodec.so.59 not found" in capsys.readouterr().err
+    assert not os.path.exists(out)
 
 
 @pytest.mark.parametrize("opts", [["--gop-parallel", "2"],
@@ -387,7 +400,7 @@ def test_formerly_unported_cli_option_runs(src, tmp_path, monkeypatch, opts):
     assert not os.path.exists(out + ".ckpt")
 
 
-def test_unported_sources_raise(tmp_path):
+def test_unported_sources_raise(tmp_path, monkeypatch):
     """AVI, MPEG-TS/PS and disc folders are ported (test_torch_sources and
     test_torch_job_discs hold them): a malformed AVI, a TS without sync
     and an empty VIDEO_TS raise what the JAX package's do_job raises on
@@ -412,8 +425,11 @@ def test_unported_sources_raise(tmp_path):
             work.do_job(_job(S, path, str(tmp_path / "x.mp4"), "unscaled"),
                         device="cpu")
         assert str(got.value) == str(want.value)
-    with pytest.raises(ValueError, match="item 1.10"):
-        work.do_job(_job(S, str(hevc), str(tmp_path / "x.mp4"), "unscaled"),
-                    device="cpu")
+    from torch_catalog import hide
+    with monkeypatch.context() as m:
+        hide(m, tmp_path)        # with libavcodec the stream switches to it
+        with pytest.raises(ValueError, match="item 1.10"):
+            work.do_job(_job(S, str(hevc), str(tmp_path / "x.mp4"),
+                             "unscaled"), device="cpu")
     args = ["-i", str(avi), "-o", str(tmp_path / "y.mp4")]
     assert cli([*args, "--device", "cpu"]) == jcli(args) != 0

@@ -316,21 +316,30 @@ def test_handle_audio_job_equals_reference(sources, tmp_path):
 
 # -- refusals ----------------------------------------------------------------
 @pytest.mark.parametrize("codec", ["opus", "mp3", "vorbis"])
-def test_libavcodec_encoder_job_raises(sources, tmp_path, codec):
+def test_libavcodec_encoder_job_raises(sources, tmp_path, codec,
+                                       monkeypatch, capsys):
+    """With libavcodec missing, the job and the CLI refuse, naming it."""
+    from torch_catalog import MISSING, hide
+    hide(monkeypatch, tmp_path)
     out = str(tmp_path / "x.mkv")
-    with pytest.raises(NotImplementedError, match=codec):
+    with pytest.raises(work.WorkError, match=rf"{codec}.*{MISSING}"):
         work.do_job(_job(S, sources["av"], out, "mkv",
                          [dict(track=0, encoder=codec)]), device="cpu")
-    with pytest.raises(NotImplementedError, match="mp3, opus and vorbis"):
-        cli(_cli_args(sources["av"], out, "-a", "1", "-E", codec,
-                      "--device", "cpu"))
+    assert cli(_cli_args(sources["av"], out, "-a", "1", "-E", codec,
+                         "--device", "cpu")) != 0
+    assert "libavcodec.so.59 not found" in capsys.readouterr().err
     assert not os.path.exists(out)
 
 
 @pytest.mark.parametrize("src", ["eac3", "opus"])
-def test_libavcodec_source_track_raises(sources, tmp_path, src):
+def test_libavcodec_source_track_raises(sources, tmp_path, src,
+                                        monkeypatch):
+    """With libavcodec missing, a selected E-AC-3 or Opus track refuses,
+    naming it."""
+    from torch_catalog import MISSING, hide
+    hide(monkeypatch, tmp_path)
     out = str(tmp_path / "x.mkv")
-    with pytest.raises(NotImplementedError, match=src):
+    with pytest.raises(work.WorkError, match=rf"{src}.*{MISSING}"):
         work.do_job(_job(S, sources[src], out, "mkv",
                          [dict(track=0, encoder="aac")]), device="cpu")
     assert not os.path.exists(out)

@@ -354,13 +354,18 @@ def test_av1_mkv_carries_av1c(tmp_path, src):
         d.close()
 
 
-def test_beyond_subset_source_raises(tmp_path):
-    """An HEVC elementary stream with SAO on: the port's job raises
-    ValueError naming ROADMAP item 1.10 before it encodes a frame."""
+def test_beyond_subset_source_raises(tmp_path, monkeypatch):
+    """An HEVC elementary stream with SAO on, where libavcodec is
+    missing: the port's job raises ValueError naming ROADMAP item 1.10
+    and the library before it encodes a frame (with the library it
+    switches to it)."""
+    from torch_catalog import hide
+    hide(monkeypatch, tmp_path)
     es = str(tmp_path / "sao.265")
     with open(es, "wb") as f:
         f.write(sao_stream())
-    with pytest.raises(ValueError, match=r"SAO unsupported.*item 1\.10"):
+    with pytest.raises(ValueError, match=r"SAO unsupported.*item 1\.10.*"
+                       r"libavcodec is missing"):
         work.do_job(_job(S, es, str(tmp_path / "x.mp4"), "mp4", "h264"),
                     device="cpu")
 

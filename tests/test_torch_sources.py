@@ -332,10 +332,13 @@ def test_avi_demuxer_equals_reference():
     src.close()
 
 
-def test_hevc_elementary_stream_still_raises(tmp_path):
+def test_hevc_elementary_stream_still_raises(tmp_path, monkeypatch):
     """HEVC elementary streams open since item 1.9; one beyond the native
     decoder's subset (SAO on) opens as the reference opens it (no
-    geometry) and raises at its decode, naming ROADMAP item 1.10."""
+    geometry) and, where libavcodec is missing, raises at its decode,
+    naming ROADMAP item 1.10 and the missing library."""
+    from torch_catalog import hide
+    hide(monkeypatch, tmp_path)
     from handbrake_tpu_torch.codecs.registry import create_video_decoder
     from handbrake_tpu_torch.core.buffer import Buffer
     from test_torch_hevc import sao_stream
@@ -348,7 +351,8 @@ def test_hevc_elementary_stream_still_raises(tmp_path):
         pkt = next(b for _t, b in src.packets())
     finally:
         src.close()
-    with pytest.raises(ValueError, match="item 1.10"):
+    with pytest.raises(ValueError, match=r"item 1\.10\), and libavcodec "
+                       r"is missing \(libavutil"):
         create_video_decoder("hevc", ti.extradata).feed(pkt)
 
 
@@ -493,12 +497,94 @@ _TS_HEVC_GEOMETRY = (
         if ti.frame_rate is None:
 """),)
 
+_AVI_MPEG4 = (
+    (r'''and PCM audio tracks, idx1 ignored (sequential read).
+"""
+''',
+     r'''and PCM audio tracks, idx1 ignored (sequential read).
+
+The port also reads MPEG-4 part 2 video (XVID, DIVX, DX50, FMP4, MP4V),
+which libavcodec decodes.  AVI keeps one timestamp a chunk, in decode
+order; with B-frames the demuxer gives each VOP its display time, read
+from the VOP coding types, holding an anchor back until the next one is
+seen (the reference reads no MPEG-4 in AVI).  A packed bitstream
+(DivX's P-VOP and B-VOP in one chunk, then a chunk with an empty VOP)
+leaves a chunk's time to two VOPs, so it is refused by name.
+"""
+'''),
+    (r'''_VID_CODECS = {b"MJPG": "mjpeg", b"mjpg": "mjpeg", b"\x00\x00\x00\x00": "rawvideo"}
+''',
+     r'''_VID_CODECS = {b"MJPG": "mjpeg", b"mjpg": "mjpeg", b"\x00\x00\x00\x00": "rawvideo",
+               b"XVID": "mpeg4", b"DIVX": "mpeg4", b"DX50": "mpeg4",
+               b"FMP4": "mpeg4", b"MP4V": "mpeg4"}
+
+
+def _vop_is_b(data: bytes) -> bool:
+    """An MPEG-4 part 2 chunk whose first VOP is a B-VOP
+    (vop_coding_type 2)."""
+    i = data.find(b"\x00\x00\x01\xb6")
+    return 0 <= i < len(data) - 4 and data[i + 4] >> 6 == 2
+
+
+class _DisplayOrder:
+    """One MPEG-4 track's chunks in decode order, each stamped with the
+    decode-order frame time, restamped with display times: a B-VOP shows
+    at the next free time and an anchor after the B-VOPs that follow it,
+    so each anchor is held until the next one arrives."""
+
+    def __init__(self):
+        self.times, self.held = [], []
+
+    def push(self, item) -> list:
+        b = item[1]
+        if b.data.count(b"\x00\x00\x01\xb6") > 1:
+            raise DemuxError("mpeg4 in AVI: a packed bitstream (several "
+                             "VOPs in one chunk) is not supported")
+        self.times.append((b.pts, b.duration))
+        out = []
+        if not _vop_is_b(b.data) and self.held:
+            out = self.flush()
+        self.held.append(item)
+        return out
+
+    def flush(self) -> list:
+        held, self.held = self.held, []
+        for _trk, b in held[1:] + held[:1]:
+            b.pts, b.duration = self.times.pop(0)
+            b.stop = b.pts + b.duration
+        return held
+'''),
+    (r'''                    self.tracks[-1].height = abs(h)
+''',
+     r'''                    self.tracks[-1].height = abs(h)
+                    if self.tracks[-1].codec == "unknown":
+                        # the strh handler left blank: biCompression
+                        self.tracks[-1].codec = _VID_CODECS.get(
+                            data[16:20].upper(), "unknown")
+'''),
+    (r'''    def packets(self, start_state=None):
+''',
+     r'''    def packets(self, start_state=None):
+        order = {i: _DisplayOrder() for i, t in enumerate(self.tracks)
+                 if t.codec == "mpeg4"}
+        for trk, b in self._chunks(start_state):
+            if trk in order:
+                yield from order[trk].push((trk, b))
+            else:
+                yield trk, b
+        for o in order.values():
+            yield from o.flush()
+
+    def _chunks(self, start_state=None):
+'''),
+)
+
 COPIES = {
     "sources/ps.py": (),
     "sources/dvd.py": (),
     "sources/ts.py": _TS_HEVC_GEOMETRY,
     "sources/bd.py": (),
-    "sources/avi.py": (),
+    "sources/avi.py": _AVI_MPEG4,      # MPEG-4 part 2 in AVI
     "native/hbdecmjpeg.cpp": (),
     "codecs/mpeg2.py": _MPEG2_FIELD_DCT,
 }
@@ -519,3 +605,31 @@ def test_copy_equals_original(rel):
         assert want.count(old) == 1 and got.count(new) == 1
         want = want.replace(old, new)
     assert got == want
+
+
+def test_packed_bitstream_avi_refused(tmp_path):
+    """DivX's packed bitstream: a P-VOP and the B-VOP after it in one
+    chunk, which has one timestamp for two VOPs; the demuxer refuses it
+    by name rather than give the frames wrong display times."""
+    from handbrake_tpu_torch.sources.common import DemuxError
+    from handbrake_tpu_torch.tools.make_source_fixtures import write_avi
+    src = os.path.join(os.path.dirname(__file__), "data", "torch_sources",
+                       "mpeg4_bframes_176x144.avi")
+    d = AVIDemuxer(src)
+    try:
+        chunks = [b.data for _t, b in d._chunks()]
+    finally:
+        d.close()
+    vop = b"\x00\x00\x01\xb6"
+    kinds = [c[c.find(vop) + 4] >> 6 for c in chunks]
+    assert kinds[:3] == [0, 1, 2]            # I, P, B in decode order
+    path = str(tmp_path / "packed.avi")
+    write_avi(path, 176, 144, 30, [chunks[0], chunks[1] + chunks[2]]
+              + chunks[3:])
+    d = AVIDemuxer(path)
+    try:
+        assert d.tracks[0].codec == "mpeg4"
+        with pytest.raises(DemuxError, match="packed bitstream"):
+            list(d.packets())
+    finally:
+        d.close()
