@@ -163,7 +163,8 @@ Phases (none is caught; any failure exits non-zero before the last line):
    device, under ``torch.profiler``: 9 samples at 1920x804, an IDR and
    two groups of a P and three B frames, the decode order not the
    display order and non-zero ctts offsets, the resample kernel launched
-   once a frame; (b) the mp4's stream decoded by the port's
+   once a frame, and one log line that the profile's CABAC and 8x8
+   transform are not applied; (b) the mp4's stream decoded by the port's
    ``NativeH264Decoder`` equals the walker's reconstructions (kept by a
    spy on the job's adapter), frame for frame in display order, and the
    planes the encoder received equal the port's ``CropScaleFilter`` on
@@ -239,11 +240,11 @@ Phases (none is caught; any failure exits non-zero before the last line):
    same planes, each on the card and on the CPU (mv and sad equal), timed
    (CUDA events, median of 20 calls), beside its bytes and
    integer-operation bounds, and one call's device ms and kernels traced
-   by ``tools/profile_analyzers.py`` in a fresh process; (b) a 5-frame
-   1080p y4m (an IDR and 4 P) through ``cli.__main__.main(["-i", src,
+   by ``tools/profile_analyzers.py`` in a fresh process; (b) a 3-frame
+   1080p y4m (an IDR and 2 P) through ``cli.__main__.main(["-i", src,
    "-o", out.mkv, "-Z", "H.265 MKV 1080p30"])`` under ``torch.profiler``,
-   in a card process of its own: 5 samples of 1920x1080 with an hvcC,
-   the first 3 equal to the same CLI job on the CPU (``--device cpu``,
+   in a card process of its own: 3 samples of 1920x1080 with an hvcC,
+   all 3 equal to the same CLI job on the CPU (``--device cpu``,
    the source's first 3 frames, in a process of its own), the analyzer
    called once a P frame, each access unit decoded as it comes by the
    port's HEVC decoder (a child process) to the encoder's
@@ -251,9 +252,9 @@ Phases (none is caught; any failure exits non-zero before the last line):
    busy share, the walker's host seconds an I and a P frame, the
    decoder's host ms a frame; (c) the same with ``-Z "AV1 MKV 1080p30"``
    (av1C in the CodecPrivate), beside (b); (d) (b)'s mkv through the CLI
-   to H.264 High mp4 (``--previews 1``): 5 samples, the planes the H.264
+   to H.264 High mp4 (``--previews 1``): 3 samples, the planes the H.264
    encoder was given equal to the HEVC encoder's reconstructions; and a
-   3-frame 10-bit y4m with ``-e x265 --encoder-profile main10``: a 10-bit
+   2-frame 10-bit y4m with ``-e x265 --encoder-profile main10``: a 10-bit
    encoder, the mkv decoded (in a process of its own) to 16-bit frames
    equal to its reconstructions.
 14. Several ranks of one job (``parallel/mesh.py``), one JSON line with
@@ -291,7 +292,17 @@ Phases (none is caught; any failure exits non-zero before the last line):
    frames of that y4m (resample launches, fps, libvpx host ms a frame,
    the card's busy share; the webm decodes to 9 frames) and the MPEG-4
    AVI to H.264 (deblock264 launches; the mp4 decodes to 12 frames).
-16. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+16. Refusals ahead of the work, one JSON line with the card's name and
+   power limit: (a) 13's 3-frame 1080p y4m through ``cli.__main__.main``
+   with ``--bframes 3 -x cabac=1`` must exit non-zero naming
+   ``cabac=1`` (the B-frame walker codes CAVLC with no in-loop filter
+   and no 8x8 transform), start no pipeline and leave no file; (b) step
+   10's log line, printed; (c) with libavcodec missing (hidden from the
+   binding where it is there), ``-Z "WebM 1080p30"`` on 11 (c)'s y4m and
+   ``-a 1 -E opus`` on 8's source through the CLI must refuse naming the
+   sonames, with no scan started, no pipeline and no file, each in under
+   0.5 s of wall time, printed.
+17. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
    time; hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s
@@ -312,6 +323,10 @@ CODEC MKV NPZ`` decodes an mkv's video with the port's decoder and
 prints one JSON line (frames, equal to the reconstructions in NPZ, host
 ms a frame); ``--walker-job CODEC SRC DIR`` runs (b)'s or (c)'s job on
 the card and prints its numbers and its decode's as one JSON line.
+``--mesh-only`` runs step 1's build, step 11 (c) (which makes the
+one-rank files) and step 14 alone, on every card the run can see, and
+prints no result line: the check of 14 (d)'s NCCL world on a machine
+with several cards.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -443,6 +458,9 @@ SUB_CUE = "A burned subtitle\nin two lines"
 # (tests/test_torch_bframes.py's generator and one of its cases: the JAX
 # package's walker raises on them)
 B_N, B_FRAMES, B_Q = 9, 3, 28
+# what the port logs at a B-frame job's start (its profile's CABAC and
+# 8x8 transform are not applied)
+B_LOG = "CABAC and 8x8 transform are not applied"
 NOISE_W, NOISE_H, NOISE_N, NOISE_SEED = 320, 192, 5, 0
 # step 11: decoder threads and two jobs on threads (their first frames);
 # the resumed job's keyint and the GOP marker its journal is cut after;
@@ -462,11 +480,11 @@ DVD_PREVIEWS, DVD_TIMED = 2, 8
 MJPEG_N = 6
 # step 13: HEVC and AV1 at 1080p.  The analyzers' coded planes (1088
 # rows: 34 CTUs of 32, 68 blocks of 16) and their timing reps; the jobs'
-# frames (an IDR and 4 P), the frames of their CPU runs and of the Main
-# 10 job; the presets; the integer operations of a sample's SAD (a
+# frames (an IDR and 2 P: the smoke's time), the frames of their CPU
+# runs and of the Main 10 job; the presets; the integer operations of a sample's SAD (a
 # difference, its absolute value, an add)
 HV_ROWS, AN_REPS = 1088, 20
-HV_N, HV_CPU, HV_M10_N = 5, 3, 3
+HV_N, HV_CPU, HV_M10_N = 3, 3, 2
 HV_PRESETS = {"hevc": "H.265 MKV 1080p30", "av1": "AV1 MKV 1080p30"}
 SAD_OPS = 3
 # step 14: the ranks of one job on this card (gloo), the cards of an
@@ -484,6 +502,9 @@ CATALOG_SOURCES = {"vp9": "vp9_176x144.webm",
                    "eac3": "eac3_176x144.mkv",
                    "x265": "x265_176x144.mkv"}
 WEBM_N = 9
+# step 16: the wall time a catalog refusal through the CLI may take (it
+# comes before the scan)
+REFUSE_LIMIT_S = 0.5
 
 
 def smi(query):
@@ -2492,6 +2513,23 @@ def decodes_to(stream, recons) -> bool:
         for d, planes in enumerate(got) for g, r in zip(planes, recons[d]))
 
 
+@contextlib.contextmanager
+def log_lines():
+    """The port's log lines written inside the block (each still printed
+    to stderr)."""
+    from handbrake_tpu_torch.utils import logging as hblog
+    lines = []
+
+    def keep(line):
+        lines.append(line)
+        print(line, file=sys.stderr, flush=True)
+    hblog.register_logger(keep)
+    try:
+        yield lines
+    finally:
+        hblog.register_logger(None)
+
+
 def phase_noise(label):
     """10 (c): the noise frames through H264BEncoder(bframes=3) complete
     and decode to its reconstructions."""
@@ -2538,7 +2576,7 @@ def phase_bframes(tmp, label):
     out, out_p = (os.path.join(tmp, f) for f in ("bframes.mp4",
                                                  "bframes_none.mp4"))
     argv = ["-i", src, "-e", "h264", "-q", str(B_Q)]
-    with BFrameSpy() as spy:
+    with BFrameSpy() as spy, log_lines() as lines:
         reset_counts()
         t0 = time.perf_counter()
         rc = cli_main(argv + ["-o", out, "--bframes", str(B_FRAMES)])
@@ -2548,6 +2586,12 @@ def phase_bframes(tmp, label):
         db_launches = deblock_cuda.launches
     if rc != 0:
         raise RuntimeError(f"the B-frame CLI job failed with exit code {rc}")
+    said = [ln for ln in lines if B_LOG in ln]
+    print(f"bframes (a): the job's log says {B_LOG!r}: "
+          f"{said[0] if said else 'NOT LOGGED'}", flush=True)
+    if len(said) != 1:
+        raise RuntimeError(f"the B-frame job logged {len(said)} lines that "
+                           f"say {B_LOG!r}, not 1")
     device_ms = sum(e.self_device_time_total
                     for e in spy.prof.key_averages()) / 1e3
     busy = device_ms / (spy.seconds * 1e3)
@@ -2603,7 +2647,7 @@ def phase_bframes(tmp, label):
     nbytes, nbytes_p = sum(map(len, samples)), sum(map(len, samples_p))
     noise = phase_noise(label)
     rec = {"seconds": spy.seconds, "fps": B_N / spy.seconds,
-           "cli_s": t_cli, "walker_ms": walker_ms,
+           "cli_s": t_cli, "walker_ms": walker_ms, "log_line": said[0],
            "stream_bytes": nbytes, "stream_bytes_no_bframes": nbytes_p,
            "device_ms": device_ms, "busy_share": busy,
            "resample_launches": rs_launches, "noise": noise}
@@ -4053,9 +4097,10 @@ def pipeline_starts():
         pipeline.Pipeline.run = run
 
 
-def refusal(name, drive, out, missing) -> dict:
-    """15 (b): `drive` (a CLI run or a do_job) must refuse naming the
-    missing library, start no pipeline and leave no `out`."""
+def refusal(name, drive, out, missing, step="15 (b)") -> dict:
+    """15 (b), 16: `drive` (a CLI run or a do_job) must refuse with a
+    message that holds `missing` (what is missing, or the setting
+    refused), start no pipeline and leave no `out`."""
     import io
     err = io.StringIO()
     t0 = time.perf_counter()
@@ -4071,7 +4116,7 @@ def refusal(name, drive, out, missing) -> dict:
            "output_exists": os.path.exists(out)}
     rec["ok"] = (rc not in (0, None) and missing in msg
                  and runs[0] == 0 and not rec["output_exists"])
-    print(f"15 (b) {name}: {'refused' if rec['ok'] else 'NOT REFUSED'} "
+    print(f"{step} {name}: {'refused' if rec['ok'] else 'NOT REFUSED'} "
           f"in {rec['refuse_s'] * 1e3:.1f} ms: {msg}", flush=True)
     return rec
 
@@ -4210,12 +4255,107 @@ def phase_catalog(tmp, label) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def scans():
+    """Counts the scans that ``Handle.scan`` starts inside the block."""
+    from handbrake_tpu_torch import hb
+    n = [0]
+    scan = hb.Handle.scan
+
+    def counted(self, *a, **k):
+        n[0] += 1
+        return scan(self, *a, **k)
+    hb.Handle.scan = counted
+    try:
+        yield n
+    finally:
+        hb.Handle.scan = scan
+
+
+@contextlib.contextmanager
+def library_hidden(tmp):
+    """The binding as on a machine without libavcodec: where the library
+    is there, it is looked for in an empty directory, with a fresh probe
+    state, inside the block."""
+    from handbrake_tpu_torch.codecs import avcodec
+    if not avcodec.available():
+        yield
+        return
+    empty = os.path.join(tmp, "no_libavcodec")
+    os.makedirs(empty, exist_ok=True)
+    saved = avcodec._LIBDIR, avcodec._state
+    avcodec._LIBDIR, avcodec._state = empty, {}
+    try:
+        yield
+    finally:
+        avcodec._LIBDIR, avcodec._state = saved
+
+
+def phase_refusals(tmp, label, bf) -> dict:
+    """16: the settings and codecs that a job refuses before it starts:
+    (a) a 1080p --bframes job through the CLI with -x cabac=1; (b) phase
+    10's B-frame job logged that its profile's CABAC and 8x8 transform
+    are not applied; (c) with libavcodec missing, the CLI's WebM preset
+    and -E opus jobs refuse before their scan, each within
+    REFUSE_LIMIT_S."""
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.codecs import avcodec
+    t0 = time.perf_counter()
+    rec = {"phase": "16", "card": label}
+    out = os.path.join(tmp, "bframes_cabac.mp4")
+    rec["a"] = refusal("--bframes 3 -x cabac=1 on 13's 1080p y4m (CLI)",
+                       lambda: cli_main(["-i", os.path.join(tmp, "hv3.y4m"),
+                                         "-o", out, "-e", "h264", "-q",
+                                         str(B_Q), "--bframes",
+                                         str(B_FRAMES), "-x", "cabac=1"]),
+                       out, "cannot take cabac=1", step="16 (a)")
+    rec["b"] = {"log_line": bf["log_line"]}
+    print(f"16 (b): phase 10's --bframes job logged: {bf['log_line']}",
+          flush=True)
+    with library_hidden(tmp):
+        missing = avcodec.missing()
+        rec["c"] = []
+        for name, argv, out in (
+                ("WebM 1080p30 preset (CLI)", ["-Z", "WebM 1080p30"],
+                 os.path.join(tmp, "webm_early.webm")),
+                ("-a 1 -E opus on job 8's source (CLI)",
+                 ["-e", "h264", "-q", "28", "-a", "1", "-E", "opus"],
+                 os.path.join(tmp, "opus_early.mkv"))):
+            src = os.path.join(tmp, "av.mp4" if "-E" in argv else "gp.y4m")
+            with scans() as n:
+                r = refusal(name, lambda: cli_main(
+                    ["-i", src, "-o", out, *argv]), out, missing,
+                    step="16 (c)")
+            r["scans"] = n[0]
+            r["ok"] = r["ok"] and n[0] == 0 \
+                and r["refuse_s"] < REFUSE_LIMIT_S
+            rec["c"].append(r)
+    rec["seconds"] = time.perf_counter() - t0
+    print(json.dumps(rec), flush=True)
+    print(f"phase 16 ({label}): {rec['seconds']:.1f} s", flush=True)
+    if not (rec["a"]["ok"] and all(r["ok"] for r in rec["c"])):
+        raise RuntimeError(f"16: a check failed: {rec}")
+    return rec
+
+
 def one_card():
     """Make only the first visible card visible to this process (before
     CUDA starts), so the run uses, and reports, exactly one card."""
     vis = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = (
         "0" if vis is None else vis.split(",")[0].strip())
+
+
+def mesh_only() -> int:
+    """Steps 1, 11 (c) and 14 alone (``--mesh-only``)."""
+    import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
+    label = card()
+    print(f"card: {label}; cards at start: {CARDS_AT_START}", flush=True)
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        gp = phase_gop_parallel(tmp, label)
+        phase_mesh(tmp, label, gp)
+    return 0
 
 
 def main() -> int:
@@ -4231,6 +4371,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--mesh-only"]:
+        return mesh_only()
     import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
     from handbrake_tpu_torch.utils.device import resolve_device
     resolve_device(None)
@@ -4256,6 +4398,7 @@ def main() -> int:
         hv = phase_hevc_av1(tmp, label)
         mesh = phase_mesh(tmp, label, scale_out["gop_parallel"])
         catalog = phase_catalog(tmp, label)
+        refusals = phase_refusals(tmp, label, bf)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -4324,6 +4467,7 @@ def main() -> int:
     print(f"phase 13 seconds: {hv['seconds']:.1f}", flush=True)
     print(f"phase 14 seconds: {mesh['seconds']:.1f}", flush=True)
     print(f"phase 15 seconds: {catalog['seconds']:.1f}", flush=True)
+    print(f"phase 16 seconds: {refusals['seconds']:.1f}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

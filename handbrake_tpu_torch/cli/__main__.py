@@ -10,8 +10,10 @@ The audio options take comma lists, one value a track of ``-a`` (the
 last value repeats), as HandBrakeCLI's do; a single value gives every
 track the same setting, as the reference's parser does.  ``--bframes N``
 codes IB..BP groups with the host walker (with ``-q``; a bitrate target
-raises).  ``--checkpoint`` journals the job to ``<dest>.ckpt`` and
-``--resume`` continues a killed job from it; ``--gop-parallel N`` codes
+raises, and so does ``-x`` with ``cabac=1``, ``8x8dct=1`` or a
+``deblock`` other than 0, which the walker cannot code).
+``--checkpoint`` journals the job to ``<dest>.ckpt`` and ``--resume``
+continues a killed job from it; ``--gop-parallel N`` codes
 G = min(N, frames) keyframe-aligned GOPs a window, also with
 ``--two-pass -b``; ``--tile-parallel N`` runs nlmeans in N row tiles.
 Both spread over the ranks when torchrun starts the CLI on several
@@ -26,8 +28,9 @@ mp3|opus|vorbis``, and sources in VP8/9, Theora, MPEG-4 part 2, FFV1,
 ProRes, E-AC-3, DTS, TrueHD, MP3, Vorbis and Opus) runs on the system
 libavcodec; where it is missing, such a job exits non-zero with a
 message naming what was not found, before it reads a frame or makes the
-output file.  ``-e prores`` is refused.  Unported filters raise
-NotImplementedError.
+output file, and a catalog encoder (of ``-e``, ``-E`` or the preset) is
+refused before the source is scanned.  ``-e prores`` is refused.
+Unported filters raise NotImplementedError.
 
 Usage:
   python -m handbrake_tpu_torch.cli -i in.mp4 -o out.mkv [options]
@@ -43,10 +46,11 @@ import json
 import sys
 import time
 
+from ..core.state import ERROR_UNKNOWN
 from ..hb import Handle
 from ..job import schema as S
 from ..job.presets import (builtin_presets, flatten, import_preset_file,
-                           preset_search, preset_to_job)
+                           preset_encoders, preset_search, preset_to_job)
 from ..job.schema import AudioJobTrack, FilterSpec, Job, RangeSpec
 from ..parallel.mesh import init_world
 from ..utils.device import resolve_device
@@ -430,6 +434,37 @@ def main(argv=None) -> int:
         world.close()
 
 
+def resolve_preset(args):
+    """The preset that -Z and --preset-import-file name (the default
+    "Fast 1080p30" where they name none); None for an unknown -Z."""
+    if args.preset_import_file:
+        tree = import_preset_file(args.preset_import_file)
+        preset = preset_search(args.preset, tree) if args.preset \
+            else (flatten(tree) or [None])[0]
+    elif args.preset:
+        return preset_search(args.preset)
+    else:
+        preset = None
+    return preset if preset is not None \
+        else preset_search("Fast 1080p30") or {}
+
+
+def catalog_refusal(args, preset) -> str:
+    """Why the job of these arguments cannot run where libavcodec is
+    missing, or "".  The encoders come from the preset and -e/-E alone,
+    built as the job will build them, so this is known before the scan;
+    a catalog source track is refused after it."""
+    from ..codecs import avcodec
+    from ..work import WorkError, catalog_encoders
+    for what in catalog_encoders(apply_cli_overrides(
+            preset_encoders(preset), args)):
+        try:
+            avcodec.require(what, WorkError)
+        except WorkError as e:
+            return str(e)
+    return ""
+
+
 def run(args) -> int:
     """The job (or scan, or queue) of parsed arguments; its exit code."""
     if args.queue_import_file:
@@ -457,6 +492,18 @@ def run(args) -> int:
     if not args.input:
         print("missing -i/--input", file=sys.stderr)
         return 1
+
+    preset = None
+    if args.output and not args.scan:
+        preset = resolve_preset(args)
+        if preset is None:
+            print(f"unknown preset {args.preset!r}", file=sys.stderr)
+            return 1
+        why = catalog_refusal(args, preset)
+        if why:
+            print(f"encode failed with error {ERROR_UNKNOWN}: {why}",
+                  file=sys.stderr)
+            return 3
 
     h = Handle(verbose=args.verbose or 0, device=args.device)
     h.scan(args.input, args.title, preview_count=args.previews)
@@ -494,18 +541,6 @@ def run(args) -> int:
 
     title = titles[0] if args.title == 0 else next(
         (t for t in titles if t.index == args.title), titles[0])
-    preset = None
-    if args.preset_import_file:
-        tree = import_preset_file(args.preset_import_file)
-        preset = preset_search(args.preset, tree) if args.preset \
-            else (flatten(tree) or [None])[0]
-    elif args.preset:
-        preset = preset_search(args.preset)
-        if preset is None:
-            print(f"unknown preset {args.preset!r}", file=sys.stderr)
-            return 1
-    if preset is None:
-        preset = preset_search("Fast 1080p30") or {}
     job = preset_to_job(title, preset)
     job = apply_cli_overrides(job, args)
     if args.subtitle:

@@ -472,16 +472,13 @@ def _parse_framerate(p) -> tuple:
         return (0, 0)   # auto → same as source
 
 
-def preset_to_job(title: Title, preset: dict) -> Job:
-    """hb_preset_job_init analog: preset dict + title → Job."""
+def preset_encoders(preset: dict, n_audio: int = 0) -> Job:
+    """The part of preset_to_job that no source decides: the container,
+    the video encoder's settings, and the audio tracks of the preset's
+    list for a title of `n_audio` tracks (the list is cut to the
+    title's tracks, so 0 gives none)."""
     j = Job()
-    j.path = title.path
-    j.title = title.index
     j.mux = preset.get("FileFormat", "mp4").replace("av_", "")
-    j.chapter_markers = bool(preset.get("ChapterMarkers", False))
-    j.align_av_start = bool(preset.get("AlignAVStart", False))
-    j.inline_parameter_sets = bool(preset.get("InlineParameterSets", False))
-    j.range = RangeSpec("chapter", 1, 0)
 
     # --- video encoder ---
     j.vcodec = preset.get("VideoEncoder", "h264_tpu")
@@ -498,6 +495,32 @@ def preset_to_job(title: Title, preset: dict) -> Job:
     j.encoder_profile = preset.get("VideoProfile", "auto")
     j.encoder_level = preset.get("VideoLevel", "auto")
     j.encoder_options = preset.get("VideoOptionExtra", "")
+
+    # --- audio ---
+    j.audio_fallback = preset.get("AudioEncoderFallback", "aac")
+    j.audio_copy_mask = list(preset.get("AudioCopyMask", []))
+    j.audio = []
+    for i, at in enumerate(preset.get("AudioList", [])[:n_audio]):
+        j.audio.append(AudioJobTrack(
+            track=i, encoder=at.get("AudioEncoder", "aac"),
+            bitrate=int(at.get("AudioBitrate", 160)),
+            mixdown=at.get("AudioMixdown", "stereo"),
+            samplerate=0 if at.get("AudioSamplerate", "auto") == "auto"
+            else int(at.get("AudioSamplerate")),
+            gain=float(at.get("AudioTrackGainSlider", 0.0)),
+            drc=float(at.get("AudioTrackDRCSlider", 0.0))))
+    return j
+
+
+def preset_to_job(title: Title, preset: dict) -> Job:
+    """hb_preset_job_init analog: preset dict + title → Job."""
+    j = preset_encoders(preset, len(title.audio))
+    j.path = title.path
+    j.title = title.index
+    j.chapter_markers = bool(preset.get("ChapterMarkers", False))
+    j.align_av_start = bool(preset.get("AlignAVStart", False))
+    j.inline_parameter_sets = bool(preset.get("InlineParameterSets", False))
+    j.range = RangeSpec("chapter", 1, 0)
 
     # --- picture/filters ---
     filters: List[FilterSpec] = []
@@ -612,21 +635,6 @@ def preset_to_job(title: Title, preset: dict) -> Job:
     # grayscale flag
     if preset.get("VideoGrayScale", False):
         j.filters.insert(0, FilterSpec(S.FILTER_GRAYSCALE, {}))
-
-    # --- audio ---
-    j.audio_fallback = preset.get("AudioEncoderFallback", "aac")
-    j.audio_copy_mask = list(preset.get("AudioCopyMask", []))
-    j.audio = []
-    if title.audio:
-        for i, at in enumerate(preset.get("AudioList", [])[:len(title.audio)]):
-            j.audio.append(AudioJobTrack(
-                track=i, encoder=at.get("AudioEncoder", "aac"),
-                bitrate=int(at.get("AudioBitrate", 160)),
-                mixdown=at.get("AudioMixdown", "stereo"),
-                samplerate=0 if at.get("AudioSamplerate", "auto") == "auto"
-                else int(at.get("AudioSamplerate")),
-                gain=float(at.get("AudioTrackGainSlider", 0.0)),
-                drc=float(at.get("AudioTrackDRCSlider", 0.0))))
 
     # chapters passthru
     if j.chapter_markers and title.chapters:

@@ -60,7 +60,12 @@ With ``bframes`` the video goes through the host B-frame walker
 stays on the job's device; its access units come out in decode order,
 each stamped with its display frame's timestamps.  Such a job with a
 bitrate or multipass target raises WorkError: the walker has no rate
-control, and the reference ignores the target.
+control, and the reference ignores the target.  So does one whose
+encoder options ask for ``cabac=1``, ``8x8dct=1`` or a ``deblock`` other
+than 0, which the walker cannot code and the reference drops; a Main or
+High profile alone runs, with a log line that its CABAC and 8x8
+transform are not applied, and the stream's SPS says Main, as the
+reference's does.
 
 HEVC and AV1 jobs code each frame on the host walker
 (``codecs/hevc/encoder.py``, ``codecs/av1/encoder.py``), whose P frames'
@@ -103,6 +108,9 @@ HEVC_NAMES = ("hevc_tpu", "x265", "hevc", "h265")
 AV1_NAMES = ("av1_tpu", "svt_av1", "av1")
 AV_VIDEO_NAMES = ("mpeg2", "mpeg4", "vp9", "vp8", "ffv1", "prores",
                   "theora")        # the libavcodec catalog
+AV_AUDIO_ENCODERS = ("mp3", "opus", "vorbis")     # the catalog's audio
+B_WALKER_CODES = ("the B-frame walker codes CAVLC with no in-loop filter "
+                  "and no 8x8 transform")
 
 
 class WorkError(Exception):
@@ -115,6 +123,16 @@ class WorkError(Exception):
 def quality_to_qp(quality: float) -> int:
     """CRF-style quality → QP for our encoder (x264 RF≈QP at crf zone)."""
     return int(round(max(0, min(51, quality))))
+
+
+def catalog_encoders(job: Job) -> list:
+    """The job's encoders that ride the libavcodec catalog, video first,
+    each named as its refusal names it where the library is missing
+    (ProRes is refused whether or not the library is there)."""
+    need = [f"the {job.vcodec} video encoder"] \
+        if job.vcodec in AV_VIDEO_NAMES and job.vcodec != "prores" else []
+    return need + [f"audio encoder {a.encoder!r}" for a in job.audio
+                   if a.encoder in AV_AUDIO_ENCODERS]
 
 
 def create_video_encoder(job: Job, width: int, height: int,
@@ -141,6 +159,17 @@ def create_video_encoder(job: Job, width: int, height: int,
             raise WorkError("a B-frame job encodes at a constant qp: it "
                             "takes a quality, not a bitrate or multipass "
                             "target")
+        # cabac=1, 8x8dct=1 and a deblock other than 0, which the
+        # reference drops without a word
+        asked = [f"{k}={opts[k]}" for k in ("cabac", "deblock", "8x8dct")
+                 if k in opts and opts[k] != "0"
+                 and (k == "deblock" or opts[k] == "1")]
+        if asked:
+            raise WorkError(f"a B-frame job cannot take {', '.join(asked)}: "
+                            f"{B_WALKER_CODES}")
+        log(f"bframes: {B_WALKER_CODES}, so profile "
+            f"{job.encoder_profile or 'auto'}'s CABAC and 8x8 transform "
+            f"are not applied")
         # IB..BP GOP structure via the host B walker (encoder_b.py —
         # x264-medium's bframes=3/ref=3 shape; CAVLC)
         from .codecs.h264.encoder import EncoderConfig
@@ -188,7 +217,7 @@ def create_video_encoder(job: Job, width: int, height: int,
         # the classic encoder catalog rides libavcodec, as the reference's
         # encavcodec.c work object does
         from .codecs import avcodec
-        avcodec.require(f"the {job.vcodec} video encoder", WorkError)
+        avcodec.require(catalog_encoders(job)[0], WorkError)
         return _AVVideoEncoderAdapter(job, width, height, vrate, qp)
     raise WorkError(f"unknown video encoder {job.vcodec!r}")
 

@@ -3,7 +3,8 @@ and ``utils/quality.py`` against the JAX package's: the copies with their
 listed replacements, where the library is looked for and what is said
 when it is not there, and the binding's repaired faults beside the
 reference's behaviour (VP8's encoder name, VP9's rate at a quality, the
-decoder's pts behind B-frames)."""
+decoder's pts behind B-frames).  The reference's encoders and decoders
+run in a child process (``torch_catalog.reference``)."""
 import os
 
 import numpy as np
@@ -11,14 +12,12 @@ import pytest
 
 import handbrake_tpu
 import handbrake_tpu_torch
-from handbrake_tpu.codecs import avcodec as jav
-from handbrake_tpu.codecs import registry as jreg
-from handbrake_tpu.core.buffer import Buffer as JBuffer
+import torch_catalog_ref as ref_side
 from handbrake_tpu_torch.codecs import avcodec as av
 from handbrake_tpu_torch.codecs import registry
 from handbrake_tpu_torch.core.buffer import Buffer
-from torch_catalog import FRAME, H, MISSING, N, W, frames, hide, \
-    needs_libavcodec
+from torch_catalog import FRAME, H, N, W, frames, hide, needs_libavcodec, \
+    reference
 
 _LOAD = (
     '''    try:
@@ -253,7 +252,7 @@ def test_present_library_says_nothing_missing():
 
 
 @needs_libavcodec
-def test_vp8_encoder_named():
+def test_vp8_encoder_named(reference):
     """``vp8`` maps to libavcodec's ``libvpx``; the reference asks for an
     encoder named ``vp8`` and gets none."""
     enc = av.AVVideoEncoder("vp8", W, H, quality=20)
@@ -266,21 +265,29 @@ def test_vp8_encoder_named():
     assert len([f for p, _k in pkts for f in dec.decode(p)]
                + dec.flush()) == N
     with pytest.raises(RuntimeError, match="no encoder vp8"):
-        jav.AVVideoEncoder("vp8", W, H, quality=20)
+        reference(ref_side.video_packets, "vp8", W, H, [], quality=20)
 
 
-def _vp9_bytes(mod, quality, **kw):
-    enc = mod.AVVideoEncoder("vp9", W, H, quality=quality,
-                             opts={"lag-in-frames": 0, "cpu-used": 4,
-                                   "deadline": "good"}, **kw)
+VP9_OPTS = {"lag-in-frames": 0, "cpu-used": 4, "deadline": "good"}
+
+
+def _vp9_bytes(quality):
+    enc = av.AVVideoEncoder("vp9", W, H, quality=quality, opts=VP9_OPTS)
     pkts = []
     for f in frames(seed=3, n=16):
         pkts += enc.encode(*f)
     return [p for p, _k in pkts + enc.flush()]
 
 
+def _ref_vp9_bytes(reference, quality, opts=None):
+    """The reference's encoder, driven with VP9_OPTS and `opts`."""
+    return reference(ref_side.video_packets, "vp9", W, H,
+                     frames(seed=3, n=16), quality=quality,
+                     opts=dict(VP9_OPTS, **(opts or {})))
+
+
 @needs_libavcodec
-def test_vp9_quality_is_constant_quality():
+def test_vp9_quality_is_constant_quality(reference):
     """A quality sets crf and b = 0, so libvpx runs constant quality:
     the packets equal the reference's encoder driven with
     ``opts={"b": 0}``, and the stream shrinks as the crf grows.  The
@@ -288,17 +295,11 @@ def test_vp9_quality_is_constant_quality():
     libvpx wrappers default ``b`` to 0 (the codec's own defaults), so
     the 200 kb/s cap that the reference's code would keep does not
     bind there; the port sets b = 0 itself and does not rely on it."""
-    orig = jav.AVVideoEncoder.__init__
-
-    def with_b0(self, *a, opts=None, **k):
-        orig(self, *a, opts=dict(opts or {}, b=0), **k)
     sizes = []
     for q in (4, 10, 20):
-        got = _vp9_bytes(av, q)
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jav.AVVideoEncoder, "__init__", with_b0)
-            assert got == _vp9_bytes(jav, q)
-        assert got == _vp9_bytes(jav, q)
+        got = _vp9_bytes(q)
+        assert got == _ref_vp9_bytes(reference, q, {"b": 0})
+        assert got == _ref_vp9_bytes(reference, q)
         sizes.append(sum(map(len, got)))
     print(f"vp9 at q 4, 10, 20: {sizes} bytes for 16 frames")
     assert sizes[0] > sizes[1] > sizes[2]
@@ -332,27 +333,28 @@ def _bframe_mpeg4():
 
 
 @needs_libavcodec
-def test_decoder_pts_behind_bframes():
+def test_decoder_pts_behind_bframes(reference):
     """Each frame comes out with its own packet's (display) pts, in
     order, the last one included; the reference stamps each with the
     packet fed when it came out, a decode-order pts, and the last with
     none."""
     pkts, order, xd = _bframe_mpeg4()
     assert order != sorted(order)
-    got, want = [], []
+    got = []
     dec = registry.create_video_decoder("mpeg4", xd)
-    jdec = jreg.create_video_decoder("mpeg4", xd)
-    for p, d in zip(pkts, order):
-        got += dec.feed(Buffer(data=p, pts=d * FRAME, duration=FRAME))
-        want += jdec.feed(JBuffer(data=p, pts=d * FRAME, duration=FRAME))
+    buffers = [dict(data=p, pts=d * FRAME, duration=FRAME)
+               for p, d in zip(pkts, order)]
+    for b in buffers:
+        got += dec.feed(Buffer(**b))
     got += dec.flush()
-    want += jdec.flush()
+    fed, tail, _name, _fb = reference(ref_side.decode, "mpeg4", xd, buffers)
+    want = [f for out in fed for f in out] + tail
     assert [f.pts for f in got] == [i * FRAME for i in range(N)]
     assert all(f.duration == FRAME for f in got)
-    jpts = [f.pts for f in want]
+    jpts = [pts for pts, _d, _s, _p in want]
     assert jpts[-1] is None and jpts[:-1] == [d * FRAME for d in order[1:]]
-    for a, b in zip(got, want):
-        assert all(np.array_equal(p, q) for p, q in zip(a.planes, b.planes))
+    for a, (_pts, _d, _s, planes) in zip(got, want):
+        assert all(np.array_equal(p, q) for p, q in zip(a.planes, planes))
 
 
 def test_fallback_decoder_forgets_packets_never_out(monkeypatch):
@@ -383,17 +385,31 @@ def test_fallback_decoder_forgets_packets_never_out(monkeypatch):
 
 
 @needs_libavcodec
-def test_decoder_pts_without_bframes_equal_reference():
+def test_decoder_pts_without_bframes_equal_reference(reference):
     """Without B-frames each frame comes out on its own packet, and the
     two packages' frames carry the same timing."""
     enc = av.AVVideoEncoder("mpeg4", W, H, bit_rate=400000)
     pkts = [p for f in frames() for p, _k in enc.encode(*f)]
     dec = registry.create_video_decoder("mpeg4", enc.extradata)
-    jdec = jreg.create_video_decoder("mpeg4", enc.extradata)
-    for i, p in enumerate(pkts):
-        a = dec.feed(Buffer(data=p, pts=i * FRAME, duration=FRAME))
-        b = jdec.feed(JBuffer(data=p, pts=i * FRAME, duration=FRAME))
+    buffers = [dict(data=p, pts=i * FRAME, duration=FRAME)
+               for i, p in enumerate(pkts)]
+    fed, tail, _name, _fb = reference(ref_side.decode, "mpeg4",
+                                      enc.extradata, buffers)
+    for i, (b, want) in enumerate(zip(buffers, fed)):
+        a = dec.feed(Buffer(**b))
         assert [(f.pts, f.duration, f.stop) for f in a] == \
-            [(f.pts, f.duration, f.stop) for f in b] == \
+            [(pts, d, stop) for pts, d, stop, _p in want] == \
             [(i * FRAME, FRAME, None)]
-    assert dec.flush() == jdec.flush() == []
+    assert dec.flush() == tail == []
+
+
+@needs_libavcodec
+def test_reference_child_equals_in_process(reference):
+    """The child process that computes the reference's side of these
+    comparisons returns the bytes that the same call gives in this
+    process: the reference's MPEG-4 encoder on the 8-frame clip (a video
+    encoder, which reads no audio frame's layout)."""
+    args = ("mpeg4", W, H, frames())
+    got = reference(ref_side.video_packets, *args, bit_rate=400000)
+    assert len(got) == N
+    assert got == ref_side.video_packets(*args, bit_rate=400000)

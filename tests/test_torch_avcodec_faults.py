@@ -4,16 +4,15 @@ one-frame encoder delay, VP8's encoder name, ProRes's pixel format, the
 fallback decoder's pts behind B-frames (in mkv, and in AVI, which the
 reference does not read), and an HEVC stream that leaves the native
 subset after its first frames.  (VP9's rate at a quality is held in
-``tests/test_torch_avcodec.py``.)"""
+``tests/test_torch_avcodec.py``.)  The reference's jobs and decoders run
+in a child process (``torch_catalog.reference``)."""
 import os
 
 import numpy as np
 import pytest
 
+import torch_catalog_ref as ref_side
 from handbrake_tpu import work as jwork
-from handbrake_tpu.codecs import registry as jreg
-from handbrake_tpu.core.buffer import Buffer as JBuffer
-from handbrake_tpu.job import schema as JS
 from handbrake_tpu_torch import work
 from handbrake_tpu_torch.codecs import avcodec as av
 from handbrake_tpu_torch.codecs import registry
@@ -25,15 +24,9 @@ from handbrake_tpu_torch.sources.probe import open_source
 from handbrake_tpu_torch.tools.source_builders import fixture
 from test_torch_avcodec import _bframe_mpeg4
 from torch_catalog import FRAME, N, mkv_source, needs_libavcodec, \
-    shared_jax_analyzers
+    reference
 
 pytestmark = needs_libavcodec
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _shared():
-    with shared_jax_analyzers():
-        yield
 
 
 @pytest.fixture(scope="module")
@@ -45,6 +38,12 @@ def _job(Sm, src, out, vcodec, mux="mkv", **kw):
     j = Sm.Job(path=src, file=out, mux=mux, vcodec=vcodec, **kw)
     j.audio = []
     return j
+
+
+def _ref_job(reference, src, out, vcodec, mux="mkv", **kw):
+    """The reference's do_job of the same job, in the child."""
+    return reference(ref_side.job, dict(path=src, file=out, mux=mux,
+                                        vcodec=vcodec, **kw))
 
 
 def _decode_track(path, name):
@@ -66,7 +65,7 @@ def _pts(path):
         d.close()
 
 
-def test_mpeg2_job_writes_every_frame(h264_src, tmp_path):
+def test_mpeg2_job_writes_every_frame(reference, h264_src, tmp_path):
     """mpeg2video holds the first frame back: the port pairs each packet
     with its frame and drains the encoder at the end; the reference
     fails the job at frame 0."""
@@ -82,11 +81,11 @@ def test_mpeg2_job_writes_every_frame(h264_src, tmp_path):
                 device="cpu")
     assert _pts(out) == _pts(ref)
     with pytest.raises(jwork.WorkError, match="encoder delayed a frame"):
-        jwork.do_job(_job(JS, h264_src, str(tmp_path / "ref.mkv"), "mpeg2",
-                          vbitrate=1200))
+        _ref_job(reference, h264_src, str(tmp_path / "ref.mkv"), "mpeg2",
+                 vbitrate=1200)
 
 
-def test_vp8_job_writes_a_vp8_track(h264_src, tmp_path):
+def test_vp8_job_writes_a_vp8_track(reference, h264_src, tmp_path):
     out = str(tmp_path / "port.webm")
     stats = work.do_job(_job(S, h264_src, out, "vp8", mux="webm",
                              quality=20.0), device="cpu")
@@ -94,11 +93,11 @@ def test_vp8_job_writes_a_vp8_track(h264_src, tmp_path):
     codec, got = _decode_track(out, "vp8")
     assert codec == "vp8" and len(got) == N
     with pytest.raises(RuntimeError, match="no encoder vp8"):
-        jwork.do_job(_job(JS, h264_src, str(tmp_path / "ref.webm"), "vp8",
-                          mux="webm", quality=20.0))
+        _ref_job(reference, h264_src, str(tmp_path / "ref.webm"), "vp8",
+                 mux="webm", quality=20.0)
 
 
-def test_prores_refused_at_job_start(h264_src, tmp_path):
+def test_prores_refused_at_job_start(reference, h264_src, tmp_path):
     out = str(tmp_path / "port.mkv")
     with pytest.raises(work.WorkError, match="prores: the catalog feeds "
                        "yuv420p 8-bit; libavcodec's prores takes 4:2:2 "
@@ -107,11 +106,11 @@ def test_prores_refused_at_job_start(h264_src, tmp_path):
                     device="cpu")
     assert not os.path.exists(out)
     with pytest.raises(RuntimeError, match="open prores failed"):
-        jwork.do_job(_job(JS, h264_src, str(tmp_path / "ref.mkv"), "prores",
-                          quality=20.0))
+        _ref_job(reference, h264_src, str(tmp_path / "ref.mkv"), "prores",
+                 quality=20.0)
 
 
-def test_bframe_mpeg4_source_keeps_display_pts(tmp_path):
+def test_bframe_mpeg4_source_keeps_display_pts(reference, tmp_path):
     """An mkv of an MPEG-4 ASP stream with B-frames, each packet with its
     display pts, to H.264: the port's frames keep their display times
     (no composition offset in the mp4); the reference's come out one
@@ -121,11 +120,13 @@ def test_bframe_mpeg4_source_keeps_display_pts(tmp_path):
                      vcodec="mpeg4", vpriv=xd,
                      pts=[d * FRAME for d in order])
     offsets = {}
-    for pkg, Sm, run in (("port", S, lambda j: work.do_job(j, device="cpu")),
-                         ("ref", JS, jwork.do_job)):
+    for pkg, run in (("port", lambda out: work.do_job(_job(
+            S, src, out, "h264", mux="mp4", quality=28.0), device="cpu")),
+                     ("ref", lambda out: _ref_job(
+                         reference, src, out, "h264", mux="mp4",
+                         quality=28.0)[0])):
         out = str(tmp_path / f"{pkg}.mp4")
-        assert run(_job(Sm, src, out, "h264", mux="mp4",
-                        quality=28.0))["frames_out"] == N
+        assert run(out)["frames_out"] == N
         d = MP4Demuxer(out)
         offsets[pkg] = list(d._samples[0].cts_offsets)
         d.close()
@@ -176,7 +177,7 @@ def _midstream():
         + [sao_stream()]
 
 
-def test_hevc_beyond_subset_after_frames_raises_named():
+def test_hevc_beyond_subset_after_frames_raises_named(reference):
     """After frames have come out, the port raises, naming the frame; the
     reference switches to libavcodec with an empty buffer and loses the
     rest of the stream without a word."""
@@ -190,22 +191,24 @@ def test_hevc_beyond_subset_after_frames_raises_named():
                        r"6000\).*after 2 frames decoded natively.*SAO "
                        r"unsupported"):
         dec.feed(Buffer(data=pkts[2], pts=2 * FRAME))
-    jdec = jreg.create_video_decoder("hevc")
-    jgot = [len(jdec.feed(JBuffer(data=p, pts=i * FRAME)))
-            for i, p in enumerate(pkts)] + [len(jdec.flush())]
-    assert jgot == [1, 1, 0, 0] and jdec._is_fallback
+    fed, tail, _name, fallback = reference(
+        ref_side.decode, "hevc", b"",
+        [dict(data=p, pts=i * FRAME) for i, p in enumerate(pkts)])
+    jgot = [len(f) for f in fed] + [len(tail)]
+    assert jgot == [1, 1, 0, 0] and fallback
 
 
-def test_hevc_switch_before_first_frame_replays_all():
+def test_hevc_switch_before_first_frame_replays_all(reference):
     """The SAO stream alone: the switch comes before any frame, and the
     packets are replayed from the first, as the reference does."""
     from test_torch_hevc import sao_stream
     data = sao_stream()
     dec = registry.create_video_decoder("hevc")
     got = dec.feed(Buffer(data=data, pts=0)) + dec.flush()
-    jdec = jreg.create_video_decoder("hevc")
-    want = jdec.feed(JBuffer(data=data, pts=0)) + jdec.flush()
+    fed, tail, _name, _fb = reference(ref_side.decode, "hevc", b"",
+                                      [dict(data=data, pts=0)])
+    want = fed[0] + tail
     assert isinstance(dec.inner, registry.AVFallbackVideoDecoder)
     assert len(got) == len(want)
-    for a, b in zip(got, want):
-        assert all(np.array_equal(p, q) for p, q in zip(a.planes, b.planes))
+    for a, (_pts, _dur, _stop, planes) in zip(got, want):
+        assert all(np.array_equal(p, q) for p, q in zip(a.planes, planes))

@@ -4,31 +4,24 @@ same source: the MPEG-4, Theora and FFV1 encoders and VP9 at a bit rate
 (mkv); VP9, MPEG-4 (no B-frames), Theora and FFV1 sources and a libx265
 stream (beyond the native HEVC subset, through the switch) decoded to
 H.264; and the scan of each source.  96x64, 8 frames, from a seeded
-clip."""
+clip.  The reference's jobs and scans run in a child process
+(``torch_catalog.reference``)."""
 import os
 import sys
 
 import numpy as np
 import pytest
 
-from handbrake_tpu import work as jwork
-from handbrake_tpu.job import schema as JS
-from handbrake_tpu.scan import scan_title as j_scan_title
+import torch_catalog_ref as ref_side
 from handbrake_tpu_torch import work
 from handbrake_tpu_torch.codecs import registry
 from handbrake_tpu_torch.job import schema as S
 from handbrake_tpu_torch.scan import scan_title
 from handbrake_tpu_torch.sources.mkv import MKVDemuxer
-from torch_catalog import H, N, W, file_bytes, frames, lavc_video, \
-    mkv_source, needs_libavcodec, shared_jax_analyzers
+from torch_catalog import H, N, W, file_bytes, lavc_video, mkv_source, \
+    needs_libavcodec, reference
 
 pytestmark = needs_libavcodec
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _shared():
-    with shared_jax_analyzers():
-        yield
 
 
 @pytest.fixture(scope="module")
@@ -36,24 +29,27 @@ def h264_src(tmp_path_factory):
     return mkv_source(str(tmp_path_factory.mktemp("h264") / "src.mkv"))
 
 
-def _both(src, tmp_path, mux, vcodec, quality=None, vbitrate=None):
+def _both(reference, src, tmp_path, mux, vcodec, quality=None,
+          vbitrate=None):
     """The job through both packages: (port bytes, reference bytes)."""
-    files = []
-    for pkg, Sm, run in (("port", S, lambda j: work.do_job(j, device="cpu")),
-                         ("ref", JS, jwork.do_job)):
-        out = str(tmp_path / f"{pkg}.{mux}")
-        j = Sm.Job(path=src, file=out, mux=mux, vcodec=vcodec,
-                   quality=quality, vbitrate=vbitrate)
-        j.audio = []
-        assert run(j)["frames_out"] == N
-        files.append(file_bytes(out))
-    return files
+    fields = dict(path=src, mux=mux, vcodec=vcodec, quality=quality,
+                  vbitrate=vbitrate)
+    out = str(tmp_path / f"port.{mux}")
+    j = S.Job(file=out, **fields)
+    j.audio = []
+    assert work.do_job(j, device="cpu")["frames_out"] == N
+    stats, want = reference(ref_side.job, dict(
+        fields, file=str(tmp_path / f"ref.{mux}")))
+    assert stats["frames_out"] == N
+    return file_bytes(out), want
 
 
 @pytest.mark.parametrize("vcodec,vbitrate", [
     ("mpeg4", 1200), ("theora", 1200), ("ffv1", 1200), ("vp9", 400)])
-def test_encoder_job_equals_reference(h264_src, tmp_path, vcodec, vbitrate):
-    got, want = _both(h264_src, tmp_path, "mkv", vcodec, vbitrate=vbitrate)
+def test_encoder_job_equals_reference(reference, h264_src, tmp_path, vcodec,
+                                     vbitrate):
+    got, want = _both(reference, h264_src, tmp_path, "mkv", vcodec,
+                      vbitrate=vbitrate)
     assert got == want
     d = MKVDemuxer(str(tmp_path / "port.mkv"))
     try:
@@ -94,8 +90,10 @@ def sources(tmp_path_factory):
 
 
 @pytest.mark.parametrize("codec", ["vp9", "mpeg4", "theora", "ffv1", "x265"])
-def test_source_to_h264_equals_reference(sources, tmp_path, codec):
-    got, want = _both(sources[codec], tmp_path, "mp4", "h264", quality=28.0)
+def test_source_to_h264_equals_reference(reference, sources, tmp_path,
+                                         codec):
+    got, want = _both(reference, sources[codec], tmp_path, "mp4", "h264",
+                      quality=28.0)
     assert got == want
 
 
@@ -120,9 +118,10 @@ def test_x265_source_switches_before_its_first_frame(sources):
 
 
 @pytest.mark.parametrize("codec", ["vp9", "mpeg4", "theora", "ffv1", "x265"])
-def test_scan_of_source_equals_reference(sources, codec):
+def test_scan_of_source_equals_reference(reference, sources, codec):
     t = scan_title(sources[codec], preview_count=3, keep_previews=True)
-    j = j_scan_title(sources[codec], preview_count=3, keep_previews=True)
+    j = reference(ref_side.scan, sources[codec], preview_count=3,
+                  keep_previews=True)
     assert (t.width, t.height, t.crop, t.interlaced, t.video_codec,
             t.vrate_num, t.vrate_den, t.nframes, t.duration) == \
         (j.width, j.height, j.crop, j.interlaced, j.video_codec,

@@ -42,6 +42,7 @@ from handbrake_tpu_torch.codecs.hevc.decoder import HEVCDecoder
 from handbrake_tpu_torch.codecs.hevc.syntax import NAL_SPS, nal_unit
 from handbrake_tpu_torch.core.buffer import Buffer
 from handbrake_tpu_torch.utils.synth import make_clip
+from torch_catalog import reference  # noqa: F401  (a fixture)
 
 # the encoder's device analysis is the port's torch analyzer, on the
 # encoder's device, and the device backend is the default
@@ -323,12 +324,15 @@ BEYOND = {"sao": (sao_stream, "SAO unsupported"),
 
 
 @pytest.mark.parametrize("feature", list(BEYOND))
-def test_beyond_subset_raises_stated_error(feature, monkeypatch, tmp_path):
+def test_beyond_subset_raises_stated_error(feature, monkeypatch, tmp_path,
+                                           reference):
     """Where libavcodec is missing, the port raises ValueError naming the
     feature, ROADMAP item 1.10 and the missing library; the reference's
     native decoder raises a bare AssertionError, and its registry, where
     libavcodec is present, switches to it.  (With the library the port
     switches too, before the first frame: test_torch_avcodec_faults.)"""
+    import torch_catalog_ref as ref_side
+    from handbrake_tpu_torch.codecs import avcodec
     from torch_catalog import hide
     build, words = BEYOND[feature]
     stream = build()
@@ -341,12 +345,12 @@ def test_beyond_subset_raises_stated_error(feature, monkeypatch, tmp_path):
     assert words in str(e.value)
     with pytest.raises(AssertionError, match=words):
         jreg.HEVCVideoDecoder().feed(JBuffer(data=stream, pts=0))
-    from handbrake_tpu.codecs.avcodec import available
-    if available():
-        jdec = jreg.create_video_decoder("hevc")
-        assert isinstance(jdec, jreg.ResilientHEVCDecoder)
-        jdec.feed(JBuffer(data=stream, pts=0))     # no error
-        assert jdec._is_fallback
+    if avcodec.available():
+        # the reference's libavcodec decode runs in the child
+        _fed, _tail, name, fallback = reference(
+            ref_side.decode, "hevc", b"", [dict(data=stream, pts=0)],
+            flush=False)                           # no error
+        assert name == "ResilientHEVCDecoder" and fallback
 
 
 def test_beyond_subset_hvcc_raises(monkeypatch, tmp_path):

@@ -7,7 +7,10 @@
   stream decodes to the walker's reconstructions;
 - a B-frame job with a bitrate or multipass target raises ``WorkError``
   in the port, where the reference encodes it at the constant qp and
-  ignores the target;
+  ignores the target; so does one with ``cabac=1``, ``deblock=1`` or
+  ``8x8dct=1`` (through ``do_job``, ``Handle`` and the CLI, no file
+  left), where the reference's file equals its plain job's; a High
+  profile alone runs, equal to the reference, with a log line;
 - an H.264 mp4 source that carries mastering-display (137),
   content-light (144) and T.35 (4) SEIs: the port writes them again as
   the reference does (137/144 on IDRs and in the mp4's mdcv/clli boxes,
@@ -15,6 +18,7 @@
   writes no SEI in either package.
 """
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -167,21 +171,95 @@ def test_b_job_with_a_rate_target_raises(src, tmp_path, target):
         work.do_job(t, device="cpu")
 
 
-def test_b_job_ignores_cabac_deblock_and_8x8(src, tmp_path):
-    """Both packages' B walker codes CAVLC with the in-loop filter off
-    and no 8x8 transform, whatever the job asks: a high-profile job with
-    cabac=1:deblock=1:8x8dct=1 gives the file of the plain job, and the
-    port's equals the reference's."""
-    high = dict(encoder_profile="high",
-                encoder_options="cabac=1:deblock=1:8x8dct=1")
-    files = {}
-    for pkg, Sm, kw in ((jwork, JS, {}), (work, S, {"device": "cpu"})):
-        for name, opts in (("plain", {}), ("high", high)):
-            out = str(tmp_path / f"{pkg.__name__}.{name}.mp4")
-            pkg.do_job(_bjob(Sm, src, out, "mp4", **opts), **kw)
-            files[pkg, name] = _bytes(out)
-    assert files[work, "high"] == files[work, "plain"] \
-        == files[jwork, "high"] == files[jwork, "plain"]
+B_OFF = {"cabac": "cabac=1", "deblock": "deblock=1", "8x8dct": "8x8dct=1"}
+
+
+@pytest.fixture(scope="module")
+def plain(src, tmp_path_factory):
+    """The plain B-frame job's mp4 from each package: {pkg: bytes}."""
+    d = tmp_path_factory.mktemp("plain")
+    jwork.do_job(_bjob(JS, src, str(d / "ref.mp4"), "mp4"))
+    work.do_job(_bjob(S, src, str(d / "port.mp4"), "mp4"), device="cpu")
+    return {pkg: _bytes(str(d / f"{pkg}.mp4")) for pkg in ("ref", "port")}
+
+
+@pytest.mark.parametrize("setting", list(B_OFF))
+def test_b_job_ignores_cabac_deblock_and_8x8(src, plain, tmp_path, setting):
+    """The reference's B walker codes CAVLC with the in-loop filter off
+    and no 8x8 transform whatever the options ask: its file of a job
+    with the setting equals its plain job's file.  The port refuses the
+    setting, naming it, and writes no file."""
+    ref = str(tmp_path / "ref.mp4")
+    jwork.do_job(_bjob(JS, src, ref, "mp4",
+                       encoder_options=B_OFF[setting]))
+    assert _bytes(ref) == plain["ref"]
+    out = str(tmp_path / "port.mp4")
+    with pytest.raises(work.WorkError, match=rf"cannot take "
+                       rf"{B_OFF[setting]}: the B-frame walker codes CAVLC "
+                       rf"with no in-loop filter and no 8x8 transform"):
+        work.do_job(_bjob(S, src, out, "mp4", encoder_profile="high",
+                          encoder_options=f"keyint=5:{B_OFF[setting]}"),
+                    device="cpu")
+    assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("setting", list(B_OFF))
+def test_b_cli_refuses_setting(src, tmp_path, capsys, setting):
+    """The CLI's --bframes with -x asking for the setting exits non-zero
+    with the message and leaves no file."""
+    out = str(tmp_path / "port.mp4")
+    assert cli(["-i", src, "-o", out, "-e", "h264", "-q", "28",
+                "--bframes", "2", "-x", B_OFF[setting],
+                "--device", "cpu"]) != 0
+    assert f"cannot take {B_OFF[setting]}: the B-frame walker codes " \
+        f"CAVLC" in capsys.readouterr().err
+    assert not os.path.exists(out)
+
+
+def test_b_handle_refuses_all_three(src, tmp_path):
+    out = str(tmp_path / "handle.mp4")
+    h = Handle(device="cpu")
+    h.add(_bjob(S, src, out, "mp4",
+                encoder_options="cabac=1:deblock=-1,-1:8x8dct=1"))
+    h.start()
+    assert h.work_wait(120) != 0
+    h.close()
+    assert isinstance(h.work_exception, work.WorkError)
+    assert "cannot take cabac=1, deblock=-1,-1, 8x8dct=1" in \
+        str(h.work_exception)
+    assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("opts", ["cabac=0:deblock=0:8x8dct=0",
+                                  "keyint=22"], ids=["off", "other"])
+def test_b_job_takes_settings_it_codes(src, plain, tmp_path, opts):
+    """Options that ask for what the walker codes run, and give the plain
+    job's file, which equals the reference's."""
+    out = str(tmp_path / "port.mp4")
+    work.do_job(_bjob(S, src, out, "mp4", encoder_options=opts),
+                device="cpu")
+    assert _bytes(out) == plain["port"] == plain["ref"]
+
+
+def test_b_cli_high_profile_equals_reference(src, tmp_path, capsys):
+    """A High-profile --bframes job runs: the port's file equals the
+    reference's byte for byte, its SPS says Main (profile_idc 77) as the
+    reference's does, and the port logs that the profile's CABAC and
+    8x8 transform are not applied."""
+    argv = ["-i", src, "-e", "h264", "-q", "28", "--bframes", "2",
+            "--encoder-profile", "high"]
+    jout, tout = str(tmp_path / "ref.mp4"), str(tmp_path / "port.mp4")
+    assert jcli(argv + ["-o", jout]) == 0
+    capsys.readouterr()
+    assert cli(argv + ["-o", tout, "--device", "cpu"]) == 0
+    err = capsys.readouterr().err
+    assert _bytes(tout) == _bytes(jout)
+    assert "the B-frame walker codes CAVLC with no in-loop filter and no " \
+        "8x8 transform, so profile high's CABAC and 8x8 transform are " \
+        "not applied" in err
+    params = _video_samples(tout)[2]
+    assert params[4] & 0x1F == 7 and params[5] == 77
+    assert _video_samples(jout)[2][5] == 77
 
 
 # ---------------------------------------------------------------------------

@@ -94,6 +94,23 @@ def test_preset_to_job_equals_reference(name):
     assert got.to_json() == want.to_json()
 
 
+@pytest.mark.parametrize("name", PRESETS)
+def test_preset_encoders_are_the_jobs(name):
+    """What the port's CLI reads of a preset before the scan (the
+    container, the video encoder's settings, the audio tracks) is what
+    ``preset_to_job`` gives after it; with no title, no audio track."""
+    preset = tpresets.preset_search(name)
+    t = _title(ttitle)
+    job = tpresets.preset_to_job(t, preset)
+    enc = tpresets.preset_encoders(preset, len(t.audio))
+    for f in ("mux", "vcodec", "quality", "vbitrate", "multipass",
+              "turbo_first_pass", "encoder_preset", "encoder_tune",
+              "encoder_profile", "encoder_level", "encoder_options",
+              "audio", "audio_fallback", "audio_copy_mask"):
+        assert getattr(enc, f) == getattr(job, f), f
+    assert tpresets.preset_encoders(preset).audio == []
+
+
 GEO_SOURCES = [(1920, 1080, Fraction(1, 1)), (720, 480, Fraction(8, 9)),
                (720, 576, Fraction(16, 15)), (3840, 2160, Fraction(1, 1)),
                (1440, 1080, Fraction(4, 3))]

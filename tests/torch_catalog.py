@@ -1,20 +1,28 @@
 """Helpers of the libavcodec catalog's tests (``tests/test_torch_avcodec*.py``
 and the refusals elsewhere): sources built with the port's muxers, the
-reference's jitted analyzers shared per shape, and a binding with the
-system library hidden.
+reference's side of each comparison in a child process, and a binding
+with the system library hidden.
 
 The catalog's encoders and decoders are ctypes on the system
 libavcodec.  ``hide(monkeypatch, tmp_path)`` points a binding's library
 directory at an empty one and gives it a fresh probe state, so that
 ``available()`` is False and ``missing()`` names the two sonames, as on
-a machine without the library; the monkeypatch restores both."""
-import contextlib
-import functools
+a machine without the library; the monkeypatch restores both.
+
+The ``reference`` fixture runs a function of ``torch_catalog_ref`` (the
+JAX package's binding, decoders, scan and ``do_job``) in one spawned
+child process a test module and hands back what it returns or raises.
+The reference's binding finds an AVFrame field by scanning memory and
+writes through what it found, once a process; in the child, that write
+never lands in the worker that runs the other test files."""
+import multiprocessing
 import os
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
 
+import torch_catalog_ref
 from handbrake_tpu_torch.codecs import avcodec
 from handbrake_tpu_torch.codecs.h264.encoder import EncoderConfig, H264Encoder
 from handbrake_tpu_torch.mux.mkv import MKVWriter
@@ -29,29 +37,31 @@ needs_libavcodec = pytest.mark.skipif(
     reason=f"the system libavcodec is missing ({avcodec.missing()})")
 
 
-def hide(monkeypatch, tmp_path, *modules):
-    """Hide the system libavcodec from the port's binding and from each
-    of `modules` (the reference's binding, say) for one test."""
+def hide(monkeypatch, tmp_path):
+    """Hide the system libavcodec from the port's binding for one test
+    (``torch_catalog_ref.job(..., hidden=True)`` hides it from the
+    reference's, in the child)."""
     empty = tmp_path / "no_libavcodec"
     empty.mkdir(exist_ok=True)
-    for m in (avcodec,) + modules:
-        monkeypatch.setattr(m, "_LIBDIR", str(empty))
-        monkeypatch.setattr(m, "_state", {})
+    monkeypatch.setattr(avcodec, "_LIBDIR", str(empty))
+    monkeypatch.setattr(avcodec, "_state", {})
     assert not avcodec.available()
 
 
-@contextlib.contextmanager
-def shared_jax_analyzers():
-    """Every reference H.264 encoder of one shape shares one jitted
-    analyzer (the build functions are pure), so each compiles once per
-    module, on the reference's device path."""
-    from handbrake_tpu.codecs.h264 import encoder_tpu
-    with pytest.MonkeyPatch.context() as mp:
-        mp.delenv("HB_TPU_DISABLE_DEVICE", raising=False)
-        for name in ("build_p_analyzer", "build_p_analyzer_batch"):
-            mp.setattr(encoder_tpu, name,
-                       functools.lru_cache(None)(getattr(encoder_tpu, name)))
-        yield
+REFERENCE_LIMIT_S = 600         # one call in the child, at most
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """``reference(fn, *args, **kw)`` runs ``fn`` (a function of
+    ``torch_catalog_ref``) in this module's child process, started with
+    spawn, and returns its result or raises its exception.  One child a
+    module, so JAX is imported once a file."""
+    with ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=torch_catalog_ref.start) as pool:
+        yield lambda fn, *a, **kw: pool.submit(fn, *a, **kw).result(
+            REFERENCE_LIMIT_S)
 
 
 def tone(sr, n, seed=0, ch=2):
