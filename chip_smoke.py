@@ -158,10 +158,10 @@ Phases (none is caught; any failure exits non-zero before the last line):
 10. B-frames on the job path (the walker, ``codecs/h264/encoder_b.py``,
    is host code, as in the JAX package; the job's crop/scale runs the
    resample kernel on the card): (a) job 5 (a)'s letterboxed source, its
-   first 9 frames, through ``cli.__main__.main(["-i", src, "-o", out.mp4,
+   first 5 frames, through ``cli.__main__.main(["-i", src, "-o", out.mp4,
    "-e", "h264", "-q", "28", "--bframes", "3"])``, default preset and
-   device, under ``torch.profiler``: 9 samples at 1920x804, an IDR and
-   two groups of a P and three B frames, the decode order not the
+   device, under ``torch.profiler``: 5 samples at 1920x804, an IDR and
+   a group of a P and three B frames, the decode order not the
    display order and non-zero ctts offsets, the resample kernel launched
    once a frame, and one log line that the profile's CABAC and 8x8
    transform are not applied; (b) the mp4's stream decoded by the port's
@@ -240,19 +240,19 @@ Phases (none is caught; any failure exits non-zero before the last line):
    same planes, each on the card and on the CPU (mv and sad equal), timed
    (CUDA events, median of 20 calls), beside its bytes and
    integer-operation bounds, and one call's device ms and kernels traced
-   by ``tools/profile_analyzers.py`` in a fresh process; (b) a 3-frame
-   1080p y4m (an IDR and 2 P) through ``cli.__main__.main(["-i", src,
+   by ``tools/profile_analyzers.py`` in a fresh process; (b) a 2-frame
+   1080p y4m (an IDR and a P) through ``cli.__main__.main(["-i", src,
    "-o", out.mkv, "-Z", "H.265 MKV 1080p30"])`` under ``torch.profiler``,
-   in a card process of its own: 3 samples of 1920x1080 with an hvcC,
-   all 3 equal to the same CLI job on the CPU (``--device cpu``,
-   the source's first 3 frames, in a process of its own), the analyzer
+   in a card process of its own: 2 samples of 1920x1080 with an hvcC,
+   both equal to the same CLI job on the CPU (``--device cpu``, in a
+   process of its own), the analyzer
    called once a P frame, each access unit decoded as it comes by the
    port's HEVC decoder (a child process) to the encoder's
    reconstruction, the mkv's samples those access units; fps, the card's
    busy share, the walker's host seconds an I and a P frame, the
    decoder's host ms a frame; (c) the same with ``-Z "AV1 MKV 1080p30"``
    (av1C in the CodecPrivate), beside (b); (d) (b)'s mkv through the CLI
-   to H.264 High mp4 (``--previews 1``): 3 samples, the planes the H.264
+   to H.264 High mp4 (``--previews 1``): 2 samples, the planes the H.264
    encoder was given equal to the HEVC encoder's reconstructions; and a
    2-frame 10-bit y4m with ``-e x265 --encoder-profile main10``: a 10-bit
    encoder, the mkv decoded (in a process of its own) to 16-bit frames
@@ -293,7 +293,7 @@ Phases (none is caught; any failure exits non-zero before the last line):
    the card's busy share; the webm decodes to 9 frames) and the MPEG-4
    AVI to H.264 (deblock264 launches; the mp4 decodes to 12 frames).
 16. Refusals ahead of the work, one JSON line with the card's name and
-   power limit: (a) 13's 3-frame 1080p y4m through ``cli.__main__.main``
+   power limit: (a) 13's 2-frame 1080p y4m through ``cli.__main__.main``
    with ``--bframes 3 -x cabac=1`` must exit non-zero naming
    ``cabac=1`` (the B-frame walker codes CAVLC with no in-loop filter
    and no 8x8 transform), start no pipeline and leave no file; (b) step
@@ -302,7 +302,24 @@ Phases (none is caught; any failure exits non-zero before the last line):
    ``-a 1 -E opus`` on 8's source through the CLI must refuse naming the
    sonames, with no scan started, no pipeline and no file, each in under
    0.5 s of wall time, printed.
-17. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+17. Anamorphic jobs through ``cli.__main__.main`` on the card, each
+   beside the same CLI job on the CPU (``--device cpu``, a process of
+   its own started first), one JSON line a part with the card's name
+   and power limit: (a) a ``VIDEO_TS`` folder over the committed 16:9
+   PAL MPEG-2 fixture (25 pictures of 720x576, aspect_ratio_information
+   3, frame_rate_code 3; IFO attributes PAL 16:9) through the default
+   preset with ``--encoder-profile high`` to mp4: the title's pixel
+   aspect 64:45 and rate 25/1, the SPS's VUI aspect and the ``pasp``
+   64:45, the VUI timing and every sample's duration 25 fps, one sample
+   a picture, the file equal to the CPU's, deblock264's launches
+   printed; (b) 8 frames of 1440x1080 coded on the card by the port's
+   encoder with VUI aspect 4:3 (annex-B) through ``--loose-anamorphic
+   --maxWidth 960 -f mkv``: the resample kernel once a frame, the
+   DisplayWidth/DisplayHeight 16:9 to a pixel, the SPS's aspect the
+   job's, the file equal to the CPU's; (c) 2 frames of a 720x480 y4m
+   with ``A32:27`` through ``-e x265 -f mkv``: the HEVC VUI's aspect
+   32:27, the display size 853x480, the file equal to the CPU's.
+18. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
    time; hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s
@@ -313,8 +330,9 @@ Phases (none is caught; any failure exits non-zero before the last line):
    ``local_bytes`` and ``smem_bytes`` the kernel's, ``job_launches``
    its counts in jobs 5 (a), 9 (c), 10 (a), 11 (c) and on 14 (a)'s rank
    0; deblock264's
-   ``job_launches`` include 11 (b)'s resumed job and the four jobs of
-   step 12; resample's those of 12 (a) and (b)), steps 7's to 13's
+   ``job_launches`` include 11 (b)'s resumed job, the four jobs of step
+   12 and 17 (a)-(b); resample's those of 12 (a)-(b) and 17 (a)-(b)),
+   steps 7's to 17's
    numbers, the card's name and power limit, and the result line.
 
 Step 14's ranks run this script with ``--mesh-rank KIND DIR ARGV...``
@@ -326,7 +344,8 @@ the card and prints its numbers and its decode's as one JSON line.
 ``--mesh-only`` runs step 1's build, step 11 (c) (which makes the
 one-rank files) and step 14 alone, on every card the run can see, and
 prints no result line: the check of 14 (d)'s NCCL world on a machine
-with several cards.
+with several cards.  ``--anamorphic-only`` runs step 1's build and step
+17 alone and prints no result line.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -454,10 +473,13 @@ SUB_CARD_TOL = 8.0
 SUB_CUE = "A burned subtitle\nin two lines"
 # step 10: the B-frame job takes the letterbox source's first B_N frames
 # with --bframes B_FRAMES (x264-medium's bframes=3/ref=3): an IDR, then
-# two groups of a P and three B frames; the MC repair's noise frames
+# a group of a P and three B frames (two groups until the smoke went over
+# 950 s on a slow host; the checks are the same); the MC repair's noise
+# frames
 # (tests/test_torch_bframes.py's generator and one of its cases: the JAX
 # package's walker raises on them)
-B_N, B_FRAMES, B_Q = 9, 3, 28
+B_N, B_FRAMES, B_Q = 5, 3, 28
+B_GROUPS = (B_N - 1) // (B_FRAMES + 1)
 # what the port logs at a B-frame job's start (its profile's CABAC and
 # 8x8 transform are not applied)
 B_LOG = "CABAC and 8x8 transform are not applied"
@@ -480,11 +502,11 @@ DVD_PREVIEWS, DVD_TIMED = 2, 8
 MJPEG_N = 6
 # step 13: HEVC and AV1 at 1080p.  The analyzers' coded planes (1088
 # rows: 34 CTUs of 32, 68 blocks of 16) and their timing reps; the jobs'
-# frames (an IDR and 2 P: the smoke's time), the frames of their CPU
+# frames (an IDR and a P: the smoke's time), the frames of their CPU
 # runs and of the Main 10 job; the presets; the integer operations of a sample's SAD (a
 # difference, its absolute value, an add)
 HV_ROWS, AN_REPS = 1088, 20
-HV_N, HV_CPU, HV_M10_N = 3, 3, 2
+HV_N, HV_CPU, HV_M10_N = 2, 2, 2
 HV_PRESETS = {"hevc": "H.265 MKV 1080p30", "av1": "AV1 MKV 1080p30"}
 SAD_OPS = 3
 # step 14: the ranks of one job on this card (gloo), the cards of an
@@ -505,6 +527,15 @@ WEBM_N = 9
 # step 16: the wall time a catalog refusal through the CLI may take (it
 # comes before the scan)
 REFUSE_LIMIT_S = 0.5
+# step 17: (a) the 16:9 PAL DVD fixture's frame ticks at 25 fps and its
+# pixel aspect; (b) the 1440x1080 H.264 source's frames, its VUI aspect
+# and the loose job's max width; (c) the 720x480 y4m's frames and aspect;
+# the scans' previews (each a decode from the start on the host); the
+# OpenMP threads of (a)'s CPU run, the longest of the three
+PAL_TICKS, PAL_PAR = 3600, (64, 45)
+LOOSE_N, LOOSE_SAR, LOOSE_MAX_W = 8, (4, 3), 960
+Y4M_PAR_N, Y4M_PAR = 2, (32, 27)
+PAR_PREVIEWS, PAL_CPU_THREADS = 1, 5
 
 
 def smi(query):
@@ -2612,9 +2643,9 @@ def phase_bframes(tmp, label):
     if spy.order == sorted(spy.order) or not any(cts):
         raise RuntimeError("the B-frame job's decode order is its display "
                            "order")
-    if n_kind != {"I": 1, "P": 2, "B": 6}:
-        raise RuntimeError(f"the walker coded {n_kind}, not an IDR and two "
-                           "groups of P + 3 B")
+    if n_kind != {"I": 1, "P": B_GROUPS, "B": B_GROUPS * B_FRAMES}:
+        raise RuntimeError(f"the walker coded {n_kind}, not an IDR and "
+                           f"{B_GROUPS} group(s) of P + {B_FRAMES} B")
     if rs_launches != B_N:
         raise RuntimeError("the B-frame job did not launch the resample "
                            "kernel once a frame")
@@ -2805,9 +2836,9 @@ class GopSpy:
         self._gop, self._orig = gop, gop.encode_gop_parallel
 
         def spy(frames, width, height, qp, n_gops, fps=(30000, 1001),
-                device=None, mesh=None):
+                device=None, mesh=None, sar=(1, 1)):
             res = self._orig(frames, width, height, qp, n_gops, fps, device,
-                             mesh)
+                             mesh, sar)
             self.calls.append((list(frames), width, height, qp, n_gops, fps,
                                res))
             return res
@@ -3542,13 +3573,13 @@ def write_y4m10(path, frames, w, h):
 PROCS = []        # step 13's helper processes, stopped when it ends
 
 
-def start_process(tmp, name, argv, card=False):
+def start_process(tmp, name, argv, card=False, threads=2):
     """A process of its own beside this one's run: on the CPU (no card
-    visible to it), or with card=True on this process's card.
-    (Popen, log file)."""
+    visible to it), or with card=True on this process's card, with
+    `threads` OpenMP threads.  (Popen, log file)."""
     log = open(os.path.join(tmp, f"{name}.log"), "w")
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=root)
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads), PYTHONPATH=root)
     if not card:
         env["CUDA_VISIBLE_DEVICES"] = ""
     p = subprocess.Popen([sys.executable, *argv], cwd=root, env=env,
@@ -4338,6 +4369,209 @@ def phase_refusals(tmp, label, bf) -> dict:
     return rec
 
 
+def pal_dvd_folder(root):
+    """17 (a): a VIDEO_TS folder over two VOBs holding the 16:9 PAL
+    MPEG-2 fixture (720x576, aspect_ratio_information 3, frame_rate_code
+    3), its IFO saying PAL 16:9 with 25 fps playback times.  Returns
+    (folder, pictures)."""
+    from handbrake_tpu_torch.tools import source_builders as B
+    units = B.video_units(B.fixture("mpeg2_720x576_16x9.m2v"), DVD_T0,
+                          PAL_TICKS)
+    half = len(units) * PAL_TICKS / 90000 / 2
+    B.write_dvd(root, B.build_ps(units), 2, [half, half],
+                B.vts_video_attr("PAL", (16, 9)), fps=25)
+    return root, len(units)
+
+
+def sar_h264_source(path):
+    """17 (b): LOOSE_N make_clip frames at 1440x1080 coded on the card by
+    the port's encoder (High profile, VUI aspect LOOSE_SAR, 25 fps) as an
+    annex-B stream."""
+    from handbrake_tpu_torch.codecs.h264.encoder import (EncoderConfig,
+                                                         H264Encoder)
+    from handbrake_tpu_torch.utils.synth import make_clip
+    enc = H264Encoder(EncoderConfig(
+        width=1440, height=1080, qp=QP, gop=LOOSE_N, cabac=True,
+        deblock=True, transform8x8=True, fps=(25, 1), sar=LOOSE_SAR))
+    with open(path, "wb") as f:
+        for y, u, v in make_clip(1440, 1080, LOOSE_N, seed=31):
+            f.write(enc.encode_frame(y, u, v))
+    return path
+
+
+def par_y4m(path):
+    """17 (c): Y4M_PAR_N make_clip frames at 720x480 with ``A32:27``."""
+    from handbrake_tpu_torch.utils.synth import make_clip
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W720 H480 F30000:1001 Ip A{Y4M_PAR[0]}:"
+                f"{Y4M_PAR[1]} C420\n".encode())
+        for y, u, v in make_clip(720, 480, Y4M_PAR_N, seed=33):
+            f.write(b"FRAME\n" + y.tobytes() + u.tobytes() + v.tobytes())
+    return path
+
+
+def mkv_video(path):
+    """The first track of an mkv (TrackInfo) and its Video element's
+    unsigned children by id (PixelWidth 0xB0, DisplayWidth 0x54B0, ...)."""
+    from handbrake_tpu_torch.sources import mkv as M
+
+    class Demuxer(M.MKVDemuxer):
+        def _parse_tracks(self, data):
+            self.raw_tracks = data
+            super()._parse_tracks(data)
+
+    d = Demuxer(path)
+    d.close()
+    entry = dict(M._children(next(p for e, p in M._children(d.raw_tracks)
+                                  if e == 0xAE)))
+    return d.tracks[0], {e: M._uint(p) for e, p in
+                         M._children(entry.get(0xE0, b""))}
+
+
+def video_vui(path):
+    """(track, its SPS's VUI {"sar", "timing"}, sample durations) of an
+    mp4's or mkv's first track."""
+    from handbrake_tpu_torch.codecs.vui import stream_vui
+    from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
+    if path.endswith(".mkv"):
+        ti, _ = mkv_video(path)
+        return ti, stream_vui(ti.codec, ti.extradata), None
+    d = MP4Demuxer(path)
+    try:
+        ti = d.tracks[0]
+        durs = [d.read_sample(0, i).duration for i in range(d.n_samples(0))]
+    finally:
+        d.close()
+    return ti, stream_vui(ti.codec, ti.extradata), durs
+
+
+def same_file(a, b) -> bool:
+    with open(a, "rb") as f, open(b, "rb") as g:
+        return f.read() == g.read()
+
+
+def phase_anamorphic(tmp, label):
+    """17: anamorphic jobs on the card, each beside the same CLI job on
+    the CPU (a process of its own, started first), one JSON line a part
+    with the card's name and power limit.  Its helper processes are
+    stopped when it ends, whether it passes or fails."""
+    try:
+        return anamorphic_parts(tmp, label)
+    finally:
+        for p in PROCS:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def anamorphic_parts(tmp, label):
+    from handbrake_tpu_torch.sources.probe import open_source
+    t0 = time.perf_counter()
+    dvd, n_pal = pal_dvd_folder(os.path.join(tmp, "pal_dvd"))
+    loose_src = sar_h264_source(os.path.join(tmp, "sar43.264"))
+    y4m = par_y4m(os.path.join(tmp, "par.y4m"))
+    sources_s = time.perf_counter() - t0
+    jobs = {
+        "a": (dvd, "pal.mp4", ["-e", "h264", "-q", "28", "--encoder-profile",
+                               "high", "--previews", str(PAR_PREVIEWS)]),
+        "b": (loose_src, "loose.mkv", [
+            "-e", "h264", "-q", "28", "--encoder-profile", "high",
+            "--loose-anamorphic", "--maxWidth", str(LOOSE_MAX_W), "-f",
+            "mkv", "--previews", str(PAR_PREVIEWS)]),
+        "c": (y4m, "par.mkv", ["-e", "x265", "-q", "28", "-f", "mkv"])}
+    cpu = {k: start_process(tmp, f"par_{k}_cpu", [
+        "-m", "handbrake_tpu_torch.cli", "-i", src, "-o",
+        os.path.join(tmp, "cpu_" + out), *argv, "--device", "cpu"],
+        threads=PAL_CPU_THREADS if k == "a" else 2)
+        for k, (src, out, argv) in jobs.items()}
+    rec = {"phase": "17", "card": label, "sources_s": sources_s}
+    card = {}
+    for k, (src, out, argv) in jobs.items():
+        t1 = time.perf_counter()
+        secs, dev_ms, db, rs, spy = disc_job(
+            "cli", ["-i", src, "-o", os.path.join(tmp, out), *argv])
+        card[k] = {"do_job_s": secs, "cli_s": time.perf_counter() - t1,
+                   "device_ms": dev_ms, "deblock264_launches": db,
+                   "resample_launches": rs, "p_frames": spy.p_frames(),
+                   "job_par": [spy.job.par_num, spy.job.par_den],
+                   "anamorphic_mode": spy.job.anamorphic_mode}
+    for k in jobs:
+        finish_process(cpu[k])
+        # when this phase had the CPU run's file (it may have ended sooner)
+        card[k]["cpu_run_done_s"] = time.perf_counter() - t0
+        card[k]["equal_cpu_file"] = same_file(
+            os.path.join(tmp, jobs[k][1]), os.path.join(tmp, "cpu_"
+                                                        + jobs[k][1]))
+    # (a): the title's aspect and rate, the SPS's and the pasp's aspect,
+    # the VUI's and the samples' 25 fps, every picture a sample
+    src = open_source(dvd)
+    title = src.tracks[0]
+    src.close()
+    ti, vui, durs = video_vui(os.path.join(tmp, "pal.mp4"))
+    nu, ts = vui["timing"] or (0, 0)
+    a = dict(card["a"], pictures=n_pal, samples=len(durs),
+             title_par=[title.par_num, title.par_den],
+             title_rate=list(title.frame_rate), size=[ti.width, ti.height],
+             pasp=[ti.par_num, ti.par_den], sps_sar=vui["sar"],
+             vui_fps=ts / (2 * nu) if nu else None,
+             sample_durations=sorted(set(durs)))
+    a["fps"] = n_pal / a["do_job_s"]
+    a["ok"] = (tuple(a["title_par"]) == PAL_PAR
+               and tuple(a["title_rate"]) == (25, 1)
+               and tuple(a["job_par"]) == PAL_PAR
+               and tuple(a["pasp"]) == PAL_PAR
+               and tuple(a["sps_sar"] or ()) == PAL_PAR
+               and a["vui_fps"] == 25 and a["sample_durations"] == [PAL_TICKS]
+               and a["samples"] == n_pal and a["equal_cpu_file"]
+               and a["deblock264_launches"] >= a["p_frames"] > 0)
+    rec["a"] = a
+    print(json.dumps(dict(a, part="17a", card=label)), flush=True)
+    print(f"17 (a): the 16:9 PAL DVD job launched deblock264 "
+          f"{a['deblock264_launches']} times for {a['p_frames']} P frames",
+          flush=True)
+    # (b): the loose job scales on the card; its display size is 16:9
+    ti, vui, _ = video_vui(os.path.join(tmp, "loose.mkv"))
+    _, video = mkv_video(os.path.join(tmp, "loose.mkv"))
+    dw, dh = video.get(0x54B0), video.get(0x54BA)
+    b = dict(card["b"], frames=LOOSE_N, size=[video[0xB0], video[0xBA]],
+             display=[dw, dh], sps_sar=vui["sar"])
+    b["ok"] = (bool(dw and dh) and abs(dw * 9 - dh * 16) <= 16
+               and b["resample_launches"] == LOOSE_N
+               and b["sps_sar"] == tuple(b["job_par"])
+               and b["equal_cpu_file"])
+    rec["b"] = b
+    print(json.dumps(dict(b, part="17b", card=label)), flush=True)
+    # (c): the HEVC VUI's aspect and the mkv's display size
+    ti, vui, _ = video_vui(os.path.join(tmp, "par.mkv"))
+    _, video = mkv_video(os.path.join(tmp, "par.mkv"))
+    c = dict(card["c"], frames=Y4M_PAR_N, sps_sar=vui["sar"],
+             display=[video.get(0x54B0), video.get(0x54BA)])
+    c["ok"] = (tuple(c["sps_sar"] or ()) == Y4M_PAR
+               and c["display"] == [(720 * Y4M_PAR[0] * 2 + Y4M_PAR[1])
+                                    // (2 * Y4M_PAR[1]), 480]
+               and c["equal_cpu_file"])
+    rec["c"] = c
+    print(json.dumps(dict(c, part="17c", card=label)), flush=True)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"phase 17 ({label}): {rec['seconds']:.1f} s", flush=True)
+    bad = [k for k in "abc" if not rec[k]["ok"]]
+    if bad:
+        raise RuntimeError(f"17: the checks of {bad} failed: "
+                           f"{json.dumps({k: rec[k] for k in bad})}")
+    return rec
+
+
+def anamorphic_only() -> int:
+    """Steps 1 and 17 alone (``--anamorphic-only``)."""
+    import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
+    label = card()
+    print(f"card: {label}", flush=True)
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_anamorphic(tmp, label)
+    return 0
+
+
 def one_card():
     """Make only the first visible card visible to this process (before
     CUDA starts), so the run uses, and reports, exactly one card."""
@@ -4373,6 +4607,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--mesh-only"]:
         return mesh_only()
+    if sys.argv[1:2] == ["--anamorphic-only"]:
+        return anamorphic_only()
     import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
     from handbrake_tpu_torch.utils.device import resolve_device
     resolve_device(None)
@@ -4399,6 +4635,7 @@ def main() -> int:
         mesh = phase_mesh(tmp, label, scale_out["gop_parallel"])
         catalog = phase_catalog(tmp, label)
         refusals = phase_refusals(tmp, label, bf)
+        par = phase_anamorphic(tmp, label)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -4425,7 +4662,11 @@ def main() -> int:
                                "broadcast_ts_do_job":
                                    discs["ts"]["deblock264_launches"],
                                "mjpeg_avi_do_job":
-                                   discs["mjpeg"]["deblock264_launches"]})
+                                   discs["mjpeg"]["deblock264_launches"],
+                               "pal_16x9_dvd_cli":
+                                   par["a"]["deblock264_launches"],
+                               "loose_1440x1080_mkv_cli":
+                                   par["b"]["deblock264_launches"]})
     rs_entry = {
         "name": "resample", "route": "cuda",
         "source": "handbrake_tpu_torch/csrc/resample.cu",
@@ -4452,7 +4693,11 @@ def main() -> int:
                          "dvd_720x480_cli":
                              discs["dvd"]["resample_launches"],
                          "bluray_1080p_cli":
-                             discs["bd"]["resample_launches"]}}
+                             discs["bd"]["resample_launches"],
+                         "pal_16x9_dvd_cli":
+                             par["a"]["resample_launches"],
+                         "loose_1440x1080_mkv_cli":
+                             par["b"]["resample_launches"]}}
     if "jobs" in catalog:        # 15 (c), where libavcodec is present
         entry["job_launches"]["mpeg4_avi_do_job"] = \
             catalog["jobs"]["mpeg4"]["deblock264_launches"]
@@ -4468,6 +4713,7 @@ def main() -> int:
     print(f"phase 14 seconds: {mesh['seconds']:.1f}", flush=True)
     print(f"phase 15 seconds: {catalog['seconds']:.1f}", flush=True)
     print(f"phase 16 seconds: {refusals['seconds']:.1f}", flush=True)
+    print(f"phase 17 seconds: {par['seconds']:.1f}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

@@ -120,8 +120,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--crop", help="top:bottom:left:right")
     p.add_argument("--non-anamorphic", action="store_const", const=0,
                    dest="anamorphic")
-    p.add_argument("--auto-anamorphic", "--strict-anamorphic",
-                   action="store_const", const=1, dest="anamorphic")
+    p.add_argument("--auto-anamorphic", action="store_const", const=4,
+                   dest="anamorphic")
+    p.add_argument("--strict-anamorphic", action="store_const", const=1,
+                   dest="anamorphic")
     p.add_argument("--loose-anamorphic", action="store_const", const=2,
                    dest="anamorphic")
     p.add_argument("--custom-anamorphic", action="store_const", const=3,

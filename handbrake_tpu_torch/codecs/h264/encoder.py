@@ -50,6 +50,7 @@ from .cavlc import encode_residual, nc_context
 from .syntax import NAL_IDR, NAL_SLICE, PPS, SLICE_I, SLICE_P, SPS, \
     SliceHeader
 from .tables import CBP_INTER_INV, CBP_INTRA4x4_INV, ZIGZAG_4x4
+from ..vui import sar16
 
 PAD = 32  # reference-plane edge padding for ME/MC
 
@@ -89,6 +90,8 @@ class EncoderConfig:
     # analyze N consecutive P frames per dispatch, chaining the recon on
     # the device; the batch shares one qp
     dispatch_batch: int = 1
+    # the pixel aspect the SPS's VUI signals (1:1: none is written)
+    sar: tuple = (1, 1)
 
 
 class MBCtx:
@@ -448,7 +451,8 @@ class H264Encoder:
                        crop_right=self.mb_w * 16 - w,
                        crop_bottom=self.mb_h * 16 - h,
                        level_idc=cfg.level_idc,
-                       vui_timing=(cfg.fps[1], 2 * cfg.fps[0]))
+                       vui_timing=(cfg.fps[1], 2 * cfg.fps[0]),
+                       sar=sar16(*cfg.sar, "h264: the pixel aspect"))
         self.pps = PPS(pic_init_qp=cfg.qp,
                        chroma_qp_index_offset=cfg.chroma_qp_offset,
                        cabac=cfg.cabac,

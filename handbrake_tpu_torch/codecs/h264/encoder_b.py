@@ -34,6 +34,7 @@ from .encoder import (_CODED_ORDER, PAD, EncoderConfig, MBCtx, _sad,
 from .syntax import (NAL_IDR, NAL_SLICE, PPS, SLICE_B, SLICE_I, SLICE_P,
                      SPS, SliceHeader)
 from .tables import CBP_INTER_INV, ZIGZAG_4x4
+from ..vui import sar16
 
 
 def _med3(a, b, c):
@@ -136,7 +137,8 @@ class H264BEncoder:
                        level_idc=cfg.level_idc,
                        pic_order_cnt_type=0,
                        max_num_ref_frames=self.refs + 1,
-                       vui_timing=(cfg.fps[1], 2 * cfg.fps[0]))
+                       vui_timing=(cfg.fps[1], 2 * cfg.fps[0]),
+                       sar=sar16(*cfg.sar, "h264: the pixel aspect"))
         self.pps = PPS(pic_init_qp=cfg.qp,
                        chroma_qp_index_offset=cfg.chroma_qp_offset)
         self.idr_pic_id = 0

@@ -25,6 +25,7 @@ from .syntax import (NAL_IDR_W_RADL, NAL_TRAIL_R, PPS, SLICE_I, SLICE_P, SPS,
                      VPS, SliceHeader, nal_unit)
 from .tables import chroma_qp
 from ...utils.device import resolve_device
+from ..vui import sar16
 
 PAD = 48  # reference-plane edge padding for ME/MC (8-tap needs +-3)
 
@@ -71,6 +72,7 @@ class EncoderConfig:
     backend: str = "device"  # batched torch CTU analysis of P frames on the
                              # encoder's device; "host" = motion_search
     bit_depth: int = 8      # 8 (Main) or 10 (Main 10) — encx265 multi-depth
+    sar: tuple = (1, 1)     # the pixel aspect the VUI signals (1:1: none)
 
 
 def mpm_list(cand_a: int, cand_b: int):
@@ -207,7 +209,8 @@ class HEVCEncoder:
                        crop_bottom=self.H - cfg.height,
                        level_idc=cfg.level_idc,
                        vui_timing=(cfg.fps[1], cfg.fps[0]),
-                       bit_depth=self.bd)
+                       bit_depth=self.bd,
+                       sar=sar16(*cfg.sar, "hevc: the pixel aspect"))
         self.pps = PPS(init_qp=cfg.qp)
         self.frame_idx = 0
         self.poc = 0

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 from ..h264.bits import BitReader, BitWriter, ebsp_to_rbsp, rbsp_to_ebsp
+from ..vui import SAR_TABLE
 
 # NAL unit types (Table 7-1)
 NAL_TRAIL_R = 1
@@ -93,6 +94,7 @@ class SPS:
     log2_max_poc_lsb: int = 8
     vui_timing: tuple | None = None  # (num_units_in_tick, time_scale)
     bit_depth: int = 8             # 8 (Main) or 10 (Main 10)
+    sar: tuple = (1, 1)            # VUI aspect: Extended_SAR unless 1:1
 
     LOG2_CTB = 5                   # CTB = min CB = 32
 
@@ -137,7 +139,13 @@ class SPS:
         bw.put(0, 1)   # strong_intra_smoothing_enabled
         if self.vui_timing is not None:
             bw.put(1, 1)   # vui_parameters_present
-            bw.put(0, 1)   # aspect_ratio_info_present
+            if self.sar != (1, 1):
+                bw.put(1, 1)   # aspect_ratio_info_present
+                bw.put(255, 8)  # Extended_SAR
+                bw.put(self.sar[0], 16)
+                bw.put(self.sar[1], 16)
+            else:
+                bw.put(0, 1)   # aspect_ratio_info_present
             bw.put(0, 1)   # overscan_info_present
             bw.put(0, 1)   # video_signal_type_present
             bw.put(0, 1)   # chroma_loc_info_present
@@ -193,13 +201,18 @@ class SPS:
         assert br.u(1) == 0, "TMVP unsupported"
         br.u(1)
         vui = None
+        sar = (1, 1)
         if br.u(1):
-            br.u(8)
+            if br.u(1):    # aspect_ratio_info_present
+                idc = br.u(8)
+                sar = (br.u(16), br.u(16)) if idc == 255 \
+                    else SAR_TABLE.get(idc, (1, 1))
+            br.u(7)
             if br.u(1):
                 vui = (br.u(32), br.u(32))
         return cls(width=w, height=h, crop_right=cr, crop_bottom=cb,
                    level_idc=level, log2_max_poc_lsb=log2poc,
-                   vui_timing=vui, bit_depth=bd)
+                   vui_timing=vui, bit_depth=bd, sar=sar)
 
 
 @dataclasses.dataclass

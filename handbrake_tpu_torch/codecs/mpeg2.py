@@ -13,8 +13,16 @@ IDCT variance between codecs (IEEE 1180), so conformance against
 libavcodec is near-equality (tests assert max |diff| <= 2), not
 bit-exactness — unlike our H.264 path where the spec pins the integer
 transform.
+
+The sequence header's aspect_ratio_information and frame_rate_code are
+read with the sequence extension's frame_rate_extension_n/_d and the
+sequence_display_extension's display size (6.3.3, Table 6-3):
+``Mpeg2Decoder.sar`` and ``frame_rate``, and ``sequence_info`` for a
+demuxer's track (the reference skips the aspect and the extensions).
 """
 from __future__ import annotations
+
+from fractions import Fraction
 
 import numpy as np
 
@@ -28,6 +36,13 @@ START_SEQ_END = 0xB7
 START_GOP = 0xB8
 
 I_TYPE, P_TYPE, B_TYPE = 1, 2, 3
+
+# frame_rate_code (Table 6-4)
+FRAME_RATES = {1: (24000, 1001), 2: (24, 1), 3: (25, 1), 4: (30000, 1001),
+               5: (30, 1), 6: (50, 1), 7: (60000, 1001), 8: (60, 1)}
+# aspect_ratio_information 2-4: the display aspect ratio (Table 6-3; 1 is
+# square samples)
+DISPLAY_ASPECTS = {2: (4, 3), 3: (16, 9), 4: (221, 100)}
 
 DEFAULT_INTRA_MATRIX = np.array([
     8, 16, 19, 22, 26, 27, 29, 34,
@@ -354,6 +369,28 @@ class Mpeg2Decoder:
         self._pending_ref = None   # decoded ref awaiting display slot
         self._pending_pts = None
         self.frame_rate = (30000, 1001)
+        self.aspect_code = 0    # aspect_ratio_information (0: none seen)
+        self.mpeg2 = False      # a sequence extension follows the header
+        self.display_size = None    # sequence_display_extension's
+
+    @property
+    def sar(self):
+        """The sample aspect ratio (num, den) the last sequence header
+        gives, or None where it gives none (no header, a reserved code,
+        an MPEG-1 header, whose code is a pel aspect this decoder does
+        not take).  1 is square, 2-4 a display aspect over the display
+        extension's size, or the coded size without one (6.3.3)."""
+        a = self.aspect_code
+        if not self.w or not self.mpeg2:
+            return None
+        if a == 1:
+            return (1, 1)
+        dw, dh = self.display_size or (self.w, self.h)
+        if a not in DISPLAY_ASPECTS or not dw or not dh:
+            return None
+        n, d = DISPLAY_ASPECTS[a]
+        f = Fraction(n * dh, d * dw)
+        return (f.numerator, f.denominator)
 
     # -- stream chop -------------------------------------------------------
     def decode(self, data: bytes):
@@ -434,6 +471,27 @@ class Mpeg2Decoder:
         self._buf = buf[consumed:]
 
     # -- headers -----------------------------------------------------------
+    def _sequence_ext_fields(self, br):
+        """The sequence extension's frame_rate_extension_n/_d and the
+        sequence display extension's size (6.2.2.3, 6.2.2.4)."""
+        ext_id = br.u(4)
+        if ext_id == 1:
+            self.mpeg2 = True
+            br.u(8 + 1 + 2 + 2 + 2)   # profile/level .. vertical size ext
+            br.u(12 + 1 + 8 + 1)      # bit rate, vbv, low_delay
+            n, d = br.u(2), br.u(5)
+            if n or d:
+                f = Fraction(self.frame_rate[0] * (n + 1),
+                             self.frame_rate[1] * (d + 1))
+                self.frame_rate = (f.numerator, f.denominator)
+        elif ext_id == 2:
+            br.u(3)                   # video_format
+            if br.u(1):               # colour_description
+                br.u(24)
+            dw = br.u(14)
+            br.u(1)
+            self.display_size = (dw, br.u(14))
+
     def _parse_headers(self, data: bytes):
         i = 0
         while True:
@@ -442,15 +500,15 @@ class Mpeg2Decoder:
                 return
             code = data[i + 3]
             br = _BR(data[i + 4:i + 4 + 256])
+            if code == START_EXT:
+                self._sequence_ext_fields(_BR(data[i + 4:i + 4 + 256]))
             if code == START_SEQ:
                 self.w = br.u(12)
                 self.h = br.u(12)
-                br.u(4)               # aspect
-                fr = br.u(4)
-                rates = {1: (24000, 1001), 2: (24, 1), 3: (25, 1),
-                         4: (30000, 1001), 5: (30, 1), 6: (50, 1),
-                         7: (60000, 1001), 8: (60, 1)}
-                self.frame_rate = rates.get(fr, (30000, 1001))
+                self.aspect_code = br.u(4)
+                self.mpeg2 = False
+                self.display_size = None
+                self.frame_rate = FRAME_RATES.get(br.u(4), (30000, 1001))
                 br.u(18)              # bit_rate
                 br.u(1)
                 br.u(10)              # vbv
@@ -870,3 +928,23 @@ class Mpeg2Decoder:
         rows = slice(y0, y0 + 8 * step, step)
         base = 0 if intra else tgt[rows, x0:x0 + 8].astype(np.int32)
         tgt[rows, x0:x0 + 8] = np.clip(base + blkpix, 0, 255)
+
+
+def sequence_info(es: bytes):
+    """The first sequence header of an MPEG-1/2 elementary stream, read
+    with the extensions that follow it: {"width", "height", "sar",
+    "frame_rate"} ("sar" None where the header gives none), or None
+    where the stream holds no whole sequence header."""
+    i = es.find(b"\x00\x00\x01\xb3")
+    if i < 0:
+        return None
+    j = es.find(b"\x00\x00\x01\x00", i)
+    dec = Mpeg2Decoder()
+    try:
+        dec._parse_headers(es[i:j if j > 0 else len(es)])
+    except IndexError:          # cut inside the header
+        return None
+    if not dec.w or not dec.h:
+        return None
+    return {"width": dec.w, "height": dec.h, "sar": dec.sar,
+            "frame_rate": dec.frame_rate}

@@ -319,7 +319,7 @@ class Mpeg2VideoDecoder(VideoDecoder):
             self._info = {"width": self.dec.w, "height": self.dec.h,
                           "pix_fmt": "yuv420p",
                           "vui_timing": (fr[1], 2 * fr[0]),
-                          "sar": (1, 1)}
+                          "sar": self.dec.sar or (1, 1)}
         return out
 
     def feed(self, buf: Buffer) -> list:

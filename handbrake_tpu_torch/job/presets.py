@@ -512,6 +512,30 @@ def preset_encoders(preset: dict, n_audio: int = 0) -> Job:
     return j
 
 
+# PicturePAR → the job's anamorphic mode (job/geometry.py)
+PICTURE_PAR_MODES = {"off": 0, "strict": 1, "loose": 2, "custom": 3,
+                     "auto": 4}
+
+
+def _picture_par(j: Job, title: Title, preset: dict):
+    """The preset's ``PicturePAR`` as the job's anamorphic mode, resolved
+    at work time against the source's pixel aspect (the reference reads
+    the key and never applies it).  "auto" on a square-pixel title gives
+    the preset's scale at 1:1, which is the job as it stands, so such a
+    job stays unset, as the reference's."""
+    par = preset.get("PicturePAR", "auto")
+    if par not in PICTURE_PAR_MODES:
+        raise ValueError(f"PicturePAR {par!r}: not one of "
+                         f"{', '.join(PICTURE_PAR_MODES)}")
+    mode = PICTURE_PAR_MODES[par]
+    if par == "auto" and (title.par_num, title.par_den) == (1, 1):
+        return
+    j.anamorphic_mode = mode
+    if par == "custom":
+        j.par_num = int(preset.get("PicturePARWidth", 0) or 0)
+        j.par_den = int(preset.get("PicturePARHeight", 0) or 0)
+
+
 def preset_to_job(title: Title, preset: dict) -> Job:
     """hb_preset_job_init analog: preset dict + title → Job."""
     j = preset_encoders(preset, len(title.audio))
@@ -608,6 +632,7 @@ def preset_to_job(title: Title, preset: dict) -> Job:
     filters.append(FilterSpec(S.FILTER_CROP_SCALE, {
         "crop-top": crop[0], "crop-bottom": crop[1], "crop-left": crop[2],
         "crop-right": crop[3], "width": out_w, "height": out_h}))
+    _picture_par(j, title, preset)
 
     # pad
     if preset.get("PicturePadMode", "none") not in ("none", ""):

@@ -62,6 +62,7 @@ class MKTrack:
     private: bytes = b""
     language: str = "und"
     default_duration_ns: int = 0
+    display: tuple = ()        # DisplayWidth/Height where PAR is not 1:1
 
 
 class MKVWriter:
@@ -82,7 +83,8 @@ class MKVWriter:
 
     def add_video_track(self, codec: str = "h264", width: int = 0,
                         height: int = 0, private: bytes = b"",
-                        fps: float = 0.0, language: str = "und") -> int:
+                        fps: float = 0.0, language: str = "und",
+                        par=(1, 1)) -> int:
         cid = {"h264": "V_MPEG4/ISO/AVC", "hevc": "V_MPEGH/ISO/HEVC",
                "av1": "V_AV1", "vp9": "V_VP9", "vp8": "V_VP8",
                "theora": "V_THEORA", "mpeg2": "V_MPEG2",
@@ -92,6 +94,9 @@ class MKVWriter:
         t = MKTrack(len(self.tracks) + 1, "video", cid, width=width,
                     height=height, private=private, language=language,
                     default_duration_ns=dd)
+        if tuple(par) != (1, 1):
+            from ..codecs.vui import display_size
+            t.display = display_size(width, height, *par)
         self.tracks.append(t)
         return len(self.tracks) - 1
 
@@ -155,8 +160,11 @@ class MKVWriter:
             if t.default_duration_ns:
                 te += uint_e(0x23E383, t.default_duration_ns)
             if t.kind == "video":
+                # DisplayWidth/DisplayHeight in pixels (DisplayUnit 0)
                 te += elem(0xE0, uint_e(0xB0, t.width)
-                           + uint_e(0xBA, t.height))
+                           + uint_e(0xBA, t.height)
+                           + b"".join(uint_e(e, v) for e, v in
+                                      zip((0x54B0, 0x54BA), t.display)))
             elif t.kind == "audio":
                 te += elem(0xE1, float_e(0xB5, float(t.sample_rate))
                            + uint_e(0x9F, t.channels))

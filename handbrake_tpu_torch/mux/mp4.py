@@ -53,6 +53,7 @@ class Track:
     samples: list = field(default_factory=list)
     first_pts: int = 0
     name: str = ""
+    par: tuple = (1, 1)            # pixel aspect: a pasp box unless 1:1
 
 
 class MP4Writer:
@@ -72,10 +73,10 @@ class MP4Writer:
     def add_video_track(self, codec: str = "h264", width: int = 0,
                         height: int = 0, timescale: int = MOVIE_TIMESCALE,
                         extradata: bytes = b"",
-                        language: str = "und") -> int:
+                        language: str = "und", par=(1, 1)) -> int:
         t = Track(len(self.tracks) + 1, "video", timescale, codec,
                   width=width, height=height, extradata=extradata,
-                  language=language)
+                  language=language, par=tuple(par))
         self.tracks.append(t)
         return len(self.tracks) - 1
 
@@ -298,6 +299,9 @@ class MP4Writer:
             cfg = {"h264": b"avcC", "hevc": b"hvcC", "av1": b"av1C"}
             if t.extradata:
                 body += box(cfg[t.codec], t.extradata)
+            if t.par != (1, 1):
+                # PixelAspectRatioBox (ISO/IEC 14496-12 12.1.4)
+                body += box(b"pasp", struct.pack(">II", *t.par))
             # HDR metadata boxes (muxavformat.c track setup analog)
             if t.color:
                 from ..codecs.hdr import colr_payload

@@ -256,14 +256,17 @@ class Controller:
             if not tmap:
                 for k, ti in enumerate(d.tracks):
                     if ti.kind == "video":
+                        # the segments' pixel aspect (their pasp)
+                        par = (ti.par_num, ti.par_den)
                         if mkv_out:
                             tmap[k] = w.add_video_track(
                                 codec=ti.codec, width=ti.width,
-                                height=ti.height, private=b"")
+                                height=ti.height, private=b"", par=par)
                         else:
                             tmap[k] = w.add_video_track(
                                 codec=ti.codec, width=ti.width,
-                                height=ti.height, extradata=ti.extradata)
+                                height=ti.height, extradata=ti.extradata,
+                                par=par)
                     elif ti.kind == "audio":
                         if mkv_out:
                             tmap[k] = w.add_audio_track(

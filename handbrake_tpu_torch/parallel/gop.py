@@ -89,9 +89,10 @@ class _Gops:
     its later passes on them)."""
 
     def __init__(self, mesh, frames, width, height, G, fps, n_frames,
-                 shapes, dtype, keep=False):
+                 shapes, dtype, keep=False, sar=(1, 1)):
         self.mesh, self.frames = mesh, frames
         self.width, self.height, self.fps = width, height, fps
+        self.sar = sar
         self.chunks = split_gops(n_frames, G)
         self.mine = [g for g in range(G) if g % mesh.n == mesh.rank]
         self.shapes = shapes
@@ -143,7 +144,8 @@ class _Gops:
         mb_h = (self.height + 15) // 16
         encs = {g: H264Encoder(EncoderConfig(
             width=self.width, height=self.height, qp=_qp_of(qp, g, 0),
-            gop=max(self.chunks[g][1], 1), fps=self.fps, backend="host"),
+            gop=max(self.chunks[g][1], 1), fps=self.fps, backend="host",
+            sar=self.sar),
             device=dev) for g in self.mine}
         analyze = build_p_analyzer_gops(mb_w, mb_h)
         aus = {g: [] for g in self.mine}
@@ -208,9 +210,9 @@ def _mesh_for(mesh, device):
 
 
 def _encode_item(mesh, frames, width, height, qp, G, fps, n_frames, shapes,
-                 dtype):
+                 dtype, sar=(1, 1)):
     gops = _Gops(mesh, frames, width, height, G, fps, n_frames, shapes,
-                 dtype)
+                 dtype, sar=sar)
     frame_aus = gops.gather(gops.encode(qp))
     if frame_aus is None:
         return None
@@ -219,7 +221,8 @@ def _encode_item(mesh, frames, width, height, qp, G, fps, n_frames, shapes,
 
 
 def encode_gop_parallel(frames, width: int, height: int, qp, n_gops: int,
-                        fps=(30000, 1001), device=None, mesh=None):
+                        fps=(30000, 1001), device=None, mesh=None,
+                        sar=(1, 1)):
     """Encode frames as n_gops independent GOPs over `mesh` (None: the
     world's ranks, or one rank on `device` without a process group;
     device None is the CUDA card).  Called on rank 0.  qp as in the
@@ -229,13 +232,13 @@ def encode_gop_parallel(frames, width: int, height: int, qp, n_gops: int,
     Returns (streams, full_stream, frame_aus): per-gop annex-B segments,
     their concatenation, and per-gop per-frame access units.  Each GOP's
     stream equals that GOP's frames encoded serially by its own
-    encoder."""
+    encoder.  ``sar``: the pixel aspect every GOP's SPS signals."""
     G = int(n_gops)
     if not all(ln > 0 for _, ln in split_gops(len(frames), G)):
         raise ValueError("more gops than frames")
     return _mesh_for(mesh, device).run(
         _encode_item, width, height, qp, G, fps, len(frames),
-        *_window_args(frames), root=frames)
+        *_window_args(frames), tuple(sar), root=frames)
 
 
 def _dither(qf, ln):
@@ -255,13 +258,13 @@ def _dither(qf, ln):
 
 
 def _encode_2pass_item(mesh, frames, width, height, target_kbps, G, fps,
-                       qp1, n_frames, shapes, dtype):
+                       qp1, n_frames, shapes, dtype, sar=(1, 1)):
     """Every rank: pass 1 of its GOPs, the complexities gathered, the
     budgets and qps computed alike everywhere, up to three passes over
     the kept frames with the total size gathered after each; rank 0
     gathers the last pass's access units."""
     gops = _Gops(mesh, frames, width, height, G, fps, n_frames, shapes,
-                 dtype, keep=True)
+                 dtype, keep=True, sar=sar)
     chunks = gops.chunks
     fps_f = fps[0] / fps[1]
     duration_s = n_frames / fps_f
@@ -304,7 +307,7 @@ def _encode_2pass_item(mesh, frames, width, height, target_kbps, G, fps,
 def encode_gop_parallel_2pass(frames, width: int, height: int,
                               target_kbps: float, n_gops: int,
                               fps=(30000, 1001), qp1: int = 32, device=None,
-                              mesh=None):
+                              mesh=None, sar=(1, 1)):
     """Two-pass GOP-parallel encode to a bitrate target, as the reference
     does it: pass 1 at qp1 measures each GOP's bits, ``exchange_rc_stats``
     shares out the budget, each GOP's budget maps to a fractional qp by
@@ -319,4 +322,4 @@ def encode_gop_parallel_2pass(frames, width: int, height: int,
                          "world")
     return mesh.run(_encode_2pass_item, width, height, float(target_kbps),
                     int(n_gops), fps, qp1, len(frames),
-                    *_window_args(frames), root=frames)
+                    *_window_args(frames), tuple(sar), root=frames)

@@ -44,3 +44,46 @@ def to_90k(v: int, timescale: int) -> int:
 
 class DemuxError(Exception):
     pass
+
+
+def read_mpeg2_header(ti: TrackInfo, es: bytes, where: str):
+    """An MPEG-2 track's size, pixel aspect and frame rate from the
+    first sequence header in ``es`` (``codecs/mpeg2.sequence_info``).
+    Where there is none, or it gives no aspect, the track keeps what it
+    has (1:1, and the caller's 30000/1001) and the log says so."""
+    from ..codecs.mpeg2 import sequence_info
+    from ..utils.logging import log
+    info = sequence_info(bytes(es))
+    if info is None:
+        log(f"{where}: no MPEG-2 sequence header in the first {len(es)} "
+            f"bytes of the video; the track keeps {ti.par_num}:{ti.par_den} "
+            f"and the default frame rate")
+        return
+    ti.width, ti.height = info["width"], info["height"]
+    ti.frame_rate = info["frame_rate"]
+    if info["sar"] is None:
+        log(f"{where}: the MPEG-2 sequence header gives no pixel aspect; "
+            f"the track keeps {ti.par_num}:{ti.par_den}")
+    else:
+        ti.par_num, ti.par_den = info["sar"]
+
+
+def vui_sar(ti: TrackInfo, data: bytes, where: str):
+    """The pixel aspect of an H.264 or HEVC track's SPS VUI (``data``: an
+    avcC/hvcC payload or an annex-B stream), or None.  An SPS that cannot
+    be read gives None, with a log line."""
+    from ..codecs.vui import stream_vui
+    from ..utils.logging import log
+    try:
+        return stream_vui(ti.codec, bytes(data))["sar"]
+    except ValueError as e:
+        log(f"{where}: {e}; the track keeps {ti.par_num}:{ti.par_den}")
+        return None
+
+
+def read_vui_sar(ti: TrackInfo, data: bytes, where: str):
+    """The track's pixel aspect from its SPS's VUI where it signals one,
+    for a track whose container gives none."""
+    sar = vui_sar(ti, data, where)
+    if sar is not None:
+        ti.par_num, ti.par_den = sar

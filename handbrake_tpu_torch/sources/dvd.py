@@ -11,20 +11,35 @@ Structures implemented (DVD-Video part 3 layout, offsets in bytes):
   VMGI  0x00 "DVDVIDEO-VMG", 0xC4 TT_SRPT start sector
   TT_SRPT  u16 count, u16 pad, u32 end; 12-byte entries
            (type, angles, nr_ptts, parental, vts_nr, vts_ttn, vts_sect)
-  VTSI  0x00 "DVDVIDEO-VTS", 0xCC VTS_PGCIT start sector
+  VTSI  0x00 "DVDVIDEO-VTS", 0xCC VTS_PGCIT start sector, 0x200 the
+        VTS video attributes (byte 0: MPEG version, NTSC/PAL, display
+        aspect 0 = 4:3 / 3 = 16:9; byte 1 bits 3-2: picture size)
   VTS_PGCIT u16 count, u16 pad, u32 end; 8-byte srp entries
            (category u32, pgc offset u32 from table start)
   PGC   0x02 nr_programs, 0x03 nr_cells, 0x04 playback time (BCD
         hh:mm:ss:ff + frame-rate bits), 0xA4 16x4-byte 0YCrCb palette,
         0xE6 program map offset, 0xE8 cell playback info offset
 Cells/angles beyond the first PGC and menu domains are out of scope.
+
+The video attributes go to the title's video track (``open_dvd_title``):
+the IFO's display aspect decides the track's pixel aspect where it names
+the stream's picture size, and the log says where it and the sequence
+header disagree (the reference reads no attributes).
 """
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from fractions import Fraction
+from typing import List, NamedTuple, Optional
 
 _SECTOR = 2048
+# the VTS video attributes' codes
+_STANDARDS = {0: "NTSC", 1: "PAL"}
+_ASPECTS = {0: (4, 3), 3: (16, 9)}
+_WIDTHS = {0: 720, 1: 704, 2: 352, 3: 352}
+# the frame rates each standard's MPEG-2 stream may carry
+_STANDARD_RATES = {"NTSC": ((30000, 1001), (24000, 1001)),
+                   "PAL": ((25, 1),)}
 
 
 def _bcd(v: int) -> int:
@@ -40,6 +55,22 @@ def _playback_seconds(b: bytes) -> float:
     return h * 3600 + m * 60 + s + f / rate
 
 
+class VideoAttributes(NamedTuple):
+    """A VTS's video attributes (VTSI_MAT 0x200)."""
+    standard: str                   # NTSC | PAL
+    display_aspect: Optional[tuple]     # (4, 3), (16, 9); None: reserved
+    picture_size: tuple             # the (width, height) they describe
+
+    @classmethod
+    def parse(cls, attr: bytes) -> "VideoAttributes":
+        a, b = attr[0], attr[1]
+        standard = _STANDARDS.get((a >> 4) & 3, "NTSC")
+        size = (b >> 2) & 3
+        lines = 576 if standard == "PAL" else 480
+        return cls(standard, _ASPECTS.get((a >> 2) & 3),
+                   (_WIDTHS[size], lines // 2 if size == 3 else lines))
+
+
 class DvdTitle:
     def __init__(self, vts: int, ttn: int, duration_s: float,
                  chapter_times: list, palette: list, vob_paths: list):
@@ -49,6 +80,15 @@ class DvdTitle:
         self.chapter_times = chapter_times     # start offsets, seconds
         self.palette = palette                 # 16 RGB ints (vobsub)
         self.vob_paths = vob_paths
+
+    @property
+    def video(self) -> VideoAttributes:
+        """The title's VTS video attributes, read from its IFO."""
+        ifo = os.path.join(os.path.dirname(self.vob_paths[0]),
+                           f"VTS_{self.vts:02d}_0.IFO")
+        with open(ifo, "rb") as f:
+            f.seek(0x200)
+            return VideoAttributes.parse(f.read(2).ljust(2, b"\x00"))
 
 
 def _yuv_palette_to_rgb(entries: list) -> list:
@@ -142,6 +182,47 @@ def _scan_vts(vt: str, vts_nr: int, ttn: int,
     return DvdTitle(vts_nr, ttn, duration, chapter_times, palette, vobs)
 
 
+def apply_video_attributes(ti, t: DvdTitle):
+    """The title's video track against the IFO's video attributes.  The
+    IFO's display aspect sets the pixel aspect where the attributes name
+    the track's picture size; a sequence header that says otherwise is
+    overruled, with a log line.  A header's frame rate is kept, with a
+    log line where it is not one of the IFO standard's.  Without a
+    header (the track 0x0) the IFO gives the rate and the aspect."""
+    from ..utils.logging import log
+    v = t.video
+    if v.display_aspect is None:
+        log(f"dvd: VTS {t.vts}'s video attributes hold a reserved display "
+            f"aspect code; the track keeps {ti.par_num}:{ti.par_den}")
+        return
+    w, h = v.picture_size
+    n, d = v.display_aspect
+    par = Fraction(n * h, d * w)
+    ifo = f"{v.standard} {w}x{h} {n}:{d}"
+    if not ti.width:
+        ti.frame_rate = _STANDARD_RATES[v.standard][0]
+        ti.par_num, ti.par_den = par.numerator, par.denominator
+        log(f"dvd: no sequence header read; the IFO's attributes ({ifo}) "
+            f"give {ti.frame_rate[0]}/{ti.frame_rate[1]} fps and pixel "
+            f"aspect {ti.par_num}:{ti.par_den}")
+        return
+    if ti.frame_rate not in _STANDARD_RATES[v.standard]:
+        log(f"dvd: the sequence header's {ti.frame_rate[0]}/"
+            f"{ti.frame_rate[1]} fps is not {v.standard}'s (the IFO's "
+            f"attributes: {ifo}); the header's rate is kept")
+    if (ti.width, ti.height) != (w, h):
+        log(f"dvd: the IFO's attributes ({ifo}) do not describe the "
+            f"{ti.width}x{ti.height} stream; its sequence header's pixel "
+            f"aspect {ti.par_num}:{ti.par_den} is kept")
+        return
+    if (ti.par_num, ti.par_den) != (par.numerator, par.denominator):
+        log(f"dvd: the sequence header's pixel aspect {ti.par_num}:"
+            f"{ti.par_den} disagrees with the IFO's display aspect "
+            f"({ifo}); the IFO's {par.numerator}:{par.denominator} is "
+            f"taken")
+        ti.par_num, ti.par_den = par.numerator, par.denominator
+
+
 class _ConcatFile:
     """Read-only file object over the concatenation of several files
     (a multi-VOB VTS behaves as one program stream)."""
@@ -203,6 +284,9 @@ def open_dvd_title(path: str, title_index: int = 1):
     d.duration = 0
     d._sid_to_track = {}
     d._scan()
+    vids = [ti for ti in d.tracks if ti.kind == "video"]
+    if vids:
+        apply_video_attributes(vids[0], t)
     if not d.duration and t.duration_s:
         d.duration = int(t.duration_s * 90000)
     # IFO CLUT → vobsub tracks (decvobsub palette source)

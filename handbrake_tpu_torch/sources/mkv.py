@@ -5,11 +5,13 @@ Matroska files: SimpleBlock and BlockGroup, lacing supported).
 from __future__ import annotations
 
 import struct
+from fractions import Fraction
 from typing import Optional
 
+from ..codecs.vui import display_size
 from ..core.buffer import Buffer, FrameType
 from ..mux.nal import avcc_to_annexb
-from .common import DemuxError, TrackInfo
+from .common import DemuxError, TrackInfo, vui_sar
 
 _SEGMENT = 0x18538067
 _INFO = 0x1549A966
@@ -194,6 +196,7 @@ class MKVDemuxer:
             ti = TrackInfo(kind="video", codec="")
             tnum = 0
             dd_ns = 0
+            display = {0x54B2: 0}     # DisplayWidth/Height/Unit
             for ceid, cp in _children(p):
                 if ceid == 0xD7:
                     tnum = _uint(cp)
@@ -215,6 +218,8 @@ class MKVDemuxer:
                             ti.width = _uint(vp)
                         elif veid == 0xBA:
                             ti.height = _uint(vp)
+                        elif veid in (0x54B0, 0x54BA, 0x54B2):
+                            display[veid] = _uint(vp)
                 elif ceid == 0xE1:    # audio
                     for aeid, ap in _children(cp):
                         if aeid == 0xB5:
@@ -223,6 +228,20 @@ class MKVDemuxer:
                             ti.channels = _uint(ap)
             if dd_ns:
                 ti.frame_rate = (1000000000, dd_ns)
+            if ti.kind == "video":
+                # the display size in pixels (DisplayUnit 0) gives the
+                # pixel aspect, and the stream's VUI its exact value where
+                # the two agree to the rounding of the display width (the
+                # reference reads neither)
+                sar = vui_sar(ti, ti.extradata, "mkv")
+                dw, dh = display.get(0x54B0), display.get(0x54BA)
+                if dw and dh and not display[0x54B2] and ti.width \
+                        and ti.height and not (sar and display_size(
+                            ti.width, ti.height, *sar) == (dw, dh)):
+                    f = Fraction(dw * ti.height, dh * ti.width)
+                    sar = (f.numerator, f.denominator)
+                if sar:
+                    ti.par_num, ti.par_den = sar
             if ti.codec == "h264" and len(ti.extradata) > 4:
                 ti.nal_length_size = (ti.extradata[4] & 0x03) + 1
             self._tnum_to_idx[tnum] = len(self.tracks)

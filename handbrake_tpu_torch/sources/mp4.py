@@ -13,7 +13,7 @@ from typing import Optional
 
 from ..core.buffer import Buffer, FrameType, CLOCK
 from ..mux.nal import avcc_to_annexb
-from .common import DemuxError, TrackInfo, to_90k
+from .common import DemuxError, TrackInfo, read_vui_sar, to_90k
 
 
 def _iter_boxes(data: bytes, start: int = 0, end: Optional[int] = None):
@@ -177,6 +177,7 @@ class MP4Demuxer:
                             "mp4v": "mpeg4"}.get(fourcc, fourcc)
                 ti.width, ti.height = struct.unpack(
                     ">HH", moov[ps + 24:ps + 28])
+                pasp = False
                 for ct, cs, ce in _iter_boxes(moov, ps + 78, pe):
                     if ct in (b"avcC", b"hvcC", b"av1C"):
                         ti.extradata = moov[cs:ce]
@@ -189,6 +190,10 @@ class MP4Demuxer:
                     elif ct == b"pasp" and ce - cs >= 8:
                         ti.par_num, ti.par_den = struct.unpack(
                             ">II", moov[cs:cs + 8])
+                        pasp = True
+                if not pasp:
+                    # no pasp: the stream's VUI (the reference reads none)
+                    read_vui_sar(ti, ti.extradata, "mp4")
             elif ti.kind == "audio":
                 ti.codec = {"mp4a": "aac", "sowt": "pcm_s16le",
                             "lpcm": "pcm_s16le", "ac-3": "ac3",

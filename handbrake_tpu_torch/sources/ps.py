@@ -14,7 +14,7 @@ import os
 from typing import Optional
 
 from ..core.buffer import Buffer, FrameType
-from .common import DemuxError, TrackInfo
+from .common import DemuxError, TrackInfo, read_mpeg2_header, read_vui_sar
 
 PACK_START = 0xBA
 SYSTEM_HDR = 0xBB
@@ -265,11 +265,12 @@ class PSDemuxer:
                         break
             except Exception:   # noqa: BLE001 — geometry stays unknown
                 pass
+            read_vui_sar(ti, es, "ps")
         elif ti.codec == "mpeg2":
-            i = bytes(es).find(b"\x00\x00\x01\xb3")
-            if i >= 0 and i + 8 <= len(es):
-                ti.width = (es[i + 4] << 4) | (es[i + 5] >> 4)
-                ti.height = ((es[i + 5] & 15) << 8) | es[i + 6]
+            # size, pixel aspect and rate from the sequence header (the
+            # reference reads the size alone and labels every track
+            # 30000/1001)
+            read_mpeg2_header(ti, es, "ps")
         if ti.frame_rate is None:
             ti.frame_rate = (30000, 1001)
 

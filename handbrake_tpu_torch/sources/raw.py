@@ -12,7 +12,7 @@ from fractions import Fraction
 import numpy as np
 
 from ..core.buffer import (Buffer, FrameType, PIX_FMTS, CLOCK)
-from .common import DemuxError, TrackInfo
+from .common import DemuxError, TrackInfo, read_vui_sar
 
 
 class Y4MReader:
@@ -168,6 +168,8 @@ class AnnexBReader:
                     break
         except Exception:
             pass
+        # the pixel aspect of the SPS's VUI (the reference reads none)
+        read_vui_sar(self.tracks[0], self.data[:1 << 16], "annex-B")
 
     def _split_access_units(self) -> list:
         """Split on slice NALs whose first_mb_in_slice == 0 (H.264) or

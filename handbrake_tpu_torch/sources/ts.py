@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 
 from ..core.buffer import Buffer
-from .common import DemuxError, TrackInfo
+from .common import DemuxError, TrackInfo, read_mpeg2_header, read_vui_sar
 
 _STREAM_TYPES = {
     0x01: ("video", "mpeg2"), 0x02: ("video", "mpeg2"),
@@ -226,6 +226,11 @@ class TSDemuxer:
                 es += buf.data
                 if len(es) > 1 << 18:
                     break
+        if ti.codec == "mpeg2":
+            # stream types 0x01/0x02: size, pixel aspect and rate from the
+            # sequence header (the reference leaves the track 0x0, 1:1,
+            # 30000/1001)
+            read_mpeg2_header(ti, es, "ts")
         if ti.codec == "h264":
             try:
                 from ..codecs.h264.bits import ebsp_to_rbsp, split_annexb
@@ -258,6 +263,8 @@ class TSDemuxer:
                 pass            # beyond the native subset: the decoder says so
         if ti.frame_rate is None:
             ti.frame_rate = (30000, 1001)
+        if ti.codec in ("h264", "hevc"):
+            read_vui_sar(ti, es, "ts")
 
     # -- packet iteration -------------------------------------------------------
     def packets(self, start_state=None):

@@ -13,6 +13,9 @@ around them are built at run time.  It writes:
   from libavcodec's ``mpeg2video`` (IBBP, GOP 12, a 6 Mb/s target, 29.97
   fps, progressive);
 - ``mpeg2_176x144.m2v``: 12 frames with B-frames, for the CPU tests;
+- ``mpeg2_720x576_16x9.m2v``: 25 frames of a 16:9 PAL DVD's picture
+  (``pal_dvd_source``): 25 fps (``frame_rate_code`` 3), sample aspect
+  64:45, so ``aspect_ratio_information`` 3, IBBP, GOP 12;
 - ``mpeg2_ildct_176x160.m2v`` (6 frames) and ``mpeg2_ildct_176x144.m2v``
   (1 frame): ``interlaced_noise``, coded with ``flags=+ildct`` (field
   DCT) and no B-frames, with libavcodec's decode of each in the ``.npz``
@@ -28,7 +31,7 @@ around them are built at run time.  It writes:
   ``eac3_176x144.mkv`` (the port's H.264 encoder on the CPU, with 0.4 s
   of E-AC-3 stereo at 96 kb/s from ``eac3``).
 
-About 0.75 MB in all.  The other frames are ``utils.synth``'s clips,
+About 0.95 MB in all.  The other frames are ``utils.synth``'s clips,
 blurred so the streams stay small.  ``--check`` also codes each
 interlaced clip without ``+ildct`` and prints the port decoder's
 largest differences from libavcodec on both codings, and rebuilds the
@@ -56,6 +59,21 @@ def _mpeg2(ffvideo, frames, w, h, opts, rate=6_000_000):
     enc = ffvideo.FFVideoEncoder("mpeg2video", w, h, 30, bit_rate=rate,
                                  opts=opts)
     return enc.encode(frames)
+
+
+def pal_dvd_source(ffvideo, cv2) -> bytes:
+    """25 frames of a 16:9 PAL DVD (720x576, 25 fps, SAR 64:45, which
+    libavcodec codes as aspect_ratio_information 3)."""
+    from handbrake_tpu_torch.utils.synth import make_clip
+    es = b"".join(_mpeg2(
+        ffvideo, _blur(make_clip(720, 576, 25, seed=17), cv2, 3.0),
+        720, 576, {"bf": 2, "g": 12, "time_base": "1/25",
+                   "aspect": "64/45"}))
+    i = es.find(b"\x00\x00\x01\xb3")
+    if es[i + 7] != 0x33:
+        raise RuntimeError(f"mpeg2video wrote aspect/rate {es[i + 7]:#04x}, "
+                           f"not 0x33 (16:9, 25 fps)")
+    return es
 
 
 def interlaced_noise(w, h, n, seed=3):
@@ -207,6 +225,7 @@ def main(argv=None) -> int:
     write("mpeg2_176x144.m2v", b"".join(_mpeg2(
         ffvideo, _blur(make_clip(176, 144, 12, seed=13), cv2, 0.8),
         176, 144, {"bf": 2, "g": 12, "time_base": ntsc}, rate=800_000)))
+    write("mpeg2_720x576_16x9.m2v", pal_dvd_source(ffvideo, cv2))
     for (w, h), n in (((176, 160), 6), ((176, 144), 1)):
         frames = interlaced_noise(w, h, n)
         for name, flags in (("ildct", "+ildct"), ("frame_dct", None)):

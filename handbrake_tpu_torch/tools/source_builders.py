@@ -225,17 +225,31 @@ def make_vmg(entries) -> bytes:
     return bytes(ifo) + bytes(srpt).ljust(2048, b"\x00")
 
 
-def make_vts(duration_s, cell_secs, palette_yuv) -> bytes:
+def vts_video_attr(standard: str = "NTSC", aspect=(4, 3),
+                   size: int = 0) -> bytes:
+    """A VTS's video attributes (VTSI_MAT 0x200): MPEG-2, the standard
+    ("NTSC", "PAL"), the display aspect ((4, 3) or (16, 9)) and the
+    picture size code (0: 720 wide, 1: 704, 2: 352, 3: 352 x half)."""
+    return bytes([(1 << 6) | ({"NTSC": 0, "PAL": 1}[standard] << 4)
+                  | ({(4, 3): 0, (16, 9): 3}[tuple(aspect)] << 2),
+                  size << 2])
+
+
+def make_vts(duration_s, cell_secs, palette_yuv, video_attr=b"\x00\x00",
+             fps=30) -> bytes:
     """VTS_xx_0.IFO: one PGC of ``cell_secs`` cells, one program each,
-    with its playback time and a 16-entry 0YCrCb palette."""
+    with its playback time (at ``fps``, 30 or 25), a 16-entry 0YCrCb
+    palette and the video attributes ``video_attr`` (all zero: MPEG-1,
+    NTSC, 4:3, 720x480)."""
     ifo = bytearray(2048)
     ifo[0:12] = b"DVDVIDEO-VTS"
     ifo[0xCC:0xD0] = (1).to_bytes(4, "big")     # VTS_PGCIT at sector 1
+    ifo[0x200:0x202] = video_attr
     n_cells = len(cell_secs)
     pgc = bytearray(0x100 + n_cells * 24)
     pgc[2] = n_cells                            # programs == cells here
     pgc[3] = n_cells
-    pgc[4:8] = pb_time(duration_s)
+    pgc[4:8] = pb_time(duration_s, fps)
     for i, v in enumerate(palette_yuv):
         pgc[0xA4 + 4 * i:0xA8 + 4 * i] = v.to_bytes(4, "big")
     pm_off, cp_off = 0xF0, 0x100
@@ -244,7 +258,7 @@ def make_vts(duration_s, cell_secs, palette_yuv) -> bytes:
     for p in range(n_cells):
         pgc[pm_off + p] = p + 1                 # program p → cell p+1
     for c, dur in enumerate(cell_secs):
-        pgc[cp_off + c * 24 + 4:cp_off + c * 24 + 8] = pb_time(dur)
+        pgc[cp_off + c * 24 + 4:cp_off + c * 24 + 8] = pb_time(dur, fps)
     pgcit = bytearray(16)
     pgcit[0:2] = (1).to_bytes(2, "big")
     pgcit[12:16] = (16).to_bytes(4, "big")      # pgc offset from table
@@ -255,10 +269,12 @@ def make_vts(duration_s, cell_secs, palette_yuv) -> bytes:
 WHITE_CARD_PALETTE = [0x108080, 0xEB8080] + [0x108080] * 14
 
 
-def write_dvd(root: str, ps: bytes, n_vobs: int, cell_secs) -> str:
+def write_dvd(root: str, ps: bytes, n_vobs: int, cell_secs,
+              video_attr=b"\x00\x00", fps=30) -> str:
     """A DVD-Video folder ``root``/VIDEO_TS: title 1 in VTS 1 over
     ``ps`` cut into ``n_vobs`` VOBs at 2048-byte boundaries, with one
-    chapter a cell.  Returns ``root``."""
+    chapter a cell, and the VTS's video attributes ``video_attr``
+    (``vts_video_attr``).  Returns ``root``."""
     vt = os.path.join(root, "VIDEO_TS")
     os.makedirs(vt, exist_ok=True)
     step = ((len(ps) + n_vobs - 1) // n_vobs + 2047) // 2048 * 2048
@@ -266,7 +282,8 @@ def write_dvd(root: str, ps: bytes, n_vobs: int, cell_secs) -> str:
         with open(os.path.join(vt, f"VTS_01_{k + 1}.VOB"), "wb") as f:
             f.write(ps[k * step:(k + 1) * step])
     with open(os.path.join(vt, "VTS_01_0.IFO"), "wb") as f:
-        f.write(make_vts(sum(cell_secs), cell_secs, WHITE_CARD_PALETTE))
+        f.write(make_vts(sum(cell_secs), cell_secs, WHITE_CARD_PALETTE,
+                         video_attr, fps))
     with open(os.path.join(vt, "VIDEO_TS.IFO"), "wb") as f:
         f.write(make_vmg([(len(cell_secs), 1, 1)]))
     return root

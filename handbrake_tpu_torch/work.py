@@ -135,11 +135,26 @@ def catalog_encoders(job: Job) -> list:
                    if a.encoder in AV_AUDIO_ENCODERS]
 
 
+def job_par(job: Job) -> tuple:
+    """The job's output pixel aspect, reduced: its ``PAR`` as the
+    geometry resolved it (0 terms: unset, 1:1).  WorkError where it does
+    not fit the 16-bit fields of an H.264/HEVC VUI."""
+    from .codecs.vui import sar16
+    try:
+        return sar16(job.par_num or 1, job.par_den or 1,
+                     "the job's pixel aspect")
+    except ValueError as e:
+        raise WorkError(str(e)) from None
+
+
 def create_video_encoder(job: Job, width: int, height: int,
                          vrate: Fraction, device=None):
     """The H.264, HEVC or AV1 encoder of the job's settings, on `device`
     (None: the CUDA card).  The H.264 encoder's dispatch_batch stays 1,
-    as on the reference's job path."""
+    as on the reference's job path.  The H.264 and HEVC encoders write
+    the job's pixel aspect into their VUI (AV1's sequence header has no
+    field for it: the container carries it)."""
+    sar = job_par(job)
     qp = quality_to_qp(job.quality if job.quality is not None else 26)
     gop = max(1, int(round(float(vrate) * 10)))  # 10 s keyint, x264 dflt
     opts = dict(kv.split("=", 1) for kv in
@@ -176,7 +191,8 @@ def create_video_encoder(job: Job, width: int, height: int,
         from .codecs.h264.encoder_b import H264BEncoder
         cfg = EncoderConfig(
             width=width, height=height, qp=qp, gop=gop,
-            fps=(vrate.numerator, vrate.denominator), backend="host")
+            fps=(vrate.numerator, vrate.denominator), backend="host",
+            sar=sar)
         return _BFrameEncoderAdapter(
             H264BEncoder(cfg, bframes=bframes, refs=min(3, bframes + 1)))
     if job.vcodec in H264_NAMES:
@@ -193,14 +209,14 @@ def create_video_encoder(job: Job, width: int, height: int,
         cfg = EncoderConfig(
             width=width, height=height, qp=qp, gop=gop, cabac=cabac,
             deblock=deblock, transform8x8=t8,
-            fps=(vrate.numerator, vrate.denominator))
+            fps=(vrate.numerator, vrate.denominator), sar=sar)
         return H264Encoder(cfg, device=device)
     if job.vcodec in HEVC_NAMES:
         from .codecs.hevc.encoder import EncoderConfig, HEVCEncoder
         bd = 10 if "10" in (job.encoder_profile or "") else 8
         cfg = EncoderConfig(
             width=width, height=height, qp=qp, gop=gop, bit_depth=bd,
-            fps=(vrate.numerator, vrate.denominator))
+            fps=(vrate.numerator, vrate.denominator), sar=sar)
         return HEVCEncoder(cfg, device=device)
     if job.vcodec in AV1_NAMES:
         from .codecs.av1.encoder import AV1Encoder, EncoderConfig
@@ -988,17 +1004,18 @@ class _EncodeStage(WorkObject):
         mesh = make_mesh(tile=1, device=self.device)
         log(f"gop-parallel: {len(frames)} frames as {G} GOPs over "
             f"{mesh.n} rank(s)")
-        fps = self.venc.cfg.fps
+        fps, sar = self.venc.cfg.fps, self.venc.cfg.sar
         if self.multipass and self.target_kbps > 0:
             _, _, st = encode_gop_parallel_2pass(
                 frames, w, h, self.target_kbps, G, fps=fps,
-                qp1=min(51, qp + 6), device=self.device, mesh=mesh)
+                qp1=min(51, qp + 6), device=self.device, mesh=mesh,
+                sar=sar)
             frame_aus = st["frame_aus"]
         else:
             _, _, frame_aus = encode_gop_parallel(frames, w, h, qp, G,
                                                   fps=fps,
                                                   device=self.device,
-                                                  mesh=mesh)
+                                                  mesh=mesh, sar=sar)
         out = []
         i = 0
         for aus in frame_aus:
@@ -1536,7 +1553,7 @@ class _MuxAdapter:
             self.vtrack = self.w.add_video_track(
                 codec=mux_vcodec, width=out_fi.geometry.width,
                 height=out_fi.geometry.height,
-                fps=float(out_fi.vrate))
+                fps=float(out_fi.vrate), par=job_par(job))
             for si, spec in audio_sel:
                 ti = src.tracks[si]
                 chain = self.aencs.get(si)
@@ -1562,7 +1579,7 @@ class _MuxAdapter:
             self.w = MP4Writer(path)
             self.vtrack = self.w.add_video_track(
                 codec=mux_vcodec, width=out_fi.geometry.width,
-                height=out_fi.geometry.height)
+                height=out_fi.geometry.height, par=job_par(job))
             # colr nclx from the title's signalled colorimetry (the
             # muxavformat.c track-setup analog; mdcv/clli follow from
             # side_data at write_video time)

@@ -81,10 +81,92 @@ from ...utils.device import resolve_device
                                                 device=self.device)
 """))
 
+# the job's pixel aspect in the SPS's VUI (the reference writes
+# aspect_ratio_info_present = 0)
+_SYNTAX_SAR = (
+    ("""from ..h264.bits import BitReader, BitWriter, ebsp_to_rbsp, rbsp_to_ebsp
+
+""",
+     """from ..h264.bits import BitReader, BitWriter, ebsp_to_rbsp, rbsp_to_ebsp
+from ..vui import SAR_TABLE
+
+"""),
+    ("""    bit_depth: int = 8             # 8 (Main) or 10 (Main 10)
+
+""",
+     """    bit_depth: int = 8             # 8 (Main) or 10 (Main 10)
+    sar: tuple = (1, 1)            # VUI aspect: Extended_SAR unless 1:1
+
+"""),
+    ("""            bw.put(1, 1)   # vui_parameters_present
+            bw.put(0, 1)   # aspect_ratio_info_present
+            bw.put(0, 1)   # overscan_info_present
+""",
+     """            bw.put(1, 1)   # vui_parameters_present
+            if self.sar != (1, 1):
+                bw.put(1, 1)   # aspect_ratio_info_present
+                bw.put(255, 8)  # Extended_SAR
+                bw.put(self.sar[0], 16)
+                bw.put(self.sar[1], 16)
+            else:
+                bw.put(0, 1)   # aspect_ratio_info_present
+            bw.put(0, 1)   # overscan_info_present
+"""),
+    ("""        vui = None
+        if br.u(1):
+            br.u(8)
+            if br.u(1):
+""",
+     """        vui = None
+        sar = (1, 1)
+        if br.u(1):
+            if br.u(1):    # aspect_ratio_info_present
+                idc = br.u(8)
+                sar = (br.u(16), br.u(16)) if idc == 255 \\
+                    else SAR_TABLE.get(idc, (1, 1))
+            br.u(7)
+            if br.u(1):
+"""),
+    ("""                   level_idc=level, log2_max_poc_lsb=log2poc,
+                   vui_timing=vui, bit_depth=bd)
+
+""",
+     """                   level_idc=level, log2_max_poc_lsb=log2poc,
+                   vui_timing=vui, bit_depth=bd, sar=sar)
+
+"""),
+)
+
+_ENCODER_SAR = (
+    ("""from ...utils.device import resolve_device
+
+""",
+     """from ...utils.device import resolve_device
+from ..vui import sar16
+
+"""),
+    ("""    bit_depth: int = 8      # 8 (Main) or 10 (Main 10) — encx265 multi-depth
+
+""",
+     """    bit_depth: int = 8      # 8 (Main) or 10 (Main 10) — encx265 multi-depth
+    sar: tuple = (1, 1)     # the pixel aspect the VUI signals (1:1: none)
+
+"""),
+    ("""                       vui_timing=(cfg.fps[1], cfg.fps[0]),
+                       bit_depth=self.bd)
+        self.pps = PPS(init_qp=cfg.qp)
+""",
+     """                       vui_timing=(cfg.fps[1], cfg.fps[0]),
+                       bit_depth=self.bd,
+                       sar=sar16(*cfg.sar, "hevc: the pixel aspect"))
+        self.pps = PPS(init_qp=cfg.qp)
+"""),
+)
+
 COPIES = {f"codecs/hevc/{m}.py": () for m in (
-    "__init__", "transform", "cabac", "residual", "syntax", "predict",
-    "decoder")}
-COPIES["codecs/hevc/encoder.py"] = _ENCODER
+    "__init__", "transform", "cabac", "residual", "predict", "decoder")}
+COPIES["codecs/hevc/syntax.py"] = _SYNTAX_SAR
+COPIES["codecs/hevc/encoder.py"] = _ENCODER + _ENCODER_SAR
 
 
 @pytest.mark.parametrize("rel", list(COPIES))

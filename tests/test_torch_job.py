@@ -130,7 +130,14 @@ def test_do_job_equals_reference(src, tmp_path, name):
     t0 = time.perf_counter()
     tstats = work.do_job(_job(S, src, tout, name), device="cpu")
     print(f"{name}: port do_job {time.perf_counter() - t0:.2f} s on the CPU")
-    assert tstats == jstats
+    if name == "crop-scale-anamorphic":
+        # the port's SPS is longer by its aspect (the IDR carries it)
+        grown = {k: v for k, v in tstats.items() if k != "bytes_out"}
+        assert grown == {k: v for k, v in jstats.items()
+                         if k != "bytes_out"}
+        assert tstats["bytes_out"] > jstats["bytes_out"]
+    else:
+        assert tstats == jstats
     assert tstats["frames_out"] == N
     if name == "crop-scale-anamorphic":
         st = dict(JOBS[name][0], width=tstats["width"],
@@ -138,7 +145,31 @@ def test_do_job_equals_reference(src, tmp_path, name):
         _assert_scaled_planes_equal(src, st)
     got, want = _mp4(tout), _mp4(jout)
     assert got[3] == want[3] == (tstats["width"], tstats["height"])
-    assert got[1] == want[1] and got[1].startswith(b"\x01")
+    assert got[1].startswith(b"\x01")
+    if name == "crop-scale-anamorphic":
+        # the loose job's pixel aspect, which the reference resolves and
+        # drops: the port's SPS and pasp carry it, and its avcC is the
+        # reference's with the aspect put in
+        from fractions import Fraction
+        from handbrake_tpu.job.geometry import (GeometrySettings,
+                                                set_anamorphic_size2)
+        from torch_par import sar_of, strip_config_sar
+        st, mode = JOBS[name]
+        par = set_anamorphic_size2(W, H, Fraction(1), GeometrySettings(
+            mode=mode, width=st["width"], height=st["height"],
+            crop=(st["crop-top"], st["crop-bottom"], st["crop-left"],
+                  st.get("crop-right", 0))))[2]
+        assert par != 1
+        assert sar_of("h264", got[1]) == par.as_integer_ratio()
+        d = MP4Demuxer(tout)
+        assert (d.tracks[0].par_num, d.tracks[0].par_den) == \
+            par.as_integer_ratio()
+        d.close()
+        assert strip_config_sar(got[1], "h264") == want[1]
+        assert tstats["bytes_out"] - jstats["bytes_out"] == \
+            len(got[1]) - len(want[1])
+    else:
+        assert got[1] == want[1]
     assert got[2] == want[2]
     assert len(got[0]) == N and got[0] == want[0]
 

@@ -184,16 +184,135 @@ struct Dec {
     PicCtx pc;                         // this decoder's picture state
 """))
 
+# the job's pixel aspect: DisplayWidth/DisplayHeight written, read back
+# with the stream's VUI aspect, and the B walker's SPS aspect (the
+# reference writes and reads none)
+_MKV_DISPLAY = (
+    ("""    default_duration_ns: int = 0
+
+""",
+     """    default_duration_ns: int = 0
+    display: tuple = ()        # DisplayWidth/Height where PAR is not 1:1
+
+"""),
+    ("""                        height: int = 0, private: bytes = b"",
+                        fps: float = 0.0, language: str = "und") -> int:
+        cid = {"h264": "V_MPEG4/ISO/AVC", "hevc": "V_MPEGH/ISO/HEVC",
+""",
+     """                        height: int = 0, private: bytes = b"",
+                        fps: float = 0.0, language: str = "und",
+                        par=(1, 1)) -> int:
+        cid = {"h264": "V_MPEG4/ISO/AVC", "hevc": "V_MPEGH/ISO/HEVC",
+"""),
+    ("""                    default_duration_ns=dd)
+        self.tracks.append(t)
+""",
+     """                    default_duration_ns=dd)
+        if tuple(par) != (1, 1):
+            from ..codecs.vui import display_size
+            t.display = display_size(width, height, *par)
+        self.tracks.append(t)
+"""),
+    ("""            if t.kind == "video":
+                te += elem(0xE0, uint_e(0xB0, t.width)
+                           + uint_e(0xBA, t.height))
+            elif t.kind == "audio":
+""",
+     """            if t.kind == "video":
+                # DisplayWidth/DisplayHeight in pixels (DisplayUnit 0)
+                te += elem(0xE0, uint_e(0xB0, t.width)
+                           + uint_e(0xBA, t.height)
+                           + b"".join(uint_e(e, v) for e, v in
+                                      zip((0x54B0, 0x54BA), t.display)))
+            elif t.kind == "audio":
+"""),
+)
+
+_MKV_SOURCE_ASPECT = (
+    ("""import struct
+from typing import Optional
+
+from ..core.buffer import Buffer, FrameType
+from ..mux.nal import avcc_to_annexb
+from .common import DemuxError, TrackInfo
+
+""",
+     """import struct
+from fractions import Fraction
+from typing import Optional
+
+from ..codecs.vui import display_size
+from ..core.buffer import Buffer, FrameType
+from ..mux.nal import avcc_to_annexb
+from .common import DemuxError, TrackInfo, vui_sar
+
+"""),
+    ("""            dd_ns = 0
+            for ceid, cp in _children(p):
+""",
+     """            dd_ns = 0
+            display = {0x54B2: 0}     # DisplayWidth/Height/Unit
+            for ceid, cp in _children(p):
+"""),
+    ("""                            ti.height = _uint(vp)
+                elif ceid == 0xE1:    # audio
+""",
+     """                            ti.height = _uint(vp)
+                        elif veid in (0x54B0, 0x54BA, 0x54B2):
+                            display[veid] = _uint(vp)
+                elif ceid == 0xE1:    # audio
+"""),
+    ("""                ti.frame_rate = (1000000000, dd_ns)
+            if ti.codec == "h264" and len(ti.extradata) > 4:
+""",
+     """                ti.frame_rate = (1000000000, dd_ns)
+            if ti.kind == "video":
+                # the display size in pixels (DisplayUnit 0) gives the
+                # pixel aspect, and the stream's VUI its exact value where
+                # the two agree to the rounding of the display width (the
+                # reference reads neither)
+                sar = vui_sar(ti, ti.extradata, "mkv")
+                dw, dh = display.get(0x54B0), display.get(0x54BA)
+                if dw and dh and not display[0x54B2] and ti.width \\
+                        and ti.height and not (sar and display_size(
+                            ti.width, ti.height, *sar) == (dw, dh)):
+                    f = Fraction(dw * ti.height, dh * ti.width)
+                    sar = (f.numerator, f.denominator)
+                if sar:
+                    ti.par_num, ti.par_den = sar
+            if ti.codec == "h264" and len(ti.extradata) > 4:
+"""),
+)
+
+_B_SAR = (
+    ("""from .tables import CBP_INTER_INV, ZIGZAG_4x4
+
+""",
+     """from .tables import CBP_INTER_INV, ZIGZAG_4x4
+from ..vui import sar16
+
+"""),
+    ("""                       max_num_ref_frames=self.refs + 1,
+                       vui_timing=(cfg.fps[1], 2 * cfg.fps[0]))
+        self.pps = PPS(pic_init_qp=cfg.qp,
+""",
+     """                       max_num_ref_frames=self.refs + 1,
+                       vui_timing=(cfg.fps[1], 2 * cfg.fps[0]),
+                       sar=sar16(*cfg.sar, "h264: the pixel aspect"))
+        self.pps = PPS(pic_init_qp=cfg.qp,
+"""),
+)
+
 COPIES = {
     "native/hbdec264.cpp": _DEC_STATE,
-    "mux/mkv.py": (),
-    "sources/mkv.py": (),
+    "mux/mkv.py": _MKV_DISPLAY,
+    "sources/mkv.py": _MKV_SOURCE_ASPECT,
     "codecs/h264/native_decoder.py": (
         ("        from ...native import get_lib\n",
          "        from ...native import get_decoder_lib as get_lib\n"),),
     "codecs/hdr.py": (),
     "codecs/h264/cavlc.py": (),
-    "codecs/h264/encoder_b.py": (),
+    "codecs/h264/encoder_b.py": _B_SAR,
     "codecs/h264/predict.py": _MC_CLAMP,
 }
 

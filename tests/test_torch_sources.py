@@ -6,7 +6,8 @@ and the port's H.264 and AC-3 encoders, by
 ``handbrake_tpu_torch/tools/source_builders.py``.  Also the copies: each
 new module equals its original, with each intended edit listed; and
 ``open_source``'s routing.  The shared faults that stay so the files equal
-the reference's are shown here too (ROADMAP §3.4)."""
+the reference's are shown here too, and the two the port repairs (the
+MPEG-2 aspect and rate) beside the reference's (ROADMAP §3.4)."""
 import filecmp
 import functools
 import os
@@ -357,7 +358,9 @@ def test_hevc_elementary_stream_still_raises(tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# shared faults, left as the reference has them (ROADMAP §3.4)
+# shared faults: the MPEG-2 aspect and rate, repaired in the port and held
+# beside the reference; the DTS substream, left as the reference has it
+# (ROADMAP §3.4)
 # ---------------------------------------------------------------------------
 def _patched_vob(tmp_path, aspect=None, rate=None, extra=()):
     es = bytearray(B.fixture("mpeg2_176x144.m2v"))
@@ -373,29 +376,31 @@ def _patched_vob(tmp_path, aspect=None, rate=None, extra=()):
     return p, bytes(es)
 
 
-def test_shared_fault_16_9_dvd_reads_as_square_pixels(tmp_path):
-    """aspect_ratio_information 3 (16:9) is not read: the track and the
-    decoder's info say 1:1, in both packages (ps.py:271-275,
-    registry.py:263-268)."""
+def test_repaired_16_9_vob_reads_its_aspect(tmp_path):
+    """aspect_ratio_information 3 (16:9) on a 176x144 picture: the port's
+    track and decoder info give 16:9 x 144/176 = 16:11; the reference's
+    still say 1:1 (its ps.py:271-275, registry.py:263-268)."""
     from handbrake_tpu.codecs.registry import create_video_decoder as jcvd
     p, es = _patched_vob(tmp_path, aspect=3)
-    for D in (PSDemuxer, JPSDemuxer):
+    for D, want in ((PSDemuxer, (16, 11)), (JPSDemuxer, (1, 1))):
         d = D(p)
-        assert (d.tracks[0].par_num, d.tracks[0].par_den) == (1, 1)
+        assert (d.tracks[0].par_num, d.tracks[0].par_den) == want
         d.close()
-    for make in (create_video_decoder, jcvd):
+    for make, want in ((create_video_decoder, (16, 11)), (jcvd, (1, 1))):
         dec = make("mpeg2")
         dec.feed(Buffer(data=es, pts=0))
-        assert dec.info()["sar"] == (1, 1)
+        assert dec.info()["sar"] == want
 
 
-def test_shared_fault_pal_vob_is_labelled_ntsc(tmp_path):
-    """frame_rate_code 3 (25 fps): the decoder's durations follow it,
-    but the demuxer's track says 30000/1001, in both packages."""
+def test_repaired_pal_vob_is_labelled_25_fps(tmp_path):
+    """frame_rate_code 3 (25 fps): the decoder's durations follow it in
+    both packages; the port's track says 25/1, the reference's still
+    30000/1001.  Only the rate differs between the two demuxers."""
     p, es = _patched_vob(tmp_path, rate=3)
     tracks = read(PSDemuxer(p))[0]
-    assert tracks == read(JPSDemuxer(p))[0]
-    assert tracks[0][4] == (30000, 1001)
+    ref = read(JPSDemuxer(p))[0]
+    assert tracks[0][4] == (25, 1) and ref[0][4] == (30000, 1001)
+    assert [t[:4] + t[5:] for t in tracks] == [t[:4] + t[5:] for t in ref]
     dec = Mpeg2VideoDecoder()
     frames = dec.feed(Buffer(data=es, pts=0)) + dec.flush()
     assert dec.dec.frame_rate == (25, 1)
@@ -579,14 +584,352 @@ class _DisplayOrder:
 '''),
 )
 
+# the pixel aspect and frame rate of an MPEG-2 track from its sequence
+# header, through one helper (the reference reads the size alone and
+# labels every track 30000/1001), and an H.264 track's VUI aspect
+_PS_ASPECT = (
+    ("""from ..core.buffer import Buffer, FrameType
+from .common import DemuxError, TrackInfo
+
+""",
+     """from ..core.buffer import Buffer, FrameType
+from .common import DemuxError, TrackInfo, read_mpeg2_header, read_vui_sar
+
+"""),
+    ("""                pass
+        elif ti.codec == "mpeg2":
+            i = bytes(es).find(b"\\x00\\x00\\x01\\xb3")
+            if i >= 0 and i + 8 <= len(es):
+                ti.width = (es[i + 4] << 4) | (es[i + 5] >> 4)
+                ti.height = ((es[i + 5] & 15) << 8) | es[i + 6]
+        if ti.frame_rate is None:
+""",
+     """                pass
+            read_vui_sar(ti, es, "ps")
+        elif ti.codec == "mpeg2":
+            # size, pixel aspect and rate from the sequence header (the
+            # reference reads the size alone and labels every track
+            # 30000/1001)
+            read_mpeg2_header(ti, es, "ps")
+        if ti.frame_rate is None:
+"""),
+)
+
+_TS_ASPECT = (
+    ("""from ..core.buffer import Buffer
+from .common import DemuxError, TrackInfo
+
+""",
+     """from ..core.buffer import Buffer
+from .common import DemuxError, TrackInfo, read_mpeg2_header, read_vui_sar
+
+"""),
+    ("""                    break
+        if ti.codec == "h264":
+""",
+     """                    break
+        if ti.codec == "mpeg2":
+            # stream types 0x01/0x02: size, pixel aspect and rate from the
+            # sequence header (the reference leaves the track 0x0, 1:1,
+            # 30000/1001)
+            read_mpeg2_header(ti, es, "ts")
+        if ti.codec == "h264":
+"""),
+    ("""            ti.frame_rate = (30000, 1001)
+
+""",
+     """            ti.frame_rate = (30000, 1001)
+        if ti.codec in ("h264", "hevc"):
+            read_vui_sar(ti, es, "ts")
+
+"""),
+)
+
+# the VTS video attributes (VTSI_MAT 0x200) against the sequence header
+_DVD_VIDEO_ATTRS = (
+    ("""           (type, angles, nr_ptts, parental, vts_nr, vts_ttn, vts_sect)
+  VTSI  0x00 "DVDVIDEO-VTS", 0xCC VTS_PGCIT start sector
+  VTS_PGCIT u16 count, u16 pad, u32 end; 8-byte srp entries
+""",
+     """           (type, angles, nr_ptts, parental, vts_nr, vts_ttn, vts_sect)
+  VTSI  0x00 "DVDVIDEO-VTS", 0xCC VTS_PGCIT start sector, 0x200 the
+        VTS video attributes (byte 0: MPEG version, NTSC/PAL, display
+        aspect 0 = 4:3 / 3 = 16:9; byte 1 bits 3-2: picture size)
+  VTS_PGCIT u16 count, u16 pad, u32 end; 8-byte srp entries
+"""),
+    ('''Cells/angles beyond the first PGC and menu domains are out of scope.
+"""
+''',
+     '''Cells/angles beyond the first PGC and menu domains are out of scope.
+
+The video attributes go to the title's video track (``open_dvd_title``):
+the IFO's display aspect decides the track's pixel aspect where it names
+the stream's picture size, and the log says where it and the sequence
+header disagree (the reference reads no attributes).
+"""
+'''),
+    ("""import os
+from typing import List, Optional
+
+_SECTOR = 2048
+
+""",
+     """import os
+from fractions import Fraction
+from typing import List, NamedTuple, Optional
+
+_SECTOR = 2048
+# the VTS video attributes' codes
+_STANDARDS = {0: "NTSC", 1: "PAL"}
+_ASPECTS = {0: (4, 3), 3: (16, 9)}
+_WIDTHS = {0: 720, 1: 704, 2: 352, 3: 352}
+# the frame rates each standard's MPEG-2 stream may carry
+_STANDARD_RATES = {"NTSC": ((30000, 1001), (24000, 1001)),
+                   "PAL": ((25, 1),)}
+
+"""),
+    ("""
+class DvdTitle:
+""",
+     '''
+class VideoAttributes(NamedTuple):
+    """A VTS's video attributes (VTSI_MAT 0x200)."""
+    standard: str                   # NTSC | PAL
+    display_aspect: Optional[tuple]     # (4, 3), (16, 9); None: reserved
+    picture_size: tuple             # the (width, height) they describe
+
+    @classmethod
+    def parse(cls, attr: bytes) -> "VideoAttributes":
+        a, b = attr[0], attr[1]
+        standard = _STANDARDS.get((a >> 4) & 3, "NTSC")
+        size = (b >> 2) & 3
+        lines = 576 if standard == "PAL" else 480
+        return cls(standard, _ASPECTS.get((a >> 2) & 3),
+                   (_WIDTHS[size], lines // 2 if size == 3 else lines))
+
+
+class DvdTitle:
+'''),
+    ("""        self.vob_paths = vob_paths
+
+""",
+     '''        self.vob_paths = vob_paths
+
+    @property
+    def video(self) -> VideoAttributes:
+        """The title's VTS video attributes, read from its IFO."""
+        ifo = os.path.join(os.path.dirname(self.vob_paths[0]),
+                           f"VTS_{self.vts:02d}_0.IFO")
+        with open(ifo, "rb") as f:
+            f.seek(0x200)
+            return VideoAttributes.parse(f.read(2).ljust(2, b"\\x00"))
+
+'''),
+    ("""
+class _ConcatFile:
+""",
+     '''
+def apply_video_attributes(ti, t: DvdTitle):
+    """The title's video track against the IFO's video attributes.  The
+    IFO's display aspect sets the pixel aspect where the attributes name
+    the track's picture size; a sequence header that says otherwise is
+    overruled, with a log line.  A header's frame rate is kept, with a
+    log line where it is not one of the IFO standard's.  Without a
+    header (the track 0x0) the IFO gives the rate and the aspect."""
+    from ..utils.logging import log
+    v = t.video
+    if v.display_aspect is None:
+        log(f"dvd: VTS {t.vts}'s video attributes hold a reserved display "
+            f"aspect code; the track keeps {ti.par_num}:{ti.par_den}")
+        return
+    w, h = v.picture_size
+    n, d = v.display_aspect
+    par = Fraction(n * h, d * w)
+    ifo = f"{v.standard} {w}x{h} {n}:{d}"
+    if not ti.width:
+        ti.frame_rate = _STANDARD_RATES[v.standard][0]
+        ti.par_num, ti.par_den = par.numerator, par.denominator
+        log(f"dvd: no sequence header read; the IFO's attributes ({ifo}) "
+            f"give {ti.frame_rate[0]}/{ti.frame_rate[1]} fps and pixel "
+            f"aspect {ti.par_num}:{ti.par_den}")
+        return
+    if ti.frame_rate not in _STANDARD_RATES[v.standard]:
+        log(f"dvd: the sequence header's {ti.frame_rate[0]}/"
+            f"{ti.frame_rate[1]} fps is not {v.standard}'s (the IFO's "
+            f"attributes: {ifo}); the header's rate is kept")
+    if (ti.width, ti.height) != (w, h):
+        log(f"dvd: the IFO's attributes ({ifo}) do not describe the "
+            f"{ti.width}x{ti.height} stream; its sequence header's pixel "
+            f"aspect {ti.par_num}:{ti.par_den} is kept")
+        return
+    if (ti.par_num, ti.par_den) != (par.numerator, par.denominator):
+        log(f"dvd: the sequence header's pixel aspect {ti.par_num}:"
+            f"{ti.par_den} disagrees with the IFO's display aspect "
+            f"({ifo}); the IFO's {par.numerator}:{par.denominator} is "
+            f"taken")
+        ti.par_num, ti.par_den = par.numerator, par.denominator
+
+
+class _ConcatFile:
+'''),
+    ("""    d._scan()
+    if not d.duration and t.duration_s:
+""",
+     """    d._scan()
+    vids = [ti for ti in d.tracks if ti.kind == "video"]
+    if vids:
+        apply_video_attributes(vids[0], t)
+    if not d.duration and t.duration_s:
+"""),
+)
+
+# aspect_ratio_information, frame_rate_extension_n/_d and the sequence
+# display extension (the reference skips them)
+_MPEG2_ASPECT = (
+    ('''transform.
+"""
+from __future__ import annotations
+
+''',
+     '''transform.
+
+The sequence header's aspect_ratio_information and frame_rate_code are
+read with the sequence extension's frame_rate_extension_n/_d and the
+sequence_display_extension's display size (6.3.3, Table 6-3):
+``Mpeg2Decoder.sar`` and ``frame_rate``, and ``sequence_info`` for a
+demuxer's track (the reference skips the aspect and the extensions).
+"""
+from __future__ import annotations
+
+from fractions import Fraction
+
+'''),
+    ("""I_TYPE, P_TYPE, B_TYPE = 1, 2, 3
+
+""",
+     """I_TYPE, P_TYPE, B_TYPE = 1, 2, 3
+
+# frame_rate_code (Table 6-4)
+FRAME_RATES = {1: (24000, 1001), 2: (24, 1), 3: (25, 1), 4: (30000, 1001),
+               5: (30, 1), 6: (50, 1), 7: (60000, 1001), 8: (60, 1)}
+# aspect_ratio_information 2-4: the display aspect ratio (Table 6-3; 1 is
+# square samples)
+DISPLAY_ASPECTS = {2: (4, 3), 3: (16, 9), 4: (221, 100)}
+
+"""),
+    ("""        self.frame_rate = (30000, 1001)
+
+""",
+     '''        self.frame_rate = (30000, 1001)
+        self.aspect_code = 0    # aspect_ratio_information (0: none seen)
+        self.mpeg2 = False      # a sequence extension follows the header
+        self.display_size = None    # sequence_display_extension's
+
+    @property
+    def sar(self):
+        """The sample aspect ratio (num, den) the last sequence header
+        gives, or None where it gives none (no header, a reserved code,
+        an MPEG-1 header, whose code is a pel aspect this decoder does
+        not take).  1 is square, 2-4 a display aspect over the display
+        extension's size, or the coded size without one (6.3.3)."""
+        a = self.aspect_code
+        if not self.w or not self.mpeg2:
+            return None
+        if a == 1:
+            return (1, 1)
+        dw, dh = self.display_size or (self.w, self.h)
+        if a not in DISPLAY_ASPECTS or not dw or not dh:
+            return None
+        n, d = DISPLAY_ASPECTS[a]
+        f = Fraction(n * dh, d * dw)
+        return (f.numerator, f.denominator)
+
+'''),
+    ("""    # -- headers -----------------------------------------------------------
+    def _parse_headers(self, data: bytes):
+""",
+     '''    # -- headers -----------------------------------------------------------
+    def _sequence_ext_fields(self, br):
+        """The sequence extension's frame_rate_extension_n/_d and the
+        sequence display extension's size (6.2.2.3, 6.2.2.4)."""
+        ext_id = br.u(4)
+        if ext_id == 1:
+            self.mpeg2 = True
+            br.u(8 + 1 + 2 + 2 + 2)   # profile/level .. vertical size ext
+            br.u(12 + 1 + 8 + 1)      # bit rate, vbv, low_delay
+            n, d = br.u(2), br.u(5)
+            if n or d:
+                f = Fraction(self.frame_rate[0] * (n + 1),
+                             self.frame_rate[1] * (d + 1))
+                self.frame_rate = (f.numerator, f.denominator)
+        elif ext_id == 2:
+            br.u(3)                   # video_format
+            if br.u(1):               # colour_description
+                br.u(24)
+            dw = br.u(14)
+            br.u(1)
+            self.display_size = (dw, br.u(14))
+
+    def _parse_headers(self, data: bytes):
+'''),
+    ("""            br = _BR(data[i + 4:i + 4 + 256])
+            if code == START_SEQ:
+                self.w = br.u(12)
+                self.h = br.u(12)
+                br.u(4)               # aspect
+                fr = br.u(4)
+                rates = {1: (24000, 1001), 2: (24, 1), 3: (25, 1),
+                         4: (30000, 1001), 5: (30, 1), 6: (50, 1),
+                         7: (60000, 1001), 8: (60, 1)}
+                self.frame_rate = rates.get(fr, (30000, 1001))
+                br.u(18)              # bit_rate
+""",
+     """            br = _BR(data[i + 4:i + 4 + 256])
+            if code == START_EXT:
+                self._sequence_ext_fields(_BR(data[i + 4:i + 4 + 256]))
+            if code == START_SEQ:
+                self.w = br.u(12)
+                self.h = br.u(12)
+                self.aspect_code = br.u(4)
+                self.mpeg2 = False
+                self.display_size = None
+                self.frame_rate = FRAME_RATES.get(br.u(4), (30000, 1001))
+                br.u(18)              # bit_rate
+"""),
+    ("""        tgt[rows, x0:x0 + 8] = np.clip(base + blkpix, 0, 255)
+""",
+     '''        tgt[rows, x0:x0 + 8] = np.clip(base + blkpix, 0, 255)
+
+
+def sequence_info(es: bytes):
+    """The first sequence header of an MPEG-1/2 elementary stream, read
+    with the extensions that follow it: {"width", "height", "sar",
+    "frame_rate"} ("sar" None where the header gives none), or None
+    where the stream holds no whole sequence header."""
+    i = es.find(b"\\x00\\x00\\x01\\xb3")
+    if i < 0:
+        return None
+    j = es.find(b"\\x00\\x00\\x01\\x00", i)
+    dec = Mpeg2Decoder()
+    try:
+        dec._parse_headers(es[i:j if j > 0 else len(es)])
+    except IndexError:          # cut inside the header
+        return None
+    if not dec.w or not dec.h:
+        return None
+    return {"width": dec.w, "height": dec.h, "sar": dec.sar,
+            "frame_rate": dec.frame_rate}
+'''),
+)
+
 COPIES = {
-    "sources/ps.py": (),
-    "sources/dvd.py": (),
-    "sources/ts.py": _TS_HEVC_GEOMETRY,
+    "sources/ps.py": _PS_ASPECT,
+    "sources/dvd.py": _DVD_VIDEO_ATTRS,
+    "sources/ts.py": _TS_HEVC_GEOMETRY + _TS_ASPECT,
     "sources/bd.py": (),
     "sources/avi.py": _AVI_MPEG4,      # MPEG-4 part 2 in AVI
     "native/hbdecmjpeg.cpp": (),
-    "codecs/mpeg2.py": _MPEG2_FIELD_DCT,
+    "codecs/mpeg2.py": _MPEG2_FIELD_DCT + _MPEG2_ASPECT,
 }
 
 
