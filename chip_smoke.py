@@ -306,7 +306,8 @@ Phases (none is caught; any failure exits non-zero before the last line):
    beside the same CLI job on the CPU (``--device cpu``, a process of
    its own started first), one JSON line a part with the card's name
    and power limit: (a) a ``VIDEO_TS`` folder over the committed 16:9
-   PAL MPEG-2 fixture (25 pictures of 720x576, aspect_ratio_information
+   PAL MPEG-2 fixture (its first PAL_N = 12 of 25 pictures of 720x576,
+   aspect_ratio_information
    3, frame_rate_code 3; IFO attributes PAL 16:9) through the default
    preset with ``--encoder-profile high`` to mp4: the title's pixel
    aspect 64:45 and rate 25/1, the SPS's VUI aspect and the ``pasp``
@@ -319,7 +320,32 @@ Phases (none is caught; any failure exits non-zero before the last line):
    job's, the file equal to the CPU's; (c) 2 frames of a 720x480 y4m
    with ``A32:27`` through ``-e x265 -f mkv``: the HEVC VUI's aspect
    32:27, the display size 853x480, the file equal to the CPU's.
-18. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+18. A DVD's sound through a preset and the CLI on the card, one JSON
+   line a part with the card's name and power limit: a VIDEO_TS folder
+   of 8 pictures of the 720x480 MPEG-2 fixture with an AC-3 3/2+LFE
+   track at 448 kb/s from the port's encoder (substream 0x80), a DTS 5.1
+   track of header-only core frames (0x89) and a DVD LPCM stereo track
+   (0xA2), the IFO's audio attributes eng, eng, fre; (a) a preset
+   imported with ``--preset-import-file`` (AudioLanguageList ["eng"],
+   "first", AudioList [AAC stereo 160, copy], AudioCopyMask
+   ["copy:ac3"], fallback AAC, H.264 High) to mp4: two audio tracks,
+   both of track 1, the copy's frames and ``dac3`` the stream's, the AAC
+   track decoding to the AC-3 track's length, the file equal to the
+   same CLI job on the CPU (a process of its own, started first),
+   deblock264's launches printed; (b) ``-a 1,2,3 -E
+   copy:ac3,copy:dts,copy:ac3`` to mkv: the AC-3 and DTS copies equal to
+   the VOBs' (``A_DTS``), the LPCM track encoded to AC-3 with the log
+   line that says so; (c) ``-a 2 -E copy`` with the default preset (mask
+   AAC and AC-3): DTS falls back to AAC, whose DTS decoder needs
+   libavcodec, absent there (hidden where it is there), so the CLI
+   fails with the stated ``WorkError`` and leaves no file; (d) the DVD
+   job (H.264 High to mp4, keyint 4) with AAC beside the AC-3 copy of
+   track 1, and again with no sound, each checkpointed, its journal cut
+   after the first GOP and resumed: both runs' seconds and the frames
+   each decoded (the PS demuxer cannot seek, so a resumed DVD job
+   decodes from the title's first picture, with sound or without), the
+   resumed file equal to the uninterrupted one.
+19. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
    time; hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s
@@ -331,8 +357,8 @@ Phases (none is caught; any failure exits non-zero before the last line):
    its counts in jobs 5 (a), 9 (c), 10 (a), 11 (c) and on 14 (a)'s rank
    0; deblock264's
    ``job_launches`` include 11 (b)'s resumed job, the four jobs of step
-   12 and 17 (a)-(b); resample's those of 12 (a)-(b) and 17 (a)-(b)),
-   steps 7's to 17's
+   12, 17 (a)-(b) and 18 (a)-(b); resample's those of 12 (a)-(b), 17
+   (a)-(b) and 18 (a)-(b)), steps 7's to 18's
    numbers, the card's name and power limit, and the result line.
 
 Step 14's ranks run this script with ``--mesh-rank KIND DIR ARGV...``
@@ -345,7 +371,8 @@ the card and prints its numbers and its decode's as one JSON line.
 one-rank files) and step 14 alone, on every card the run can see, and
 prints no result line: the check of 14 (d)'s NCCL world on a machine
 with several cards.  ``--anamorphic-only`` runs step 1's build and step
-17 alone and prints no result line.
+17 alone and prints no result line; ``--audio-copy-only`` the build and
+step 18.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -531,11 +558,31 @@ REFUSE_LIMIT_S = 0.5
 # pixel aspect; (b) the 1440x1080 H.264 source's frames, its VUI aspect
 # and the loose job's max width; (c) the 720x480 y4m's frames and aspect;
 # the scans' previews (each a decode from the start on the host); the
-# OpenMP threads of (a)'s CPU run, the longest of the three
+# OpenMP threads of (a)'s CPU run, the longest of the three; (a)'s
+# pictures, cut from the fixture's 25 (its CPU run paces the phase)
 PAL_TICKS, PAL_PAR = 3600, (64, 45)
+PAL_N = 12
 LOOSE_N, LOOSE_SAR, LOOSE_MAX_W = 8, (4, 3), 960
 Y4M_PAR_N, Y4M_PAR = 2, (32, 27)
 PAR_PREVIEWS, PAL_CPU_THREADS = 1, 5
+# step 18: the DVD's pictures; its AC-3 5.1 track's rate; its DTS core
+# frames (5.1, 48 kHz, 768 kb/s: 1024 bytes of 512 samples, 960 ticks);
+# the IFO's audio attributes (codec, channels, ISO 639-1), one a stream;
+# the preset job's audio list, mask and fallback; the CPU run's threads
+COPY_DVD_N, COPY_AC3_BPS = 8, 448000
+DTS_FRAME_BYTES, DTS_FRAME_TICKS = 1024, 960
+COPY_DVD_ATTRS = [("ac3", 6, "en"), ("dts", 6, "en"), ("lpcm", 2, "fr")]
+COPY_PRESET = {"PresetName": "DVD AAC and AC-3 copy", "VideoEncoder": "h264",
+               "VideoProfile": "high", "VideoQualitySlider": 28,
+               "FileFormat": "mp4", "AudioLanguageList": ["eng"],
+               "AudioTrackSelectionBehavior": "first",
+               "AudioCopyMask": ["copy:ac3"], "AudioEncoderFallback": "aac",
+               "AudioList": [{"AudioEncoder": "aac", "AudioBitrate": 160,
+                              "AudioMixdown": "stereo"},
+                             {"AudioEncoder": "copy"}]}
+COPY_CPU_THREADS = 4
+# (d): the resumed DVD job's keyint and the frames its journal keeps
+COPY_RESUME_KEYINT, COPY_RESUME_DONE = 4, 4
 
 
 def smi(query):
@@ -4370,13 +4417,14 @@ def phase_refusals(tmp, label, bf) -> dict:
 
 
 def pal_dvd_folder(root):
-    """17 (a): a VIDEO_TS folder over two VOBs holding the 16:9 PAL
-    MPEG-2 fixture (720x576, aspect_ratio_information 3, frame_rate_code
-    3), its IFO saying PAL 16:9 with 25 fps playback times.  Returns
-    (folder, pictures)."""
+    """17 (a): a VIDEO_TS folder over two VOBs holding the first PAL_N
+    pictures (in stream order) of the 16:9 PAL MPEG-2 fixture (720x576,
+    aspect_ratio_information 3, frame_rate_code 3), its IFO saying PAL
+    16:9 with 25 fps playback times.  Returns (folder, pictures)."""
     from handbrake_tpu_torch.tools import source_builders as B
-    units = B.video_units(B.fixture("mpeg2_720x576_16x9.m2v"), DVD_T0,
-                          PAL_TICKS)
+    es = b"".join(B.split_pictures(B.fixture("mpeg2_720x576_16x9.m2v"))
+                  [:PAL_N])
+    units = B.video_units(es, DVD_T0, PAL_TICKS)
     half = len(units) * PAL_TICKS / 90000 / 2
     B.write_dvd(root, B.build_ps(units), 2, [half, half],
                 B.vts_video_attr("PAL", (16, 9)), fps=25)
@@ -4561,6 +4609,229 @@ def anamorphic_parts(tmp, label):
     return rec
 
 
+def copy_dvd_folder(root):
+    """18: a VIDEO_TS folder over two VOBs: the first COPY_DVD_N pictures
+    of the 720x480 MPEG-2 fixture; audio stream 1 AC-3 3/2+LFE at 448
+    kb/s from the port's encoder (substream 0x80), stream 2 DTS 5.1 core
+    frames built from the spec's header with an empty payload (0x89: no
+    machine here decodes DTS, so it is only copied), stream 3 DVD LPCM
+    stereo (0xA2); the IFO's audio attributes eng, eng, fre (as ISO 639-1
+    codes).  Returns (folder, AC-3 frames, DTS frames, pictures)."""
+    from handbrake_tpu_torch.audio.ac3enc import Ac3Encoder
+    from handbrake_tpu_torch.tools import source_builders as B
+    es = b"".join(B.split_pictures(B.fixture("mpeg2_720x480.m2v"))
+                  [:COPY_DVD_N])
+    units = B.video_units(es, DVD_T0, FRAME_TICKS)
+    n = len(units)
+    secs = n * FRAME_TICKS / 90000
+    ac3 = Ac3Encoder(48000, 6, COPY_AC3_BPS)
+    ac3_frames = ac3.encode(disc_tone(6, secs, 31)) + ac3.flush()
+    units += [(DVD_T0 + k * 2880, 0xBD, f, B.ac3_sub, DVD_T0 + k * 2880)
+              for k, f in enumerate(ac3_frames)]
+    dts = [B.dts_core_frame(size=DTS_FRAME_BYTES)
+           for _ in range(int(secs * 90000 / DTS_FRAME_TICKS) + 1)]
+    units += [(DVD_T0 + k * DTS_FRAME_TICKS, 0xBD, f,
+               functools.partial(B.dts_sub, stream=1),
+               DVD_T0 + k * DTS_FRAME_TICKS) for k, f in enumerate(dts)]
+    lp = disc_tone(2, secs, 32)
+    units += [(DVD_T0 + k * 900, 0xBD,
+               B.s16be_lpcm(lp[k * 480:(k + 1) * 480]),
+               functools.partial(B.lpcm_sub, stream=2), DVD_T0 + k * 900)
+              for k in range(len(lp) // 480)]
+    half = secs / 2
+    B.write_dvd(root, B.build_ps(units), 2, [half, half], audio_attrs=[
+        B.vts_audio_attr(*a) for a in COPY_DVD_ATTRS])
+    return root, ac3_frames, dts, n
+
+
+def phase_audio_copy(tmp, label):
+    """18: a DVD with AC-3, DTS and LPCM tracks on the card, one JSON line
+    a part with the card's name and power limit.  Its helper process is
+    stopped when it ends, whether it passes or fails."""
+    try:
+        return audio_copy_parts(tmp, label)
+    finally:
+        for p in PROCS:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def audio_copy_parts(tmp, label):
+    from handbrake_tpu_torch.audio.aacdec import AACDecoder
+    from handbrake_tpu_torch.audio.ac3dec import read_bsi
+    from handbrake_tpu_torch.cli.__main__ import main as cli_main
+    from handbrake_tpu_torch.mux.mp4 import dac3
+    from handbrake_tpu_torch.scan import scan
+    t0 = time.perf_counter()
+    root, ac3_frames, dts_frames, n = copy_dvd_folder(
+        os.path.join(tmp, "copy_dvd"))
+    preset = os.path.join(tmp, "copy_preset.json")
+    with open(preset, "w") as f:
+        json.dump(COPY_PRESET, f)
+    (title,) = scan(root, preview_count=1)
+    langs = [(a.codec, a.channels, a.language) for a in title.audio]
+    argv_a = ["-i", root, "--preset-import-file", preset, "--previews", "1"]
+    out_a, cpu_a = (os.path.join(tmp, f) for f in ("copy.mp4",
+                                                    "copy_cpu.mp4"))
+    cpu = start_process(tmp, "copy_cpu", [
+        "-m", "handbrake_tpu_torch.cli", *argv_a, "-o", cpu_a, "--device",
+        "cpu"], threads=COPY_CPU_THREADS)
+    rec = {"phase": "18", "card": label, "pictures": n,
+           "title_audio": langs, "sources_s": time.perf_counter() - t0}
+    # (a) the preset job: AAC stereo and the AC-3 copy, both of track 1
+    t1 = time.perf_counter()
+    secs, dev_ms, db, rs, spy = disc_job("cli", [*argv_a, "-o", out_a])
+    cli_s = time.perf_counter() - t1
+    tracks, pk = read_tracks(out_a)
+    audio = [(t.codec, t.sample_rate, t.channels) for t in tracks[1:]]
+    aac = np.concatenate([AACDecoder(tracks[1].extradata).decode_frame(p)
+                          for _, p in pk[1]]) if len(tracks) > 2 else None
+    finish_process(cpu)
+    a = {"do_job_s": secs, "cli_s": cli_s,
+         "cpu_run_done_s": time.perf_counter() - t0, "device_ms": dev_ms,
+         "deblock264_launches": db,
+         "resample_launches": rs, "p_frames": spy.p_frames(),
+         "job_audio": [(x.track + 1, x.encoder) for x in spy.job.audio],
+         "audio_tracks": audio, "samples": len(pk.get(0, [])),
+         "copy_equal_source": [p for _, p in pk.get(2, [])] == ac3_frames,
+         "dac3": bytes(tracks[2].extradata).hex() if len(tracks) > 2
+         else None, "stream_dac3": dac3(read_bsi(ac3_frames[0])).hex(),
+         "aac_samples": int(aac.shape[0]) if aac is not None else 0,
+         "aac_peak": float(np.abs(aac).max()) if aac is not None else 0.0,
+         "equal_cpu_file": same_file(out_a, cpu_a)}
+    a["ok"] = (a["job_audio"] == [(1, "aac"), (1, "copy")]
+               and audio == [("aac", 48000, 2), ("ac3", 48000, 2)]
+               and a["samples"] == n and a["copy_equal_source"]
+               and a["dac3"] == a["stream_dac3"]
+               and abs(a["aac_samples"] - 1536 * len(ac3_frames)) <= 2048
+               and bool(np.isfinite(aac).all()) and a["aac_peak"] > 0.05
+               and a["equal_cpu_file"]
+               and a["deblock264_launches"] >= a["p_frames"] > 0)
+    rec["a"] = a
+    print(json.dumps(dict(a, part="18a", card=label)), flush=True)
+    print(f"18 (a): the DVD preset job launched deblock264 "
+          f"{a['deblock264_launches']} times for {a['p_frames']} P frames, "
+          f"the resample kernel {a['resample_launches']} times", flush=True)
+    # (b) copies of the AC-3 and DTS tracks, the LPCM track to AC-3
+    out_b = os.path.join(tmp, "copy.mkv")
+    t1 = time.perf_counter()
+    with log_lines() as lines:
+        secs, dev_ms, db, rs, spy = disc_job("cli", [
+            "-i", root, "-o", out_b, "-e", "h264", "-q", "28",
+            "--encoder-profile", "high", "--previews", "1", "-a", "1,2,3",
+            "-E", "copy:ac3,copy:dts,copy:ac3"])
+    tracks, pk = read_tracks(out_b)
+    with open(out_b, "rb") as f:
+        a_dts = f.read().count(b"A_DTS")
+    resolved = [ln.split("hbtpu: ", 1)[-1] for ln in lines
+                if "audio: track" in ln]
+    b = {"do_job_s": secs, "cli_s": time.perf_counter() - t1,
+         "device_ms": dev_ms, "deblock264_launches": db,
+         "resample_launches": rs,
+         "audio_tracks": [(t.codec, t.sample_rate, t.channels)
+                          for t in tracks[1:]],
+         "ac3_copy_equal": [p for _, p in pk.get(1, [])] == ac3_frames,
+         "dts_copy_equal": b"".join(p for _, p in pk.get(2, []))
+         == b"".join(dts_frames),
+         "lpcm_ac3_frames": len(pk.get(3, [])), "resolutions": resolved,
+         "a_dts_codec_ids": a_dts}
+    b["ok"] = ([t[0] for t in b["audio_tracks"]] == ["ac3", "dts", "ac3"]
+               and a_dts == 1
+               and b["ac3_copy_equal"] and b["dts_copy_equal"]
+               and b["lpcm_ac3_frames"] >= len(ac3_frames) - 1
+               and any("(lpcm), copy:ac3: ac3 (the track is lpcm" in r
+                       for r in resolved) and db > 0)
+    rec["b"] = b
+    print(json.dumps(dict(b, part="18b", card=label)), flush=True)
+    # (c) copy of the DTS track with the default preset's mask (AAC,
+    # AC-3): the AAC fallback needs a DTS decoder, which libavcodec gives
+    # and this machine lacks (hidden where it is there)
+    out_c = os.path.join(tmp, "dts_fallback.mp4")
+    t1 = time.perf_counter()
+    with library_hidden(tmp), log_lines() as lines:
+        rc = cli_main(["-i", root, "-o", out_c, "-e", "h264", "-q", "28",
+                       "--previews", "1", "-a", "2", "-E", "copy"])
+    c = {"cli_s": time.perf_counter() - t1, "rc": rc,
+         "file_exists": os.path.exists(out_c),
+         "resolution": next((ln.split("hbtpu: ", 1)[-1] for ln in lines
+                             if "audio: track" in ln), None)}
+    c["ok"] = (rc != 0 and not c["file_exists"]
+               and "(dts), copy: aac (dts is not in the copy mask"
+               in (c["resolution"] or ""))
+    rec["c"] = c
+    print(json.dumps(dict(c, part="18c", card=label)), flush=True)
+    # (d) resume of the DVD job with sound beside the same job without
+    d = {sound: resume_dvd(root, tmp, sound) for sound in ("aac_copy",
+                                                           "none")}
+    d["ok"] = all(r["equal_to_uninterrupted"] and not r["journal_left"]
+                  and r["frames_coded_on_resume"] == n - COPY_RESUME_DONE
+                  for r in d.values())
+    rec["d"] = d
+    print(json.dumps(dict(d, part="18d", card=label)), flush=True)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"phase 18 ({label}): {rec['seconds']:.1f} s", flush=True)
+    bad = [k for k in "abcd" if not rec[k]["ok"]]
+    if bad:
+        raise RuntimeError(f"18: the checks of {bad} failed: "
+                           f"{json.dumps({k: rec[k] for k in bad})}")
+    return rec
+
+
+def resume_dvd(root, tmp, sound):
+    """18 (d): the DVD H.264 High to mp4 at keyint COPY_RESUME_KEYINT,
+    with AAC beside the AC-3 copy of track 1 (``sound`` "aac_copy") or no
+    sound ("none"), checkpointed, its journal cut after the first
+    COPY_RESUME_DONE frames and resumed: both runs' seconds, the frames
+    each decoded and coded, and whether the resumed file equals the
+    uninterrupted one."""
+    import torch
+
+    from handbrake_tpu_torch import checkpoint, work
+    from handbrake_tpu_torch.job import schema as S
+    out = os.path.join(tmp, f"resume_{sound}.mp4")
+
+    def job(**kw):
+        j = S.Job(path=root, file=out, mux="mp4", vcodec="h264",
+                  quality=28.0, encoder_profile="high",
+                  encoder_options=f"keyint={COPY_RESUME_KEYINT}", **kw)
+        if sound == "aac_copy":
+            j.audio = [S.AudioJobTrack(track=0, encoder="aac", bitrate=160),
+                       S.AudioJobTrack(track=0, encoder="copy:ac3")]
+        return j
+    with kept_journal():
+        t1 = time.perf_counter()
+        full_stats = work.do_job(job(checkpoint=True))
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t1
+    full = file_bytes(out)
+    data = file_bytes(out + ".ckpt")
+    marks = [end for tag, _s, end in checkpoint.spans(data) if tag == "g"]
+    with open(out + ".ckpt", "wb") as f:
+        f.write(data[:marks[COPY_RESUME_DONE // COPY_RESUME_KEYINT - 1]])
+    os.unlink(out)
+    t1 = time.perf_counter()
+    stats = work.do_job(job(resume=True))
+    torch.cuda.synchronize()
+    return {"full_s": full_s, "resume_s": time.perf_counter() - t1,
+            "frames_decoded_full": full_stats["frames_in"],
+            "frames_decoded_on_resume": stats["frames_in"],
+            "frames_coded_on_resume": stats["frames_out"],
+            "equal_to_uninterrupted": file_bytes(out) == full,
+            "journal_left": os.path.exists(out + ".ckpt")}
+
+
+def audio_copy_only() -> int:
+    """Steps 1 and 18 alone (``--audio-copy-only``)."""
+    import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
+    label = card()
+    print(f"card: {label}", flush=True)
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_audio_copy(tmp, label)
+    return 0
+
+
 def anamorphic_only() -> int:
     """Steps 1 and 17 alone (``--anamorphic-only``)."""
     import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
@@ -4609,6 +4880,8 @@ def main() -> int:
         return mesh_only()
     if sys.argv[1:2] == ["--anamorphic-only"]:
         return anamorphic_only()
+    if sys.argv[1:2] == ["--audio-copy-only"]:
+        return audio_copy_only()
     import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
     from handbrake_tpu_torch.utils.device import resolve_device
     resolve_device(None)
@@ -4636,6 +4909,7 @@ def main() -> int:
         catalog = phase_catalog(tmp, label)
         refusals = phase_refusals(tmp, label, bf)
         par = phase_anamorphic(tmp, label)
+        acopy = phase_audio_copy(tmp, label)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -4666,7 +4940,11 @@ def main() -> int:
                                "pal_16x9_dvd_cli":
                                    par["a"]["deblock264_launches"],
                                "loose_1440x1080_mkv_cli":
-                                   par["b"]["deblock264_launches"]})
+                                   par["b"]["deblock264_launches"],
+                               "dvd_audio_preset_mp4_cli":
+                                   acopy["a"]["deblock264_launches"],
+                               "dvd_audio_copies_mkv_cli":
+                                   acopy["b"]["deblock264_launches"]})
     rs_entry = {
         "name": "resample", "route": "cuda",
         "source": "handbrake_tpu_torch/csrc/resample.cu",
@@ -4697,7 +4975,11 @@ def main() -> int:
                          "pal_16x9_dvd_cli":
                              par["a"]["resample_launches"],
                          "loose_1440x1080_mkv_cli":
-                             par["b"]["resample_launches"]}}
+                             par["b"]["resample_launches"],
+                         "dvd_audio_preset_mp4_cli":
+                             acopy["a"]["resample_launches"],
+                         "dvd_audio_copies_mkv_cli":
+                             acopy["b"]["resample_launches"]}}
     if "jobs" in catalog:        # 15 (c), where libavcodec is present
         entry["job_launches"]["mpeg4_avi_do_job"] = \
             catalog["jobs"]["mpeg4"]["deblock264_launches"]
@@ -4714,6 +4996,7 @@ def main() -> int:
     print(f"phase 15 seconds: {catalog['seconds']:.1f}", flush=True)
     print(f"phase 16 seconds: {refusals['seconds']:.1f}", flush=True)
     print(f"phase 17 seconds: {par['seconds']:.1f}", flush=True)
+    print(f"phase 18 seconds: {acopy['seconds']:.1f}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

@@ -21,6 +21,8 @@ decode the affected channel with the 256-sample dual transform.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 from . import ac3_tables as T
@@ -87,6 +89,147 @@ def parse_frame_header(data: bytes, off: int = 0):
 
 
 _NFCHANS = [2, 1, 2, 3, 3, 4, 4, 5]
+_EAC3_BLOCKS = (1, 2, 3, 6)
+
+
+def _ac3_bsi(data: bytes, off: int) -> dict:
+    """An AC-3 syncframe's syncinfo and the head of its BSI (A/52 5.3)."""
+    br = _BR(data[off:off + 16])
+    br.skip(32)                                # syncword, crc1
+    fscod, frmsizecod = br.read(2), br.read(6)
+    bsid, bsmod, acmod = br.read(5), br.read(3), br.read(3)
+    if (acmod & 1) and acmod != 1:
+        br.skip(2)                             # cmixlev
+    if acmod & 4:
+        br.skip(2)                             # surmixlev
+    if acmod == 2:
+        br.skip(2)                             # dsurmod
+    return {"fscod": fscod, "frmsizecod": frmsizecod, "bsid": bsid,
+            "bsmod": bsmod, "acmod": acmod, "lfeon": br.read(1),
+            "sample_rate": FSCOD_RATES[fscod],
+            "bit_rate": T.BITRATES[frmsizecod >> 1] * 1000,
+            "size": frame_size(fscod, frmsizecod)}
+
+
+def _eac3_bsi(data: bytes, off: int, size: int) -> dict:
+    """An E-AC-3 syncframe's BSI up to bsmod (A/52 E.1.2.2): the stream
+    type, substream id, rate, blocks, acmod, lfeon, bsid, the dependent
+    substream's chanmap (None where it has none) and bsmod (0 where the
+    frame carries no informational metadata)."""
+    br = _BR(data[off:off + size])
+    br.skip(16)                                # syncword
+    strmtyp, substreamid = br.read(2), br.read(3)
+    br.skip(11)                                # frmsiz
+    fscod = br.read(2)
+    if fscod == 3:
+        rate = FSCOD_RATES[br.read(2)] // 2
+        numblkscod = 3
+    else:
+        rate = FSCOD_RATES[fscod]
+        numblkscod = br.read(2)
+    acmod, lfeon, bsid = br.read(3), br.read(1), br.read(5)
+    out = {"strmtyp": strmtyp, "substreamid": substreamid,
+           "fscod": fscod, "sample_rate": rate, "acmod": acmod,
+           "lfeon": lfeon, "bsid": bsid, "chanmap": None, "bsmod": 0,
+           "size": size,
+           "bit_rate": size * 8 * rate // (_EAC3_BLOCKS[numblkscod] * 256)}
+    br.skip(5)                                 # dialnorm
+    if br.read(1):
+        br.skip(8)                             # compr
+    if acmod == 0:
+        br.skip(5)                             # dialnorm2
+        if br.read(1):
+            br.skip(8)                         # compr2
+    if strmtyp == 1 and br.read(1):
+        out["chanmap"] = br.read(16)
+    if br.read(1):                             # mixmdate
+        if acmod > 2:
+            br.skip(2)                         # dmixmod
+        if (acmod & 1) and acmod > 2:
+            br.skip(6)                         # ltrt/loro cmixlev
+        if acmod & 4:
+            br.skip(6)                         # ltrt/loro surmixlev
+        if lfeon and br.read(1):
+            br.skip(5)                         # lfemixlevcod
+        if strmtyp == 0:
+            if br.read(1):
+                br.skip(6)                     # pgmscl
+            if acmod == 0 and br.read(1):
+                br.skip(6)                     # pgmscl2
+            if br.read(1):
+                br.skip(6)                     # extpgmscl
+            mixdef = br.read(2)
+            if mixdef == 1:
+                br.skip(5)                     # premix settings
+            elif mixdef == 2:
+                br.skip(12)
+            elif mixdef == 3:
+                br.skip(8 * (br.read(5) + 2))
+            if acmod < 2:
+                if br.read(1):
+                    br.skip(14)                # panmean, paninfo
+                if acmod == 0 and br.read(1):
+                    br.skip(14)
+            if br.read(1):                     # frmmixcfginfoe
+                if numblkscod == 0:
+                    br.skip(5)
+                else:
+                    for _ in range(_EAC3_BLOCKS[numblkscod]):
+                        if br.read(1):
+                            br.skip(5)
+    if br.read(1):                             # infomdate
+        out["bsmod"] = br.read(3)
+    return out
+
+
+def read_bsi(data: bytes) -> Optional[dict]:
+    """The stream configuration of the first access unit in ``data``, as
+    an mp4 ``dac3``/``dec3`` needs it, or None where no whole syncframe
+    is there.
+
+    The first sync word counts whose frame is whole and followed by
+    another sync word (or by the end of ``data``).  AC-3: that frame's
+    fscod, bsid, bsmod, acmod, lfeon, frmsizecod and bit rate.  E-AC-3:
+    ``{"eac3": True, "data_rate": kb/s, "substreams": [...]}``, one entry per independent substream of the first access
+    unit (the frames up to the next independent substream 0), each with
+    fscod, bsid, bsmod, acmod, lfeon, ``num_dep_sub`` and ``chan_loc``
+    (A/52 Table E.1.4 chanmap bits 5-13 of its dependent substreams)."""
+    data = bytes(data)
+    i = data.find(b"\x0b\x77")
+    while i >= 0:
+        # a sync word whose frame is whole and, where the data goes on,
+        # is followed by the next one (not 0x0B77 inside a payload)
+        hdr = parse_frame_header(data, i)
+        if hdr is not None and len(data) - i >= hdr[4] and (
+                len(data) - i < hdr[4] + 2
+                or data[i + hdr[4]:i + hdr[4] + 2] == b"\x0b\x77"):
+            break
+        i = data.find(b"\x0b\x77", i + 1)
+    if i < 0:
+        return None
+    if hdr[3] <= 10:
+        return _ac3_bsi(data, i)
+    subs, rate = [], 0
+    while True:
+        hdr = parse_frame_header(data, i)
+        if hdr is None or hdr[3] <= 10 or len(data) - i < hdr[4]:
+            break
+        f = _eac3_bsi(data, i, hdr[4])
+        if f["strmtyp"] != 1 and f["substreamid"] == 0 and subs:
+            break                              # the next access unit
+        rate += f["bit_rate"]
+        if f["strmtyp"] == 1:
+            if subs:
+                parent = subs[-1]
+                parent["num_dep_sub"] += 1
+                if f["chanmap"] is not None:
+                    parent["chan_loc"] |= (f["chanmap"] >> 2) & 0x1FF
+        else:
+            subs.append(dict(f, num_dep_sub=0, chan_loc=0))
+        i += hdr[4]
+    if not subs:
+        return None
+    return {"eac3": True, "data_rate": rate // 1000, "substreams": subs}
 
 # grouped mantissa quantization levels
 _Q3 = np.array([(2 * c - 2) / 3 for c in range(3)], np.float32)

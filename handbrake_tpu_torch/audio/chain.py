@@ -23,6 +23,13 @@ from . import dsp
 from .flac import FlacEncoder
 
 
+# the codec each encoder name writes (any other name: PCM)
+ENCODER_CODECS = {"flac": "flac", "pcm": "pcm_s16le",
+                  "pcm_s16le": "pcm_s16le", "aac": "aac", "av_aac": "aac",
+                  "ca_aac": "aac", "ac3": "ac3", "eac3": "ac3",
+                  "mp3": "mp3", "opus": "opus", "vorbis": "vorbis"}
+
+
 class AudioChain:
     """One per output audio track."""
 
@@ -109,16 +116,15 @@ class AudioChain:
         return None                      # pcm / copy
 
     def is_passthrough(self) -> bool:
+        """The encoder is a copy (after ``work.resolve_audio_encoder``,
+        ``copy:<codec>`` of a track of that codec)."""
         return self.codec.startswith("copy")
 
     def out_codec(self) -> str:
         if self.is_passthrough():
-            return self.ti.codec
-        return {"flac": "flac", "pcm": "pcm_s16le",
-                "pcm_s16le": "pcm_s16le", "aac": "aac", "av_aac": "aac",
-                "ca_aac": "aac", "ac3": "ac3", "eac3": "ac3",
-                "mp3": "mp3", "opus": "opus",
-                "vorbis": "vorbis"}.get(self.codec, "pcm_s16le")
+            # the resolved copy names the codec it passes through
+            return self.codec.partition(":")[2] or self.ti.codec
+        return ENCODER_CODECS.get(self.codec, "pcm_s16le")
 
     def extradata(self, initial: bool = False) -> bytes:
         """Codec config for the muxer. ``initial=True`` (header written

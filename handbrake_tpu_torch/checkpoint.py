@@ -27,7 +27,11 @@ import os
 import struct
 import zlib
 
-MAGIC = b"HBTCKP1\n"
+# version 2 keys each audio record by the output's index in the job's
+# audio list; version 1 keyed it by the source track, which two outputs
+# of one track share, so such a journal is refused, not replayed
+MAGIC = b"HBTCKP2\n"
+_MAGIC_V1 = b"HBTCKP1\n"
 _HDR = struct.Struct(">BII")          # tag, body length, CRC-32 of body
 TAGS = {b"v"[0]: "v", b"a"[0]: "a", b"s"[0]: "s", b"g"[0]: "g"}
 _I64 = struct.Struct(">q")
@@ -141,8 +145,9 @@ class CkptJournal:
                      if isinstance(v, (bytes, int, float, str))})
         self.frames += 1
 
-    def audio(self, sid, data, pts, dur, stop):
-        self._write("a", sid, bytes(data), pts, dur, stop)
+    def audio(self, k, data, pts, dur, stop):
+        """A sample of audio output k (its index in the job's list)."""
+        self._write("a", k, bytes(data), pts, dur, stop)
 
     def subtitle(self, k, data, pts, dur, stop):
         self._write("s", k, bytes(data), pts, dur, stop)
@@ -170,6 +175,10 @@ def load(path: str):
     whose CRC fails, ends the journal (a torn tail)."""
     with open(path, "rb") as f:
         data = f.read()
+    if data.startswith(_MAGIC_V1):
+        raise JournalError(f"{path}: a version 1 journal, whose audio "
+                           "records are keyed by source track, not by "
+                           "output (refused, not replayed)")
     if not data.startswith(MAGIC):
         raise JournalError(f"{path}: not a checkpoint journal of this "
                            "package (refused, not read)")

@@ -163,10 +163,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rotate", help="angle=90|180|270[:hflip=1]")
     p.add_argument("--pad", help="width:height[:color]")
     # audio
-    p.add_argument("-a", "--audio", help="track list, e.g. 1,2 or none")
+    p.add_argument("-a", "--audio",
+                   help="track list, e.g. 1,2 or none; a track may come "
+                        "more than once (-a 1,1 -E aac,copy:ac3: two "
+                        "outputs of track 1)")
     p.add_argument("-E", "--aencoder", default="aac",
-                   help="audio encoders, one a track: aac, ac3, flac, pcm "
-                        "or copy[:codec]")
+                   help="audio encoders, one a track: aac, ac3, flac, "
+                        "pcm, mp3, opus, vorbis or copy[:codec]. "
+                        "copy:<codec> passes a track of that codec "
+                        "through and encodes another with <codec>'s "
+                        "encoder; copy passes the codecs of the preset's "
+                        "AudioCopyMask; the rest take its "
+                        "AudioEncoderFallback (HandBrake's "
+                        "sanitize_audio_codec)")
     p.add_argument("-B", "--ab", default="160",
                    help="audio bit rates in kb/s, one a track")
     p.add_argument("-6", "--mixdown", default="stereo",
@@ -453,17 +462,18 @@ def resolve_preset(args):
 
 def catalog_refusal(args, preset) -> str:
     """Why the job of these arguments cannot run where libavcodec is
-    missing, or "".  The encoders come from the preset and -e/-E alone,
-    built as the job will build them, so this is known before the scan;
-    a catalog source track is refused after it."""
+    missing (or its audio fallback names no encoder), or "".  The
+    encoders come from the preset and -e/-E alone, resolved as the job
+    will resolve them where no source track decides, so this is known
+    before the scan; a catalog source track is refused after it."""
     from ..codecs import avcodec
     from ..work import WorkError, catalog_encoders
-    for what in catalog_encoders(apply_cli_overrides(
-            preset_encoders(preset), args)):
-        try:
+    try:
+        for what in catalog_encoders(apply_cli_overrides(
+                preset_encoders(preset), args)):
             avcodec.require(what, WorkError)
-        except WorkError as e:
-            return str(e)
+    except WorkError as e:
+        return str(e)
     return ""
 
 

@@ -472,11 +472,54 @@ def _parse_framerate(p) -> tuple:
         return (0, 0)   # auto → same as source
 
 
-def preset_encoders(preset: dict, n_audio: int = 0) -> Job:
+def _same_language(want: str, have: str) -> bool:
+    """A language of AudioLanguageList matches a track's: "und" (or
+    "any") matches every track, else the two name one ISO 639-2 code."""
+    from .lang import to_iso639_2
+    if want.strip().lower() in ("und", "any", ""):
+        return True
+    return to_iso639_2(want) == to_iso639_2(have or "und")
+
+
+def select_audio(preset: dict, languages: list) -> list:
+    """[(source track index, AudioList entry)]: the job's audio outputs
+    for a title whose audio tracks have ``languages``, chosen as
+    HandBrake's hb_preset_job_add_audio (libhb/preset.c) chooses them.
+
+    ``AudioTrackSelectionBehavior`` "none" selects no track; "first"
+    selects, for each language of ``AudioLanguageList`` in order, the
+    first track of that language, and "all" every track of it ("und"
+    matches any language; an empty list is ["und"]; a track is selected
+    once).  Where no language matched, the selection is made again with
+    "und".  Every selected track gets every AudioList entry, in the
+    list's order; with ``AudioSecondaryEncoderMode`` on (missing: off),
+    the tracks after the first get only the first entry."""
+    behavior = preset.get("AudioTrackSelectionBehavior", "first")
+    entries = list(preset.get("AudioList", []))
+    if behavior == "none" or not entries:
+        return []
+    langs = list(preset.get("AudioLanguageList") or []) or ["und"]
+
+    def pick(langs):
+        chosen = []
+        for lang in langs:
+            hits = [i for i, have in enumerate(languages)
+                    if _same_language(lang, have) and i not in chosen]
+            chosen += hits[:1] if behavior == "first" else hits
+        return chosen
+
+    chosen = pick(langs) or pick(["und"])
+    secondary = bool(preset.get("AudioSecondaryEncoderMode", False))
+    return [(i, at) for k, i in enumerate(chosen)
+            for at in (entries[:1] if secondary and k > 0 else entries)]
+
+
+def preset_encoders(preset: dict, languages: list = ()) -> Job:
     """The part of preset_to_job that no source decides: the container,
-    the video encoder's settings, and the audio tracks of the preset's
-    list for a title of `n_audio` tracks (the list is cut to the
-    title's tracks, so 0 gives none)."""
+    the video encoder's settings, and the audio outputs that
+    ``select_audio`` gives for a title whose audio tracks have
+    ``languages`` (none: no outputs; "und" for a track of unknown
+    language)."""
     j = Job()
     j.mux = preset.get("FileFormat", "mp4").replace("av_", "")
 
@@ -500,7 +543,7 @@ def preset_encoders(preset: dict, n_audio: int = 0) -> Job:
     j.audio_fallback = preset.get("AudioEncoderFallback", "aac")
     j.audio_copy_mask = list(preset.get("AudioCopyMask", []))
     j.audio = []
-    for i, at in enumerate(preset.get("AudioList", [])[:n_audio]):
+    for i, at in select_audio(preset, list(languages)):
         j.audio.append(AudioJobTrack(
             track=i, encoder=at.get("AudioEncoder", "aac"),
             bitrate=int(at.get("AudioBitrate", 160)),
@@ -538,7 +581,7 @@ def _picture_par(j: Job, title: Title, preset: dict):
 
 def preset_to_job(title: Title, preset: dict) -> Job:
     """hb_preset_job_init analog: preset dict + title → Job."""
-    j = preset_encoders(preset, len(title.audio))
+    j = preset_encoders(preset, [a.language for a in title.audio])
     j.path = title.path
     j.title = title.index
     j.chapter_markers = bool(preset.get("ChapterMarkers", False))

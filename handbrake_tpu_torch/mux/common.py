@@ -17,6 +17,11 @@ from ..core.buffer import Buffer, CLOCK
 INTERLEAVE_TICKS = CLOCK // 2   # 0.5 s chunks, like the reference's mp4 mux
 
 
+class MuxError(Exception):
+    """A writer was asked for what its container cannot hold (a sound
+    codec without a sample entry or a CodecID)."""
+
+
 @dataclasses.dataclass
 class _MuxTrack:
     idx: int                    # writer track index

@@ -13,6 +13,15 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass, field
 
+from .common import MuxError
+
+# the CodecID of each sound codec the writer carries
+AUDIO_CODEC_IDS = {"aac": "A_AAC", "opus": "A_OPUS", "flac": "A_FLAC",
+                   "vorbis": "A_VORBIS", "ac3": "A_AC3", "eac3": "A_EAC3",
+                   "mp3": "A_MPEG/L3", "mp2": "A_MPEG/L2",
+                   "pcm_s16le": "A_PCM/INT/LIT",
+                   "truehd": "A_TRUEHD", "dts": "A_DTS"}
+
 
 def ebml_id(i: int) -> bytes:
     if i >= 0x10000000:
@@ -103,11 +112,10 @@ class MKVWriter:
     def add_audio_track(self, codec: str = "aac", sample_rate: int = 48000,
                         channels: int = 2, private: bytes = b"",
                         language: str = "und") -> int:
-        cid = {"aac": "A_AAC", "opus": "A_OPUS", "flac": "A_FLAC",
-               "vorbis": "A_VORBIS", "ac3": "A_AC3", "eac3": "A_EAC3",
-               "mp3": "A_MPEG/L3", "mp2": "A_MPEG/L2",
-               "pcm_s16le": "A_PCM/INT/LIT",
-               "truehd": "A_TRUEHD", "dts": "A_DTS"}[codec]
+        if codec not in AUDIO_CODEC_IDS:
+            raise MuxError(f"mkv: no CodecID for {codec!r} audio (it "
+                           f"carries {', '.join(AUDIO_CODEC_IDS)})")
+        cid = AUDIO_CODEC_IDS[codec]
         t = MKTrack(len(self.tracks) + 1, "audio", cid,
                     sample_rate=sample_rate, channels=channels,
                     private=private, language=language)

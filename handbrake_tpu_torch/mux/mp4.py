@@ -2,20 +2,26 @@
 via libavformat; here a from-scratch box writer).
 
 Layout: ftyp, mdat (size patched on finalize), moov with one trak per
-track; video = avc1+avcC (H.264), audio = mp4a+esds (AAC) or lpcm,
-text subtitles = tx3g. Sample tables: stts (durations), stss (sync),
-ctts (reorder offsets), stsc/stsz/stco. 90 kHz video timescale like the
-reference; audio timescale = sample rate.
+track; video = avc1+avcC (H.264), audio = mp4a+esds (AAC; MP3 and MP2
+with objectTypeIndication 0x6B), sowt, ac-3+dac3, ec-3+dec3, Opus+dOps
+or fLaC+dfLa, text subtitles = tx3g. Sample tables: stts (durations),
+stss (sync), ctts (reorder offsets), stsc/stsz/stco. 90 kHz video
+timescale like the reference; audio timescale = sample rate.
 """
 from __future__ import annotations
 
 import struct
 from dataclasses import dataclass, field
 
+from .common import MuxError
 from .nal import annexb_to_avcc, build_avcc, extract_sps_pps, \
     strip_parameter_sets
 
 MOVIE_TIMESCALE = 90000
+# the sound codecs a sample entry describes: mp4a (AAC; MP3 and MP2 with
+# objectTypeIndication 0x6B), sowt, ac-3 + dac3, ec-3 + dec3, Opus, fLaC
+AUDIO_CODECS = ("aac", "mp3", "mp2", "pcm_s16le", "lpcm", "ac3", "eac3",
+                "opus", "flac")
 
 
 def box(typ: bytes, payload: bytes) -> bytes:
@@ -83,6 +89,11 @@ class MP4Writer:
     def add_audio_track(self, codec: str = "aac", sample_rate: int = 48000,
                         channels: int = 2, extradata: bytes = b"",
                         language: str = "und") -> int:
+        """A sound track of one of AUDIO_CODECS; another codec raises
+        MuxError naming it (no sample entry would describe it)."""
+        if codec not in AUDIO_CODECS:
+            raise MuxError(f"mp4: no sample entry for {codec!r} audio "
+                           f"(it carries {', '.join(AUDIO_CODECS)})")
         t = Track(len(self.tracks) + 1, "audio", sample_rate, codec,
                   sample_rate=sample_rate, channels=channels,
                   extradata=extradata, language=language)
@@ -319,20 +330,22 @@ class MP4Writer:
                     + struct.pack(">I", t.sample_rate << 16))
             if t.codec == "aac":
                 return box(b"mp4a", body + self._esds(t))
-            if t.codec == "mp3":
-                # MPEG-1 layer III rides mp4a + esds with
+            if t.codec in ("mp3", "mp2"):
+                # MPEG-1 layers II and III ride mp4a + esds with
                 # objectTypeIndication 0x6B, no DecSpecificInfo
                 return box(b"mp4a", body + self._esds(t, oti=0x6B))
             if t.codec in ("pcm_s16le", "lpcm"):
                 return box(b"sowt", body)
             if t.codec == "ac3":
                 return box(b"ac-3", body + box(b"dac3", t.extradata))
+            if t.codec == "eac3":
+                return box(b"ec-3", body + box(b"dec3", t.extradata))
             if t.codec == "opus":
                 return box(b"Opus", body + box(b"dOps", t.extradata))
             if t.codec == "flac":
                 return box(b"fLaC", body
                            + fullbox(b"dfLa", 0, 0, t.extradata))
-            return box(b"mp4a", body + self._esds(t))
+            raise AssertionError(t.codec)     # refused by add_audio_track
         # subtitle tx3g
         ftab = box(b"ftab", struct.pack(">HH", 1, 1)
                    + bytes([5]) + b"Serif")
@@ -366,6 +379,35 @@ class MP4Writer:
         es = desc(0x03, struct.pack(">HB", t.track_id, 0)
                   + dec_config + sl)
         return fullbox(b"esds", 0, 0, es)
+
+
+def dac3(bsi: dict) -> bytes:
+    """The AC3SpecificBox payload (ETSI TS 102 366 F.4) of an AC-3
+    stream's BSI (``audio.ac3dec.read_bsi``): fscod, bsid, bsmod, acmod,
+    lfeon, bit_rate_code and 5 reserved bits."""
+    v = (bsi["fscod"] << 22) | (bsi["bsid"] << 17) | (bsi["bsmod"] << 14) \
+        | (bsi["acmod"] << 11) | (bsi["lfeon"] << 10) \
+        | ((bsi["frmsizecod"] >> 1) << 5)
+    return v.to_bytes(3, "big")
+
+
+def dec3(info: dict) -> bytes:
+    """The EC3SpecificBox payload (ETSI TS 102 366 F.6) of an E-AC-3
+    stream's first access unit (``audio.ac3dec.read_bsi``): data_rate and
+    num_ind_sub, then per independent substream fscod, bsid, asvc 0,
+    bsmod, acmod, lfeon, num_dep_sub and chan_loc (a reserved bit where
+    it has no dependent substream)."""
+    subs = info["substreams"]
+    bits = [(min(info["data_rate"], 8191), 13), (len(subs) - 1, 3)]
+    for s in subs:
+        bits += [(s["fscod"], 2), (s["bsid"], 5), (0, 1), (0, 1),
+                 (s["bsmod"], 3), (s["acmod"], 3), (s["lfeon"], 1), (0, 3),
+                 (s["num_dep_sub"], 4)]
+        bits.append((s["chan_loc"], 9) if s["num_dep_sub"] else (0, 1))
+    v, n = 0, 0
+    for val, width in bits:
+        v, n = (v << width) | val, n + width
+    return v.to_bytes(n // 8, "big")
 
 
 def _identity_matrix() -> bytes:

@@ -19,6 +19,17 @@ Structures implemented (DVD-Video part 3 layout, offsets in bytes):
   PGC   0x02 nr_programs, 0x03 nr_cells, 0x04 playback time (BCD
         hh:mm:ss:ff + frame-rate bits), 0xA4 16x4-byte 0YCrCb palette,
         0xE6 program map offset, 0xE8 cell playback info offset
+  VTSI  0x203 the number of audio streams, 0x204 their attributes, 8
+        bytes each (byte 0: coding mode 0 AC-3 / 2-3 MPEG / 4 LPCM / 6
+        DTS, language type 1 = code present; byte 1: rate, channels - 1;
+        bytes 2-3: the ISO 639-1 code)
+
+The audio attributes go to the tracks of their stream numbers (substream
+0x80 + i AC-3, 0x88 + i DTS, 0xA0 + i LPCM, stream 0xC0 + i MPEG): the
+language is the IFO's, the codec and channels the stream's, and the log
+says where the two disagree and which listed stream the VOBs never carry
+(``apply_audio_attributes``; the reference reads no attributes).
+
 Cells/angles beyond the first PGC and menu domains are out of scope.
 
 The video attributes go to the title's video track (``open_dvd_title``):
@@ -41,6 +52,12 @@ _WIDTHS = {0: 720, 1: 704, 2: 352, 3: 352}
 _STANDARD_RATES = {"NTSC": ((30000, 1001), (24000, 1001)),
                    "PAL": ((25, 1),)}
 
+# the audio attributes' coding modes, and the stream each one's stream
+# number i is carried in: (stream id, substream id or None) at i = 0
+_AUDIO_CODECS = {0: "ac3", 2: "mp2", 3: "mp2", 4: "lpcm", 6: "dts"}
+_AUDIO_STREAMS = {"ac3": (0xBD, 0x80), "dts": (0xBD, 0x88),
+                  "lpcm": (0xBD, 0xA0), "mp2": (0xC0, None)}
+
 
 def _bcd(v: int) -> int:
     return (v >> 4) * 10 + (v & 0x0F)
@@ -53,6 +70,23 @@ def _playback_seconds(b: bytes) -> float:
     rate = 30.0 if (b[3] >> 6) == 3 else 25.0
     f = _bcd(b[3] & 0x3F)
     return h * 3600 + m * 60 + s + f / rate
+
+
+class AudioAttributes(NamedTuple):
+    """One audio stream's attributes (VTSI_MAT 0x204 + 8 i)."""
+    codec: Optional[str]            # ac3 | mp2 | lpcm | dts; None: other
+    channels: int
+    sample_rate: int
+    language: str                   # ISO 639-2, "und" where none is given
+
+    @classmethod
+    def parse(cls, attr: bytes) -> "AudioAttributes":
+        from ..job.lang import to_iso639_2
+        code = attr[2:4].decode("latin-1", "replace").strip("\x00 ")
+        lang = to_iso639_2(code) if (attr[0] >> 2) & 3 == 1 and code \
+            else "und"
+        return cls(_AUDIO_CODECS.get(attr[0] >> 5), (attr[1] & 7) + 1,
+                   96000 if (attr[1] >> 4) & 3 == 1 else 48000, lang)
 
 
 class VideoAttributes(NamedTuple):
@@ -89,6 +123,18 @@ class DvdTitle:
         with open(ifo, "rb") as f:
             f.seek(0x200)
             return VideoAttributes.parse(f.read(2).ljust(2, b"\x00"))
+
+    @property
+    def audio(self) -> List[AudioAttributes]:
+        """The title's VTS audio attributes, one a stream, from its IFO."""
+        ifo = os.path.join(os.path.dirname(self.vob_paths[0]),
+                           f"VTS_{self.vts:02d}_0.IFO")
+        with open(ifo, "rb") as f:
+            f.seek(0x202)
+            head = f.read(2 + 8 * 8).ljust(66, b"\x00")
+        n = min(8, int.from_bytes(head[:2], "big"))
+        return [AudioAttributes.parse(head[2 + 8 * i:10 + 8 * i])
+                for i in range(n)]
 
 
 def _yuv_palette_to_rgb(entries: list) -> list:
@@ -180,6 +226,44 @@ def _scan_vts(vt: str, vts_nr: int, ttn: int,
     if not vobs:
         return None
     return DvdTitle(vts_nr, ttn, duration, chapter_times, palette, vobs)
+
+
+def apply_audio_attributes(d, t: DvdTitle):
+    """The title's audio tracks (demuxer ``d``) against the IFO's audio
+    attributes: each listed stream i finds its track through the stream
+    of its coding mode, or failing that through another mode's stream of
+    number i; the track takes the IFO's language and keeps the stream's
+    codec and channels, with a log line where the IFO says otherwise.  A
+    listed stream that the VOBs never carry gets no track, and a log
+    line."""
+    from ..utils.logging import log
+
+    def track(codec, i):
+        sid, sub = _AUDIO_STREAMS[codec]
+        return d.stream_track(sid + i) if sub is None \
+            else d.stream_track(sid, sub + i)
+
+    for i, a in enumerate(t.audio):
+        ifo = (f"{a.codec or 'an unknown coding mode'}, {a.channels} ch, "
+               f"{a.language}")
+        order = ([a.codec] if a.codec else []) + [
+            c for c in _AUDIO_STREAMS if c != a.codec]
+        idx = next((track(c, i) for c in order
+                    if track(c, i) is not None), None)
+        if idx is None:
+            log(f"dvd: the IFO lists audio stream {i + 1} ({ifo}) that the "
+                f"VOBs never carry; it gets no track")
+            continue
+        ti = d.tracks[idx]
+        ti.language = a.language
+        if a.codec != ti.codec:
+            log(f"dvd: audio stream {i + 1} is {ti.codec} in the VOBs, "
+                f"{a.codec or 'an unknown coding mode'} in the IFO; the "
+                f"stream's codec is kept")
+        if a.channels != ti.channels:
+            log(f"dvd: audio stream {i + 1} ({ti.codec}) has "
+                f"{ti.channels} channels in the VOBs, {a.channels} in the "
+                f"IFO; the stream's count is kept")
 
 
 def apply_video_attributes(ti, t: DvdTitle):
@@ -289,6 +373,7 @@ def open_dvd_title(path: str, title_index: int = 1):
         apply_video_attributes(vids[0], t)
     if not d.duration and t.duration_s:
         d.duration = int(t.duration_s * 90000)
+    apply_audio_attributes(d, t)
     # IFO CLUT → vobsub tracks (decvobsub palette source)
     for ti in d.tracks:
         if ti.kind == "subtitle" or ti.codec == "vobsub":

@@ -161,6 +161,16 @@ class MP4Demuxer:
                        language=lang if lang.isalpha() else "und")
         self._parse_stsd(moov, stbl, ti)
         st = self._parse_sample_tables(moov, stbl, timescale)
+        if ti.codec == "mp3" and st.offsets:
+            # objectTypeIndication 0x6B/0x69 names MPEG audio of any
+            # layer: the first frame's layer bits tell Layer II (and I)
+            # from Layer III
+            self.f.seek(st.offsets[0])
+            head = self.f.read(min(4, st.sizes[0]))
+            if len(head) >= 2 and head[0] == 0xFF \
+                    and (head[1] & 0xE0) == 0xE0 \
+                    and (head[1] >> 1) & 3 in (2, 3):
+                ti.codec = "mp2"
         self.tracks.append(ti)
         self._samples.append(st)
 
@@ -197,7 +207,7 @@ class MP4Demuxer:
             elif ti.kind == "audio":
                 ti.codec = {"mp4a": "aac", "sowt": "pcm_s16le",
                             "lpcm": "pcm_s16le", "ac-3": "ac3",
-                            "Opus": "opus", "fLaC": "flac",
+                            "ec-3": "eac3", "Opus": "opus", "fLaC": "flac",
                             ".mp3": "mp3"}.get(fourcc, fourcc)
                 ti.channels, = struct.unpack(">H", moov[ps + 16:ps + 18])
                 ti.sample_rate = struct.unpack(
@@ -206,11 +216,11 @@ class MP4Demuxer:
                     if ct == b"esds":
                         ti.extradata = self._parse_esds(moov[cs:ce])
                         oti = self._esds_oti(moov[cs:ce])
-                        if oti in (0x6B, 0x69):      # MPEG-1/2 layer III
+                        if oti in (0x6B, 0x69):  # MPEG audio, layer below
                             ti.codec = "mp3"
                         elif oti == 0x40:
                             ti.codec = "aac"
-                    elif ct in (b"dOps", b"dac3"):
+                    elif ct in (b"dOps", b"dac3", b"dec3"):
                         ti.extradata = moov[cs:ce]
                     elif ct == b"dfLa":
                         ti.extradata = moov[cs + 4:ce]

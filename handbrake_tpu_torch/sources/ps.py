@@ -3,10 +3,12 @@
 
 Parses pack headers (0x000001BA), skips system headers, and reassembles
 PES packets per stream id: video 0xE0-0xEF, MPEG audio 0xC0-0xDF, and
-private-stream-1 (0xBD) substreams (AC-3 0x80-0x87, LPCM 0xA0-0xAF with
-their 1-4 byte substream preambles).  Video codec is sniffed from the ES
-(H.264 NALs vs MPEG-2 sequence headers).  Exposes the same interface as
-TSDemuxer: tracks / duration / packets() / seek() / close().
+private-stream-1 (0xBD) substreams (AC-3 0x80-0x87, DTS 0x88-0x8F, LPCM
+0xA0-0xAF with their 1-4 byte substream preambles; an AC-3 or DTS track
+takes its rate and channels from its first frame).  Video codec is
+sniffed from the ES (H.264 NALs vs MPEG-2 sequence headers).  Exposes
+the same interface as TSDemuxer: tracks / duration / packets() / seek()
+/ close().
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import os
 from typing import Optional
 
 from ..core.buffer import Buffer, FrameType
-from .common import DemuxError, TrackInfo, read_mpeg2_header, read_vui_sar
+from .common import (DemuxError, TrackInfo, read_audio_header,
+                     read_mpeg2_header, read_vui_sar)
 
 PACK_START = 0xBA
 SYSTEM_HDR = 0xBB
@@ -116,7 +119,7 @@ class PSDemuxer:
             meta = None
             if sid == PRIVATE1 and payload:
                 sub = payload[0]
-                if 0x80 <= sub <= 0x87:               # AC-3: 3 more bytes
+                if 0x80 <= sub <= 0x8F:       # AC-3, DTS: 3 more bytes
                     payload = payload[4:]
                 elif 0xA0 <= sub <= 0xAF:             # LPCM: 6 more bytes
                     if len(payload) > 5:
@@ -187,6 +190,8 @@ class PSDemuxer:
                 return "audio", "mp2"
             if sub is not None and 0x80 <= sub <= 0x87:
                 return "audio", "ac3"
+            if sub is not None and 0x88 <= sub <= 0x8F:
+                return "audio", "dts"
             if sub is not None and 0xA0 <= sub <= 0xAF:
                 return "audio", "lpcm"
             if sub is not None and 0x20 <= sub <= 0x3F:
@@ -219,6 +224,8 @@ class PSDemuxer:
                 ti.sample_rate = h["rate"]
                 ti.channels = h["channels"]
                 ti.extradata = bytes([h["bits"]])
+            elif codec in ("ac3", "dts"):
+                read_audio_header(ti, es, "ps")
             self._sid_to_track[key] = len(self.tracks)
             self.tracks.append(ti)
         # the head scan only covers the first few seconds of a real VOB;
@@ -312,6 +319,11 @@ class PSDemuxer:
                 prev.duration = last_dur[trk]
                 prev.stop = prev.pts + prev.duration
             yield trk, prev
+
+    def stream_track(self, stream_id: int, substream=None):
+        """The index of the track of PES stream ``stream_id`` (of private
+        stream 1's ``substream``), or None where it has no track."""
+        return self._sid_to_track.get((stream_id, substream))
 
     def seek(self, pts):
         return None                      # restart from byte 0 (linear)

@@ -144,12 +144,43 @@ def ac3_sub(payload: bytes) -> bytes:
     return bytes([0x80, 1, 0, 1]) + payload
 
 
-def lpcm_sub(payload: bytes) -> bytes:
-    """Private stream 1 DVD LPCM substream 0xA0: id, frame count, first
-    access, emphasis/frame number, quantization/rate/channels (16-bit,
-    48 kHz, stereo), dynamic range: the 7 bytes PSDemuxer strips, byte 5
-    its header."""
-    return bytes([0xA0, 1, 0, 4, 0, 0x01, 0x80]) + payload
+def lpcm_sub(payload: bytes, stream: int = 0) -> bytes:
+    """Private stream 1 DVD LPCM substream 0xA0 + ``stream``: id, frame
+    count, first access, emphasis/frame number, quantization/rate/channels
+    (16-bit, 48 kHz, stereo), dynamic range: the 7 bytes PSDemuxer
+    strips, byte 5 its header."""
+    return bytes([0xA0 + stream, 1, 0, 4, 0, 0x01, 0x80]) + payload
+
+
+def dts_sub(payload: bytes, stream: int = 0) -> bytes:
+    """Private stream 1 DTS substream 0x88 + ``stream``: id, frame count,
+    first access (the 4 bytes PSDemuxer strips, as for AC-3)."""
+    return bytes([0x88 + stream, 1, 0, 1]) + payload
+
+
+def pack_bits(fields) -> bytes:
+    """(value, width) fields, most significant bit first, zero-padded to
+    a whole byte."""
+    v, n = 0, 0
+    for val, width in fields:
+        v, n = (v << width) | val, n + width
+    return (v << (-n) % 8).to_bytes((n + 7) // 8, "big")
+
+
+def dts_core_frame(amode: int = 9, lff: int = 1, sfreq: int = 13,
+                   rate: int = 15, size: int = 1024,
+                   samples: int = 512) -> bytes:
+    """One DTS core frame (ETSI TS 102 114 5.3.1): the frame header of
+    these fields (AMODE 9 + LFF 1: 5.1; SFREQ 13: 48 kHz; RATE 15: 768
+    kb/s; ``size`` bytes; ``samples`` a frame) and a zero payload.  It
+    describes a stream; it decodes to nothing."""
+    fields = [(1, 1), (31, 5), (0, 1), (samples // 32 - 1, 7),
+              (size - 1, 14), (amode, 6), (sfreq, 4), (rate, 5), (0, 1),
+              (0, 1), (0, 1), (0, 1), (0, 1), (0, 3), (0, 1), (0, 1),
+              (lff, 2), (0, 1), (0, 1), (7, 4), (0, 2), (6, 3), (0, 1),
+              (0, 1), (0, 4)]
+    head = b"\x7f\xfe\x80\x01" + pack_bits(fields)
+    return head + bytes(size - len(head))
 
 
 def spu_sub(spu: bytes) -> bytes:
@@ -235,16 +266,33 @@ def vts_video_attr(standard: str = "NTSC", aspect=(4, 3),
                   size << 2])
 
 
+def vts_audio_attr(codec: str, channels: int, language: str = "",
+                   sample_rate: int = 48000) -> bytes:
+    """One audio stream's attributes (VTSI_MAT 0x204 + 8 i): the coding
+    mode of ``codec`` (ac3, mp2, lpcm, dts), the channels, the rate and
+    the ISO 639-1 code ``language`` ("": none given)."""
+    mode = {"ac3": 0, "mp2": 2, "lpcm": 4, "dts": 6}[codec]
+    return (bytes([(mode << 5) | ((1 if language else 0) << 2),
+                   ((1 if sample_rate == 96000 else 0) << 4)
+                   | (channels - 1)])
+            + (language or "").encode("latin-1").ljust(2, b"\x00")
+            + bytes(4))
+
+
 def make_vts(duration_s, cell_secs, palette_yuv, video_attr=b"\x00\x00",
-             fps=30) -> bytes:
+             fps=30, audio_attrs=()) -> bytes:
     """VTS_xx_0.IFO: one PGC of ``cell_secs`` cells, one program each,
     with its playback time (at ``fps``, 30 or 25), a 16-entry 0YCrCb
-    palette and the video attributes ``video_attr`` (all zero: MPEG-1,
-    NTSC, 4:3, 720x480)."""
+    palette, the video attributes ``video_attr`` (all zero: MPEG-1,
+    NTSC, 4:3, 720x480) and the audio attributes ``audio_attrs``
+    (``vts_audio_attr``, one a stream)."""
     ifo = bytearray(2048)
     ifo[0:12] = b"DVDVIDEO-VTS"
     ifo[0xCC:0xD0] = (1).to_bytes(4, "big")     # VTS_PGCIT at sector 1
     ifo[0x200:0x202] = video_attr
+    ifo[0x202:0x204] = len(audio_attrs).to_bytes(2, "big")
+    for i, a in enumerate(audio_attrs):
+        ifo[0x204 + 8 * i:0x20C + 8 * i] = a
     n_cells = len(cell_secs)
     pgc = bytearray(0x100 + n_cells * 24)
     pgc[2] = n_cells                            # programs == cells here
@@ -270,11 +318,12 @@ WHITE_CARD_PALETTE = [0x108080, 0xEB8080] + [0x108080] * 14
 
 
 def write_dvd(root: str, ps: bytes, n_vobs: int, cell_secs,
-              video_attr=b"\x00\x00", fps=30) -> str:
+              video_attr=b"\x00\x00", fps=30, audio_attrs=()) -> str:
     """A DVD-Video folder ``root``/VIDEO_TS: title 1 in VTS 1 over
     ``ps`` cut into ``n_vobs`` VOBs at 2048-byte boundaries, with one
-    chapter a cell, and the VTS's video attributes ``video_attr``
-    (``vts_video_attr``).  Returns ``root``."""
+    chapter a cell, the VTS's video attributes ``video_attr``
+    (``vts_video_attr``) and audio attributes ``audio_attrs``
+    (``vts_audio_attr``).  Returns ``root``."""
     vt = os.path.join(root, "VIDEO_TS")
     os.makedirs(vt, exist_ok=True)
     step = ((len(ps) + n_vobs - 1) // n_vobs + 2047) // 2048 * 2048
@@ -283,7 +332,7 @@ def write_dvd(root: str, ps: bytes, n_vobs: int, cell_secs,
             f.write(ps[k * step:(k + 1) * step])
     with open(os.path.join(vt, "VTS_01_0.IFO"), "wb") as f:
         f.write(make_vts(sum(cell_secs), cell_secs, WHITE_CARD_PALETTE,
-                         video_attr, fps))
+                         video_attr, fps, audio_attrs))
     with open(os.path.join(vt, "VIDEO_TS.IFO"), "wb") as f:
         f.write(make_vmg([(len(cell_secs), 1, 1)]))
     return root

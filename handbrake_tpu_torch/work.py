@@ -35,13 +35,23 @@ yuv420p 8-bit, which libavcodec's prores does not take.  An audio track
 that cannot be decoded raises, and so does a subtitle track; none is
 passed through or dropped in its place.
 
+Each entry of ``job.audio`` is one output with its own decoder, sync
+stream, chain and mux track, so one source track may feed several (AAC
+beside a copy of it).  Each copy is resolved at job start, before any
+decoder is built, by ``resolve_audio_encoder`` (the copy mask and the
+fallback encoder, as HandBrake resolves them), and logged.  The
+reference keys those stages by source track, so a second output of a
+track overwrites the first, and passes through whatever codec a
+``copy:<codec>`` track holds.
+
 ``checkpoint`` journals every muxed sample to ``<dest>.ckpt``
 (``checkpoint.py``) with a marker at each GOP boundary; ``resume``
-replays the complete GOPs, cuts the journal there and restarts the
-pipeline at the boundary, with the rate controller's state and the
-encoder's ``idr_pic_id`` restored, so the resumed file equals the
-uninterrupted one.  A resume without a journal, or from a file that is
-not one, raises.
+replays the complete GOPs, cuts the journal there and reads the source
+from the job's start again, dropping the frames done ahead of the
+filters and the journaled sound and subtitles at the mux, with the rate
+controller's state and the encoder's ``idr_pic_id`` restored, so the
+resumed file equals the uninterrupted one.  A resume without a journal,
+or from a file that is not one, raises.
 
 ``gop_parallel`` N codes each window of frames as G = min(N, frames)
 keyframe-aligned GOPs (``parallel/gop.py``), dealt out over the ranks of
@@ -83,6 +93,8 @@ unscaled job the two agree.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import os
 from fractions import Fraction
 
@@ -128,11 +140,119 @@ def quality_to_qp(quality: float) -> int:
 def catalog_encoders(job: Job) -> list:
     """The job's encoders that ride the libavcodec catalog, video first,
     each named as its refusal names it where the library is missing
-    (ProRes is refused whether or not the library is there)."""
+    (ProRes is refused whether or not the library is there).  A copy
+    counts where it falls back whatever the source track holds; whether
+    the container holds an encoder's output is asked at job start."""
     need = [f"the {job.vcodec} video encoder"] \
         if job.vcodec in AV_VIDEO_NAMES and job.vcodec != "prores" else []
-    return need + [f"audio encoder {a.encoder!r}" for a in job.audio
-                   if a.encoder in AV_AUDIO_ENCODERS]
+    encoders = [resolve_audio_encoder(a, None, job) or a.encoder
+                if a.encoder.startswith("copy") else a.encoder
+                for a in job.audio]
+    return need + [f"audio encoder {e!r}" for e in encoders
+                   if e in AV_AUDIO_ENCODERS]
+
+
+# HandBrake's passthrough codecs; the codecs the port encodes, which a
+# copy:<codec> of a track of another codec encodes with; each
+# container's default encoder
+COPY_CODECS = ("aac", "ac3", "eac3", "truehd", "dts", "mp2", "mp3", "flac",
+               "opus", "vorbis")
+ENCODED_CODECS = {"aac", "ac3", "flac", "mp3", "opus", "vorbis"}
+MUX_DEFAULT_ENCODER = {"mp4": "aac", "mkv": "aac", "webm": "opus"}
+
+
+def _mux_kind(job: Job) -> str:
+    return job.mux if job.mux in ("mkv", "webm") else "mp4"
+
+
+def _mux_codecs(mux: str) -> tuple:
+    """The sound codecs a container holds: its writer's sample entries
+    or CodecIDs (WebM: Opus and Vorbis alone)."""
+    from .mux.mkv import AUDIO_CODEC_IDS
+    from .mux.mp4 import AUDIO_CODECS
+    return {"mp4": AUDIO_CODECS, "mkv": tuple(AUDIO_CODEC_IDS),
+            "webm": ("opus", "vorbis")}[mux]
+
+
+def _carries(mux: str, encoder: str) -> bool:
+    """The container can hold what `encoder` writes."""
+    from .audio.chain import ENCODER_CODECS
+    return ENCODER_CODECS.get(encoder, "pcm_s16le") in _mux_codecs(mux)
+
+
+def _fallback(job: Job) -> tuple:
+    """(encoder, why): the job's fallback encoder, or the container's
+    default where the container cannot hold the fallback's output
+    (sanitize_audio_codec, libhb/preset.c).  A fallback that names no
+    encoder raises WorkError."""
+    from .audio.chain import ENCODER_CODECS
+    fb, mux = job.audio_fallback, _mux_kind(job)
+    if fb not in ENCODER_CODECS:
+        raise WorkError(f"audio fallback {fb!r} is not an encoder (one of "
+                        f"{', '.join(ENCODER_CODECS)})")
+    if _carries(mux, fb):
+        return fb, f"the fallback {fb}"
+    return (MUX_DEFAULT_ENCODER[mux],
+            f"{mux}'s default encoder: it cannot hold the fallback {fb}")
+
+
+def resolve_audio_encoder(spec, ti, job: Job):
+    """The encoder that output `spec` of source track `ti` runs, as
+    HandBrake's sanitize_audio_codec (libhb/preset.c) and
+    hb_autopassthru_get_encoder (libhb/common.c) resolve it, logged:
+
+    - ``copy`` passes the track through (``copy:<its codec>``) where its
+      codec is in ``job.audio_copy_mask`` (an empty mask: every codec);
+    - ``copy:<codec>`` passes it through where its codec is <codec>, and
+      else encodes with the port's encoder of <codec>, where there is one;
+    - everything else, and a copy the container cannot carry, takes
+      ``job.audio_fallback`` (the container's default encoder where it
+      cannot hold that).
+
+    A copy is only of one of COPY_CODECS.  An encoder whose output the
+    container cannot hold raises WorkError; so does a fallback that names
+    no encoder.  What the result needs (a decoder, libavcodec) is checked
+    where the job builds it, before its output file is made.
+
+    With `ti` None (no title scanned yet) it gives what no track decides,
+    and logs nothing: the encoder the output runs whatever its track
+    holds, or None where the track decides."""
+    enc, mux = spec.encoder, _mux_kind(job)
+    if not enc.startswith("copy"):
+        if not _carries(mux, enc):
+            raise WorkError(f"audio encoder {enc!r}: {mux} cannot hold "
+                            f"its output")
+        return enc
+    carry = [c for c in COPY_CODECS if c in _mux_codecs(mux)]
+    want = enc.partition(":")[2]
+    mask = [m.partition(":")[2] or m for m in job.audio_copy_mask]
+    may = [want] if want else mask      # the codecs the copy may pass
+    result = None
+    if may and not set(may) & set(carry):
+        why = f"{mux} cannot carry a copy of {' or '.join(may)}"
+    elif ti is None:
+        return None
+    elif want and want != ti.codec:
+        why = f"the track is {ti.codec}, not {want}"
+        if want in ENCODED_CODECS and _carries(mux, want):
+            result, why = want, f"{why}: {want}'s encoder"
+    elif ti.codec not in COPY_CODECS:
+        why = f"{ti.codec} has no passthrough"
+    elif mask and not want and ti.codec not in mask:
+        why = f"{ti.codec} is not in the copy mask {job.audio_copy_mask}"
+    elif ti.codec not in carry:
+        why = f"{mux} cannot carry a copy of {ti.codec}"
+    else:
+        result = f"copy:{ti.codec}"
+        why = ("the track's codec" if want else
+               "in the copy mask" if mask else "no copy mask given")
+    if result is None:
+        result, fb_why = _fallback(job)
+        why = f"{why}: {fb_why}"
+    if ti is not None:
+        log(f"audio: track {spec.track + 1} ({ti.codec}), {enc}: {result} "
+            f"({why})")
+    return result
 
 
 def job_par(job: Job) -> tuple:
@@ -413,18 +533,34 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     vti = src.tracks[video_track]
     vrate = Fraction(*vti.frame_rate) if vti.frame_rate \
         else Fraction(30000, 1001)
-    audio_sel = []            # (src_track_index, AudioJobTrack)
+    # every audio stage is keyed by the output's index k in job.audio,
+    # so two outputs of one source track each have their own decoder,
+    # sync stream, chain and mux track (one hb_audio_t each, as in
+    # HandBrake); each copy is resolved before any decoder is built
+    audio_sel = []            # (k, source track index, resolved spec)
     audio_srcs = [i for i, t in enumerate(src.tracks) if t.kind == "audio"]
-    for a in job.audio:
+    for k, a in enumerate(job.audio):
         if 0 <= a.track < len(audio_srcs):
-            audio_sel.append((audio_srcs[a.track], a))
+            si = audio_srcs[a.track]
+            audio_sel.append((k, si, dataclasses.replace(
+                a, encoder=resolve_audio_encoder(a, src.tracks[si], job))))
+
+    # an AC-3/E-AC-3 copy into mp4 gets its dac3/dec3 from the track's
+    # own first access unit, read now, so a stream that is not what the
+    # copy names is refused before any file exists
+    config_boxes = {k: _copy_config_box(src, si, spec, job)
+                    for k, si, spec in audio_sel
+                    if _mux_kind(job) == "mp4"
+                    and spec.encoder in ("copy:ac3", "copy:eac3")}
 
     # ---- decoders ----
     vdec = create_video_decoder(vti.codec, vti.extradata,
                                 width=vti.width, height=vti.height)
     adecs = {}
-    for si, spec in audio_sel:
-        adecs[si] = _make_audio_decoder(src.tracks[si], spec)
+    afan = {}                 # source track index -> its outputs' keys
+    for k, si, spec in audio_sel:
+        adecs[k] = _make_audio_decoder(src.tracks[si], spec)
+        afan.setdefault(si, []).append(k)
 
     # ---- sync ----
     pts_start, pts_stop = resolve_range(job, src, vrate)
@@ -435,14 +571,14 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
         "video", width=vti.width, height=vti.height,
         frame_duration=int(90000 / float(vrate)) if vrate else None)
     # PCM geometry lets sync synthesize silence for gaps (CreateSilenceBuf
-    # analog); passthrough tracks get no fill (compressed domain)
+    # analog); passthrough outputs get no fill (compressed domain)
     a_sync = {}
-    for si, _spec in audio_sel:
+    for k, si, spec in audio_sel:
         ti = src.tracks[si]
         pcm = ti.codec in ("pcm_s16le", "lpcm", "flac", "aac", "ac3",
-                           "mp2")
-        a_sync[si] = sync.add_stream(
-            "audio", sid=si,
+                           "mp2") and not spec.encoder.startswith("copy")
+        a_sync[k] = sync.add_stream(
+            "audio", sid=k,
             sample_rate=ti.sample_rate if pcm else None,
             channels=max(1, ti.channels))
 
@@ -565,13 +701,15 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     from .codecs.ratecontrol import make_rate_controller
     rc = make_rate_controller(job, out_w, out_h, float(out_vrate))
     aencs = {}
-    for si, spec in audio_sel:
-        aencs[si] = _make_audio_encoder(spec, src.tracks[si])
+    for k, si, spec in audio_sel:
+        aencs[k] = _make_audio_encoder(spec, src.tracks[si])
 
     # ---- checkpoint/resume: resume replays the journal's complete GOPs,
-    # restores the rate controller and restarts at the boundary ----
+    # restores the rate controller, reads the source from the job's start
+    # again and drops what the journal holds ----
     ckpt = None
     replay = []
+    skip_frames = 0
     if (job.checkpoint or job.resume) and job.pass_id != 1:
         ckpt_path = (job.file or "out") + ".ckpt"
         n_done = 0
@@ -589,20 +727,19 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
                 # the resumed encoder's idr_pic_id keeps counting
                 if hasattr(venc, "idr_pic_id"):
                     venc.idr_pic_id = gops_done % 16
-                # continue n_done frames after the job's own start and
-                # keep its end (the reference restarts at source frame
-                # n_done + 1 and drops the end)
-                tick = CLOCK * vrate.denominator / vrate.numerator
-                if job.range.type == "frame":
-                    # on the frame grid, as resolve_range places it
-                    pts_start = int((max(1, job.range.start) - 1 + n_done)
-                                    * tick)
-                else:
-                    pts_start = int((pts_start or 0) + n_done * tick)
-                sync.pts_start = pts_start
-                sync.common_start = None
-                log(f"resume: {n_done} frames from checkpoint, "
-                    f"continuing {n_done} frames after the job's start")
+                # the job's first n_done frames are dropped ahead of the
+                # filters, so the job keeps its own start and end, and a
+                # source whose timestamps do not start at 0 resumes at
+                # its frame n_done + 1 (the reference seeks to n_done
+                # frame times from 0, and drops the end of a ranged
+                # job); an audio encoder cannot start again mid-stream
+                # and give the packets it gave, so the sound is coded
+                # again from the start and each output's journaled
+                # packets, like the subtitles', are not written twice
+                skip_frames = n_done
+                log(f"resume: {n_done} frames from checkpoint; the source "
+                    f"is read from the job's start again and its first "
+                    f"{n_done} frames dropped ahead of the filters")
             else:
                 log("resume: the journal holds no complete GOP, "
                     "starting at frame 1")
@@ -614,11 +751,15 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
         mux = _NullMux()
     else:
         mux = _MuxAdapter(job, out_fi, audio_sel, src, aencs,
-                          sub_specs=sub_specs)
+                          sub_specs=sub_specs, config_boxes=config_boxes)
         if ckpt is not None:
             mux.journal = ckpt
             for rec in replay:
                 mux.replay(rec)
+            # the journaled audio and subtitle samples come again
+            for rec in replay:
+                if rec[0] in ("a", "s"):
+                    mux.skip[rec[:2]] = mux.skip.get(rec[:2], 0) + 1
 
     # ---- threaded stage graph (work.c:2242-2280: one thread per work
     # object, bounded FIFOs between; reader → decode+sync → filters+encode
@@ -646,7 +787,8 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     reader.fifo_out = fifo_raw
     decsync = _DecodeSyncStage(video_track, vdec, adecs, sync, v_sync,
                                a_sync, stats, vcodec=vti.codec,
-                               sdecs=sdecs, s_sync=s_sync, cc_sel=cc_sel)
+                               sdecs=sdecs, s_sync=s_sync, cc_sel=cc_sel,
+                               afan=afan)
     decsync.fifo_in, decsync.fifo_out = fifo_raw, fifo_sync
     encst = _EncodeStage(graph, venc, aencs, rc, stats, progress,
                          sub_specs, text_area(filter_list, vti.width,
@@ -654,7 +796,8 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
                          gop_parallel=int(job.gop_parallel or 0),
                          multipass=bool(job.multipass),
                          target_kbps=float(job.vbitrate or 0),
-                         out_wh=(out_w, out_h), device=dev)
+                         out_wh=(out_w, out_h), device=dev,
+                         skip_frames=skip_frames)
     encst.fifo_in, encst.fifo_out = fifo_sync, fifo_enc
     muxst = _MuxStage(mux, aencs)
     muxst.fifo_in = fifo_enc
@@ -675,7 +818,40 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     return stats
 
 
-_SUB_SID0 = 1000   # subtitle stream ids live above source track indexes
+_SUB_SID0 = 1000   # subtitle stream ids live above the audio outputs
+_BSI_HEAD = 1 << 16   # bytes of an AC-3/E-AC-3 track read for its
+                      # dac3/dec3: several whole access units
+
+
+def _copy_config_box(src, si: int, spec, job: Job) -> bytes:
+    """The dac3/dec3 payload of an AC-3/E-AC-3 copy of source track `si`,
+    packed from the BSI of the track's first access unit (read from its
+    first _BSI_HEAD bytes).  WorkError where those hold no whole
+    syncframe, or a stream of the other codec."""
+    from .audio.ac3dec import read_bsi
+    from .mux.mp4 import dac3, dec3
+    codec = spec.encoder.partition(":")[2]
+    head = b""
+    it = src.packets()
+    try:
+        for trk, pkt in it:
+            if trk == si and pkt.data is not None:
+                head += bytes(pkt.data)
+                if len(head) >= _BSI_HEAD:
+                    break
+    finally:
+        it.close()
+    bsi = read_bsi(head)
+    if bsi is None:
+        raise WorkError(f"audio track {spec.track + 1}: no whole {codec} "
+                        f"syncframe in its first {len(head)} bytes, so "
+                        f"its mp4 {'dec3' if codec == 'eac3' else 'dac3'} "
+                        f"cannot be written")
+    if ("eac3" in bsi) != (codec == "eac3"):
+        raise WorkError(f"audio track {spec.track + 1}: the stream is "
+                        f"{'eac3' if 'eac3' in bsi else 'ac3'}, not "
+                        f"{codec} as the track was listed")
+    return dec3(bsi) if codec == "eac3" else dac3(bsi)
 
 
 def text_area(filter_list: list, width: int, height: int) -> tuple:
@@ -721,16 +897,21 @@ class _ReaderStage(WorkObject):
 
 
 class _DecodeSyncStage(WorkObject):
-    """Decode per track and run the synchronizer (decavcodec + sync.c)."""
+    """Decode per track and run the synchronizer (decavcodec + sync.c).
+    A source audio track's packets fan out to each of its outputs
+    (``afan``: track → output keys), each a copy of the packet into the
+    output's own decoder and sync stream."""
     name = "decode+sync"
 
     def __init__(self, video_track, vdec, adecs, sync, v_sync, a_sync,
-                 stats, vcodec="", sdecs=None, s_sync=None, cc_sel=None):
+                 stats, vcodec="", sdecs=None, s_sync=None, cc_sel=None,
+                 afan=None):
         super().__init__()
         self.cc_sel = cc_sel       # (key, Cea608Decoder) or None
         self.video_track = video_track
         self.vdec = vdec
-        self.adecs = adecs
+        self.adecs = adecs         # output key -> decoder
+        self.afan = afan or {}
         self.sync = sync
         self.v_sync = v_sync
         self.a_sync = a_sync
@@ -812,9 +993,11 @@ class _DecodeSyncStage(WorkObject):
             frames = [buf] if buf.planes is not None else self.vdec.feed(buf)
             for f in frames:
                 self._queue_video(f)
-        elif trk in self.adecs:
-            for ab in self.adecs[trk].feed(buf):
-                self.sync.queue(self.a_sync[trk], ab)
+        elif trk in self.afan:
+            for k in self.afan[trk]:
+                for ab in self.adecs[k].feed(copy.copy(buf)):
+                    ab.stream_id = k
+                    self.sync.queue(self.a_sync[k], ab)
         elif trk in self.sdecs and buf.data is not None:
             key, dec = self.sdecs[trk]
             if isinstance(dec, _TextCueDecoder):
@@ -858,8 +1041,9 @@ class _EncodeStage(WorkObject):
     def __init__(self, graph, venc, aencs, rc, stats, progress,
                  sub_specs=None, text_area=(0, 0, 0, 0), gop_parallel=0,
                  multipass=False, target_kbps=0.0, out_wh=(0, 0),
-                 device=None):
+                 device=None, skip_frames=0):
         super().__init__()
+        self.skip_frames = skip_frames   # a resumed job's frames done
         self.gop_parallel = int(gop_parallel or 0)
         self._gp_frames = []   # buffered (planes, fb) in gop-parallel mode
         self.multipass = bool(multipass)
@@ -1061,6 +1245,9 @@ class _EncodeStage(WorkObject):
                     out.append(pkt)
             return out + [buf]
         if buf.track_kind == "video":
+            if self.skip_frames:
+                self.skip_frames -= 1
+                return []
             out = []
             for fb in self.graph.work(buf):
                 if not fb.is_eof():
@@ -1467,8 +1654,9 @@ _AV_AUDIO = ("eac3", "dts", "dca", "truehd", "mlp", "mp3", "vorbis", "opus")
 
 
 def _make_audio_decoder(ti, spec=None):
-    """The track's decoder.  Where the reference falls back (an AAC
-    decoder that cannot start becomes passthrough; a codec it cannot
+    """The track's decoder for one output (`spec`, its encoder resolved
+    by ``resolve_audio_encoder``).  Where the reference falls back (an
+    AAC decoder that cannot start becomes passthrough; a codec it cannot
     decode, or a libavcodec codec where the library is missing or does
     not start, becomes a passthrough that the chain then drops), the port
     raises WorkError with the codec's name."""
@@ -1523,16 +1711,25 @@ def _make_audio_encoder(spec, ti):
 class _MuxAdapter:
     """Wraps MP4Writer/MKVWriter behind one write_video/write_audio/
     write_subtitle API (muxcommon.c role: track fan-in; interleave is the
-    writers' concern).  With a checkpoint journal (``journal``) every
-    sample written is journaled; ``replay`` writes a journaled one."""
+    writers' concern).  Audio tracks are keyed by the output's index in
+    job.audio (``audio_sel``: (key, source track, resolved spec)).  An
+    AC-3 or E-AC-3 copy into mp4 gets the ``dac3``/``dec3`` payload in
+    ``config_boxes`` (key → payload, from ``_copy_config_box``).  A codec
+    the writer refuses raises WorkError.  With a checkpoint journal
+    (``journal``) every sample written is journaled; ``replay`` writes a
+    journaled one."""
 
     def __init__(self, job: Job, out_fi, audio_sel, src, aencs=None,
-                 sub_specs=None):
+                 sub_specs=None, config_boxes=None):
         self.journal = None
         self.kind = job.mux
         self.aencs = aencs or {}
         path = job.file or "out.mp4"
         self._amap = {}
+        self._config_boxes = dict(config_boxes or {})
+        # ("a" | "s", key) -> samples a resume replayed, not to be
+        # written again
+        self.skip = {}
         self._smap = {}           # subtitle key → track index
         self._sub_last_end = {}   # tx3g gap filling (90 kHz)
         if job.vcodec in ("hevc_tpu", "x265", "hevc", "h265"):
@@ -1554,9 +1751,9 @@ class _MuxAdapter:
                 codec=mux_vcodec, width=out_fi.geometry.width,
                 height=out_fi.geometry.height,
                 fps=float(out_fi.vrate), par=job_par(job))
-            for si, spec in audio_sel:
+            for k, si, spec in audio_sel:
                 ti = src.tracks[si]
-                chain = self.aencs.get(si)
+                chain = self.aencs.get(k)
                 priv = b""
                 if chain is not None and chain.out_codec() == "flac":
                     from .audio.flac import FLAC_MARKER
@@ -1569,7 +1766,7 @@ class _MuxAdapter:
                                                # Xiph lacing
                 elif chain is not None and chain.is_passthrough():
                     priv = ti.extradata
-                self._amap[si] = self.w.add_audio_track(
+                self._amap[k] = self._add_audio(
                     codec=chain.out_codec() if chain else ti.codec,
                     sample_rate=chain.sr_out if chain else ti.sample_rate,
                     channels=chain.out_channels if chain else ti.channels,
@@ -1590,24 +1787,16 @@ class _MuxAdapter:
                 "Transfer": tcolor.get("Transfer", 1),
                 "Matrix": tcolor.get("Matrix", 1),
                 "Range": tcolor.get("Range", 1)}
-            for si, spec in audio_sel:
+            for k, si, spec in audio_sel:
                 ti = src.tracks[si]
-                chain = self.aencs.get(si)
+                chain = self.aencs.get(k)
                 xd = b""
-                if chain is not None and chain.out_codec() == "aac":
+                if k in self._config_boxes:
+                    xd = self._config_boxes[k]   # the copy's dac3/dec3
+                elif chain is not None and chain.out_codec() == "aac":
                     xd = chain.extradata()     # AudioSpecificConfig
                 elif chain is not None and chain.out_codec() == "ac3":
                     xd = chain.extradata()     # dac3 payload
-                    if not xd:
-                        # passthrough: synthesize dac3 from track info
-                        # (fscod/bsid/bsmod/acmod/lfeon packed fields)
-                        fscod = {48000: 0, 44100: 1,
-                                 32000: 2}.get(ti.sample_rate, 0)
-                        acmod = {1: 1, 2: 2, 6: 7}.get(ti.channels, 2)
-                        lfe = 1 if ti.channels == 6 else 0
-                        v = (fscod << 22) | (8 << 17) | (acmod << 11) \
-                            | (lfe << 10) | (11 << 5)   # ~192 kbps
-                        xd = v.to_bytes(3, "big")
                 elif chain is not None and chain.out_codec() == "opus":
                     # passthrough: dOps payload = OpusHead minus the
                     # 8-byte magic, version byte first (RFC 7845 /
@@ -1631,7 +1820,7 @@ class _MuxAdapter:
                         ch = max(1, min(7, ti.channels))
                         v = (2 << 11) | (sfi << 7) | (ch << 3)
                         xd = v.to_bytes(2, "big")
-                self._amap[si] = self.w.add_audio_track(
+                self._amap[k] = self._add_audio(
                     codec=chain.out_codec() if chain else ti.codec,
                     sample_rate=chain.sr_out if chain else ti.sample_rate,
                     channels=chain.out_channels if chain else ti.channels,
@@ -1726,12 +1915,21 @@ class _MuxAdapter:
             b.stop = stop
             self.write_subtitle(k, b, _journal=False)
 
-    def write_audio(self, sid: int, pkt: Buffer, _journal=True):
-        tr = self._amap.get(sid)
-        if tr is None or pkt.data is None:
+    def _add_audio(self, **kw) -> int:
+        """The writer's new sound track; a codec it refuses raises
+        WorkError."""
+        from .mux.common import MuxError
+        try:
+            return self.w.add_audio_track(**kw)
+        except MuxError as e:
+            raise WorkError(str(e)) from e
+
+    def write_audio(self, k: int, pkt: Buffer, _journal=True):
+        tr = self._amap.get(k)
+        if tr is None or pkt.data is None or self._skipped("a", k, _journal):
             return
         if _journal and self.journal is not None:
-            self.journal.audio(sid, bytes(pkt.data), pkt.pts, pkt.duration,
+            self.journal.audio(k, bytes(pkt.data), pkt.pts, pkt.duration,
                                pkt.stop)
         data = pkt.data
         tcodec = self.w.tracks[tr]
@@ -1746,9 +1944,16 @@ class _MuxAdapter:
             dur = (pkt.duration or 0) * t.timescale // CLOCK
             self.w.write_sample(tr, data, duration=dur)
 
+    def _skipped(self, tag: str, k: int, live: bool) -> bool:
+        """Whether a sample of a resumed run is one the replay wrote."""
+        n = self.skip.get((tag, k), 0) if live else 0
+        if n:
+            self.skip[(tag, k)] = n - 1
+        return n > 0
+
     def write_subtitle(self, k: int, buf: Buffer, _journal=True):
         tr = self._smap.get(k)
-        if tr is None or buf.data is None:
+        if tr is None or buf.data is None or self._skipped("s", k, _journal):
             return
         if _journal and self.journal is not None:
             self.journal.subtitle(k, bytes(buf.data), buf.pts, buf.duration,
@@ -1779,9 +1984,9 @@ class _MuxAdapter:
         # late extradata (FLAC STREAMINFO carries final MD5/total-samples;
         # mp4 writes sample entries in moov at finalize so this is exact)
         if self.kind not in ("mkv", "webm"):
-            for si, tr in self._amap.items():
-                chain = self.aencs.get(si)
-                if chain is not None:
+            for k, tr in self._amap.items():
+                chain = self.aencs.get(k)
+                if chain is not None and k not in self._config_boxes:
                     xd = chain.extradata()
                     if xd:
                         self.w.tracks[tr].extradata = xd

@@ -6,13 +6,14 @@ run without a crash.
 
 A crash is simulated as the JAX package's own test does it: the journal's
 close is patched to keep the file, which is then cut after a GOP marker
-and the output deleted.  Five faults of the reference are held beside
+and the output deleted.  Six faults of the reference are held beside
 the port: its resume appends to the journal without cutting the stale
 tail, so a second crash replays it; it unpickles whatever ``<dest>.ckpt``
 holds; a resumed B-frame job restarts ``idr_pic_id``; a resumed
-GOP-parallel job cuts its windows anew from a marker inside one; and a
+GOP-parallel job cuts its windows anew from a marker inside one; a
 resumed frame-ranged job starts from the source's frame n_done + 1 and
-runs past its end."""
+runs past its end; and a resumed DVD job, whose timestamps do not start
+at 0, codes its source again from the first picture."""
 import functools
 import os
 import pickle
@@ -296,8 +297,12 @@ def _av_source(path, srt):
 
 def test_resume_with_audio_and_subtitle(tmp_path, monkeypatch):
     """An AAC track and a kept SRT track: the journal holds 'a' and 's'
-    records, and the resumed file equals the reference's resumed file;
-    its video samples equal the uninterrupted run's."""
+    records, and the resumed file equals the uninterrupted run's (which
+    equals the reference's): a resumed job reads its source from the
+    start again, so its AAC encoder gives the packets it gave, and the
+    journaled ones are not written twice.  The reference restarts its AAC encoder at the resume
+    point, so its resumed file differs from its uninterrupted one (and
+    from the port's) in the audio alone."""
     srt = str(tmp_path / "a.srt")
     src = _av_source(str(tmp_path / "av.mp4"), srt)
     files = {}
@@ -319,7 +324,17 @@ def test_resume_with_audio_and_subtitle(tmp_path, monkeypatch):
         os.unlink(out)
         _run(pkg, _job(Sm, src, out, resume=True, **kw))
         files[pkg] = (ref, out)
-    assert _bytes(files["torch"][1]) == _bytes(files["jax"][1])
+    assert _bytes(files["torch"][0]) == _bytes(files["jax"][0])
+    assert _bytes(files["torch"][1]) == _bytes(files["torch"][0])
+    assert _bytes(files["jax"][1]) != _bytes(files["jax"][0])
+    j0, j1 = (MP4Demuxer(p) for p in files["jax"])
+    assert [bytes(j0.read_sample(0, k).data) for k in range(N)] == \
+        [bytes(j1.read_sample(0, k).data) for k in range(N)]
+    assert [bytes(j0.read_sample(1, k).data)
+            for k in range(j0.n_samples(1))] != \
+        [bytes(j1.read_sample(1, k).data) for k in range(j1.n_samples(1))]
+    j0.close()
+    j1.close()
     a, b = (MP4Demuxer(p) for p in files["torch"])
     assert a.n_samples(0) == b.n_samples(0) == N
     assert all(bytes(a.read_sample(0, k).data) == bytes(b.read_sample(0, k)
@@ -328,6 +343,37 @@ def test_resume_with_audio_and_subtitle(tmp_path, monkeypatch):
     assert [t.kind for t in b.tracks] == ["video", "audio", "subtitle"]
     a.close()
     b.close()
+
+
+def test_dvd_resume_equals_uninterrupted(tmp_path, monkeypatch):
+    """A DVD folder of the 176x144 MPEG-2 fixture (12 pictures, the first
+    pts 0.1 s in), keyint 4, the journal cut after the first GOP: the
+    port reads the title from its first picture again and drops 4, so
+    its resumed file equals the uninterrupted one.  The reference seeks
+    to 4 frame times from 0, which is before the title's first picture,
+    and codes all 12 again after the 4 it replayed: 16 samples."""
+    from handbrake_tpu_torch.tools import source_builders as B
+    from test_torch_sources import T0
+    es = B.fixture("mpeg2_176x144.m2v")
+    src = B.write_dvd(str(tmp_path / "disc"),
+                      B.build_ps(B.video_units(es, T0, 3003)), 2,
+                      [0.2, 0.2])
+    got = {}
+    for pkg, Sm in (("torch", S), ("jax", JS)):
+        ref = str(tmp_path / f"{pkg}_ref.mp4")
+        _run(pkg, _job(Sm, src, ref, quality=28.0))
+        out = str(tmp_path / f"{pkg}.mp4")
+        _crashed_run(monkeypatch, pkg, Sm, src, out, 1, quality=28.0)
+        stats = _run(pkg, _job(Sm, src, out, resume=True, quality=28.0))
+        got[pkg] = (_samples(ref), _samples(out))
+        if pkg == "torch":
+            assert stats["frames_out"] == 8
+            assert _bytes(out) == _bytes(ref)
+    want, resumed = got["torch"]
+    assert len(want) == 12 and resumed == want
+    jref, jout = got["jax"]
+    assert jref == want
+    assert len(jout) == 16 and jout[:4] == want[:4]
 
 
 def test_bframe_resume_equals_uninterrupted(tmp_path, monkeypatch):

@@ -6,7 +6,11 @@ Blu-ray folder (H.264 and AC-3 over two m2ts clips, an MPLS with two
 chapter marks), a TS with MP2 audio, an MPEG-2 PS whose user data
 carries CEA-608 captions (kept as a text track), an MJPEG AVI, the CLI on
 the DVD folder (``-t``, ``-c``, ``-m``) and ``scan`` of each.  Then the
-codecs that the port leaves to later items raise, naming the item."""
+codecs that the port leaves to later items raise, naming the item.
+
+The DVD job's mp4 equals the reference's apart from the AC-3 copy's
+``dac3`` payload: the port's is the copied stream's BSI, the reference's
+a guess from the track's channel count (``dac3_apart``)."""
 import functools
 import os
 
@@ -19,8 +23,10 @@ from handbrake_tpu.codecs.h264 import encoder_tpu
 from handbrake_tpu.job import schema as JS
 from handbrake_tpu.scan import scan as jscan
 from handbrake_tpu_torch import work
+from handbrake_tpu_torch.audio.ac3dec import read_bsi
 from handbrake_tpu_torch.cli.__main__ import main as cli
 from handbrake_tpu_torch.job import schema as S
+from handbrake_tpu_torch.mux.mp4 import dac3
 from handbrake_tpu_torch.scan import scan
 from handbrake_tpu_torch.sources.mkv import MKVDemuxer
 from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
@@ -80,6 +86,23 @@ def _bytes(path):
         return f.read()
 
 
+# the DVD fixture's AC-3 track (2/0, 48 kHz, 192 kb/s): its own dac3
+# (bsid 8, bit_rate_code 10), and the reference's guess from the channel
+# count, whose bit_rate_code is 11 whatever the stream's rate
+DVD_DAC3, DVD_DAC3_REF = bytes.fromhex("101140"), bytes.fromhex("101160")
+
+
+def dac3_apart(got: bytes, want: bytes) -> tuple:
+    """(the port's dac3 payload, the reference's, the port's file with
+    the reference's payload in place of its own): two mp4s that have one
+    dac3 box each, at the same offset."""
+    i = got.find(b"dac3")
+    assert i > 0 and got.count(b"dac3") == want.count(b"dac3") == 1
+    assert want.find(b"dac3") == i
+    return got[i + 4:i + 7], want[i + 4:i + 7], \
+        got[:i + 4] + want[i + 4:i + 7] + got[i + 7:]
+
+
 def _job(Sm, src, out, mux, audio=(), subs=(), markers=False):
     j = Sm.Job(path=src, file=out, mux=mux, vcodec="h264", quality=28.0,
                encoder_profile="high", chapter_markers=markers)
@@ -119,7 +142,12 @@ def test_disc_and_stream_jobs_equal_reference(sources, tmp_path, name):
     jwork.do_job(_job(JS, sources[name], jout, mux, audio, subs, markers))
     stats = work.do_job(_job(S, sources[name], tout, mux, audio, subs,
                              markers), device="cpu")
-    assert _bytes(tout) == _bytes(jout)
+    got, want = _bytes(tout), _bytes(jout)
+    if name == "dvd":
+        port, ref, got = dac3_apart(got, want)
+        assert (port, ref) == (DVD_DAC3, DVD_DAC3_REF)
+        assert port == dac3(read_bsi(ac3_frames()[0]))
+    assert got == want
     assert stats["frames_out"] == {"bd": 8, "ts": 8, "avi": 8}.get(name, 12)
     D = MKVDemuxer if mux == "mkv" else MP4Demuxer
     d = D(tout)
@@ -171,7 +199,9 @@ def test_handle_on_a_dvd_folder_equals_reference(sources, tmp_path):
         assert h.work_wait(timeout=300) == 0
         assert getattr(h, "work_exception", None) is None
         h.close()
-    assert _bytes(outs[1]) == _bytes(outs[0])
+    port, ref, got = dac3_apart(_bytes(outs[1]), _bytes(outs[0]))
+    assert (port, ref) == (DVD_DAC3, DVD_DAC3_REF)
+    assert got == _bytes(outs[0])
 
 
 def _title(t):

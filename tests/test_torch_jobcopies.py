@@ -102,7 +102,7 @@ def test_preset_encoders_are_the_jobs(name):
     preset = tpresets.preset_search(name)
     t = _title(ttitle)
     job = tpresets.preset_to_job(t, preset)
-    enc = tpresets.preset_encoders(preset, len(t.audio))
+    enc = tpresets.preset_encoders(preset, ["und"] * len(t.audio))
     for f in ("mux", "vcodec", "quality", "vbitrate", "multipass",
               "turbo_first_pass", "encoder_preset", "encoder_tune",
               "encoder_profile", "encoder_level", "encoder_options",

@@ -303,9 +303,43 @@ from ..vui import sar16
 """),
 )
 
+# an audio codec without a CodecID raises MuxError naming it (the
+# reference raises a bare KeyError); the table moves to the module, where
+# the job reads the codecs mkv carries
+_MKV_AUDIO_REFUSAL = (
+    ("""import struct
+from dataclasses import dataclass, field
+
+""",
+     """import struct
+from dataclasses import dataclass, field
+
+from .common import MuxError
+
+# the CodecID of each sound codec the writer carries
+AUDIO_CODEC_IDS = {"aac": "A_AAC", "opus": "A_OPUS", "flac": "A_FLAC",
+                   "vorbis": "A_VORBIS", "ac3": "A_AC3", "eac3": "A_EAC3",
+                   "mp3": "A_MPEG/L3", "mp2": "A_MPEG/L2",
+                   "pcm_s16le": "A_PCM/INT/LIT",
+                   "truehd": "A_TRUEHD", "dts": "A_DTS"}
+
+"""),
+    ("""        cid = {"aac": "A_AAC", "opus": "A_OPUS", "flac": "A_FLAC",
+               "vorbis": "A_VORBIS", "ac3": "A_AC3", "eac3": "A_EAC3",
+               "mp3": "A_MPEG/L3", "mp2": "A_MPEG/L2",
+               "pcm_s16le": "A_PCM/INT/LIT",
+               "truehd": "A_TRUEHD", "dts": "A_DTS"}[codec]
+""",
+     """        if codec not in AUDIO_CODEC_IDS:
+            raise MuxError(f"mkv: no CodecID for {codec!r} audio (it "
+                           f"carries {', '.join(AUDIO_CODEC_IDS)})")
+        cid = AUDIO_CODEC_IDS[codec]
+"""),
+)
+
 COPIES = {
     "native/hbdec264.cpp": _DEC_STATE,
-    "mux/mkv.py": _MKV_DISPLAY,
+    "mux/mkv.py": _MKV_DISPLAY + _MKV_AUDIO_REFUSAL,
     "sources/mkv.py": _MKV_SOURCE_ASPECT,
     "codecs/h264/native_decoder.py": (
         ("        from ...native import get_lib\n",

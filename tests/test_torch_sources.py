@@ -407,18 +407,23 @@ def test_repaired_pal_vob_is_labelled_25_fps(tmp_path):
     assert {f.duration for f in frames} == {3600}
 
 
-def test_shared_fault_dts_substream_is_not_listed(tmp_path):
-    """A DVD DTS substream (private stream 1, 0x88) gets no track."""
-    def dts_sub(payload):
-        return bytes([0x88, 1, 0, 1]) + payload
-
-    dts = [(T0 + k * 3000, 0xBD, bytes(1000), dts_sub, T0 + k * 3000)
-           for k in range(4)]
+def test_repaired_dts_substream_is_listed(tmp_path):
+    """A DVD DTS substream (private stream 1, 0x88) is a ``dts`` track
+    with the core frame header's rate and channels (44.1 kHz 2/0 here,
+    not the track defaults), its packets the frames without the 4-byte
+    preamble; the reference still lists no track for it."""
+    frames = [B.dts_core_frame(amode=2, lff=0, sfreq=8, size=1000)
+              for _ in range(4)]
+    dts = [(T0 + k * 1045, 0xBD, f, B.dts_sub, T0 + k * 1045)
+           for k, f in enumerate(frames)]
     p, _ = _patched_vob(tmp_path, extra=dts)
-    for D in (PSDemuxer, JPSDemuxer):
-        d = D(p)
-        assert [t.kind for t in d.tracks] == ["video"]
-        d.close()
+    d = JPSDemuxer(p)
+    assert [t.kind for t in d.tracks] == ["video"]
+    d.close()
+    tracks, pkts, _, _ = read(PSDemuxer(p))
+    assert [t[:2] for t in tracks] == [("video", "mpeg2"), ("audio", "dts")]
+    assert tracks[1][7:9] == (44100, 2)
+    assert b"".join(u[6] for u in pkts if u[0] == 1) == b"".join(frames)
 
 
 # ---------------------------------------------------------------------------
@@ -593,7 +598,8 @@ from .common import DemuxError, TrackInfo
 
 """,
      """from ..core.buffer import Buffer, FrameType
-from .common import DemuxError, TrackInfo, read_mpeg2_header, read_vui_sar
+from .common import (DemuxError, TrackInfo, read_audio_header,
+                     read_mpeg2_header, read_vui_sar)
 
 """),
     ("""                pass
@@ -642,6 +648,194 @@ from .common import DemuxError, TrackInfo, read_mpeg2_header, read_vui_sar
         if ti.codec in ("h264", "hevc"):
             read_vui_sar(ti, es, "ts")
 
+"""),
+)
+
+# DTS substreams 0x88-0x8F as dts tracks, and an AC-3 or DTS track's rate
+# and channels from its first frame (the reference lists no DTS track
+# and leaves every AC-3 track at 48 kHz stereo); read_audio_header joins
+# _PS_ASPECT's import
+_PS_DTS = (
+    ('''PES packets per stream id: video 0xE0-0xEF, MPEG audio 0xC0-0xDF, and
+private-stream-1 (0xBD) substreams (AC-3 0x80-0x87, LPCM 0xA0-0xAF with
+their 1-4 byte substream preambles).  Video codec is sniffed from the ES
+(H.264 NALs vs MPEG-2 sequence headers).  Exposes the same interface as
+TSDemuxer: tracks / duration / packets() / seek() / close().
+"""
+''',
+     '''PES packets per stream id: video 0xE0-0xEF, MPEG audio 0xC0-0xDF, and
+private-stream-1 (0xBD) substreams (AC-3 0x80-0x87, DTS 0x88-0x8F, LPCM
+0xA0-0xAF with their 1-4 byte substream preambles; an AC-3 or DTS track
+takes its rate and channels from its first frame).  Video codec is
+sniffed from the ES (H.264 NALs vs MPEG-2 sequence headers).  Exposes
+the same interface as TSDemuxer: tracks / duration / packets() / seek()
+/ close().
+"""
+'''),
+    ("""                sub = payload[0]
+                if 0x80 <= sub <= 0x87:               # AC-3: 3 more bytes
+                    payload = payload[4:]
+""",
+     """                sub = payload[0]
+                if 0x80 <= sub <= 0x8F:       # AC-3, DTS: 3 more bytes
+                    payload = payload[4:]
+"""),
+    ("""                return "audio", "ac3"
+            if sub is not None and 0xA0 <= sub <= 0xAF:
+""",
+     """                return "audio", "ac3"
+            if sub is not None and 0x88 <= sub <= 0x8F:
+                return "audio", "dts"
+            if sub is not None and 0xA0 <= sub <= 0xAF:
+"""),
+    ("""                ti.extradata = bytes([h["bits"]])
+            self._sid_to_track[key] = len(self.tracks)
+""",
+     """                ti.extradata = bytes([h["bits"]])
+            elif codec in ("ac3", "dts"):
+                read_audio_header(ti, es, "ps")
+            self._sid_to_track[key] = len(self.tracks)
+"""),
+    ("""    def seek(self, pts):
+        return None                      # restart from byte 0 (linear)
+""",
+     '''    def stream_track(self, stream_id: int, substream=None):
+        """The index of the track of PES stream ``stream_id`` (of private
+        stream 1's ``substream``), or None where it has no track."""
+        return self._sid_to_track.get((stream_id, substream))
+
+    def seek(self, pts):
+        return None                      # restart from byte 0 (linear)
+'''),
+)
+
+# the VTS audio attributes (VTSI_MAT 0x203-0x243): languages onto the
+# tracks, disagreements logged
+_DVD_AUDIO_ATTRS = (
+    ("""        0xE6 program map offset, 0xE8 cell playback info offset
+Cells/angles beyond the first PGC and menu domains are out of scope.
+""",
+     """        0xE6 program map offset, 0xE8 cell playback info offset
+  VTSI  0x203 the number of audio streams, 0x204 their attributes, 8
+        bytes each (byte 0: coding mode 0 AC-3 / 2-3 MPEG / 4 LPCM / 6
+        DTS, language type 1 = code present; byte 1: rate, channels - 1;
+        bytes 2-3: the ISO 639-1 code)
+
+The audio attributes go to the tracks of their stream numbers (substream
+0x80 + i AC-3, 0x88 + i DTS, 0xA0 + i LPCM, stream 0xC0 + i MPEG): the
+language is the IFO's, the codec and channels the stream's, and the log
+says where the two disagree and which listed stream the VOBs never carry
+(``apply_audio_attributes``; the reference reads no attributes).
+
+Cells/angles beyond the first PGC and menu domains are out of scope.
+"""),
+    ("""                   "PAL": ((25, 1),)}
+
+
+def _bcd(v: int) -> int:
+""",
+     """                   "PAL": ((25, 1),)}
+
+# the audio attributes' coding modes, and the stream each one's stream
+# number i is carried in: (stream id, substream id or None) at i = 0
+_AUDIO_CODECS = {0: "ac3", 2: "mp2", 3: "mp2", 4: "lpcm", 6: "dts"}
+_AUDIO_STREAMS = {"ac3": (0xBD, 0x80), "dts": (0xBD, 0x88),
+                  "lpcm": (0xBD, 0xA0), "mp2": (0xC0, None)}
+
+
+def _bcd(v: int) -> int:
+"""),
+    ("""    return h * 3600 + m * 60 + s + f / rate
+
+""",
+     '''    return h * 3600 + m * 60 + s + f / rate
+
+
+class AudioAttributes(NamedTuple):
+    """One audio stream's attributes (VTSI_MAT 0x204 + 8 i)."""
+    codec: Optional[str]            # ac3 | mp2 | lpcm | dts; None: other
+    channels: int
+    sample_rate: int
+    language: str                   # ISO 639-2, "und" where none is given
+
+    @classmethod
+    def parse(cls, attr: bytes) -> "AudioAttributes":
+        from ..job.lang import to_iso639_2
+        code = attr[2:4].decode("latin-1", "replace").strip("\\x00 ")
+        lang = to_iso639_2(code) if (attr[0] >> 2) & 3 == 1 and code \\
+            else "und"
+        return cls(_AUDIO_CODECS.get(attr[0] >> 5), (attr[1] & 7) + 1,
+                   96000 if (attr[1] >> 4) & 3 == 1 else 48000, lang)
+
+'''),
+    ("""            return VideoAttributes.parse(f.read(2).ljust(2, b"\\x00"))
+
+""",
+     '''            return VideoAttributes.parse(f.read(2).ljust(2, b"\\x00"))
+
+    @property
+    def audio(self) -> List[AudioAttributes]:
+        """The title's VTS audio attributes, one a stream, from its IFO."""
+        ifo = os.path.join(os.path.dirname(self.vob_paths[0]),
+                           f"VTS_{self.vts:02d}_0.IFO")
+        with open(ifo, "rb") as f:
+            f.seek(0x202)
+            head = f.read(2 + 8 * 8).ljust(66, b"\\x00")
+        n = min(8, int.from_bytes(head[:2], "big"))
+        return [AudioAttributes.parse(head[2 + 8 * i:10 + 8 * i])
+                for i in range(n)]
+
+'''),
+    ("""    return DvdTitle(vts_nr, ttn, duration, chapter_times, palette, vobs)
+
+""",
+     '''    return DvdTitle(vts_nr, ttn, duration, chapter_times, palette, vobs)
+
+
+def apply_audio_attributes(d, t: DvdTitle):
+    """The title's audio tracks (demuxer ``d``) against the IFO's audio
+    attributes: each listed stream i finds its track through the stream
+    of its coding mode, or failing that through another mode's stream of
+    number i; the track takes the IFO's language and keeps the stream's
+    codec and channels, with a log line where the IFO says otherwise.  A
+    listed stream that the VOBs never carry gets no track, and a log
+    line."""
+    from ..utils.logging import log
+
+    def track(codec, i):
+        sid, sub = _AUDIO_STREAMS[codec]
+        return d.stream_track(sid + i) if sub is None \\
+            else d.stream_track(sid, sub + i)
+
+    for i, a in enumerate(t.audio):
+        ifo = (f"{a.codec or 'an unknown coding mode'}, {a.channels} ch, "
+               f"{a.language}")
+        order = ([a.codec] if a.codec else []) + [
+            c for c in _AUDIO_STREAMS if c != a.codec]
+        idx = next((track(c, i) for c in order
+                    if track(c, i) is not None), None)
+        if idx is None:
+            log(f"dvd: the IFO lists audio stream {i + 1} ({ifo}) that the "
+                f"VOBs never carry; it gets no track")
+            continue
+        ti = d.tracks[idx]
+        ti.language = a.language
+        if a.codec != ti.codec:
+            log(f"dvd: audio stream {i + 1} is {ti.codec} in the VOBs, "
+                f"{a.codec or 'an unknown coding mode'} in the IFO; the "
+                f"stream's codec is kept")
+        if a.channels != ti.channels:
+            log(f"dvd: audio stream {i + 1} ({ti.codec}) has "
+                f"{ti.channels} channels in the VOBs, {a.channels} in the "
+                f"IFO; the stream's count is kept")
+
+'''),
+    ("""        d.duration = int(t.duration_s * 90000)
+    # IFO CLUT → vobsub tracks (decvobsub palette source)
+""",
+     """        d.duration = int(t.duration_s * 90000)
+    apply_audio_attributes(d, t)
+    # IFO CLUT → vobsub tracks (decvobsub palette source)
 """),
 )
 
@@ -923,8 +1117,8 @@ def sequence_info(es: bytes):
 )
 
 COPIES = {
-    "sources/ps.py": _PS_ASPECT,
-    "sources/dvd.py": _DVD_VIDEO_ATTRS,
+    "sources/ps.py": _PS_ASPECT + _PS_DTS,
+    "sources/dvd.py": _DVD_VIDEO_ATTRS + _DVD_AUDIO_ATTRS,
     "sources/ts.py": _TS_HEVC_GEOMETRY + _TS_ASPECT,
     "sources/bd.py": (),
     "sources/avi.py": _AVI_MPEG4,      # MPEG-4 part 2 in AVI
