@@ -212,7 +212,8 @@ Phases (none is caught; any failure exits non-zero before the last line):
    through ``cli.__main__.main`` on the default preset and device with
    ``--decomb -m -a 1,2 -E copy:ac3,aac -s 1 --subtitle-burned 1
    --previews 2``: 24 samples, the card's rectangle brighter from its
-   frame on, two chapters, the AC-3 samples equal to the VOBs' frames,
+   frame on and, on the last frame (which decomb holds until the
+   flush), within the other card frames' range, two chapters, the AC-3 samples equal to the VOBs' frames,
    the first 3 samples equal to the job the CLI built run on the CPU
    over the folder's first 4 pictures, deblock264 launched at least once
    for every P frame, the resample kernel once a frame if the preset
@@ -342,10 +343,28 @@ Phases (none is caught; any failure exits non-zero before the last line):
    job (H.264 High to mp4, keyint 4) with AAC beside the AC-3 copy of
    track 1, and again with no sound, each checkpointed, its journal cut
    after the first GOP and resumed: both runs' seconds and the frames
-   each decoded (the PS demuxer cannot seek, so a resumed DVD job
-   decodes from the title's first picture, with sound or without), the
-   resumed file equal to the uninterrupted one.
-19. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
+   each decoded (the 8 pictures hold one I picture, the first, so the
+   resume decodes from it, with sound or without), the resumed file
+   equal to the uninterrupted one.
+19. Resumes on the card, one JSON line a part with the card's name and
+   power limit, each with both runs' seconds, the frames each decoded
+   and coded, the kernels' launches in each, the resume path and its
+   log line: (a) 12 frames of a 1080p y4m through hqdn3d and CFR at
+   half rate, keyint 2, the journal cut after the second GOP: the rate
+   shaper changes the frame count and hqdn3d keeps state, so the resume
+   decodes all 12 frames and filters them (hqdn3d launched once for
+   each frame the shaper gives, as in the full run) and drops the
+   frames done after the filters, deblock264 launched once for each P frame coded after the
+   boundary; (b) job 7's clip coded on the card with an IDR each 4
+   frames (12 frames, mp4), scaled to 1280x720, cut after GOP 2: the
+   decode starts at the IDR of the boundary (8 packets skipped, 4
+   frames decoded, resample launched 4 times); (c) 12 (a)'s DVD at 16
+   pictures (a closed GOP of 10, an open GOP whose I picture has two
+   leading B pictures) with its AC-3 copied, its LPCM to AAC and the
+   card burned, scaled to 1280x720, keyint 7, cut after GOP 2: the
+   decode starts at the open GOP's I picture, the leading B pictures
+   dropped; each resumed file equal to the uninterrupted one.
+20. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
    time; hqdn3d: ``ms`` is 6 (b)'s time at 1080p, ``launches`` 6 (c)'s
@@ -357,9 +376,10 @@ Phases (none is caught; any failure exits non-zero before the last line):
    its counts in jobs 5 (a), 9 (c), 10 (a), 11 (c) and on 14 (a)'s rank
    0; deblock264's
    ``job_launches`` include 11 (b)'s resumed job, the four jobs of step
-   12, 17 (a)-(b) and 18 (a)-(b); resample's those of 12 (a)-(b), 17
-   (a)-(b) and 18 (a)-(b)), steps 7's to 18's
-   numbers, the card's name and power limit, and the result line.
+   12, 17 (a)-(b), 18 (a)-(b) and 19 (a)-(c)'s resumes; resample's
+   those of 12 (a)-(b), 17 (a)-(b), 18 (a)-(b) and 19 (b)-(c)'s
+   resumes; hqdn3d's 19 (a)'s resume), steps 7's to 19's numbers, the
+   card's name and power limit, and the result line.
 
 Step 14's ranks run this script with ``--mesh-rank KIND DIR ARGV...``
 (above).  Step 13's helper processes run it with: ``--decode-check
@@ -372,7 +392,7 @@ one-rank files) and step 14 alone, on every card the run can see, and
 prints no result line: the check of 14 (d)'s NCCL world on a machine
 with several cards.  ``--anamorphic-only`` runs step 1's build and step
 17 alone and prints no result line; ``--audio-copy-only`` the build and
-step 18.
+step 18; ``--resumes-only`` the build and step 19.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -583,6 +603,15 @@ COPY_PRESET = {"PresetName": "DVD AAC and AC-3 copy", "VideoEncoder": "h264",
 COPY_CPU_THREADS = 4
 # (d): the resumed DVD job's keyint and the frames its journal keeps
 COPY_RESUME_KEYINT, COPY_RESUME_DONE = 4, 4
+# step 19: resumes.  (a) the 1080p y4m's frames through hqdn3d and CFR
+# at half rate, the job's keyint and the GOP marker its journal is cut
+# after; (b) job 7's clip coded again with an IDR each R19_SRC_GOP
+# frames (job 7's has one IDR), its frames, the job's keyint and cut,
+# the frame-local chain's scale; (c) the DVD's pictures (12 (a)'s
+# folder: AC-3, LPCM, the VobSub card), keyint and cut
+R19_N, R19_KEYINT, R19_CUT = 12, 2, 2
+R19_SRC_N, R19_SRC_GOP, R19_SCALE = 12, 4, (1280, 720)
+R19_DVD_N, R19_DVD_KEYINT, R19_DVD_CUT = 16, 7, 2
 
 
 def smi(query):
@@ -3263,6 +3292,11 @@ def phase_dvd(tmp, label):
     means = luma_means(out, rect)
     before = max(means[:DVD_CARD_AT - 1])
     after = min(means[DVD_CARD_AT + 1:])
+    # the last frame, which decomb holds until the flush, keeps the card
+    # (ROADMAP 3.11): within the other card frames' range, give or take a
+    # level of coding noise
+    shown = means[DVD_CARD_AT + 1:-1]
+    last_ok = min(shown) - 1 <= means[-1] <= max(shown) + 1
     n_p = spy.p_frames()
     # the same job (the one the CLI built) on the CPU over the first 4
     # pictures (I P B B: display frames 0-3)
@@ -3278,6 +3312,7 @@ def phase_dvd(tmp, label):
            "chapters": len(chapters),
            "ac3_equal_vob": [p for _, p in pk[1]] == ac3_frames,
            "card_luma_before_max": before, "card_luma_after_min": after,
+           "card_luma_last": means[-1], "card_on_last_frame": last_ok,
            "first3_equal_cpu": samples[:N_CPU] == cpu_samples[:N_CPU],
            "deblock264_launches": db, "p_frames": n_p,
            "redos": spy.enc.n_redo, "resample_launches": rs,
@@ -3296,6 +3331,9 @@ def phase_dvd(tmp, label):
         raise RuntimeError(f"the DVD job's tracks are {rec['tracks']}")
     if after < before + 60:
         raise RuntimeError("the burned VobSub card does not show")
+    if not last_ok:
+        raise RuntimeError("the burned VobSub card is dimmer on the last "
+                           "frame than on the frames before it")
     if not rec["first3_equal_cpu"]:
         raise RuntimeError("the DVD job's first samples differ from the CPU")
     if db < n_p or db == 0:
@@ -4814,11 +4852,188 @@ def resume_dvd(root, tmp, sound):
     stats = work.do_job(job(resume=True))
     torch.cuda.synchronize()
     return {"full_s": full_s, "resume_s": time.perf_counter() - t1,
-            "frames_decoded_full": full_stats["frames_in"],
-            "frames_decoded_on_resume": stats["frames_in"],
+            "frames_decoded_full": full_stats["frames_decoded"],
+            "frames_decoded_on_resume": stats["frames_decoded"],
             "frames_coded_on_resume": stats["frames_out"],
             "equal_to_uninterrupted": file_bytes(out) == full,
             "journal_left": os.path.exists(out + ".ckpt")}
+
+
+def cut_journal(path, gops):
+    """Cut `path`.ckpt after its `gops`-th GOP marker and delete `path`,
+    as a kill after that GOP would leave them; the frames it keeps."""
+    from handbrake_tpu_torch import checkpoint
+    data = file_bytes(path + ".ckpt")
+    marks = [(s, end) for tag, s, end in checkpoint.spans(data)
+             if tag == "g"]
+    s, end = marks[gops - 1]
+    with open(path + ".ckpt", "wb") as f:
+        f.write(data[:end])
+    os.unlink(path)
+    return checkpoint._get(data[s + checkpoint._HDR.size:end], 0)[0][0]
+
+
+def resumed(label, part, job, gops):
+    """Run `job` (a callable of checkpoint/resume keywords) checkpointed,
+    cut its journal after `gops` GOPs and resume it on the card: both
+    runs' seconds, the frames each decoded and coded, the kernels'
+    launches in each, the resume path and its log line, and whether the
+    resumed file equals the uninterrupted one."""
+    import torch
+
+    from handbrake_tpu_torch import work
+    from handbrake_tpu_torch.codecs.h264 import deblock_cuda
+    from handbrake_tpu_torch.filters import hqdn3d_cuda, resample_cuda
+    from handbrake_tpu_torch.tools import profile_job as pj
+    runs = {}
+    for kind in ("full", "resume"):
+        kw = {"checkpoint": True} if kind == "full" else {"resume": True}
+        with kept_journal(), log_lines() as lines, pj.JobSpy() as spy:
+            reset_counts()
+            t0 = time.perf_counter()
+            stats = work.do_job(job(**kw))
+            torch.cuda.synchronize()
+            runs[kind] = {
+                "s": time.perf_counter() - t0,
+                "frames_decoded": stats["frames_decoded"],
+                "video_packets_skipped": stats["video_packets_skipped"],
+                "frames_coded": stats["frames_out"],
+                "deblock264_launches": deblock_cuda.launches,
+                "hqdn3d_launches": hqdn3d_cuda.launches,
+                "resample_launches": resample_cuda.launches,
+                "p_frames": spy.p_frames(), "redos": spy.enc.n_redo,
+                "path": stats["resume"],
+                "log": next((ln.split("hbtpu: ", 1)[-1] for ln in lines
+                             if "resume:" in ln), None)}
+        if kind == "full":
+            out = job().file
+            full = file_bytes(out)
+            runs["done"] = cut_journal(out, gops)
+    runs["equal_to_uninterrupted"] = file_bytes(out) == full
+    rec = {"phase": f"19{part}", "card": label, **runs}
+    print(json.dumps(rec), flush=True)
+    if not rec["equal_to_uninterrupted"]:
+        raise RuntimeError(f"19 ({part}): the resumed file differs from "
+                           f"the uninterrupted one")
+    r = runs["resume"]
+    if r["deblock264_launches"] != r["p_frames"] + r["redos"] \
+            or r["deblock264_launches"] == 0:
+        raise RuntimeError(f"19 ({part}): deblock264 was not launched once "
+                           f"for each P frame coded after the boundary")
+    return rec
+
+
+def phase_resumes(tmp, label):
+    """19: resumes on the card, one JSON line a part with the card's name
+    and power limit.  (a) R19_N 1080p y4m frames through hqdn3d and CFR
+    at half rate (keyint R19_KEYINT), cut after GOP R19_CUT: hqdn3d keeps
+    state, so the resume decodes and filters every frame from the start
+    and drops those done after the filters; (b) job 7's clip with an IDR
+    each R19_SRC_GOP frames as an mp4, scaled to R19_SCALE (frame-local),
+    cut after GOP 2: the decode starts at the IDR before the boundary;
+    (c) 12 (a)'s DVD at R19_DVD_N pictures with its AC-3 copied, its LPCM
+    to AAC and the card burned, scaled to 1280x720 (frame-local), cut
+    after GOP R19_DVD_CUT: the decode starts at the second GOP's I
+    picture and its leading B pictures are dropped.  Each resumed file
+    must equal the uninterrupted one."""
+    import torch
+
+    from handbrake_tpu_torch.codecs.h264.encoder import (EncoderConfig,
+                                                         H264Encoder)
+    from handbrake_tpu_torch.job import schema as S
+    from handbrake_tpu_torch.mux.mp4 import MP4Writer
+    from handbrake_tpu_torch.tools import profile_job as pj
+    from handbrake_tpu_torch.utils.synth import make_clip, write_y4m
+    t0 = time.perf_counter()
+    scale = S.FilterSpec(S.FILTER_CROP_SCALE, {"width": R19_SCALE[0],
+                                               "height": R19_SCALE[1]})
+    # (a) hqdn3d and CFR at half rate
+    src = os.path.join(tmp, "r19a.y4m")
+    write_y4m(src, make_clip(W, H, R19_N, seed=23), W, H)
+
+    def job_a(**kw):
+        j = pj.unscaled_job(src, os.path.join(tmp, "r19a.mp4"))
+        j.encoder_options = f"keyint={R19_KEYINT}"
+        j.filters = [S.FilterSpec(S.FILTER_DENOISE, {}),
+                     S.FilterSpec(S.FILTER_VFR, {"mode": 1,
+                                                 "rate-num": 15000,
+                                                 "rate-den": 1001})]
+        for k, v in kw.items():
+            setattr(j, k, v)
+        return j
+    a = resumed(label, "a", job_a, R19_CUT)
+    ra = a["resume"]
+    # the rate shaper goes ahead of hqdn3d: hqdn3d takes each frame it
+    # gives, from the job's start, in both runs
+    if ra["path"] != "start" or ra["frames_decoded"] != R19_N \
+            or ra["hqdn3d_launches"] != a["full"]["hqdn3d_launches"] \
+            or ra["hqdn3d_launches"] == 0:
+        raise RuntimeError("19 (a): the resume did not decode and filter "
+                           "every frame from the job's start")
+    if ra["p_frames"] != sum(1 for i in range(a["done"], a["full"][
+            "frames_coded"]) if i % R19_KEYINT):
+        raise RuntimeError("19 (a): the resume coded other P frames than "
+                           "those after the boundary")
+    # (b) an H.264 mp4 with an IDR each R19_SRC_GOP frames, frame-local
+    enc = H264Encoder(EncoderConfig(width=W, height=H, qp=QP,
+                                    gop=R19_SRC_GOP, deblock=True,
+                                    cabac=True, transform8x8=True))
+    srcb = os.path.join(tmp, "r19b_src.mp4")
+    w = MP4Writer(srcb)
+    v = w.add_video_track(codec="h264", width=W, height=H)
+    for i, f in enumerate(make_clip(W, H, R19_SRC_N, seed=9)):
+        w.write_sample(v, enc.encode_frame(*f), duration=FRAME_TICKS,
+                       sync=i % R19_SRC_GOP == 0, annexb=True)
+    w.finalize()
+    torch.cuda.synchronize()
+
+    def job_b(**kw):
+        j = pj.unscaled_job(srcb, os.path.join(tmp, "r19b.mp4"))
+        j.encoder_options = f"keyint={R19_SRC_GOP}"
+        j.filters = [scale]
+        for k, v in kw.items():
+            setattr(j, k, v)
+        return j
+    b = resumed(label, "b", job_b, 2)
+    rb = b["resume"]
+    if rb["path"] != "keyframe" or rb["video_packets_skipped"] != b["done"] \
+            or rb["frames_decoded"] != R19_SRC_N - b["done"] \
+            or rb["resample_launches"] != R19_SRC_N - b["done"]:
+        raise RuntimeError("19 (b): the resume did not start the decode at "
+                           "the IDR of the boundary")
+    # (c) the DVD, frame-local, its leading B pictures dropped
+    root, _ac3, n = dvd_folder(os.path.join(tmp, "r19_dvd"), R19_DVD_N)
+
+    def job_c(**kw):
+        j = S.Job(path=root, file=os.path.join(tmp, "r19c.mp4"), mux="mp4",
+                  vcodec="h264", quality=28.0, encoder_profile="high",
+                  encoder_options=f"keyint={R19_DVD_KEYINT}",
+                  filters=[scale],
+                  audio=[S.AudioJobTrack(track=0, encoder="copy:ac3"),
+                         S.AudioJobTrack(track=1, encoder="aac",
+                                         bitrate=160)],
+                  subtitles=[S.SubtitleJobTrack(track=0, burn=True)], **kw)
+        return j
+    c = resumed(label, "c", job_c, R19_DVD_CUT)
+    rc = c["resume"]
+    if rc["path"] != "keyframe" or rc["frames_decoded"] >= n \
+            or rc["video_packets_skipped"] == 0:
+        raise RuntimeError("19 (c): the resume did not start the DVD's "
+                           "decode at a keyframe")
+    rec = {"a": a, "b": b, "c": c, "seconds": time.perf_counter() - t0}
+    print(f"phase 19 ({label}): {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
+def resumes_only() -> int:
+    """Steps 1 and 19 alone (``--resumes-only``)."""
+    import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
+    label = card()
+    print(f"card: {label}", flush=True)
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_resumes(tmp, label)
+    return 0
 
 
 def audio_copy_only() -> int:
@@ -4882,6 +5097,8 @@ def main() -> int:
         return anamorphic_only()
     if sys.argv[1:2] == ["--audio-copy-only"]:
         return audio_copy_only()
+    if sys.argv[1:2] == ["--resumes-only"]:
+        return resumes_only()
     import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
     from handbrake_tpu_torch.utils.device import resolve_device
     resolve_device(None)
@@ -4910,6 +5127,7 @@ def main() -> int:
         refusals = phase_refusals(tmp, label, bf)
         par = phase_anamorphic(tmp, label)
         acopy = phase_audio_copy(tmp, label)
+        res = phase_resumes(tmp, label)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -4944,7 +5162,10 @@ def main() -> int:
                                "dvd_audio_preset_mp4_cli":
                                    acopy["a"]["deblock264_launches"],
                                "dvd_audio_copies_mkv_cli":
-                                   acopy["b"]["deblock264_launches"]})
+                                   acopy["b"]["deblock264_launches"],
+                               **{f"resume_19{k}_do_job":
+                                  res[k]["resume"]["deblock264_launches"]
+                                  for k in "abc"}})
     rs_entry = {
         "name": "resample", "route": "cuda",
         "source": "handbrake_tpu_torch/csrc/resample.cu",
@@ -4979,7 +5200,13 @@ def main() -> int:
                          "dvd_audio_preset_mp4_cli":
                              acopy["a"]["resample_launches"],
                          "dvd_audio_copies_mkv_cli":
-                             acopy["b"]["resample_launches"]}}
+                             acopy["b"]["resample_launches"],
+                         **{f"resume_19{k}_do_job":
+                            res[k]["resume"]["resample_launches"]
+                            for k in "bc"}}}
+    hq_entry["job_launches"] = {
+        "interlaced_1080i_cli": job_i["hqdn3d_launches"],
+        "resume_19a_do_job": res["a"]["resume"]["hqdn3d_launches"]}
     if "jobs" in catalog:        # 15 (c), where libavcodec is present
         entry["job_launches"]["mpeg4_avi_do_job"] = \
             catalog["jobs"]["mpeg4"]["deblock264_launches"]
@@ -4997,6 +5224,7 @@ def main() -> int:
     print(f"phase 16 seconds: {refusals['seconds']:.1f}", flush=True)
     print(f"phase 17 seconds: {par['seconds']:.1f}", flush=True)
     print(f"phase 18 seconds: {acopy['seconds']:.1f}", flush=True)
+    print(f"phase 19 seconds: {res['seconds']:.1f}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

@@ -10,6 +10,15 @@ one cut.  A job killed at any point leaves a
 prefix of complete GOPs: resume replays them into a new output file and
 restarts the pipeline at the boundary.
 
+Since version 3 a marker also holds what a resume needs to skip the
+decode ahead of a keyframe: the frames the filter graph had taken when it
+gave the boundary frame, whether the synchronizer had dropped or added a
+video frame by then, the decode-order packet index, display index and
+pts of the last random access point at or before the boundary frame, and
+the timing of the decoder's frames ahead of that point not yet in an
+earlier marker (``Timeline``).  A version 2 journal still resumes, with
+a full decode, and the markers that resume adds stay version 2.
+
 The format is the port's own, and is read without running anything: an
 8-byte magic, then records of a 9-byte header (tag, body length, CRC-32
 of the body) and a body of typed values (``_put``/``_get``: None, bool,
@@ -25,12 +34,16 @@ from __future__ import annotations
 
 import os
 import struct
+import sys
 import zlib
+from array import array
 
 # version 2 keys each audio record by the output's index in the job's
 # audio list; version 1 keyed it by the source track, which two outputs
-# of one track share, so such a journal is refused, not replayed
-MAGIC = b"HBTCKP2\n"
+# of one track share, so such a journal is refused, not replayed;
+# version 3 adds the resume point to each marker
+MAGIC = b"HBTCKP3\n"
+_MAGIC_V2 = b"HBTCKP2\n"
 _MAGIC_V1 = b"HBTCKP1\n"
 _HDR = struct.Struct(">BII")          # tag, body length, CRC-32 of body
 TAGS = {b"v"[0]: "v", b"a"[0]: "a", b"s"[0]: "s", b"g"[0]: "g"}
@@ -111,6 +124,43 @@ def encode_record(tag: str, fields: tuple) -> bytes:
     return _HDR.pack(ord(tag), len(body), zlib.crc32(body)) + bytes(body)
 
 
+class Timeline:
+    """The timing (pts, stop, duration) of each frame the video decoder
+    gave, in the order it gave them.  A resume that skips the decode
+    ahead of a keyframe hands the synchronizer these in place of the
+    frames ahead of it, so its timeline is the uninterrupted run's.
+    Appended on the decode thread, read on the mux thread."""
+    _NONE = -(1 << 63)
+
+    def __init__(self):
+        self._a = array("q")
+
+    def __len__(self) -> int:
+        return len(self._a) // 3
+
+    def append(self, pts, stop, duration) -> None:
+        self._a.extend(tuple(self._NONE if v is None else int(v)
+                             for v in (pts, stop, duration)))
+
+    def __getitem__(self, i: int) -> tuple:
+        return tuple(None if v == self._NONE else v
+                     for v in self._a[3 * i:3 * i + 3])
+
+    def pack(self, lo: int, hi: int) -> bytes:
+        """Frames lo..hi-1, big-endian, compressed."""
+        a = self._a[3 * lo:3 * hi]
+        if sys.byteorder == "little":
+            a.byteswap()
+        return zlib.compress(a.tobytes())
+
+    def extend_packed(self, data: bytes) -> None:
+        a = array("q")
+        a.frombytes(zlib.decompress(data))
+        if sys.byteorder == "little":
+            a.byteswap()
+        self._a.extend(a)
+
+
 def rc_snapshot(rc) -> dict:
     """The rate controller's state that a resume restores: its numbers,
     flags and lists (the reference's choice of attributes)."""
@@ -120,16 +170,23 @@ def rc_snapshot(rc) -> dict:
 
 class CkptJournal:
     """Writer: one record per muxed sample, a ``gop`` marker at each
-    resume point after the first (an IDR with its rate-control state).  A
-    resumed job's journal continues after its last marker (frames0), and
-    its first IDR, which that marker already commits, adds none (the
-    reference adds a second one, which a later resume counts as a GOP)."""
+    resume point after the first (an IDR with its rate-control state and,
+    in version 3, its resume point).  A resumed job's journal continues
+    after its last marker (frames0), in the journal's version, and its
+    first IDR, which that marker already commits, adds none (the
+    reference adds a second one, which a later resume counts as a GOP).
+    ``timeline`` is the decoder's (``Timeline``), of which the journal
+    holds the first ``timed`` frames."""
 
-    def __init__(self, path: str, rc, append: bool = False, frames0: int = 0):
+    def __init__(self, path: str, rc, append: bool = False, frames0: int = 0,
+                 version: int = 3, timeline=None, timed: int = 0):
         self.path = path
         self.rc = rc
         self.frames = frames0
         self._marked = frames0       # frames the last marker commits
+        self.version = version
+        self.timeline = timeline
+        self.timed = timed
         self.f = open(path, "ab" if append else "wb")
         if not append:
             self.f.write(MAGIC)
@@ -137,9 +194,13 @@ class CkptJournal:
     def _write(self, tag: str, *fields):
         self.f.write(encode_record(tag, fields))
 
-    def video(self, au, pts, dur, idr, side_data, rc_state=None):
+    def video(self, au, pts, dur, idr, side_data, rc_state=None,
+              point=None):
+        """`point`: the boundary's (frames the graph had taken, sync
+        touched, random access point (packet, display index, pts) or
+        None), as the encode stage saw it."""
         if idr and rc_state is not None and self.frames > self._marked:
-            self.commit(rc_state)
+            self.commit(rc_state, point)
         self._write("v", bytes(au), pts, dur, bool(idr),
                     {k: v for k, v in (side_data or {}).items()
                      if isinstance(v, (bytes, int, float, str))})
@@ -152,9 +213,24 @@ class CkptJournal:
     def subtitle(self, k, data, pts, dur, stop):
         self._write("s", k, bytes(data), pts, dur, stop)
 
-    def commit(self, rc_state=None):
-        self._write("g", self.frames,
-                    rc_state if rc_state is not None else rc_snapshot(self.rc))
+    def _resume_fields(self, point) -> dict:
+        fed, touched, rap = point if point is not None else (0, True, None)
+        packet, display, rap_pts = rap if rap is not None else (None,) * 3
+        timing = b""
+        if display is not None and self.timeline is not None:
+            timing = self.timeline.pack(self.timed, display)
+            self.timed = max(self.timed, display)
+        return {"graph_in": fed, "sync_touched": bool(touched),
+                "packet": packet, "display": display, "rap_pts": rap_pts,
+                "timing": timing}
+
+    def commit(self, rc_state=None, point=None):
+        rc_state = rc_state if rc_state is not None else rc_snapshot(self.rc)
+        if self.version >= 3:
+            self._write("g", self.frames, rc_state,
+                        self._resume_fields(point))
+        else:
+            self._write("g", self.frames, rc_state)
         self._marked = self.frames
         self.f.flush()
         os.fsync(self.f.fileno())
@@ -168,20 +244,25 @@ class CkptJournal:
 
 
 def load(path: str):
-    """→ (records of the complete GOPs, frames done, rc state with
-    ``_gops_done``, or None, and the file offset just past the last
-    complete GOP).  Raises JournalError for a file that is not a journal
-    or a committed record that does not parse; a record cut short, or one
-    whose CRC fails, ends the journal (a torn tail)."""
+    """→ (records of the complete GOPs, frames done, rc state, or None,
+    and the file offset just past the last complete GOP).  The rc state
+    carries ``_gops_done``, ``_version`` and ``_resume``: the last
+    marker's resume point with ``timing`` the ``Timeline`` of all the
+    markers, or None in a version 2 journal.  Raises JournalError for a
+    file that is not a journal or a committed record that does not
+    parse; a record cut short, or one whose CRC fails, ends the journal
+    (a torn tail)."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(_MAGIC_V1):
         raise JournalError(f"{path}: a version 1 journal, whose audio "
                            "records are keyed by source track, not by "
                            "output (refused, not replayed)")
-    if not data.startswith(MAGIC):
+    if not data.startswith((MAGIC, _MAGIC_V2)):
         raise JournalError(f"{path}: not a checkpoint journal of this "
                            "package (refused, not read)")
+    version = 3 if data.startswith(MAGIC) else 2
+    timeline = Timeline()
     out, pending = [], []
     n_done, rc_state, gops_done = 0, None, 0
     i = cut = len(MAGIC)
@@ -200,12 +281,26 @@ def load(path: str):
             raise JournalError(f"{path}: malformed {TAGS[tag]!r} record")
         i += _HDR.size + ln
         if TAGS[tag] == "g":
+            if len(fields) != (3 if version == 3 else 2):
+                raise JournalError(f"{path}: malformed 'g' record")
             out.extend(pending)
             pending = []
             n_done = fields[0]
             gops_done += 1
             rc_state = dict(fields[1])
             rc_state["_gops_done"] = gops_done
+            rc_state["_version"] = version
+            rc_state["_resume"] = None
+            if version == 3:
+                resume = dict(fields[2])
+                try:
+                    if resume["timing"]:
+                        timeline.extend_packed(resume["timing"])
+                except zlib.error as e:
+                    raise JournalError(f"{path}: malformed timing: "
+                                       f"{e}") from None
+                resume["timing"] = timeline
+                rc_state["_resume"] = resume
             cut = i
         else:
             pending.append((TAGS[tag],) + fields)

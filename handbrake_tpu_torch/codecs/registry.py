@@ -22,10 +22,26 @@ raises ValueError naming the feature (the reference switches at any
 error, and after a frame starts libavcodec mid-stream).  A 10- or
 12-bit stream's frames carry their bit depth (the reference labels them
 8-bit).
+
+A resume may skip the decode ahead of a keyframe: ``random_access``
+says whether a fresh decoder fed from a packet on gives the frames from
+the one that packet carries on as this decoder does (an H.264 IDR; an
+MPEG-2 I picture after a sequence header whose quantiser matrices this
+decoder holds; every y4m frame), and ``prime`` takes the
+stream headers of a packet whose decode is skipped.  The others give no
+such packet, and a resume decodes them from the start.
 """
 from __future__ import annotations
 
 from ..core.buffer import Buffer, PIX_FMTS
+
+
+def _start_codes(data: bytes):
+    """(offset of the byte after each 00 00 01, that byte) in order."""
+    i = data.find(b"\x00\x00\x01")
+    while 0 <= i < len(data) - 3:
+        yield i + 3, data[i + 3]
+        i = data.find(b"\x00\x00\x01", i + 3)
 
 
 class VideoDecoder:
@@ -33,6 +49,16 @@ class VideoDecoder:
 
     def feed(self, buf: Buffer) -> list:
         raise NotImplementedError
+
+    def random_access(self, buf: Buffer) -> bool:
+        """Whether a fresh decoder fed from this packet on gives every
+        frame from the one it carries on as this one does (asked before
+        the packet is fed)."""
+        return False
+
+    def prime(self, buf: Buffer) -> None:
+        """A packet whose decode a resume skips: keep the stream headers
+        it carries."""
 
     def flush(self) -> list:
         return []
@@ -71,6 +97,23 @@ class H264VideoDecoder(VideoDecoder):
             i += 2
             self.dec.decode_nal(avcc[i:i + ln])
             i += ln
+
+    def random_access(self, buf: Buffer) -> bool:
+        """An IDR access unit: it resets every reference, and the
+        decoder gives each picture out as it is decoded."""
+        for _i, b in _start_codes(bytes(buf.data or b"")):
+            if b & 0x1F in (1, 5):          # the first slice
+                return b & 0x1F == 5
+        return False
+
+    def prime(self, buf: Buffer) -> None:
+        """The sequence and picture parameter sets, in stream order."""
+        data = bytes(buf.data or b"")
+        sc = list(_start_codes(data))
+        for k, (i, b) in enumerate(sc):
+            if b & 0x1F in (7, 8):
+                end = sc[k + 1][0] - 3 if k + 1 < len(sc) else len(data)
+                self.dec.send_nal(data[i:end].rstrip(b"\x00"))
 
     def feed(self, buf: Buffer) -> list:
         if buf.data is None:
@@ -278,6 +321,9 @@ class RawVideoDecoder(VideoDecoder):
     def feed(self, buf: Buffer) -> list:
         return [buf] if buf.planes is not None else []
 
+    def random_access(self, buf: Buffer) -> bool:
+        return buf.planes is not None
+
 
 class Mpeg2VideoDecoder(VideoDecoder):
     """MPEG-2 (codecs/mpeg2.py): streaming ES decode with B-frame
@@ -321,6 +367,40 @@ class Mpeg2VideoDecoder(VideoDecoder):
                           "vui_timing": (fr[1], 2 * fr[0]),
                           "sar": self.dec.sar or (1, 1)}
         return out
+
+    def random_access(self, buf: Buffer) -> bool:
+        """The packet's first picture is an I picture after a sequence
+        header in the same packet, and a quantiser matrix that header
+        does not load is the default here too (this decoder keeps a
+        matrix a header does not load; a fresh one has the default).
+        Pictures after it in display order refer to nothing before it;
+        the B pictures ahead of it in display order (an open GOP) are
+        the caller's to drop."""
+        import numpy as np
+
+        from .mpeg2 import DEFAULT_INTRA_MATRIX, I_TYPE
+        data = bytes(buf.data or b"")
+        seq = None
+        for i, code in _start_codes(data):
+            if code == 0xB3:
+                seq = i + 1
+            elif code == 0x00:
+                if seq is None or i + 2 >= len(data) \
+                        or (data[i + 2] >> 3) & 7 != I_TYPE:
+                    return False
+                break
+        else:
+            return False
+        # 62 bits of header, then load_intra_quantiser_matrix, its 64
+        # bytes, and load_non_intra_quantiser_matrix
+        if seq + 72 > len(data):
+            return False
+        load_intra = (data[seq + 7] >> 1) & 1
+        load_non_intra = data[seq + 71 if load_intra else seq + 7] & 1
+        return ((load_intra or np.array_equal(self.dec.intra_m,
+                                              DEFAULT_INTRA_MATRIX))
+                and (load_non_intra or bool((self.dec.nonintra_m
+                                             == 16).all())))
 
     def feed(self, buf: Buffer) -> list:
         if buf.data is None:

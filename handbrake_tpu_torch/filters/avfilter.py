@@ -73,6 +73,10 @@ class AvfilterEscape(Filter):
         self.fi = cur.copy()
         return self.fi
 
+    def keeps_state(self):
+        return next((f"({f.name}) {why}" for f in self.chain
+                     if (why := f.keeps_state()) is not None), None)
+
     def work(self, buf: Buffer) -> list:
         bufs = [buf]
         for f in self.chain:

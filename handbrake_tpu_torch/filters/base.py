@@ -5,6 +5,12 @@ hb_filter_init_t contract, work.c:1831-1877: each filter receives the
 upstream format and returns what it outputs) and transforms buffers in
 ``work``. Temporal filters may buffer internally; an EOF buffer flushes.
 
+Each filter class says whether its output for a frame depends on that
+frame alone, one frame out for each frame in (``state`` None), or why
+not: the default is that it keeps state.  A resumed job whose filters
+all keep none may skip the decode ahead of its last keyframe
+(``work.py``, ``checkpoint.py``).
+
 Port notes: pixel work is torch operations on the device the job runs
 on; ``create_filter`` raises FilterError for an id nobody registered, and
 the port's FilterGraph turns a known but unported id into
@@ -48,6 +54,9 @@ class Filter:
     """Base filter. Subclasses set ``id``/``name`` and override init/work."""
     id: int = -1
     name: str = "?"
+    # why the output for a frame depends on other frames, or the frame
+    # count changes; None where neither holds
+    state: Optional[str] = "keeps state across frames"
 
     def __init__(self, settings: Optional[dict] = None):
         self.settings = dict(settings or {})
@@ -75,6 +84,12 @@ class Filter:
 
     def close(self):
         pass
+
+    def keeps_state(self) -> Optional[str]:
+        """None where the output for a frame depends on that frame alone,
+        one frame out for each frame in; else why not (settings may
+        decide: a filter overrides this where they do)."""
+        return self.state
 
 
 _REGISTRY: dict = {}

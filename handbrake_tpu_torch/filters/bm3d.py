@@ -126,6 +126,7 @@ def bm3d_plane(plane: torch.Tensor, sigma: float = 4.0, maxval: int = 255,
 class BM3DFilter(Filter):
     id = S.FILTER_BM3D
     name = "bm3d"
+    state = None            # frame-local: one frame out for each frame in
 
     def init(self, fi: FilterInit) -> FilterInit:
         s = self.settings

@@ -214,6 +214,7 @@ def convert_frame(y, u, v, *, src_matrix, dst_matrix, src_transfer,
 class ColorspaceFilter(Filter):
     id = S.FILTER_COLORSPACE
     name = "colorspace"
+    state = None            # frame-local: one frame out for each frame in
 
     def init(self, fi: FilterInit) -> FilterInit:
         s = self.settings

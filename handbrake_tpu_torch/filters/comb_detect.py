@@ -55,6 +55,8 @@ def comb_mask_and_blocks(cur, prev, spatial_metric: int = 2,
 class CombDetectFilter(Filter):
     id = S.FILTER_COMB_DETECT
     name = "comb_detect"
+    state = ("keeps state across frames (each frame is measured against "
+             "the one before)")
 
     def init(self, fi: FilterInit) -> FilterInit:
         s = self.settings

@@ -27,6 +27,7 @@ from ..job import schema as S
 class CropScaleFilter(Filter):
     id = S.FILTER_CROP_SCALE
     name = "crop_scale"
+    state = None            # frame-local: one frame out for each frame in
 
     def init(self, fi: FilterInit) -> FilterInit:
         s = self.settings

@@ -46,6 +46,7 @@ def deband_plane(plane: torch.Tensor, rng: int = 16, thresh: int = 12,
 class DebandFilter(Filter):
     id = S.FILTER_DEBAND
     name = "deband"
+    state = None            # frame-local: one frame out for each frame in
 
     def init(self, fi: FilterInit) -> FilterInit:
         s = self.settings

@@ -75,6 +75,7 @@ def deblock_plane(plane: torch.Tensor, bs: int = 8, thresh: int = 20,
 class DeblockFilter(Filter):
     id = S.FILTER_DEBLOCK
     name = "deblock"
+    state = None            # frame-local: one frame out for each frame in
 
     def init(self, fi: FilterInit) -> FilterInit:
         s = self.settings

@@ -51,6 +51,8 @@ def cubic_deint_plane(cur, parity: int, maxval: int = 255) -> torch.Tensor:
 class DecombFilter(Filter):
     id = S.FILTER_DECOMB
     name = "decomb"
+    state = ("keeps state across frames (each frame is filtered with the "
+             "frames beside it)")
 
     def init(self, fi: FilterInit) -> FilterInit:
         self.mode = int(self.settings.get("mode", 7))

@@ -135,6 +135,8 @@ def bwdif_plane(cur, prev, nxt, parity: int, maxval: int = 255
 
 class _DeintBase(Filter):
     """3-frame window management shared by yadif/bwdif."""
+    state = ("keeps state across frames (each frame is filtered with the "
+             "frames beside it)")
 
     def __init__(self, settings=None):
         super().__init__(settings)

@@ -81,6 +81,7 @@ def hqdn3d_frame(planes, ants, g_sp, g_tmp, maxval: int) -> list:
 class DenoiseFilter(Filter):
     id = S.FILTER_DENOISE
     name = "hqdn3d"
+    state = "keeps state across frames (its temporal low-pass)"
 
     def init(self, fi: FilterInit) -> FilterInit:
         s = self.settings

@@ -47,6 +47,7 @@ def _weave(top_src, bot_src) -> list:
 class DetelecineFilter(Filter):
     id = S.FILTER_DETELECINE
     name = "detelecine"
+    state = "keeps state across frames and drops frames"
 
     def init(self, fi: FilterInit) -> FilterInit:
         self.prev: Buffer | None = None

@@ -52,6 +52,12 @@ class FilterGraph:
                 return True
         return False
 
+    def keeps_state(self):
+        """None where every filter is frame-local; else the first filter
+        that is not, named, and why."""
+        return next((f"{f.name} {why}" for f in self.filters
+                     if (why := f.keeps_state()) is not None), None)
+
     def work(self, buf: Buffer) -> list:
         bufs = [buf]
         for f in self.filters:

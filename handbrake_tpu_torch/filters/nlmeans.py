@@ -111,6 +111,13 @@ class NLMeansFilter(Filter):
         self.fi = fi.copy()
         return self.fi
 
+    def keeps_state(self):
+        """Frame-local with one frame a plane; its temporal frames are a
+        ring of the frames before."""
+        n = max(self.y["frames"], self.c["frames"])
+        return None if n == 1 else (f"keeps state across frames ({n} "
+                                    f"temporal frames)")
+
     def _plane_fn(self, cfg):
         """The filter of one plane: tiled over the mesh, or untiled."""
         kw = dict(strength=cfg["strength"], origin_tune=cfg["origin_tune"],

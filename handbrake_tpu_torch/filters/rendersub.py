@@ -9,7 +9,13 @@ internal.h:485).
 Subtitle events arrive as Buffers with track_kind == "subtitle", an RGBA
 array in planes[0] (H, W, 4) and a position in .rect; they are queued by
 pts (each event's RGBA goes to the device once, when it is queued) and
-blended onto every video frame whose pts falls in [pts, stop).
+blended onto every video frame whose pts falls in [pts, stop).  A clear
+marker (a bitmap format's next display set, or a VobSub card's end) sets
+the stop of the events it retires; an event leaves the queue only when a
+frame at or past its stop comes.  The reference drops them when the
+marker comes, so a frame a filter ahead still holds (decomb's and
+yadif's one frame, the last of a job until the flush) loses a card that
+was still on screen at its pts.
 
 The reference's ``blend_rgba`` is a jitted XLA graph, not a kernel; here
 it is torch operations in the order in which XLA:CPU evaluates that graph
@@ -169,6 +175,7 @@ def blend_rgba(y, u, v, rgba, x0: int, y0: int, sw: int, sh: int,
 class RenderSubFilter(Filter):
     id = S.FILTER_RENDER_SUB
     name = "render_sub"
+    state = None            # frame-local: one frame out for each frame in
 
     def init(self, fi: FilterInit) -> FilterInit:
         self.events: list = []
@@ -180,16 +187,15 @@ class RenderSubFilter(Filter):
     def queue_subtitle(self, sub: Buffer):
         """Feed one subtitle event (RGBA bitmap + rect + pts/stop), or a
         clear marker (sub_clear=True): bitmap formats like PGS replace
-        the whole screen per display set — a marker retires every event
-        older than its pts.  An event's RGBA goes to the device here,
+        the whole screen per display set — a marker ends every open
+        event older than its pts there (``work`` drops it once a frame
+        reaches that stop).  An event's RGBA goes to the device here,
         once."""
         if getattr(sub, "sub_clear", False):
             cut = sub.pts if sub.pts is not None else 0
             for e in self.events:
                 if e.stop is None and (e.pts or 0) < cut:
                     e.stop = cut
-            self.events = [e for e in self.events
-                           if e.stop is None or e.stop > cut]
             return
         ev = Buffer(track_kind="subtitle").copy_props(sub)
         ev.planes = [to_tensor(sub.planes[0], self.device)]

@@ -17,6 +17,7 @@ from ..job import schema as S
 class RPUFilter(Filter):
     id = S.FILTER_RPU
     name = "rpu"
+    state = None            # frame-local: one frame out for each frame in
 
     def init(self, fi: FilterInit) -> FilterInit:
         s = self.settings

@@ -74,6 +74,7 @@ def _lapsharp_plane(plane: torch.Tensor, kernel: str, strength: float,
 
 class _PlaneFilter(Filter):
     """init of the three filters: the maxval and the device."""
+    state = None            # frame-local: one frame out for each frame in
 
     def init(self, fi: FilterInit) -> FilterInit:
         self.maxval = (1 << fi.pix_fmt.bit_depth) - 1

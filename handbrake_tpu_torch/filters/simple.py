@@ -28,6 +28,8 @@ def _flip(a: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class _DeviceFilter(Filter):
+    state = None            # frame-local: one frame out for each frame in
+
     def init(self, fi: FilterInit) -> FilterInit:
         self.device = resolve_device(fi.device)
         self.fi = fi.copy()

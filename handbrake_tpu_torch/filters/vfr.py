@@ -120,6 +120,14 @@ class VFRFilter(Filter):
             self.fi.vrate = self.rate
         return self.fi
 
+    def keeps_state(self):
+        """Frame-local in VFR mode (it passes every frame on); the CFR
+        and PFR modes drop and add frames."""
+        if self.mode in (1, 2):
+            return (f"changes the frame count "
+                    f"({'CFR' if self.mode == 1 else 'PFR'} mode)")
+        return None
+
     # -- CFR engine ----------------------------------------------------------
     def _emit_cfr(self, buf: Buffer) -> list:
         out = []

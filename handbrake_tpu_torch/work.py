@@ -46,12 +46,20 @@ track overwrites the first, and passes through whatever codec a
 
 ``checkpoint`` journals every muxed sample to ``<dest>.ckpt``
 (``checkpoint.py``) with a marker at each GOP boundary; ``resume``
-replays the complete GOPs, cuts the journal there and reads the source
-from the job's start again, dropping the frames done ahead of the
-filters and the journaled sound and subtitles at the mux, with the rate
-controller's state and the encoder's ``idr_pic_id`` restored, so the
-resumed file equals the uninterrupted one.  A resume without a journal,
-or from a file that is not one, raises.
+replays the complete GOPs, cuts the journal there, feeds the filters
+every frame the uninterrupted job fed them and drops the first n_done
+frames they give (the frames done), and the journaled sound and
+subtitles at the mux, with the rate controller's state and the
+encoder's ``idr_pic_id`` restored, so the resumed file equals the
+uninterrupted one under any filter chain: a temporal filter holds the
+same state at the boundary and a rate shaper cuts the same frames (the
+reference drops n_done source frames ahead of its filters).  Where
+every filter is frame-local and the sync dropped or added no video
+frame before the boundary, the video decode starts at the marker's
+random access point (``_resume_path``): the packets ahead of it are not
+decoded and the frames they stand for reach the sync as timing only.
+The sound is decoded and coded again from the start.  A resume without
+a journal, or from a file that is not one, raises.
 
 ``gop_parallel`` N codes each window of frames as G = min(N, frames)
 keyframe-aligned GOPs (``parallel/gop.py``), dealt out over the ranks of
@@ -705,14 +713,18 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
         aencs[k] = _make_audio_encoder(spec, src.tracks[si])
 
     # ---- checkpoint/resume: resume replays the journal's complete GOPs,
-    # restores the rate controller, reads the source from the job's start
-    # again and drops what the journal holds ----
+    # restores the rate controller, feeds the filters what the
+    # uninterrupted job fed them and drops the frames done after them ----
     ckpt = None
     replay = []
-    skip_frames = 0
+    drop = 0
+    skip = None
+    timeline = None
     if (job.checkpoint or job.resume) and job.pass_id != 1:
+        timeline = checkpoint.Timeline()
         ckpt_path = (job.file or "out") + ".ckpt"
         n_done = 0
+        version = 3
         if job.resume:
             if not os.path.exists(ckpt_path):
                 raise WorkError(f"resume: no checkpoint journal at "
@@ -723,28 +735,35 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
             checkpoint.cut_to(ckpt_path, cut)
             if n_done > 0:
                 gops_done = rc_state.pop("_gops_done")
+                version = rc_state.pop("_version")
+                point = rc_state.pop("_resume")
                 rc.__dict__.update(rc_state)
                 # the resumed encoder's idr_pic_id keeps counting
                 if hasattr(venc, "idr_pic_id"):
                     venc.idr_pic_id = gops_done % 16
-                # the job's first n_done frames are dropped ahead of the
-                # filters, so the job keeps its own start and end, and a
-                # source whose timestamps do not start at 0 resumes at
-                # its frame n_done + 1 (the reference seeks to n_done
-                # frame times from 0, and drops the end of a ranged
-                # job); an audio encoder cannot start again mid-stream
-                # and give the packets it gave, so the sound is coded
-                # again from the start and each output's journaled
-                # packets, like the subtitles', are not written twice
-                skip_frames = n_done
-                log(f"resume: {n_done} frames from checkpoint; the source "
-                    f"is read from the job's start again and its first "
-                    f"{n_done} frames dropped ahead of the filters")
+                # the filters take every frame they took, so they hold
+                # the same state at the boundary and a rate shaper cuts
+                # the same frames, and the first n_done frames they give
+                # are dropped; the job keeps its own start and end (the
+                # reference drops n_done source frames ahead of the
+                # filters by seeking to n_done frame times from 0)
+                drop = n_done
+                skip, why = _resume_path(graph, point, n_done)
+                if skip is not None:
+                    timeline = point["timing"]
+                log(f"resume: {n_done} frames from checkpoint; {why}"
+                    + ("; the sound is decoded and coded again from the "
+                       "job's start (an audio encoder cannot restart "
+                       "mid-stream and give the packets it gave) and each "
+                       "output's journaled packets, like the subtitles', "
+                       "are not written twice" if audio_sel else ""))
             else:
                 log("resume: the journal holds no complete GOP, "
                     "starting at frame 1")
-        ckpt = checkpoint.CkptJournal(ckpt_path, rc, append=n_done > 0,
-                                      frames0=n_done)
+        ckpt = checkpoint.CkptJournal(
+            ckpt_path, rc, append=n_done > 0, frames0=n_done,
+            version=version, timeline=timeline,
+            timed=len(point["timing"]) if n_done > 0 and point else 0)
 
     # ---- muxer (analysis pass writes nowhere — x264 pass-1 analog) ----
     if job.pass_id == 1:
@@ -788,7 +807,7 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     decsync = _DecodeSyncStage(video_track, vdec, adecs, sync, v_sync,
                                a_sync, stats, vcodec=vti.codec,
                                sdecs=sdecs, s_sync=s_sync, cc_sel=cc_sel,
-                               afan=afan)
+                               afan=afan, timeline=timeline, skip=skip)
     decsync.fifo_in, decsync.fifo_out = fifo_raw, fifo_sync
     encst = _EncodeStage(graph, venc, aencs, rc, stats, progress,
                          sub_specs, text_area(filter_list, vti.width,
@@ -796,8 +815,7 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
                          gop_parallel=int(job.gop_parallel or 0),
                          multipass=bool(job.multipass),
                          target_kbps=float(job.vbitrate or 0),
-                         out_wh=(out_w, out_h), device=dev,
-                         skip_frames=skip_frames)
+                         out_wh=(out_w, out_h), device=dev, drop=drop)
     encst.fifo_in, encst.fifo_out = fifo_sync, fifo_enc
     muxst = _MuxStage(mux, aencs)
     muxst.fifo_in = fifo_enc
@@ -807,6 +825,12 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     pl.run()          # joins on the mux thread (work.c:2287)
     if pl.error is not None:
         raise pl.error
+    if ckpt is not None:
+        # a checkpointed or resumed job says how it decoded
+        stats.update(resume="keyframe" if skip is not None else
+                     "start" if drop else None,
+                     frames_decoded=decsync.n_decoded,
+                     video_packets_skipped=decsync.n_skipped)
 
     if job.pass_id == 1:
         # hand measured complexity to the final pass (hb_interjob_t role)
@@ -816,6 +840,34 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
         state.update(progress=1.0)
     stats["width"], stats["height"] = out_w, out_h
     return stats
+
+
+def _resume_path(graph, point, n_done: int) -> tuple:
+    """(the resume point whose decode ahead is skipped, or None; why),
+    from the journal's last marker (None in a version 2 journal)."""
+    full = "decoding from the job's start"
+    if point is None:
+        return None, (f"the journal (format 2) records no keyframe to "
+                      f"restart the decode at; {full}")
+    why = graph.keeps_state()
+    if why is not None:
+        return None, f"{why}; {full}"
+    if point["sync_touched"]:
+        return None, (f"the synchronizer dropped or added a video frame "
+                      f"before the boundary; {full}")
+    if point["packet"] is None:
+        return None, (f"the source's decoder gave no keyframe before the "
+                      f"boundary that it restarts at; {full}")
+    d = point["display"]
+    if point["graph_in"] != n_done + 1 or not 0 <= d <= n_done \
+            or len(point["timing"]) != d:
+        return None, (f"the journal's resume point does not match its "
+                      f"{n_done} frames done; {full}")
+    return point, (f"every filter is frame-local, so the video decode "
+                   f"starts at the keyframe in packet {point['packet']}: "
+                   f"{d} frames ahead of it stand in as timing only, and "
+                   f"{n_done - d} are decoded and filtered again and "
+                   f"dropped after the filters")
 
 
 _SUB_SID0 = 1000   # subtitle stream ids live above the audio outputs
@@ -900,13 +952,50 @@ class _DecodeSyncStage(WorkObject):
     """Decode per track and run the synchronizer (decavcodec + sync.c).
     A source audio track's packets fan out to each of its outputs
     (``afan``: track → output keys), each a copy of the packet into the
-    output's own decoder and sync stream."""
+    output's own decoder and sync stream.
+
+    In a checkpointed job (``timeline`` given) each video frame out of
+    the decoder has its timing appended to ``timeline`` and carries
+    ``rap``: the last random access point
+    (decode-order packet index, frames the decoder gave before that
+    point's frame, its pts) whose frame is at or before it in display
+    order, or None.  A packet the decoder calls a random access point
+    becomes one once its frame comes out, if no frame before it had a
+    pts at or after its own; the frames before that one in the
+    decoder's order (an open GOP's leading B pictures among them) are
+    those a resume from it skips.  Each video frame out of the sync
+    carries ``sync_touched``, the video frames the sync had dropped or
+    added by then.
+
+    With ``skip`` (a resume point), the video packets ahead of its
+    packet are not decoded, only primed for their stream headers; the
+    frames they stand for go to the sync as timing only (``stand_in``
+    buffers from the journal's ``timeline``), a few ahead of the sync at
+    a time, and the frames the decoder gives before the point's own
+    (leading pictures that refer to what was skipped) are dropped."""
     name = "decode+sync"
 
     def __init__(self, video_track, vdec, adecs, sync, v_sync, a_sync,
                  stats, vcodec="", sdecs=None, s_sync=None, cc_sel=None,
-                 afan=None):
+                 afan=None, timeline=None, skip=None):
         super().__init__()
+        self.timeline = timeline
+        self.n_decoded = 0         # frames out of the video decoder
+        self.n_skipped = 0         # video packets a resume did not decode
+        self._n_pkt = 0            # video packets seen, decode order
+        self._max_pts = None       # the latest pts of a frame given
+        self._cands = []           # (packet, pts): frame not yet out
+        self._rap = None
+        self._stand_ins = []       # (pts, stop, duration), reversed
+        self._skip_to = None       # packet the decode starts at
+        if skip is not None:
+            self._skip_to = skip["packet"]
+            self._rap = (skip["packet"], skip["display"], skip["rap_pts"])
+            self._stand_ins = [self.timeline[i] for i in
+                               reversed(range(skip["display"]))]
+            self._max_pts = max((t[0] for t in self._stand_ins
+                                 if t[0] is not None), default=None)
+            self._leading = True   # until the point's own frame is out
         self.cc_sel = cc_sel       # (key, Cea608Decoder) or None
         self.video_track = video_track
         self.vdec = vdec
@@ -920,6 +1009,67 @@ class _DecodeSyncStage(WorkObject):
         self.sdecs = sdecs or {}
         self.s_sync = s_sync or {}
         self._hdr: dict = {}       # static + pending per-frame metadata
+
+    def _frame(self, f, flush=False):
+        """A frame out of the decoder: its random access bookkeeping and
+        timing, then into the sync."""
+        p = f.pts
+        self.n_decoded += 1
+        if self.timeline is None:
+            self._queue_video(f, flush)
+            return
+        if self._skip_to is not None and self._leading:
+            rap_pts = self._rap[2]
+            if p is None or p < rap_pts:
+                return             # ahead of the point: it stood in
+            if p != rap_pts:
+                raise WorkError(
+                    f"resume: the first frame decoded from the keyframe "
+                    f"in video packet {self._skip_to} has pts {p}, not "
+                    f"the {rap_pts} the journal holds for it")
+            self._leading = False
+        if p is not None:
+            for c in list(self._cands):
+                if p >= c[1]:
+                    self._cands.remove(c)
+                    if p == c[1]:
+                        self._rap = (c[0], len(self.timeline), p)
+            self._max_pts = p if self._max_pts is None \
+                else max(self._max_pts, p)
+        f.rap = self._rap if (self._rap is not None and p is not None
+                              and p >= self._rap[2]) else None
+        self.timeline.append(p, f.stop, f.duration)
+        self._queue_video(f, flush)
+
+    def _stand_in(self, n=None):
+        """Queue the next n (all) frames the skipped packets stand for."""
+        while self._stand_ins and (n is None or n > 0):
+            pts, stop, dur = self._stand_ins.pop()
+            b = Buffer(track_kind="video", pts=pts, stop=stop,
+                       duration=dur)
+            b.stand_in = True
+            self._queue_video(b)
+            n = None if n is None else n - 1
+
+    def _poll(self) -> list:
+        """The sync's output, the stand-ins fed to it two ahead (it
+        needs two frames queued to emit one); each video frame out is
+        stamped with the video frames the sync had dropped or added."""
+        out = self.sync.poll()
+        if self._stand_ins:
+            vq = self.sync.streams[self.v_sync].queue
+            while self._stand_ins and len(vq) < 2:
+                self._stand_in(2 - len(vq))
+                got = self.sync.poll()
+                out += got
+                if not got:
+                    break
+        if self.timeline is not None:
+            for b in out:
+                if b.track_kind == "video":
+                    st = self.sync.streams[self.v_sync]
+                    b.sync_touched = st.drops + st.black_fills
+        return out
 
     def _queue_video(self, f, flush=False):
         """Queue a decoded frame with the source's HDR metadata: the
@@ -968,12 +1118,13 @@ class _DecodeSyncStage(WorkObject):
 
     def work(self, buf):
         if buf.is_eof():
+            self._stand_in()
             for f in self.vdec.flush():
-                self._queue_video(f, flush=True)
+                self._frame(f, flush=True)
             for idx in range(len(self.sync.streams)):
                 self.sync.set_eof(idx)
-            out = self.sync.poll()
-            out += self.sync.poll()      # tail after EOF
+            out = self._poll()
+            out += self._poll()          # tail after EOF
             # cadence classifier consumer (checkCadence sync.c:1305)
             cad = self.sync.cadence.info()
             self.stats["cadence"] = cad["cadence"]
@@ -990,9 +1141,23 @@ class _DecodeSyncStage(WorkObject):
                                                        self.vcodec))
             if self.cc_sel is not None and buf.data:
                 self._feed_cc(bytes(buf.data), buf.pts)
+            i = self._n_pkt
+            self._n_pkt += 1
+            if self._skip_to is not None and i < self._skip_to:
+                # a frame it stands for has taken the per-frame metadata
+                self._hdr.pop("hdr10plus_t35", None)
+                self._hdr.pop("dovi_rpu", None)
+                self.vdec.prime(buf)
+                self.n_skipped += 1
+                return self._poll()
+            self._stand_in()
+            if self.timeline is not None and buf.pts is not None \
+                    and (self._max_pts is None or self._max_pts < buf.pts) \
+                    and self.vdec.random_access(buf):
+                self._cands.append((i, buf.pts))
             frames = [buf] if buf.planes is not None else self.vdec.feed(buf)
             for f in frames:
-                self._queue_video(f)
+                self._frame(f)
         elif trk in self.afan:
             for k in self.afan[trk]:
                 for ab in self.adecs[k].feed(copy.copy(buf)):
@@ -1013,7 +1178,7 @@ class _DecodeSyncStage(WorkObject):
             else:
                 for ev in dec.feed(bytes(buf.data), buf.pts or 0):
                     self._emit_sub(key, ev)
-        return self.sync.poll()
+        return self._poll()
 
 
 def to_host(p) -> np.ndarray:
@@ -1035,15 +1200,24 @@ class _EncodeStage(WorkObject):
     buffer carries the rate controller's state from just before that
     frame's qp was chosen, which the checkpoint journal keeps as a resume
     point; in gop-parallel mode only a window's first frame does, since a
-    resume must find the windows the uninterrupted run cut."""
+    resume must find the windows the uninterrupted run cut.  Each frame
+    the graph gives carries ``resume_point``: the frames the graph had
+    taken by then, the sync's touches and the random access point of the
+    last frame taken.  A resumed job's graph takes every frame the
+    uninterrupted job's took, and the first ``drop`` frames it gives
+    (the frames done) go no further, so the filters hold the same state
+    at the boundary; a ``stand_in`` (a frame whose decode the resume
+    skipped, with a frame-local chain) counts as one such frame."""
     name = "filter+encode"
 
     def __init__(self, graph, venc, aencs, rc, stats, progress,
                  sub_specs=None, text_area=(0, 0, 0, 0), gop_parallel=0,
                  multipass=False, target_kbps=0.0, out_wh=(0, 0),
-                 device=None, skip_frames=0):
+                 device=None, drop=0):
         super().__init__()
-        self.skip_frames = skip_frames   # a resumed job's frames done
+        self.drop = drop           # a resumed job's frames done
+        self._fed = 0              # frames the graph has taken
+        self._last_in = (0, None)  # sync touches, rap of the last one
         self.gop_parallel = int(gop_parallel or 0)
         self._gp_frames = []   # buffered (planes, fb) in gop-parallel mode
         self.multipass = bool(multipass)
@@ -1118,6 +1292,7 @@ class _EncodeStage(WorkObject):
         out.side_data = dict(fb.side_data or {})
         out.frametype = 1 if is_idr else 0
         out.rc_state = rc_state
+        out.resume_point = getattr(fb, "resume_point", None)
         return out
 
     def _encode(self, fb):
@@ -1228,11 +1403,20 @@ class _EncodeStage(WorkObject):
                                         rc_state))
         return out
 
+    def _take(self, fb) -> list:
+        """A frame the graph gave: dropped while the frames done last,
+        else coded."""
+        if self.drop:
+            self.drop -= 1
+            return []
+        fb.resume_point = (self._fed,) + self._last_in
+        return self._encode(fb)
+
     def work(self, buf):
         if buf.is_eof():
             out = []
             for fb in self.graph.flush():
-                out += self._encode(fb)
+                out += self._take(fb)
             out += self._gp_flush()
             if isinstance(self.venc, (_BFrameEncoderAdapter,
                                       _AVVideoEncoderAdapter)):
@@ -1245,13 +1429,21 @@ class _EncodeStage(WorkObject):
                     out.append(pkt)
             return out + [buf]
         if buf.track_kind == "video":
-            if self.skip_frames:
-                self.skip_frames -= 1
+            self._fed += 1
+            if getattr(buf, "stand_in", False):
+                if not self.drop:
+                    raise WorkError(
+                        f"resume: frame {self._fed} of the graph's input, "
+                        f"whose decode was skipped, is not among the "
+                        f"frames done")
+                self.drop -= 1
                 return []
+            self._last_in = (getattr(buf, "sync_touched", 0),
+                             getattr(buf, "rap", None))
             out = []
             for fb in self.graph.work(buf):
                 if not fb.is_eof():
-                    out += self._encode(fb)
+                    out += self._take(fb)
             return out
         if buf.track_kind == "audio":
             enc = self.aencs.get(buf.stream_id)
@@ -1847,7 +2039,8 @@ class _MuxAdapter:
     def write_video(self, au: bytes, fb: Buffer, idr: bool, _journal=True):
         if _journal and self.journal is not None:
             self.journal.video(bytes(au), fb.pts, fb.duration, idr,
-                               fb.side_data, getattr(fb, "rc_state", None))
+                               fb.side_data, getattr(fb, "rc_state", None),
+                               getattr(fb, "resume_point", None))
         sd = fb.side_data or {}
         if sd and self.kind not in ("mkv", "webm"):
             t = self.w.tracks[self.vtrack]
