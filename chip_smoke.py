@@ -307,14 +307,14 @@ Phases (none is caught; any failure exits non-zero before the last line):
    beside the same CLI job on the CPU (``--device cpu``, a process of
    its own started first), one JSON line a part with the card's name
    and power limit: (a) a ``VIDEO_TS`` folder over the committed 16:9
-   PAL MPEG-2 fixture (its first PAL_N = 12 of 25 pictures of 720x576,
+   PAL MPEG-2 fixture (its first PAL_N = 8 of 25 pictures of 720x576,
    aspect_ratio_information
    3, frame_rate_code 3; IFO attributes PAL 16:9) through the default
    preset with ``--encoder-profile high`` to mp4: the title's pixel
    aspect 64:45 and rate 25/1, the SPS's VUI aspect and the ``pasp``
    64:45, the VUI timing and every sample's duration 25 fps, one sample
    a picture, the file equal to the CPU's, deblock264's launches
-   printed; (b) 8 frames of 1440x1080 coded on the card by the port's
+   printed; (b) 4 frames of 1440x1080 coded on the card by the port's
    encoder with VUI aspect 4:3 (annex-B) through ``--loose-anamorphic
    --maxWidth 960 -f mkv``: the resample kernel once a frame, the
    DisplayWidth/DisplayHeight 16:9 to a pixel, the SPS's aspect the
@@ -323,27 +323,33 @@ Phases (none is caught; any failure exits non-zero before the last line):
    32:27, the display size 853x480, the file equal to the CPU's.
 18. A DVD's sound through a preset and the CLI on the card, one JSON
    line a part with the card's name and power limit: a VIDEO_TS folder
-   of 8 pictures of the 720x480 MPEG-2 fixture with an AC-3 3/2+LFE
+   of 5 pictures of the 720x480 MPEG-2 fixture with an AC-3 3/2+LFE
    track at 448 kb/s from the port's encoder (substream 0x80), a DTS 5.1
-   track of header-only core frames (0x89) and a DVD LPCM stereo track
-   (0xA2), the IFO's audio attributes eng, eng, fre; (a) a preset
+   track of core frames that decode to nothing, each of its own bytes
+   (0x89), both laid into 2048-byte
+   sectors as an authoring tool lays them (frames across PES packets, a
+   PTS where a frame begins), and a DVD LPCM stereo track (0xA2), the
+   IFO's audio attributes eng, eng, fre; (a) a preset
    imported with ``--preset-import-file`` (AudioLanguageList ["eng"],
    "first", AudioList [AAC stereo 160, copy], AudioCopyMask
    ["copy:ac3"], fallback AAC, H.264 High) to mp4: two audio tracks,
-   both of track 1, the copy's frames and ``dac3`` the stream's, the AAC
-   track decoding to the AC-3 track's length, the file equal to the
+   both of track 1, the copy's frames and ``dac3`` the stream's, each
+   mp4 sample of the copy one syncframe of 1536 samples, the track 6
+   channels at 48 kHz, the AAC track decoding to the AC-3 track's
+   length, the file equal to the
    same CLI job on the CPU (a process of its own, started first),
    deblock264's launches printed; (b) ``-a 1,2,3 -E
    copy:ac3,copy:dts,copy:ac3`` to mkv: the AC-3 and DTS copies equal to
-   the VOBs' (``A_DTS``), the LPCM track encoded to AC-3 with the log
+   the VOBs' (``A_DTS``), both 6 channels at 48 kHz, each DTS block one
+   whole core frame, the LPCM track encoded to AC-3 with the log
    line that says so; (c) ``-a 2 -E copy`` with the default preset (mask
    AAC and AC-3): DTS falls back to AAC, whose DTS decoder needs
    libavcodec, absent there (hidden where it is there), so the CLI
    fails with the stated ``WorkError`` and leaves no file; (d) the DVD
-   job (H.264 High to mp4, keyint 4) with AAC beside the AC-3 copy of
+   job (H.264 High to mp4, keyint 2) with AAC beside the AC-3 copy of
    track 1, and again with no sound, each checkpointed, its journal cut
    after the first GOP and resumed: both runs' seconds and the frames
-   each decoded (the 8 pictures hold one I picture, the first, so the
+   each decoded (the 5 pictures hold one I picture, the first, so the
    resume decodes from it, with sound or without), the resumed file
    equal to the uninterrupted one.
 19. Resumes on the card, one JSON line a part with the card's name and
@@ -581,15 +587,15 @@ REFUSE_LIMIT_S = 0.5
 # OpenMP threads of (a)'s CPU run, the longest of the three; (a)'s
 # pictures, cut from the fixture's 25 (its CPU run paces the phase)
 PAL_TICKS, PAL_PAR = 3600, (64, 45)
-PAL_N = 12
-LOOSE_N, LOOSE_SAR, LOOSE_MAX_W = 8, (4, 3), 960
+PAL_N = 8
+LOOSE_N, LOOSE_SAR, LOOSE_MAX_W = 4, (4, 3), 960
 Y4M_PAR_N, Y4M_PAR = 2, (32, 27)
 PAR_PREVIEWS, PAL_CPU_THREADS = 1, 5
 # step 18: the DVD's pictures; its AC-3 5.1 track's rate; its DTS core
 # frames (5.1, 48 kHz, 768 kb/s: 1024 bytes of 512 samples, 960 ticks);
 # the IFO's audio attributes (codec, channels, ISO 639-1), one a stream;
 # the preset job's audio list, mask and fallback; the CPU run's threads
-COPY_DVD_N, COPY_AC3_BPS = 8, 448000
+COPY_DVD_N, COPY_AC3_BPS = 5, 448000
 DTS_FRAME_BYTES, DTS_FRAME_TICKS = 1024, 960
 COPY_DVD_ATTRS = [("ac3", 6, "en"), ("dts", 6, "en"), ("lpcm", 2, "fr")]
 COPY_PRESET = {"PresetName": "DVD AAC and AC-3 copy", "VideoEncoder": "h264",
@@ -602,7 +608,7 @@ COPY_PRESET = {"PresetName": "DVD AAC and AC-3 copy", "VideoEncoder": "h264",
                              {"AudioEncoder": "copy"}]}
 COPY_CPU_THREADS = 4
 # (d): the resumed DVD job's keyint and the frames its journal keeps
-COPY_RESUME_KEYINT, COPY_RESUME_DONE = 4, 4
+COPY_RESUME_KEYINT, COPY_RESUME_DONE = 2, 2
 # step 19: resumes.  (a) the 1080p y4m's frames through hqdn3d and CFR
 # at half rate, the job's keyint and the GOP marker its journal is cut
 # after; (b) job 7's clip coded again with an IDR each R19_SRC_GOP
@@ -4651,10 +4657,13 @@ def copy_dvd_folder(root):
     """18: a VIDEO_TS folder over two VOBs: the first COPY_DVD_N pictures
     of the 720x480 MPEG-2 fixture; audio stream 1 AC-3 3/2+LFE at 448
     kb/s from the port's encoder (substream 0x80), stream 2 DTS 5.1 core
-    frames built from the spec's header with an empty payload (0x89: no
-    machine here decodes DTS, so it is only copied), stream 3 DVD LPCM
-    stereo (0xA2); the IFO's audio attributes eng, eng, fre (as ISO 639-1
-    codes).  Returns (folder, AC-3 frames, DTS frames, pictures)."""
+    frames built from the spec's header, each payload of a byte of its
+    own (0x89: no machine here decodes DTS, so it is only copied), both
+    laid into
+    2048-byte sectors as an authoring tool lays them (frames across PES
+    packets, a PTS where a frame begins: ``sector_packs``), stream 3 DVD
+    LPCM stereo (0xA2); the IFO's audio attributes eng, eng, fre (as ISO
+    639-1 codes).  Returns (folder, AC-3 frames, DTS frames, pictures)."""
     from handbrake_tpu_torch.audio.ac3enc import Ac3Encoder
     from handbrake_tpu_torch.tools import source_builders as B
     es = b"".join(B.split_pictures(B.fixture("mpeg2_720x480.m2v"))
@@ -4664,22 +4673,38 @@ def copy_dvd_folder(root):
     secs = n * FRAME_TICKS / 90000
     ac3 = Ac3Encoder(48000, 6, COPY_AC3_BPS)
     ac3_frames = ac3.encode(disc_tone(6, secs, 31)) + ac3.flush()
-    units += [(DVD_T0 + k * 2880, 0xBD, f, B.ac3_sub, DVD_T0 + k * 2880)
-              for k, f in enumerate(ac3_frames)]
-    dts = [B.dts_core_frame(size=DTS_FRAME_BYTES)
-           for _ in range(int(secs * 90000 / DTS_FRAME_TICKS) + 1)]
-    units += [(DVD_T0 + k * DTS_FRAME_TICKS, 0xBD, f,
-               functools.partial(B.dts_sub, stream=1),
-               DVD_T0 + k * DTS_FRAME_TICKS) for k, f in enumerate(dts)]
+    packs = B.sector_packs(0xBD, ac3_frames, [
+        DVD_T0 + k * 2880 for k in range(len(ac3_frames))], 0x80)
+    dts = [B.dts_core_frame(size=DTS_FRAME_BYTES, fill=k % 250 + 1)
+           for k in range(int(secs * 90000 / DTS_FRAME_TICKS) + 1)]
+    packs += B.sector_packs(0xBD, dts, [DVD_T0 + k * DTS_FRAME_TICKS
+                                        for k in range(len(dts))], 0x89)
     lp = disc_tone(2, secs, 32)
     units += [(DVD_T0 + k * 900, 0xBD,
                B.s16be_lpcm(lp[k * 480:(k + 1) * 480]),
                functools.partial(B.lpcm_sub, stream=2), DVD_T0 + k * 900)
               for k in range(len(lp) // 480)]
     half = secs / 2
-    B.write_dvd(root, B.build_ps(units), 2, [half, half], audio_attrs=[
-        B.vts_audio_attr(*a) for a in COPY_DVD_ATTRS])
+    B.write_dvd(root, B.build_ps(units, packs), 2, [half, half],
+                audio_attrs=[B.vts_audio_attr(*a) for a in COPY_DVD_ATTRS])
     return root, ac3_frames, dts, n
+
+
+def stts_durations(path) -> list:
+    """Each mp4 track's sample durations in its own timescale (its
+    ``stts`` entries, in track order)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    out, i = [], data.find(b"stts")
+    while i > 0:
+        durs = []
+        for k in range(int.from_bytes(data[i + 8:i + 12], "big")):
+            e = data[i + 12 + 8 * k:i + 20 + 8 * k]
+            durs += [int.from_bytes(e[4:], "big")] * int.from_bytes(
+                e[:4], "big")
+        out.append(durs)
+        i = data.find(b"stts", i + 4)
+    return out
 
 
 def phase_audio_copy(tmp, label):
@@ -4698,6 +4723,7 @@ def phase_audio_copy(tmp, label):
 def audio_copy_parts(tmp, label):
     from handbrake_tpu_torch.audio.aacdec import AACDecoder
     from handbrake_tpu_torch.audio.ac3dec import read_bsi
+    from handbrake_tpu_torch.audio.frames import read_frame
     from handbrake_tpu_torch.cli.__main__ import main as cli_main
     from handbrake_tpu_torch.mux.mp4 import dac3
     from handbrake_tpu_torch.scan import scan
@@ -4726,21 +4752,28 @@ def audio_copy_parts(tmp, label):
     aac = np.concatenate([AACDecoder(tracks[1].extradata).decode_frame(p)
                           for _, p in pk[1]]) if len(tracks) > 2 else None
     finish_process(cpu)
+    copied = [p for _, p in pk.get(2, [])]
     a = {"do_job_s": secs, "cli_s": cli_s,
          "cpu_run_done_s": time.perf_counter() - t0, "device_ms": dev_ms,
          "deblock264_launches": db,
          "resample_launches": rs, "p_frames": spy.p_frames(),
          "job_audio": [(x.track + 1, x.encoder) for x in spy.job.audio],
          "audio_tracks": audio, "samples": len(pk.get(0, [])),
-         "copy_equal_source": [p for _, p in pk.get(2, [])] == ac3_frames,
+         "copy_equal_source": copied == ac3_frames,
+         "copy_samples_whole_frames": sum(
+             (read_frame("ac3", p) or (0,))[0] == len(p) for p in copied),
+         "copy_sample_durations": sorted(set(stts_durations(out_a)[2]))
+         if len(tracks) > 2 else None,
          "dac3": bytes(tracks[2].extradata).hex() if len(tracks) > 2
          else None, "stream_dac3": dac3(read_bsi(ac3_frames[0])).hex(),
          "aac_samples": int(aac.shape[0]) if aac is not None else 0,
          "aac_peak": float(np.abs(aac).max()) if aac is not None else 0.0,
          "equal_cpu_file": same_file(out_a, cpu_a)}
     a["ok"] = (a["job_audio"] == [(1, "aac"), (1, "copy")]
-               and audio == [("aac", 48000, 2), ("ac3", 48000, 2)]
+               and audio == [("aac", 48000, 2), ("ac3", 48000, 6)]
                and a["samples"] == n and a["copy_equal_source"]
+               and a["copy_samples_whole_frames"] == len(ac3_frames)
+               and a["copy_sample_durations"] == [1536]
                and a["dac3"] == a["stream_dac3"]
                and abs(a["aac_samples"] - 1536 * len(ac3_frames)) <= 2048
                and bool(np.isfinite(aac).all()) and a["aac_peak"] > 0.05
@@ -4770,13 +4803,20 @@ def audio_copy_parts(tmp, label):
          "audio_tracks": [(t.codec, t.sample_rate, t.channels)
                           for t in tracks[1:]],
          "ac3_copy_equal": [p for _, p in pk.get(1, [])] == ac3_frames,
-         "dts_copy_equal": b"".join(p for _, p in pk.get(2, []))
-         == b"".join(dts_frames),
+         "dts_copy_equal": [p for _, p in pk.get(2, [])] == dts_frames,
+         "dts_blocks": len(pk.get(2, [])),
+         "dts_blocks_whole_frames": sum(
+             (read_frame("dts", p) or (0,))[0] == len(p) == DTS_FRAME_BYTES
+             for _, p in pk.get(2, [])),
          "lpcm_ac3_frames": len(pk.get(3, [])), "resolutions": resolved,
          "a_dts_codec_ids": a_dts}
     b["ok"] = ([t[0] for t in b["audio_tracks"]] == ["ac3", "dts", "ac3"]
+               and b["audio_tracks"][:2] == [("ac3", 48000, 6),
+                                             ("dts", 48000, 6)]
                and a_dts == 1
                and b["ac3_copy_equal"] and b["dts_copy_equal"]
+               and b["dts_blocks_whole_frames"] == b["dts_blocks"]
+               == len(dts_frames)
                and b["lpcm_ac3_frames"] >= len(ac3_frames) - 1
                and any("(lpcm), copy:ac3: ac3 (the track is lpcm" in r
                        for r in resolved) and db > 0)

@@ -22,6 +22,7 @@ import math
 import numpy as np
 
 from . import aac_tables as TT
+from .frames import adts_header
 
 ONLY_LONG, LONG_START, EIGHT_SHORT, LONG_STOP = 0, 1, 2, 3
 ZERO_HCB, NOISE_HCB, INTENSITY_HCB2, INTENSITY_HCB = 0, 13, 14, 15
@@ -180,27 +181,15 @@ class AACDecoder:
         self.sample_rate = sr
         self.aot = aot
 
-    @staticmethod
-    def parse_adts_header(data: bytes):
-        """→ (header_len, frame_len, sample_rate, channels) or None."""
-        if len(data) < 7 or data[0] != 0xFF or (data[1] & 0xF0) != 0xF0:
-            return None
-        protection_absent = data[1] & 1
-        sfi = (data[2] >> 2) & 0xF
-        ch = ((data[2] & 1) << 2) | (data[3] >> 6)
-        frame_len = ((data[3] & 3) << 11) | (data[4] << 3) | (data[5] >> 5)
-        hdr = 7 if protection_absent else 9
-        return hdr, frame_len, SAMPLE_RATES[sfi], ch
-
     # -- public ------------------------------------------------------------
     def decode_frame(self, au: bytes) -> np.ndarray:
         """One access unit (raw block, no ADTS) → (1024, ch) float32."""
-        if len(au) >= 7 and au[0] == 0xFF and (au[1] & 0xF0) == 0xF0:
-            hdr, flen, sr, ch = self.parse_adts_header(au)
-            self.sample_rate = sr
-            if ch:
-                self.channels = ch
-            au = au[hdr:flen]
+        h = adts_header(au)
+        if h is not None:
+            self.sample_rate = h.sample_rate
+            if h.channels:
+                self.channels = h.channels
+            au = au[h.head:h.size]
         br = _BR(au)
         chans = []
         while br.left() >= 3:

@@ -30,6 +30,11 @@ ENCODER_CODECS = {"flac": "flac", "pcm": "pcm_s16le",
                   "mp3": "mp3", "opus": "opus", "vorbis": "vorbis"}
 
 
+# the channels of each mixdown ("none" and any other: the source's)
+MIXDOWN_CHANNELS = {"mono": 1, "stereo": 2, "dpl2": 2, "5point1": 6,
+                    "7point1": 8}
+
+
 class AudioChain:
     """One per output audio track."""
 
@@ -40,10 +45,7 @@ class AudioChain:
         self.sr_in = ti.sample_rate
         self.sr_out = spec.samplerate or ti.sample_rate
         self.mixdown = spec.mixdown or "stereo"
-        self.out_channels = {"mono": 1, "stereo": 2, "dpl2": 2,
-                             "5point1": 6, "7point1": 8,
-                             "none": ti.channels}.get(self.mixdown,
-                                                      ti.channels)
+        self.out_channels = MIXDOWN_CHANNELS.get(self.mixdown, ti.channels)
         if self.mixdown in ("5point1", "7point1"):
             self.out_channels = min(self.out_channels, ti.channels) \
                 if ti.channels > 2 else ti.channels

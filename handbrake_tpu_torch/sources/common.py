@@ -89,41 +89,17 @@ def read_vui_sar(ti: TrackInfo, data: bytes, where: str):
         ti.par_num, ti.par_den = sar
 
 
-# DTS core frame header (ETSI TS 102 114 5.3.1): SFREQ → Hz, AMODE →
-# channels before the LFE
-DTS_RATES = {1: 8000, 2: 16000, 3: 32000, 6: 11025, 7: 22050, 8: 44100,
-             11: 12000, 12: 24000, 13: 48000}
-DTS_AMODE_CHANNELS = (1, 2, 2, 2, 2, 3, 3, 4, 4, 5, 6, 6, 6, 7, 8, 8)
-
-
-def dts_core_header(es: bytes, off: int = 0):
-    """{"sample_rate", "channels", "size", "samples"} of the first DTS
-    core frame (sync word 0x7FFE8001) in ``es`` from ``off``, or None:
-    SFREQ gives the rate, AMODE and LFF the channels, FSIZE the frame's
-    bytes and NBLKS its samples."""
-    i = bytes(es).find(b"\x7f\xfe\x80\x01", off)
-    if i < 0 or len(es) - i < 11:
-        return None
-    v = int.from_bytes(es[i + 4:i + 11], "big")     # the 56 bits after
-    nblks = (v >> 42) & 0x7F
-    fsize = (v >> 28) & 0x3FFF
-    amode = (v >> 22) & 0x3F
-    sfreq = (v >> 18) & 0xF
-    lff = (v >> 1) & 3
-    if sfreq not in DTS_RATES or amode > 15 or lff == 3 or fsize < 95:
-        return None
-    return {"sample_rate": DTS_RATES[sfreq],
-            "channels": DTS_AMODE_CHANNELS[amode] + (1 if lff else 0),
-            "size": fsize + 1, "samples": (nblks + 1) * 32}
-
-
 def read_audio_header(ti: TrackInfo, es: bytes, where: str):
     """An AC-3 or DTS track's rate and channels from its first frame in
     ``es``; where there is none, the track keeps what it has and the log
     says so."""
     from ..utils.logging import log
     if ti.codec == "dts":
-        h = dts_core_header(es)
+        from ..audio.frames import dts_header
+        f = dts_header(bytes(es), max(0, bytes(es).find(
+            b"\x7f\xfe\x80\x01")))
+        h = None if f is None else {"sample_rate": f.sample_rate,
+                                    "channels": f.channels}
     else:
         from ..audio.ac3dec import read_bsi
         bsi = read_bsi(bytes(es))

@@ -97,7 +97,7 @@ class SyncCore:
             return
         if buf.pts is None:
             # inherit: previous stop, else 0 (reference treats NOPTS as glue)
-            buf.pts = st.queue[-1].stop if st.queue else 0
+            buf.pts = _glued(st, idx)
         # SCR discontinuity: large backward jump → rebase this stream
         if (st.last_pts_in is not None
                 and buf.pts + st.scr_offset
@@ -284,6 +284,24 @@ class SyncCore:
         if all(s.eof and not s.queue for s in self.streams):
             self.done = True
         return out
+
+
+def _glued(st: StreamState, idx: int) -> int:
+    """The time of a buffer without a pts queued on stream `st`: its
+    predecessor's stop, or its predecessor's pts plus its duration, or 0
+    where the queue is empty.  A predecessor with neither raises
+    WorkError naming the stream."""
+    if not st.queue:
+        return 0
+    prev = st.queue[-1]
+    if prev.stop is not None:
+        return prev.stop
+    if prev.duration:
+        return prev.pts + prev.duration
+    from ..work import WorkError
+    raise WorkError(f"sync: a {st.kind} buffer of stream {idx} (id {st.id}) "
+                    f"has no pts, and the one before it neither a stop nor "
+                    f"a duration to take its time from")
 
 
 def _shifted(buf: Buffer, off: int) -> Buffer:

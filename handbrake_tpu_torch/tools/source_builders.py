@@ -21,6 +21,7 @@ FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 
 # PES payload bytes a pack carries at most (a DVD pack is 2048 bytes)
 PS_CHUNK = 2000
+SECTOR = 2048
 
 
 def fixture(name: str) -> bytes:
@@ -169,18 +170,31 @@ def pack_bits(fields) -> bytes:
 
 def dts_core_frame(amode: int = 9, lff: int = 1, sfreq: int = 13,
                    rate: int = 15, size: int = 1024,
-                   samples: int = 512) -> bytes:
+                   samples: int = 512, fill: int = 0) -> bytes:
     """One DTS core frame (ETSI TS 102 114 5.3.1): the frame header of
     these fields (AMODE 9 + LFF 1: 5.1; SFREQ 13: 48 kHz; RATE 15: 768
-    kb/s; ``size`` bytes; ``samples`` a frame) and a zero payload.  It
-    describes a stream; it decodes to nothing."""
+    kb/s; ``size`` bytes; ``samples`` a frame) and a payload of the byte
+    ``fill``.  It describes a stream; it decodes to nothing."""
     fields = [(1, 1), (31, 5), (0, 1), (samples // 32 - 1, 7),
               (size - 1, 14), (amode, 6), (sfreq, 4), (rate, 5), (0, 1),
               (0, 1), (0, 1), (0, 1), (0, 1), (0, 3), (0, 1), (0, 1),
               (lff, 2), (0, 1), (0, 1), (7, 4), (0, 2), (6, 3), (0, 1),
               (0, 1), (0, 4)]
     head = b"\x7f\xfe\x80\x01" + pack_bits(fields)
-    return head + bytes(size - len(head))
+    return head + bytes([fill]) * (size - len(head))
+
+
+def dts_exss(size: int, fill: int = 0, wide: bool = False) -> bytes:
+    """One DTS extension substream (ETSI TS 102 114 7.5), as DTS-HD puts
+    one after each core frame: the sync word 0x64582025, substream index
+    0, a 16-byte header whose size fields are 8 and 16 bits (12 and 20
+    with ``wide``), then ``size`` bytes in all of the byte ``fill``.  It
+    frames a stream; it decodes to nothing."""
+    bits = (12, 20) if wide else (8, 16)
+    fields = [(0, 8), (0, 2), (int(wide), 1), (15, bits[0]),
+              (size - 1, bits[1])]
+    head = (b"\x64\x58\x20\x25" + pack_bits(fields)).ljust(16, b"\x00")
+    return head + bytes([fill]) * (size - len(head))
 
 
 def spu_sub(spu: bytes) -> bytes:
@@ -188,22 +202,95 @@ def spu_sub(spu: bytes) -> bytes:
     return bytes([0x20]) + spu
 
 
-def build_ps(units) -> bytes:
+def build_ps(units, packs=()) -> bytes:
     """A program stream of ``units``, each (at, stream id, data, wrap,
-    pts), packed in the order of ``at`` (a video unit's decode time, an
-    audio or subpicture unit's pts; ties keep the given order).  Each
-    unit's data is cut into chunks of at most PS_CHUNK bytes, each a
-    pack and a PES packet whose payload is ``wrap(chunk)`` (a private
-    stream 1 substream header) or the chunk; the first carries ``pts``."""
-    out = bytearray()
-    for _at, sid, data, wrap, pts in sorted(units, key=lambda u: u[0]):
+    pts), and of whole ``packs`` (at, bytes: ``sector_packs``), in the
+    order of ``at`` (a video unit's decode time, an audio or subpicture
+    unit's pts; ties keep the given order, packs first).  Each unit's
+    data is cut into chunks of at most PS_CHUNK bytes, each a pack and a
+    PES packet whose payload is ``wrap(chunk)`` (a private stream 1
+    substream header) or the chunk; the first carries ``pts``."""
+    items = list(packs)
+    for at, sid, data, wrap, pts in units:
         for off in range(0, max(1, len(data)), PS_CHUNK):
             part = data[off:off + PS_CHUNK]
-            out += pack_header()
-            out += ps_pes(sid, wrap(part) if wrap else part,
-                          pts if off == 0 else None)
-    out += b"\x00\x00\x01\xb9"
-    return bytes(out)
+            items.append((at, pack_header() + ps_pes(
+                sid, wrap(part) if wrap else part,
+                pts if off == 0 else None)))
+    return b"".join(p for _at, p in sorted(items, key=lambda u: u[0])) \
+        + b"\x00\x00\x01\xb9"
+
+
+def es_pieces(frames, pts, cuts) -> list:
+    """The elementary stream of ``frames`` (``pts``: each frame's) cut at
+    the byte offsets ``cuts``: (pts, payload, frames that begin in it,
+    offset of the first of them) a piece, its pts that of the first
+    frame that begins in it, or None where none does (ISO/IEC 13818-1
+    2.4.3.7).  A frame whose pts is None (a partial frame where the
+    stream was cut) begins nowhere."""
+    es = b"".join(frames)
+    starts = np.cumsum([0] + [len(f) for f in frames[:-1]]).tolist()
+    out = []
+    for a, b in zip([0, *cuts], [*cuts, len(es)]):
+        inside = [k for k, s in enumerate(starts)
+                  if a <= s < b and pts[k] is not None]
+        out.append((pts[inside[0]] if inside else None, es[a:b],
+                    len(inside), starts[inside[0]] - a if inside else 0))
+    return out
+
+
+def sector_packs(sid: int, frames, pts, substream=None) -> list:
+    """A sound stream laid out as a DVD authoring tool lays it out: the
+    frames' bytes cut into 2048-byte packs with no frame alignment, each
+    one PES packet of stream ``sid`` (private stream 1 with
+    ``substream``, an AC-3 0x80-0x87 or DTS 0x88-0x8F id: its header's
+    frame count and first access unit pointer filled from the payload),
+    with a PTS only where a frame begins in it: that frame's.  A piece of
+    ``frames`` whose pts is None (a partial frame where the stream was
+    cut) begins no frame.  A packet that would begin a frame in the 5
+    bytes a PTS takes ends before it, and a pack is filled with PES
+    header stuffing or a padding packet.  Returns build_ps ``packs``:
+    (at, pack), ``at`` the pts of the last frame begun at or before the
+    pack's first byte (before the first: the first frame's)."""
+    es = b"".join(frames)
+    ends = np.cumsum([len(f) for f in frames]).tolist()
+    begun = [(e - len(f), t) for f, e, t in zip(frames, ends, pts)
+             if t is not None]
+    starts = [b for b, _t in begun] + [len(es)]
+    pts = [t for _b, t in begun]
+    room = SECTOR - 14 - 9 - (4 if substream is not None else 0)
+    out = []
+    off = 0
+    while off < len(es):
+        nxt = next((s for s in starts[:-1] if s >= off), None)
+        if nxt is not None and nxt < off + room - 5:
+            n, stamp = min(room - 5, len(es) - off), True
+        elif nxt is not None and nxt < off + room:
+            n, stamp = nxt - off, False       # the frame starts the next
+        else:
+            n, stamp = min(room, len(es) - off), False
+        payload = es[off:off + n]
+        inside = [k for k, s in enumerate(starts[:-1]) if off <= s < off + n]
+        if substream is not None:
+            ptr = starts[inside[0]] - off + 1 if inside else 0
+            payload = bytes([substream, len(inside), ptr >> 8,
+                             ptr & 0xFF]) + payload
+        head = 9 + (5 if stamp else 0) + len(payload) + 14
+        stuff = SECTOR - head if SECTOR - head < 6 else 0
+        ext = (_ts33(pts[inside[0]], 0x20) if stamp else b"") \
+            + b"\xff" * stuff
+        body = bytes([0x80, 0x80 if stamp else 0, len(ext)]) + ext + payload
+        pack = pack_header() + b"\x00\x00\x01" + bytes([sid]) \
+            + len(body).to_bytes(2, "big") + body
+        if len(pack) < SECTOR:
+            pad = SECTOR - len(pack) - 6
+            pack += b"\x00\x00\x01\xbe" + pad.to_bytes(2, "big") \
+                + b"\xff" * pad
+        at = pts[max([k for k, s in enumerate(starts[:-1]) if s <= off]
+                     or [0])]
+        out.append((at, pack))
+        off += n
+    return out
 
 
 def video_units(es: bytes, first: int, ticks: int, sid: int = 0xE0,
@@ -382,8 +469,12 @@ def lang_descriptor(code: str) -> bytes:
     return bytes([0x0A, 4]) + code.encode("latin-1") + b"\x00"
 
 
-def ts_pes(stream_id: int, pts: int, data: bytes) -> bytes:
-    """A TS-borne PES packet with a pts (length 0: unbounded)."""
+def ts_pes(stream_id: int, pts, data: bytes) -> bytes:
+    """A TS-borne PES packet with a pts, or none where ``pts`` is None
+    (length 0: unbounded)."""
+    if pts is None:
+        return (b"\x00\x00\x01" + bytes([stream_id]) + b"\x00\x00"
+                + b"\x80\x00\x00" + data)
     return (b"\x00\x00\x01" + bytes([stream_id]) + b"\x00\x00"
             + b"\x80\x80\x05" + _ts33(pts, 0x20) + data)
 
@@ -414,14 +505,30 @@ def ts_packets(pid: int, pes: bytes, cc: int) -> tuple:
 def build_ts(streams, units) -> bytes:
     """A single-program TS: PAT and PMT (``streams``: (stream_type, pid,
     descriptors)), then ``units`` — (at, pid, stream_id, data, pts) — in
-    the order of ``at``, one PES packet each, with per-PID continuity
-    counters."""
+    the order of ``at``, one PES packet each (without a PTS where ``pts``
+    is None), with per-PID continuity counters."""
     out = bytearray(pat() + pmt(streams))
     cc = {}
     for _at, pid, sid, data, pts in sorted(units, key=lambda u: u[0]):
         pk, cc[pid] = ts_packets(pid, ts_pes(sid, pts, data), cc.get(pid, 0))
         out += pk
     return bytes(out)
+
+
+def pes_units(pid: int, sid: int, frames, pts, cuts) -> list:
+    """build_ts units of a sound stream whose PES packets are not its
+    frames: the frames' bytes cut at the byte offsets ``cuts`` (several
+    ADTS access units a PES, an AC-3 frame split across two), each
+    piece's PTS that of the first frame beginning in it, or none
+    (``es_pieces``); ``at`` the last PTS of the pieces before it (the
+    first piece's: the first frame's), so each piece goes out no later
+    than the frame its first byte belongs to."""
+    out = []
+    at = pts[0]
+    for p, payload, _n, _first in es_pieces(frames, pts, cuts):
+        out.append((at, pid, sid, payload, p))
+        at = p if p is not None else at
+    return out
 
 
 def m2ts_wrap(ts: bytes) -> bytes:

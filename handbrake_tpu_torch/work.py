@@ -44,6 +44,16 @@ reference keys those stages by source track, so a second output of a
 track overwrites the first, and passes through whatever codec a
 ``copy:<codec>`` track holds.
 
+A copy of a track that a program or transport stream carries (PS, DVD,
+TS, Blu-ray) is cut into whole frames (``audio/frames.py``): each mp4
+sample or mkv block is one frame (an E-AC-3 access unit), timed from the
+PTS of the packet it begins in and its samples, and the track takes the
+stream's channels and rate from its first frame, whatever the job's
+mixdown and rate say.  A copy from mp4 or mkv passes its packets through
+as they are.  The reference writes each PES payload as a sample, with a
+duration from the PTS gaps, and labels a copy with the mixdown's
+channels.
+
 ``checkpoint`` journals every muxed sample to ``<dest>.ckpt``
 (``checkpoint.py``) with a marker at each GOP boundary; ``resume``
 replays the complete GOPs, cuts the journal there, feeds the filters
@@ -103,6 +113,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import os
 from fractions import Fraction
 
@@ -111,6 +122,7 @@ import torch
 
 from . import checkpoint
 from .audio.aacdec import DECODABLE_AOTS, AACDecoder, AACUnsupported
+from .audio.frames import adts_header
 from .codecs.registry import create_video_decoder
 from .core.buffer import Buffer, CLOCK, Geometry, PIX_FMTS
 from .core.pipeline import WorkObject
@@ -555,11 +567,25 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
 
     # an AC-3/E-AC-3 copy into mp4 gets its dac3/dec3 from the track's
     # own first access unit, read now, so a stream that is not what the
-    # copy names is refused before any file exists
-    config_boxes = {k: _copy_config_box(src, si, spec, job)
+    # copy names is refused before any file exists; each copy's channels
+    # and rate are the stream's, a framed copy's read from its first
+    # frame (each track's head read once, and only for these)
+    heads = {}
+
+    def head(si):
+        if si not in heads:
+            heads[si] = _track_head(src, si)
+        return heads[si]
+
+    config_boxes = {k: _copy_config_box(head(si), spec)
                     for k, si, spec in audio_sel
                     if _mux_kind(job) == "mp4"
                     and spec.encoder in ("copy:ac3", "copy:eac3")}
+    byte_stream = _byte_stream(src)
+    copies = {k: _copy_stream(src.tracks[si], spec, byte_stream,
+                              functools.partial(head, si))
+              for k, si, spec in audio_sel
+              if spec.encoder.startswith("copy")}
 
     # ---- decoders ----
     vdec = create_video_decoder(vti.codec, vti.extradata,
@@ -567,7 +593,7 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     adecs = {}
     afan = {}                 # source track index -> its outputs' keys
     for k, si, spec in audio_sel:
-        adecs[k] = _make_audio_decoder(src.tracks[si], spec)
+        adecs[k] = _make_audio_decoder(src.tracks[si], spec, copies.get(k))
         afan.setdefault(si, []).append(k)
 
     # ---- sync ----
@@ -770,7 +796,8 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
         mux = _NullMux()
     else:
         mux = _MuxAdapter(job, out_fi, audio_sel, src, aencs,
-                          sub_specs=sub_specs, config_boxes=config_boxes)
+                          sub_specs=sub_specs, config_boxes=config_boxes,
+                          copies=copies)
         if ckpt is not None:
             mux.journal = ckpt
             for rec in replay:
@@ -875,14 +902,9 @@ _BSI_HEAD = 1 << 16   # bytes of an AC-3/E-AC-3 track read for its
                       # dac3/dec3: several whole access units
 
 
-def _copy_config_box(src, si: int, spec, job: Job) -> bytes:
-    """The dac3/dec3 payload of an AC-3/E-AC-3 copy of source track `si`,
-    packed from the BSI of the track's first access unit (read from its
-    first _BSI_HEAD bytes).  WorkError where those hold no whole
-    syncframe, or a stream of the other codec."""
-    from .audio.ac3dec import read_bsi
-    from .mux.mp4 import dac3, dec3
-    codec = spec.encoder.partition(":")[2]
+def _track_head(src, si: int) -> bytes:
+    """The first _BSI_HEAD bytes (or all) of source track `si`'s
+    packets."""
     head = b""
     it = src.packets()
     try:
@@ -893,6 +915,73 @@ def _copy_config_box(src, si: int, spec, job: Job) -> bytes:
                     break
     finally:
         it.close()
+    return head
+
+
+def _byte_stream(src) -> bool:
+    """Whether `src` hands its sound over as a byte stream (PES
+    payloads: PS, DVD, TS, Blu-ray), not as the frames a container
+    indexes."""
+    from .sources.ps import PSDemuxer
+    from .sources.ts import TSDemuxer
+    return isinstance(src, (PSDemuxer, TSDemuxer))
+
+
+@dataclasses.dataclass
+class _CopyTrack:
+    """What a copy's mux track says: the stream's rate and channels, its
+    codec config where the stream gives one (an ADTS stream's
+    AudioSpecificConfig), and whether its packets are cut into frames."""
+    codec: str
+    sample_rate: int
+    channels: int
+    config: bytes = b""
+    framed: bool = False
+
+
+def _copy_stream(ti, spec, byte_stream: bool, head) -> _CopyTrack:
+    """The mux track of a copy of source track `ti`.  A byte stream's
+    copy of a codec ``audio/frames.py`` reads is framed: it takes the
+    rate, channels and config of its first frame in ``head()`` (the
+    track's first bytes), and raises WorkError where there is none, or
+    where the frame does not say its channels.  Any other copy takes the
+    track's.  A mixdown or rate of the job that the copy does not keep
+    is logged as ignored."""
+    from .audio import frames
+    from .audio.chain import MIXDOWN_CHANNELS
+    codec = spec.encoder.partition(":")[2] or ti.codec
+    c = _CopyTrack(codec, ti.sample_rate, ti.channels)
+    if byte_stream and codec in frames.READERS:
+        data = head()
+        f = frames.first_frame(codec, data)
+        if f is None or not f.channels:
+            raise WorkError(f"audio track {spec.track + 1}: no whole {codec} "
+                            f"frame that says its channels in its first "
+                            f"{len(data)} bytes, so the copy cannot be "
+                            f"written")
+        c = _CopyTrack(codec, f.sample_rate, f.channels, framed=True,
+                       config=frames.adts_config(frames.adts_header(f.data))
+                       if codec == "aac" else b"")
+    ignored = []
+    if MIXDOWN_CHANNELS.get(spec.mixdown, c.channels) != c.channels:
+        ignored.append(f"mixdown {spec.mixdown}")
+    if spec.samplerate and spec.samplerate != c.sample_rate:
+        ignored.append(f"sample rate {spec.samplerate}")
+    if ignored:
+        log(f"audio: track {spec.track + 1}, {spec.encoder}: the "
+            f"{' and '.join(ignored)} ignored, the copy keeps the stream's "
+            f"{c.channels} channels at {c.sample_rate} Hz")
+    return c
+
+
+def _copy_config_box(head: bytes, spec) -> bytes:
+    """The dac3/dec3 payload of an AC-3/E-AC-3 copy, packed from the BSI
+    of the first access unit in `head` (the track's first _BSI_HEAD
+    bytes).  WorkError where those hold no whole syncframe, or a stream
+    of the other codec."""
+    from .audio.ac3dec import read_bsi
+    from .mux.mp4 import dac3, dec3
+    codec = spec.encoder.partition(":")[2]
     bsi = read_bsi(head)
     if bsi is None:
         raise WorkError(f"audio track {spec.track + 1}: no whole {codec} "
@@ -1121,6 +1210,11 @@ class _DecodeSyncStage(WorkObject):
             self._stand_in()
             for f in self.vdec.flush():
                 self._frame(f, flush=True)
+            for k, dec in self.adecs.items():
+                if isinstance(dec, _CopyAudioDecoder):
+                    for ab in dec.flush():
+                        ab.stream_id = k
+                        self.sync.queue(self.a_sync[k], ab)
             for idx in range(len(self.sync.streams)):
                 self.sync.set_eof(idx)
             out = self._poll()
@@ -1584,10 +1678,45 @@ class _PcmDecoder:
 
 
 class _CopyAudioDecoder:
-    """Passthrough: compressed packets ride the sync layer unchanged."""
+    """Passthrough.  With `codec` (a track of a byte stream) the packets
+    are cut into whole frames (``audio/frames.Framer``), each a Buffer
+    with its pts, stop and duration from its samples; else they ride the
+    sync layer unchanged.  ``flush`` gives the last frame; a copy that
+    was fed bytes and gave no frame raises WorkError naming the track
+    (`name`)."""
+
+    def __init__(self, codec=None, name: str = ""):
+        from .audio.frames import Framer
+        self.framer = Framer(codec, name) if codec else None
+        self.name = name
+        self.fed = self.given = 0
 
     def feed(self, buf: Buffer) -> list:
-        return [buf]
+        if buf.data is None:
+            return [] if self.framer else [buf]
+        self.fed += len(buf.data)
+        if self.framer is None:
+            self.given += 1
+            return [buf]
+        return self._buffers(self.framer.feed(bytes(buf.data), buf.pts))
+
+    def flush(self) -> list:
+        out = self._buffers(self.framer.flush()) if self.framer else []
+        if self.fed and not self.given:
+            raise WorkError(f"{self.name}: no whole frame in the "
+                            f"{self.fed} bytes of the copy")
+        return out
+
+    def _buffers(self, frames) -> list:
+        out = []
+        for f in frames:
+            b = Buffer(data=f.data, track_kind="audio", pts=f.pts,
+                       duration=f.samples * CLOCK // f.sample_rate
+                       if f.pts is None else f.stop - f.pts)
+            b.stop = f.stop
+            out.append(b)
+        self.given += len(out)
+        return out
 
 
 class _AacPacketDecoder:
@@ -1624,7 +1753,7 @@ class _AacPacketDecoder:
             self._pend += data
             frames = []
             while True:
-                h = self.dec.parse_adts_header(self._pend)
+                h = adts_header(self._pend)
                 if h is None:
                     i = self._pend.find(b"\xff", 1)   # resync on garbage
                     if i < 0:
@@ -1633,10 +1762,10 @@ class _AacPacketDecoder:
                         break
                     self._pend = self._pend[i:]
                     continue
-                if len(self._pend) < h[1]:
+                if len(self._pend) < h.size:
                     break
-                frames.append(self._pend[:h[1]])
-                self._pend = self._pend[h[1]:]
+                frames.append(self._pend[:h.size])
+                self._pend = self._pend[h.size:]
         else:
             frames = [data]
         outs = []
@@ -1845,9 +1974,11 @@ class _AVAudioPacketDecoder:
 _AV_AUDIO = ("eac3", "dts", "dca", "truehd", "mlp", "mp3", "vorbis", "opus")
 
 
-def _make_audio_decoder(ti, spec=None):
+def _make_audio_decoder(ti, spec=None, copied=None):
     """The track's decoder for one output (`spec`, its encoder resolved
-    by ``resolve_audio_encoder``).  Where the reference falls back (an
+    by ``resolve_audio_encoder``).  A copy passes the packets through, cut
+    into frames where its mux track (`copied`, a ``_CopyTrack``) is
+    framed.  Where the reference falls back (an
     AAC decoder that cannot start becomes passthrough; a codec it cannot
     decode, or a libavcodec codec where the library is missing or does
     not start, becomes a passthrough that the chain then drops), the port
@@ -1855,6 +1986,9 @@ def _make_audio_decoder(ti, spec=None):
     if spec is not None and str(spec.encoder).startswith("copy"):
         # passthrough: keep the compressed packets intact (WORK_PASS
         # role) — decoding would hand PCM to a chain that forwards data
+        if copied is not None and copied.framed:
+            return _CopyAudioDecoder(copied.codec, f"audio track "
+                                     f"{spec.track + 1} ({copied.codec})")
         return _CopyAudioDecoder()
     if ti.codec == "lpcm" and not ti.extradata:
         # an LPCM track without the DVD substream header that PSDemuxer
@@ -1906,19 +2040,23 @@ class _MuxAdapter:
     writers' concern).  Audio tracks are keyed by the output's index in
     job.audio (``audio_sel``: (key, source track, resolved spec)).  An
     AC-3 or E-AC-3 copy into mp4 gets the ``dac3``/``dec3`` payload in
-    ``config_boxes`` (key → payload, from ``_copy_config_box``).  A codec
-    the writer refuses raises WorkError.  With a checkpoint journal
-    (``journal``) every sample written is journaled; ``replay`` writes a
-    journaled one."""
+    ``config_boxes`` (key → payload, from ``_copy_config_box``).  Each
+    copy's track takes the rate, channels and config of ``copies`` (key →
+    ``_CopyTrack``); a copy cut into frames is written a frame a sample,
+    its mp4 duration the frame's samples, and an ADTS frame less its
+    header.  A codec the writer refuses raises WorkError.  With a
+    checkpoint journal (``journal``) every sample written is journaled;
+    ``replay`` writes a journaled one."""
 
     def __init__(self, job: Job, out_fi, audio_sel, src, aencs=None,
-                 sub_specs=None, config_boxes=None):
+                 sub_specs=None, config_boxes=None, copies=None):
         self.journal = None
         self.kind = job.mux
         self.aencs = aencs or {}
         path = job.file or "out.mp4"
         self._amap = {}
         self._config_boxes = dict(config_boxes or {})
+        self._copies = dict(copies or {})
         # ("a" | "s", key) -> samples a resume replayed, not to be
         # written again
         self.skip = {}
@@ -1946,8 +2084,11 @@ class _MuxAdapter:
             for k, si, spec in audio_sel:
                 ti = src.tracks[si]
                 chain = self.aencs.get(k)
+                cp = self._copies.get(k)
                 priv = b""
-                if chain is not None and chain.out_codec() == "flac":
+                if cp is not None and cp.config:
+                    priv = cp.config           # an ADTS stream's ASC
+                elif chain is not None and chain.out_codec() == "flac":
                     from .audio.flac import FLAC_MARKER
                     priv = FLAC_MARKER + chain.extradata(initial=True)
                 elif chain is not None and chain.out_codec() == "aac":
@@ -1960,9 +2101,8 @@ class _MuxAdapter:
                     priv = ti.extradata
                 self._amap[k] = self._add_audio(
                     codec=chain.out_codec() if chain else ti.codec,
-                    sample_rate=chain.sr_out if chain else ti.sample_rate,
-                    channels=chain.out_channels if chain else ti.channels,
-                    private=priv, language=ti.language)
+                    private=priv, language=ti.language,
+                    **self._audio_format(k, chain, ti))
         else:
             from .mux.mp4 import MP4Writer
             self.w = MP4Writer(path)
@@ -1982,9 +2122,12 @@ class _MuxAdapter:
             for k, si, spec in audio_sel:
                 ti = src.tracks[si]
                 chain = self.aencs.get(k)
+                cp = self._copies.get(k)
                 xd = b""
                 if k in self._config_boxes:
                     xd = self._config_boxes[k]   # the copy's dac3/dec3
+                elif cp is not None and cp.config:
+                    xd = cp.config             # an ADTS stream's ASC
                 elif chain is not None and chain.out_codec() == "aac":
                     xd = chain.extradata()     # AudioSpecificConfig
                 elif chain is not None and chain.out_codec() == "ac3":
@@ -2014,9 +2157,8 @@ class _MuxAdapter:
                         xd = v.to_bytes(2, "big")
                 self._amap[k] = self._add_audio(
                     codec=chain.out_codec() if chain else ti.codec,
-                    sample_rate=chain.sr_out if chain else ti.sample_rate,
-                    channels=chain.out_channels if chain else ti.channels,
-                    extradata=xd, language=ti.language)
+                    extradata=xd, language=ti.language,
+                    **self._audio_format(k, chain, ti))
         for k, sspec in (sub_specs or {}).items():
             if sspec.burn:
                 continue
@@ -2070,23 +2212,28 @@ class _MuxAdapter:
             self.w.write_sample(self.vtrack, au, duration=dur, sync=idr,
                                 cts_offset=cts, annexb=annexb)
 
+    def _audio_format(self, k: int, chain, ti) -> dict:
+        """The sample rate and channels of output `k`'s track: a copy's
+        are the stream's, an encoder's its chain's."""
+        cp = self._copies.get(k)
+        if cp is not None:
+            return {"sample_rate": cp.sample_rate, "channels": cp.channels}
+        if chain is not None:
+            return {"sample_rate": chain.sr_out,
+                    "channels": chain.out_channels}
+        return {"sample_rate": ti.sample_rate, "channels": ti.channels}
+
     @staticmethod
     def _strip_adts(data: bytes) -> bytes:
-        """ADTS framing → raw AAC AUs (the aac_adtstoasc BSF role):
-        containers index access units, not the self-framing stream."""
-        out = bytearray()
-        i = 0
-        n = len(data)
-        while i + 7 <= n and data[i] == 0xFF and \
-                (data[i + 1] & 0xF0) == 0xF0:
-            ln = ((data[i + 3] & 3) << 11) | (data[i + 4] << 3) \
-                | (data[i + 5] >> 5)
-            hdr = 7 if (data[i + 1] & 1) else 9    # +CRC
-            if ln < hdr or i + ln > n:
-                break
-            out += data[i + hdr:i + ln]
-            i += ln
-        return bytes(out) if i and i == n else data
+        """One ADTS frame → its raw AAC access unit (the aac_adtstoasc BSF
+        role): containers index access units, not the self-framing
+        stream.  WorkError where `data` is not exactly one whole ADTS
+        frame."""
+        from .audio.frames import adts_payload
+        try:
+            return adts_payload(data)
+        except ValueError as e:
+            raise WorkError(f"aac copy: {e}") from e
 
     def replay(self, rec):
         """Re-apply one checkpoint-journal record (resume path)."""
@@ -2125,16 +2272,23 @@ class _MuxAdapter:
             self.journal.audio(k, bytes(pkt.data), pkt.pts, pkt.duration,
                                pkt.stop)
         data = pkt.data
-        tcodec = self.w.tracks[tr]
-        if getattr(tcodec, "codec", getattr(tcodec, "codec_id", "")) \
-                in ("aac", "A_AAC"):
-            data = self._strip_adts(bytes(data))
+        cp = self._copies.get(k)
+        head = None
+        if cp is not None and cp.framed:
+            # one frame: its samples time the mp4 sample, and an ADTS
+            # frame goes in less its header
+            from .audio.frames import read_frame
+            head = read_frame(cp.codec, bytes(data))
+            if cp.codec == "aac":
+                data = self._strip_adts(bytes(data))
         if self.kind in ("mkv", "webm"):
             self.w.write_sample(tr, data, pts_90k=pkt.pts or 0,
                                 duration_90k=pkt.duration or 0)
         else:
             t = self.w.tracks[tr]
-            dur = (pkt.duration or 0) * t.timescale // CLOCK
+            dur = head.samples * t.timescale // head.sample_rate \
+                if head is not None else \
+                (pkt.duration or 0) * t.timescale // CLOCK
             self.w.write_sample(tr, data, duration=dur)
 
     def _skipped(self, tag: str, k: int, live: bool) -> bool:

@@ -503,8 +503,9 @@ def test_dvd_ifo_disagreement_is_logged(dvd, tmp_path, capfd, case):
 
 def test_dvd_preset_job_to_mp4(dvd, tmp_path):
     """A preset that copies AC-3 beside an AAC stereo encode of the
-    first English track: two outputs of track 1, the copy's frames and
-    dac3 the stream's, the DTS and LPCM tracks left out."""
+    first English track: two outputs of track 1, the copy's frames,
+    dac3 and 6 channels the stream's (not the preset mixdown's 2), the
+    DTS and LPCM tracks left out."""
     import json
     from handbrake_tpu_torch.job.presets import preset_search
     root, ac3, _ps = dvd
@@ -524,7 +525,7 @@ def test_dvd_preset_job_to_mp4(dvd, tmp_path):
                 "--previews", "2", "--device", "cpu"]) == 0
     tracks, pk = _packets(out)
     assert [t[:4] for t in tracks[1:]] == [("audio", "aac", 48000, 2),
-                                           ("audio", "ac3", 48000, 2)]
+                                           ("audio", "ac3", 48000, 6)]
     assert [p for _pts, p in pk[2]] == list(ac3)
     assert tracks[2][4] == dac3(read_bsi(ac3[0]))
     from handbrake_tpu_torch.audio.aacdec import AACDecoder

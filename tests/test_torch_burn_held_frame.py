@@ -69,7 +69,12 @@ def lumas(tmp_path_factory):
         if pkg == "torch":
             work.do_job(job, device="cpu")
         else:
-            jwork.do_job(job)
+            # the reference encodes on its device path, as the port does:
+            # some of the JAX package's tests leave HB_TPU_DISABLE_DEVICE=1
+            # set in their worker, which would switch it to its host path
+            with pytest.MonkeyPatch.context() as mp:
+                mp.delenv("HB_TPU_DISABLE_DEVICE", raising=False)
+                jwork.do_job(job)
         got[pkg] = _card_luma(out)
         assert len(got[pkg]) == n
     return got
