@@ -218,10 +218,22 @@ Phases (none is caught; any failure exits non-zero before the last line):
    over the folder's first 4 pictures, deblock264 launched at least once
    for every P frame, the resample kernel once a frame if the preset
    scales and never if not (which holds is printed); (b) a ``BDMV``
-   folder, phase 7's 1080p stream and an AC-3 5.1 track over two m2ts
-   clips and an MPLS with two chapter marks, through the CLI to mkv with
-   the AC-3 copied (``--previews 2``): 33 frames, two chapters, the AC-3
-   frames, no resample launch, deblock264 once per analysed P frame; (c)
+   folder over two m2ts clips and an MPLS with two chapter marks: phase
+   7's 1080p stream, an AC-3 5.1 track (stream type 0x81), the
+   committed TrueHD fixture's access units with AC-3 5.1 syncframes as
+   its core on one PID (0x83, PES extensions 0x72 and 0x76), the
+   committed E-AC-3 access units (0x84), DTS-HD whose extension
+   substream says 8 channels (0x85) and a PGS card (0x90), through the
+   CLI to mkv with ``-a 1,2,3,4,5 -E
+   copy:ac3,copy:truehd,copy:ac3,copy:eac3,copy:dts -s 1
+   --subtitle-burned 1 --previews 2``: the title's track list (printed,
+   the core a track of its own), 33 frames, two chapters, each copy's
+   blocks equal to its stream's frames (the TrueHD blocks the fixture's
+   units, the first with a major sync), each copy labelled with its
+   stream's rate and channels, the card brighter in its rectangle once
+   burned, the first 3 samples equal to the job the CLI built run on
+   the CPU over the folder's first 3 pictures, no resample launch,
+   deblock264 once per analysed P frame; (c)
    phase 7's stream with the MP2 fixture in a 188-byte TS with a corrupt
    sync byte (a null packet) mid-file, through ``work.do_job`` to mp4
    with AAC: 33 samples, the first 3 equal to the CPU's run of the first
@@ -398,7 +410,8 @@ one-rank files) and step 14 alone, on every card the run can see, and
 prints no result line: the check of 14 (d)'s NCCL world on a machine
 with several cards.  ``--anamorphic-only`` runs step 1's build and step
 17 alone and prints no result line; ``--audio-copy-only`` the build and
-step 18; ``--resumes-only`` the build and step 19.
+step 18; ``--resumes-only`` the build and step 19; ``--discs-only`` the
+build and step 12, on step 7's stream encoded anew on the card.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -553,6 +566,10 @@ DVD_T0 = 4 * FRAME_TICKS
 DVD_CARD, DVD_CARD_AT = (300, 200, 64, 32), 6
 DVD_PREVIEWS, DVD_TIMED = 2, 8
 MJPEG_N = 6
+# the Blu-ray's PGS card (x, y, w, h in the 1920x1080 picture) and the
+# pictures it shows at and is cleared at (burned a picture late: ROADMAP
+# 3.19), so the first N_CPU samples held against the CPU hold the burn
+BD_CARD, BD_CARD_AT, BD_CARD_OFF = (760, 860, 400, 120), 1, 20
 # step 13: HEVC and AV1 at 1080p.  The analyzers' coded planes (1088
 # rows: 34 CTUs of 32, 68 blocks of 16) and their timing reps; the jobs'
 # frames (an IDR and a P: the smoke's time), the frames of their CPU
@@ -3351,58 +3368,189 @@ def phase_dvd(tmp, label):
     return rec
 
 
-def bd_folder(root, stream):
-    """12 (b): phase 7's 1080p stream and an AC-3 5.1 track in a TS (the
-    BD PIDs), as m2ts over two clips, an MPLS with two chapter marks."""
+def bd_streams(n):
+    """12 (b)'s sound and subtitle streams for n pictures: {kind: (stream
+    type, PID, stream id, stream_id_extension, frames or display sets,
+    their pts)}.  An AC-3 5.1 track (0x81); the committed TrueHD
+    fixture's access units (0x83, extension 0x72) with AC-3 5.1
+    syncframes as its core (extension 0x76) on one PID; the committed
+    E-AC-3 mkv's access units (0x84); DTS-HD, a core 5.1 frame and an
+    extension substream saying 8 channels (0x85); a PGS card of
+    BD_CARD shown at picture BD_CARD_AT and cleared at BD_CARD_OFF
+    (0x90)."""
     from handbrake_tpu_torch.audio.ac3enc import Ac3Encoder
+    from handbrake_tpu_torch.sources.mkv import MKVDemuxer
+    from handbrake_tpu_torch.subtitles.pgs import build_display_set
     from handbrake_tpu_torch.tools import source_builders as B
-    secs = len(stream) * FRAME_TICKS / 90000
+    secs = n * FRAME_TICKS / 90000
+
+    def at(k, samples):
+        return [DVD_T0 + i * samples * 90000 // 48000 for i in range(k)]
+
     ac3 = Ac3Encoder(48000, 6, AC3_SRC_BPS)
     frames = ac3.encode(disc_tone(6, secs, 23)) + ac3.flush()
+    units = truehd_units()[0]
+    core = frames[:-(-len(units) * 40 // 1536)]
+    d = MKVDemuxer(os.path.join(B.FIXTURES, "eac3_176x144.mkv"))
+    eac3 = [bytes(b.data) for t, b in d.packets() if t == 1]
+    d.close()
+    dts = [B.dts_core_frame(size=1024, fill=k % 251)
+           + B.dts_exss(600, fill=7, asset=(48000, 8, 512))
+           for k in range(int(secs * 48000) // 512)]
+    pal = np.zeros((256, 4), np.uint8)
+    pal[1] = (235, 128, 128, 255)
+    x, y, w, h = BD_CARD
+    show, off = (DVD_T0 + k * FRAME_TICKS for k in (BD_CARD_AT, BD_CARD_OFF))
+    card = np.ones((h, w), np.uint8)
+    pgs = [build_display_set(show, card, pal, x, y, screen=(W, H)),
+           build_display_set(off, card, pal, 0, 0, screen=(W, H),
+                             clear=True)]
+    return {"ac3": (0x81, 0x1100, 0xBD, None, frames, at(len(frames), 1536)),
+            "truehd": (0x83, 0x1101, 0xFD, 0x72, units, at(len(units), 40)),
+            "core": (0x83, 0x1101, 0xFD, 0x76, core, at(len(core), 1536)),
+            "eac3": (0x84, 0x1102, 0xFD, None, eac3, at(len(eac3), 1536)),
+            "dts": (0x85, 0x1103, 0xFD, None, dts, at(len(dts), 512)),
+            "pgs": (0x90, 0x1200, 0xBD, None, pgs, [show, off])}
+
+
+def truehd_units():
+    """The committed TrueHD fixture's access units and libavcodec's
+    account of them (its ``.json``)."""
+    from handbrake_tpu_torch.tools import source_builders as B
+    data = B.fixture("truehd_48k_2.0.thd")
+    info = json.loads(B.fixture("truehd_48k_2.0.json"))
+    ends = np.cumsum(info["unit_sizes"]).tolist()
+    return [data[a:b] for a, b in zip([0] + ends[:-1], ends)], info
+
+
+def bd_folder(root, stream):
+    """12 (b): phase 7's 1080p stream and ``bd_streams`` in a TS (the BD
+    PIDs; the TrueHD units 12 a PES), as m2ts over two clips, an MPLS
+    with two chapter marks.  Returns (folder, the streams)."""
+    from handbrake_tpu_torch.tools import source_builders as B
+    secs = len(stream) * FRAME_TICKS / 90000
+    tracks = bd_streams(len(stream))
     units = [(DVD_T0 + i * FRAME_TICKS, 0x1011, 0xE0, au,
               DVD_T0 + i * FRAME_TICKS) for i, au in enumerate(stream)]
-    units += [(DVD_T0 + k * 2880, 0x1100, 0xBD, f, DVD_T0 + k * 2880)
-              for k, f in enumerate(frames)]
-    ts = B.build_ts([(0x1B, 0x1011, b""), (0x81, 0x1100, b"")], units)
-    return B.write_bd(root, ts, 2, secs, [(0, 0.0), (1, 0.1)]), frames
+    pmt = [(0x1B, 0x1011, b"")]
+    for kind, (stype, pid, sid, ext, frames, pts) in tracks.items():
+        if kind != "core":
+            pmt.append((stype, pid, b""))
+        per = 12 if kind == "truehd" else 1
+        units += [(pts[k], pid, sid, b"".join(frames[k:k + per]), pts[k])
+                  + (() if ext is None else (ext,))
+                  for k in range(0, len(frames), per)]
+    ts = B.build_ts(pmt, units)
+    return B.write_bd(root, ts, 2, secs, [(0, 0.0), (1, 0.1)]), tracks
+
+
+def bd_job(root, out):
+    """12 (b)'s CLI arguments: every sound track copied, the PGS
+    burned."""
+    return ["-i", root, "-o", out, "-e", "h264", "-q", "28",
+            "--encoder-profile", "high", "-m", "-a", "1,2,3,4,5", "-E",
+            "copy:ac3,copy:truehd,copy:ac3,copy:eac3,copy:dts", "-s", "1",
+            "--subtitle-burned", "1", "--previews", str(DVD_PREVIEWS)]
+
+
+def mkv_luma_means(path, n, rect):
+    """The mean luma of ``rect`` (x, y, w, h) in the first n decoded
+    frames of an mkv's video track."""
+    from handbrake_tpu_torch.codecs.registry import create_video_decoder
+    from handbrake_tpu_torch.sources.mkv import MKVDemuxer
+    d = MKVDemuxer(path)
+    dec = create_video_decoder("h264", d.tracks[0].extradata)
+    frames = []
+    for trk, b in d.packets():
+        if trk == 0 and len(frames) < n:
+            frames += dec.feed(b)
+    d.close()
+    x, y, w, h = rect
+    return [float(np.asarray(f.planes[0])[y:y + h, x:x + w].mean())
+            for f in frames[:n]]
 
 
 def phase_bd(tmp, label, stream):
-    """12 (b): the BDMV folder through the CLI to mkv, AC-3 copied."""
-    from handbrake_tpu_torch.sources.mkv import MKVDemuxer
-    root, frames = bd_folder(os.path.join(tmp, "bd"), stream)
-    out = os.path.join(tmp, "bd.mkv")
-    argv = ["-i", root, "-o", out, "-e", "h264", "-q", "28",
-            "--encoder-profile", "high", "-m", "-a", "1", "-E", "copy:ac3",
-            "--previews", str(DVD_PREVIEWS)]
-    secs, dev_ms, db, rs, spy = disc_job("cli", argv)
-    d = MKVDemuxer(out)
-    tracks = [(t.kind, t.codec) for t in d.tracks]
-    size = (d.tracks[0].width, d.tracks[0].height)
-    chapters = list(d.chapters)
-    pk = {}
-    for t, b in d.packets():
-        pk.setdefault(t, []).append(bytes(b.data))
+    """12 (b): the BDMV folder through the CLI to mkv, each sound track
+    copied (the TrueHD and its AC-3 core apart), the PGS card burned."""
+    from handbrake_tpu_torch.audio.frames import truehd_major_sync
+    from handbrake_tpu_torch.sources import bd as bdsrc
+    root, streams = bd_folder(os.path.join(tmp, "bd"), stream)
+    d = bdsrc.open_bd_title(root)[0]
+    listing = [(t.kind, t.codec) for t in d.tracks]
     d.close()
+    out = os.path.join(tmp, "bd.mkv")
+    secs, dev_ms, db, rs, spy = disc_job("cli", bd_job(root, out))
+    tracks, pk = read_tracks(out)
+    chapters = len(mkv_chapters(out))
     n = len(stream)
     n_p = spy.p_frames()
-    rec = {"phase": "12b", "card": label, "samples": len(pk.get(0, [])),
-           "size": list(size), "tracks": tracks, "chapters": len(chapters),
-           "ac3_equal_source": pk.get(1) == frames,
+    copies = {k: [p for _t, p in pk.get(i, [])]
+              for i, k in enumerate(("ac3", "truehd", "core", "eac3",
+                                     "dts"), 1)}
+    units, info = truehd_units()
+    samples = [p for _t, p in pk.get(0, [])]
+    # the same job the CLI built, on the CPU over the folder's first
+    # N_CPU pictures
+    cut, _ = bd_folder(os.path.join(tmp, "bd_cut"), stream[:N_CPU])
+    out_cpu = os.path.join(tmp, "bd_cpu.mkv")
+    disc_job("do_job", dataclasses.replace(spy.job, path=cut, file=out_cpu),
+             device="cpu")
+    cpu_samples = [p for _t, p in read_tracks(out_cpu)[1][0]]
+    x, y, w, h = BD_CARD
+    means = mkv_luma_means(out, BD_CARD_AT + 3, (x + 4, y + 4, w - 8, h - 8))
+    rec = {"phase": "12b", "card": label, "samples": len(samples),
+           "size": [tracks[0].width, tracks[0].height],
+           "source_tracks": listing,
+           "tracks": [(t.kind, t.codec, t.sample_rate, t.channels)
+                      for t in tracks], "chapters": chapters,
+           "copies_equal_streams": {k: copies[k] == list(streams[k][4])
+                                    for k in copies},
+           "truehd_first_major_sync": bool(copies["truehd"]) and
+           truehd_major_sync(copies["truehd"][0]) is not None,
+           "truehd_blocks": len(copies["truehd"]),
+           "card_luma_before": means[0], "card_luma_burned": means[-1],
+           "first3_equal_cpu": samples[:N_CPU] == cpu_samples[:N_CPU],
            "deblock264_launches": db, "p_frames": n_p,
            "redos": spy.enc.n_redo, "resample_launches": rs,
            "do_job_s": secs, "fps": n / secs, "device_ms": dev_ms,
            "busy_share": dev_ms / (secs * 1e3)}
     print(json.dumps(rec), flush=True)
-    if rec["samples"] != n or size != (W, H) or len(chapters) != 2 \
-            or not rec["ac3_equal_source"]:
-        raise RuntimeError("the Blu-ray job's mkv lacks frames, chapters or "
-                           "the AC-3 frames")
+    want = [("video", "h264"), ("audio", "ac3"), ("audio", "truehd"),
+            ("audio", "ac3"), ("audio", "eac3"), ("audio", "dts"),
+            ("subtitle", "pgs")]
+    if listing != want:
+        raise RuntimeError(f"the Blu-ray title's tracks are {listing}, not "
+                           f"{want}")
+    if rec["samples"] != n or (tracks[0].width, tracks[0].height) != (W, H) \
+            or chapters != 2 or not all(rec["copies_equal_streams"].values()) \
+            or not rec["truehd_first_major_sync"]:
+        raise RuntimeError("the Blu-ray job's mkv lacks frames or chapters, "
+                           "or a copy is not its stream's frames")
+    labels = [t[2:] for t in rec["tracks"][1:6]]
+    if labels != [(48000, 6), (info["decoded_sample_rate"],
+                               info["decoded_channels"]), (48000, 6),
+                  (48000, 2), (48000, 8)]:
+        raise RuntimeError(f"the Blu-ray copies are labelled {labels}")
+    if not rec["first3_equal_cpu"]:
+        raise RuntimeError("the Blu-ray job's first samples differ from the "
+                           "CPU's")
+    if means[-1] < means[0] + 60:
+        raise RuntimeError("the burned PGS card does not show")
     if rs != 0 or db != n_p + spy.enc.n_redo or db == 0:
         raise RuntimeError("the Blu-ray job's launches: resample "
                            f"{rs} (0 expected), deblock264 {db} for {n_p} "
                            f"P frames and {spy.enc.n_redo} redos")
     return rec
+
+
+def mkv_chapters(path):
+    from handbrake_tpu_torch.sources.mkv import MKVDemuxer
+    d = MKVDemuxer(path)
+    try:
+        return list(d.chapters)
+    finally:
+        d.close()
 
 
 def broadcast_ts(path, stream):
@@ -5087,6 +5235,25 @@ def audio_copy_only() -> int:
     return 0
 
 
+def discs_only() -> int:
+    """Steps 1 and 12 alone (``--discs-only``), on step 7's stream
+    encoded anew on the card (the same frames, settings and bytes)."""
+    import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
+    from handbrake_tpu_torch.codecs.h264.encoder import (EncoderConfig,
+                                                         H264Encoder)
+    from handbrake_tpu_torch.utils.synth import make_clip
+    label = card()
+    print(f"card: {label}", flush=True)
+    phase_build()
+    enc = H264Encoder(EncoderConfig(width=W, height=H, qp=QP, gop=600,
+                                    deblock=True, cabac=True,
+                                    transform8x8=True))
+    stream = [enc.encode_frame(*f) for f in make_clip(W, H, SRC_N, seed=9)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_discs(tmp, label, stream, None)
+    return 0
+
+
 def anamorphic_only() -> int:
     """Steps 1 and 17 alone (``--anamorphic-only``)."""
     import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
@@ -5139,6 +5306,8 @@ def main() -> int:
         return audio_copy_only()
     if sys.argv[1:2] == ["--resumes-only"]:
         return resumes_only()
+    if sys.argv[1:2] == ["--discs-only"]:
+        return discs_only()
     import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
     from handbrake_tpu_torch.utils.device import resolve_device
     resolve_device(None)

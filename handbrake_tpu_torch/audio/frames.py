@@ -16,7 +16,10 @@ One reader a codec (``READERS``) gives the frame at a syncword: its byte
 length, sample count, sample rate and channel count, or None where the
 header does not parse.  A DTS frame takes in the extension substreams
 that follow its core (DTS-HD, as on a Blu-ray), as libavcodec's parser
-does.  Host code.
+does; a DTS Express frame is an extension substream with no core.  A
+Dolby TrueHD access unit has no syncword at its start: the framer locks
+on a unit that carries a major sync and walks the units by their
+lengths (``truehd_unit``).  Host code.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import NamedTuple, Optional
 
 from ..core.buffer import CLOCK
 from ..utils.logging import log
-from .ac3dec import _ac3_bsi, _eac3_bsi, parse_frame_header
+from .ac3dec import _BR, _ac3_bsi, _eac3_bsi, parse_frame_header
 
 
 class FrameHeader(NamedTuple):
@@ -89,11 +92,18 @@ DTS_AMODE_CHANNELS = (1, 2, 2, 2, 2, 3, 3, 4, 4, 5, 6, 6, 6, 7, 8, 8)
 
 
 def dts_header(data: bytes, off: int = 0) -> Optional[FrameHeader]:
-    """A DTS core frame (sync word 0x7FFE8001, 16-bit big-endian) at
-    ``off``, with the extension substreams that follow it (DTS-HD) where
-    their headers are in ``data``: FSIZE and each extension's size give
-    the bytes, NBLKS the samples, SFREQ the rate, AMODE and LFF the
-    channels (the core's: an extension's speakers are not read)."""
+    """A DTS frame at ``off``.  A core frame (sync word 0x7FFE8001,
+    16-bit big-endian) takes in the extension substreams that follow it
+    (DTS-HD) where their headers are in ``data``: FSIZE and each
+    extension's size give the bytes, NBLKS the samples, SFREQ the rate,
+    AMODE and LFF the channels, or, where the first extension's header
+    carries static fields, its first asset's nuTotalNumChs.  At an
+    extension substream's sync word the frame is that substream alone
+    (DTS Express: no core), its rate, channels and samples from its
+    header's static fields (0 where it has none)."""
+    if len(data) - off >= _EXSS_HEAD and \
+            data[off:off + 4] == DTS_EXSS_SYNC:
+        return dts_exss(data, off)
     if len(data) - off < 11 or data[off:off + 4] != b"\x7f\xfe\x80\x01":
         return None
     v = int.from_bytes(data[off + 4:off + 11], "big")   # the 56 bits after
@@ -105,31 +115,94 @@ def dts_header(data: bytes, off: int = 0) -> Optional[FrameHeader]:
     if sfreq not in DTS_RATES or amode > 15 or lff == 3 or fsize < 95 \
             or nblks < 5:
         return None
+    ch = DTS_AMODE_CHANNELS[amode] + (1 if lff else 0)
     end = off + fsize + 1
-    while (n := dts_exss_size(data, end)) is not None:
-        end += n
-    return FrameHeader(end - off, (nblks + 1) * 32, DTS_RATES[sfreq],
-                       DTS_AMODE_CHANNELS[amode] + (1 if lff else 0))
+    first = True
+    while (x := dts_exss(data, end)) is not None:
+        if first and x.channels:
+            ch = x.channels
+        first = False
+        end += x.size
+    return FrameHeader(end - off, (nblks + 1) * 32, DTS_RATES[sfreq], ch)
 
 
 DTS_EXSS_SYNC = b"\x64\x58\x20\x25"
 _EXSS_HEAD = 10      # bytes of an extension substream header up to its size
+# nuMaxSampleRate (ETSI TS 102 114 Table 7-11), the reference clock
+# (Table 7-3)
+_EXSS_RATES = (8000, 16000, 32000, 64000, 128000, 22050, 44100, 88200,
+               176400, 352800, 12000, 24000, 48000, 96000, 192000, 384000)
+_EXSS_CLOCKS = (32000, 44100, 48000)
 
 
-def dts_exss_size(data: bytes, off: int = 0) -> Optional[int]:
-    """The bytes of the DTS extension substream at ``off`` (ETSI TS 102
-    114 7.5: sync word 0x64582025, 8 user bits, the substream index,
-    then its header size and frame size, 8 and 16 bits or, with
-    bHeaderSizeType, 12 and 20), or None where there is none whose
-    header is whole in ``data``."""
+def dts_exss(data: bytes, off: int = 0) -> Optional[FrameHeader]:
+    """The DTS extension substream at ``off`` (ETSI TS 102 114 7.5, read
+    as libavcodec's dca_exss.c reads it): sync word 0x64582025, 8 user
+    bits, the substream index, then its header size and frame size, 8
+    and 16 bits or, with bHeaderSizeType, 12 and 20.  Its bytes and,
+    where the header carries static fields, its samples (from
+    nuExSSFrameDurationCode at the reference clock) and its first asset
+    descriptor's nuMaxSampleRate and nuTotalNumChs (0 each where it
+    says none); None where there is no substream whose first 10 bytes
+    are in ``data``."""
     if len(data) - off < _EXSS_HEAD or data[off:off + 4] != DTS_EXSS_SYNC:
         return None
     v = int.from_bytes(data[off + 4:off + _EXSS_HEAD], "big")   # 48 bits
-    if (v >> 37) & 1:
+    wide = (v >> 37) & 1
+    if wide:
         head, size = ((v >> 25) & 0xFFF) + 1, ((v >> 5) & 0xFFFFF) + 1
     else:
         head, size = ((v >> 29) & 0xFF) + 1, ((v >> 13) & 0xFFFF) + 1
-    return size if size >= max(head, _EXSS_HEAD) else None
+    if size < max(head, _EXSS_HEAD):
+        return None
+    none = FrameHeader(size, 0, 0, 0)     # the static fields not read
+    if len(data) - off < head:
+        return none
+    b = _BR(bytes(data[off:off + head]))
+    try:
+        b.skip(32 + 8)
+        index = b.read(2)
+        b.skip(1 + (12 if wide else 8) + (20 if wide else 16))
+        if not b.read(1):         # bStaticFieldsPresent
+            return none
+        clock = b.read(2)
+        duration = 512 * (b.read(3) + 1)
+        if b.read(1):             # bTimeStampFlag
+            b.skip(36)
+        presents, assets = b.read(3) + 1, b.read(3) + 1
+        masks = [b.read(index + 1) for _ in range(presents)]
+        for m in masks:
+            for j in range(index + 1):
+                if m >> j & 1:
+                    b.skip(8)
+        if b.read(1):             # bMixMetadataEnbl
+            b.skip(2)
+            bits = (b.read(2) + 1) << 2
+            b.skip(bits * (b.read(2) + 1))
+        b.skip(assets * (20 if wide else 16))  # nuAssetFsize
+        b.skip(9 + 3)             # nuAssetDescriptFsize, nuAssetIndex
+        if b.read(1):             # bAssetTypeDescrPresent
+            b.skip(4)
+        if b.read(1):             # bLanguageDescrPresent
+            b.skip(24)
+        if b.read(1):             # bInfoTextPresent
+            b.skip(8 * (b.read(10) + 1))
+        b.skip(5)                 # nuBitResolution
+        rate = _EXSS_RATES[b.read(4)]
+        channels = b.read(8) + 1
+    except IndexError:
+        return none
+    if clock >= len(_EXSS_CLOCKS):
+        return none
+    return FrameHeader(size, duration * rate // _EXSS_CLOCKS[clock], rate,
+                       channels)
+
+
+def dts_exss_size(data: bytes, off: int = 0) -> Optional[int]:
+    """The bytes of the DTS extension substream at ``off``, or None
+    where there is none whose header is whole in ``data``."""
+    x = dts_exss(data, off)
+    return None if x is None else x.size
 
 
 # -- MPEG audio, layers I-III (ISO/IEC 11172-3, 13818-3 and MPEG 2.5) -------
@@ -223,20 +296,122 @@ def adts_config(h: FrameHeader) -> bytes:
     return v.to_bytes(2, "big")
 
 
+# -- Dolby TrueHD (MLP FBA) access units --------------------------------------
+TRUEHD_SYNC = b"\xf8\x72\x6f\xba"
+# speakers each bit of a channel assignment stands for (libavcodec
+# mlp_parse.c thd_chancount: L/R, C, LFE, Ls/Rs, Lvh/Rvh, Lc/Rc, Lrs/Rrs,
+# Cs, Ts, Lsd/Rsd, Lw/Rw, Cvh, LFE2)
+_THD_SPEAKERS = (2, 1, 1, 2, 2, 2, 2, 1, 1, 2, 2, 1, 1)
+_THD_HEAD = 4 + 28 + 2 + 30     # a unit's bytes up to the end of the
+                                # longest major sync
+
+
+def _crc16_table(poly: int) -> tuple:
+    out = []
+    for i in range(256):
+        c = i << 8
+        for _ in range(8):
+            c = ((c << 1) ^ poly if c & 0x8000 else c << 1) & 0xFFFF
+        out.append(c)
+    return tuple(out)
+
+
+_CRC_2D = _crc16_table(0x002D)
+
+
+def _crc16(data: bytes) -> int:
+    c = 0
+    for x in data:
+        c = ((c << 8) & 0xFFFF) ^ _CRC_2D[(c >> 8) ^ x]
+    return c
+
+
+class TrueHDSync(NamedTuple):
+    sample_rate: int
+    channels: int
+    samples: int         # samples a channel of each access unit
+    substreams: int
+
+
+def truehd_major_sync(data: bytes, off: int = 0) -> Optional[TrueHDSync]:
+    """The major sync of the TrueHD access unit at ``off`` (at its byte
+    4), read as libavcodec's ff_mlp_read_major_sync reads it, its
+    checksum held: the rate from the 4 bits after the sync word, (code &
+    8 ? 44100 : 48000) << (code & 7); the channels from the 8-channel
+    presentation's 13-bit assignment where it is not 0, else the
+    6-channel presentation's 5 bits, each bit counting its speakers; 40
+    samples a unit at 44.1 or 48 kHz, twice that at 88.2 or 96, four
+    times at 176.4 or 192; the number of substreams.  None where the
+    unit carries none, or its header is not whole in ``data``."""
+    s = off + 4
+    if len(data) - s < 28 or data[s:s + 4] != TRUEHD_SYNC:
+        return None
+    size = 28 + (2 + 2 * (data[s + 26] >> 4) if data[s + 25] & 1 else 0)
+    if len(data) - s < size:
+        return None
+    check = _crc16(data[s:s + size - 4]) \
+        ^ int.from_bytes(data[s + size - 4:s + size - 2], "big")
+    if check != int.from_bytes(data[s + size - 2:s + size], "big"):
+        return None
+    v = int.from_bytes(data[s + 4:s + 8], "big")
+    code = v >> 28
+    if code == 0xF:
+        return None
+    assign = (v & 0x1FFF) or (v >> 15) & 0x1F
+    return TrueHDSync((44100 if code & 8 else 48000) << (code & 7),
+                      sum(n for i, n in enumerate(_THD_SPEAKERS)
+                          if assign >> i & 1),
+                      40 << (code & 7), data[s + 16] >> 4)
+
+
+def truehd_unit(data: bytes, off: int = 0) -> Optional[FrameHeader]:
+    """The TrueHD access unit at ``off`` that carries a major sync: its
+    bytes (twice the 12-bit access_unit_length after the check nibble),
+    samples, rate and channels.  None where there is no such unit whose
+    major sync is whole in ``data``."""
+    m = truehd_major_sync(data, off)
+    if m is None:
+        return None
+    size = 2 * (((data[off] & 0xF) << 8) | data[off + 1])
+    if size < 4 + 28:
+        return None
+    return FrameHeader(size, m.samples, m.sample_rate, m.channels)
+
+
+def truehd_parity(unit: bytes, substreams: int) -> bool:
+    """The check nibble of a TrueHD unit without a major sync: the
+    parity of its 4-byte header and of each substream's 2- or 4-byte
+    directory entry, as libavcodec's mlp parser checks it."""
+    x, p = 0, 0
+    for i in range(-1, substreams):
+        if p + 2 > len(unit):
+            return False
+        x ^= unit[p] ^ unit[p + 1]
+        p += 2
+        if i < 0 or unit[p - 2] & 0x80:
+            if p + 2 > len(unit):
+                return False
+            x ^= unit[p] ^ unit[p + 1]
+            p += 2
+    return ((x >> 4) ^ x) & 0xF == 0xF
+
+
 # bytes every reader can judge a header from
 _LOOK = 16
 # bytes after a frame that can still belong to it: a DTS extension
 # substream's header
 _TAIL = {"dts": _EXSS_HEAD}
 
-# the copied codecs of a byte stream: (sync bytes, reader)
+# the copied codecs of a byte stream: (sync words, reader).  TrueHD's
+# "sync" is the major sync at byte 4 of the units that carry one.
 READERS = {
-    "ac3": (b"\x0b\x77", ac3_header),
-    "eac3": (b"\x0b\x77", ac3_header),
-    "dts": (b"\x7f\xfe\x80\x01", dts_header),
-    "mp2": (b"\xff", mpa_header),
-    "mp3": (b"\xff", mpa_header),
-    "aac": (b"\xff", adts_header),
+    "ac3": ((b"\x0b\x77",), ac3_header),
+    "eac3": ((b"\x0b\x77",), ac3_header),
+    "dts": ((b"\x7f\xfe\x80\x01", DTS_EXSS_SYNC), dts_header),
+    "truehd": ((TRUEHD_SYNC,), truehd_unit),
+    "mp2": ((b"\xff",), mpa_header),
+    "mp3": ((b"\xff",), mpa_header),
+    "aac": ((b"\xff",), adts_header),
 }
 
 
@@ -262,13 +437,19 @@ class Framer:
     sum of its substream 0 frame's and its dependent frames' extra
     channels.  A DTS frame is its core with the extension substreams
     that follow it (``dts_header``), so it is given once the bytes after
-    it show that no further extension follows.
+    it show that no further extension follows; until the framer has
+    locked on, a frame counts only where the next begins with the same
+    syncword, so the extension substream of a core that was cut off is
+    no DTS Express frame.  A TrueHD stream starts at the first unit that
+    carries a major sync; each unit after it is taken by its length
+    while its check nibble holds (``truehd_parity``), and where it does
+    not, the framer looks for the next major sync.
 
     ``name`` says in the log which track this is (``quiet``: no log)."""
 
     def __init__(self, codec: str, name: str = "", quiet: bool = False):
         self.codec = codec
-        self.sync, self.read = READERS[codec]
+        self.syncs, self.read = READERS[codec]
         self.tail = _TAIL.get(codec, 0)
         self.name = name or codec
         self.quiet = quiet
@@ -279,6 +460,7 @@ class Framer:
         self._anchor = None      # (pts, rate) of the last frame given one
         self._since = 0          # samples since the anchor
         self._unit = None        # E-AC-3: [start, bytes, first header, ch]
+        self._major = None       # TrueHD: the last major sync read
         self._skipped = 0        # bytes of the run being dropped
         self.frames = 0          # frames given
         self.dropped = 0         # bytes dropped
@@ -312,32 +494,51 @@ class Framer:
     def _report(self, why: str = ""):
         """One log line for the run of bytes just dropped."""
         if self._skipped and not self.quiet:
-            why = why or ("before the first frame" if not self.frames
-                          else "no frame: resynced at the next syncword")
+            thd = self.codec == "truehd"
+            why = why or (
+                f"before the first {'major sync' if thd else 'frame'}"
+                if not self.frames else "no frame: resynced at the next "
+                + ("major sync" if thd else "syncword"))
             log(f"audio: {self.name} copy: {self._skipped} bytes dropped "
                 f"({why})")
         self._skipped = 0
 
+    def _find(self, buf, start: int) -> int:
+        """The offset of the first syncword at or after ``start``, or
+        -1."""
+        found = [i for i in (buf.find(w, start) for w in self.syncs)
+                 if i >= 0]
+        return min(found) if found else -1
+
+    def _word(self, buf, off: int) -> int:
+        """Which syncword ``buf`` holds at ``off`` (-1: none)."""
+        return next((k for k, w in enumerate(self.syncs)
+                     if buf.startswith(w, off)), -1)
+
     def _cut(self, end: bool) -> list:
+        if self.codec == "truehd":
+            return self._cut_units(end)
         out = []
         buf = self._buf
         while buf and (end or len(buf) >= _LOOK):
             h = self.read(buf, 0)
             if h is not None and not self._locked and len(buf) >= h.size \
-                    + _LOOK and self.read(buf, h.size) is None:
+                    + _LOOK and (self.read(buf, h.size) is None
+                                 or self._word(buf, h.size)
+                                 != self._word(buf, 0)):
                 h = None                  # no frame follows: not a sync
             if h is None:
                 self._locked = False
                 # the next syncword whose header parses, or that is too
                 # near the end to tell
-                i = buf.find(self.sync, 1)
+                i = self._find(buf, 1)
                 while i > 0 and len(buf) - i >= _LOOK \
                         and self.read(buf, i) is None:
-                    i = buf.find(self.sync, i + 1)
+                    i = self._find(buf, i + 1)
                 if i < 0 and end:
                     break                 # the tail: flush drops it
                 if i < 0:
-                    i = len(buf) - (len(self.sync) - 1)
+                    i = len(buf) - (max(map(len, self.syncs)) - 1)
                 self._drop(i)
                 if i < 1 or (not end and len(buf) < _LOOK):
                     break
@@ -364,6 +565,48 @@ class Framer:
                     self._unit[3] += h.channels
         return out
 
+    def _cut_units(self, end: bool) -> list:
+        """TrueHD: the units from the first one that carries a major
+        sync, each taken by its length."""
+        out = []
+        buf = self._buf
+        while buf:
+            if self._major is None:
+                # the first unit whose major sync reads, or one whose
+                # header is still to come
+                j = buf.find(TRUEHD_SYNC, 4)
+                while j >= 0 and (end or len(buf) - j + 4 >= _THD_HEAD) \
+                        and truehd_major_sync(buf, j - 4) is None:
+                    j = buf.find(TRUEHD_SYNC, j + 1)
+                if j < 0:
+                    self._drop(len(buf) if end else
+                               max(0, len(buf) - _THD_HEAD))
+                    break
+                self._drop(j - 4)
+            if len(buf) < 4:
+                break
+            size = 2 * (((buf[0] & 0xF) << 8) | buf[1])
+            if size >= 4 and len(buf) < size:
+                break                     # the rest is still to come
+            m = truehd_major_sync(buf) if size >= 4 + 28 else None
+            if m is None and (self._major is None or size < 4
+                              or not truehd_parity(buf[:size],
+                                                   self._major.substreams)):
+                self._major = None        # lost: look for a major sync
+                self._drop(1)
+                continue
+            if m is not None:
+                self._major = m
+            self._report()
+            start = self._base
+            unit = bytes(buf[:size])
+            del buf[:size]
+            self._base += size
+            out.append(self._give(start, unit, FrameHeader(
+                size, self._major.samples, self._major.sample_rate,
+                self._major.channels), self._major.channels))
+        return out
+
     def _give(self, start: int, data: bytes, h: FrameHeader,
               channels: int) -> Frame:
         """The frame beginning at stream offset ``start``: the PTS of the
@@ -376,12 +619,13 @@ class Framer:
             pts = self._marks.pop(0)[2]
         if pts is not None:
             self._anchor, self._since = (pts, h.sample_rate), 0
-        elif self._anchor is not None and self._anchor[1] != h.sample_rate:
+        elif self._anchor is not None and self._anchor[1] != h.sample_rate \
+                and self._anchor[1] and h.sample_rate:
             a, r = self._anchor
             self._anchor = (a + self._since * CLOCK // r, h.sample_rate)
             self._since = 0
-        if self._anchor is None:
-            pts = stop = None
+        if self._anchor is None or not h.sample_rate:
+            pts = stop = None             # no clock: the header says no rate
         else:
             a, r = self._anchor
             pts = a + self._since * CLOCK // r

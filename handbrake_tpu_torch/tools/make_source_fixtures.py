@@ -29,9 +29,18 @@ around them are built at run time.  It writes:
   order, FourCC FMP4), ``x265_176x144.mkv`` (``libx265``: CU quadtrees
   and SAO, beyond the port's native HEVC subset) and
   ``eac3_176x144.mkv`` (the port's H.264 encoder on the CPU, with 0.4 s
-  of E-AC-3 stereo at 96 kb/s from ``eac3``).
+  of E-AC-3 stereo at 96 kb/s from ``eac3``);
+- ``truehd_48k_2.0.thd`` (``truehd_fixture``): 0.5 s of two tones,
+  Dolby TrueHD from libavcodec's ``truehd`` encoder (experimental,
+  ``strict`` -2; it codes mono and stereo only, so the stream is 2.0),
+  its packets, one access unit each, laid end to end; beside it
+  ``truehd_48k_2.0.json``, libavcodec's account of it: each unit's
+  size, the units its encoder marked as key (those that carry a major
+  sync), the samples a unit (the encoder's frame size), and the rate,
+  channels and sample count of libavcodec's decode, which equals the
+  input's 16-bit samples.
 
-About 0.95 MB in all.  The other frames are ``utils.synth``'s clips,
+About 1.03 MB in all.  The other frames are ``utils.synth``'s clips,
 blurred so the streams stay small.  ``--check`` also codes each
 interlaced clip without ``+ildct`` and prints the port decoder's
 largest differences from libavcodec on both codings, and rebuilds the
@@ -183,6 +192,58 @@ def catalog_sources(out, ffvideo, ffaudio, cv2) -> list:
             "mpeg4_bframes_176x144.avi", "eac3_176x144.mkv"]
 
 
+def truehd_fixture(out) -> list:
+    """Write ``truehd_48k_2.0.thd`` and its ``.json`` into `out` with
+    the port's libavcodec binding (``codecs/avcodec.py``); their
+    names."""
+    import ctypes as C
+    import json
+    from handbrake_tpu_torch.codecs import avcodec as A
+    t = np.arange(24000) / 48000
+    pcm = np.stack([0.25 * np.sin(2 * np.pi * f * t) for f in (440, 660)],
+                   1).astype(np.float32)
+    enc = A.AVAudioEncoder("truehd", 48000, 2, 0)
+    _u, a = A._libs()
+    units, keys = [], []
+
+    def recv(self, packets):
+        # each packet with its AV_PKT_FLAG_KEY (AVPacket.flags, byte 40)
+        while a.avcodec_receive_packet(C.c_void_p(self.ctx),
+                                       C.c_void_p(self.pkt)) >= 0:
+            p = C.cast(self.pkt, C.POINTER(C.c_void_p * 6)).contents
+            ints = C.cast(self.pkt, C.POINTER(C.c_int * 12)).contents
+            units.append(C.string_at(p[3], ints[8]))
+            keys.append(bool(ints[10] & 1))
+            a.av_packet_unref(C.c_void_p(self.pkt))
+
+    enc._recv = recv.__get__(enc)
+    enc.encode(pcm)
+    enc.flush()
+    dec = A.AVAudioDecoder("truehd", channels=2)
+    got = np.concatenate([dec.decode(u) for u in units] + [dec.flush()])
+    rate = C.cast(dec.ctx + A._ctx_offsets()["sample_rate"],
+                  C.POINTER(C.c_int)).contents.value
+    want = np.clip(pcm * 32767.0, -32768, 32767).astype("<i2") / 32768.0
+    n = min(len(got), len(want))
+    if not np.array_equal(got[:n], want[:n].astype(np.float32)):
+        raise RuntimeError("libavcodec's TrueHD decode differs from the "
+                           "input")
+    with open(os.path.join(out, "truehd_48k_2.0.thd"), "wb") as f:
+        f.write(b"".join(units))
+    with open(os.path.join(out, "truehd_48k_2.0.json"), "w") as f:
+        json.dump({"encoder": "libavcodec truehd, strict -2, s16, 2 "
+                              "channels at 48000 Hz",
+                   "avcodec_version": a.avcodec_version(),
+                   "unit_sizes": [len(u) for u in units],
+                   "key_units": [i for i, k in enumerate(keys) if k],
+                   "samples_per_unit": enc.frame_size,
+                   "decoded_sample_rate": rate,
+                   "decoded_channels": dec.channels,
+                   "decoded_samples": len(got)}, f, indent=1)
+        f.write("\n")
+    return ["truehd_48k_2.0.thd", "truehd_48k_2.0.json"]
+
+
 def report(name, es, ff):
     """--check: the largest |difference| of the port's MPEG-2 decoder
     from libavcodec's decode, frame by frame."""
@@ -265,7 +326,8 @@ def main(argv=None) -> int:
         vw.write(cv2.cvtColor(yuv, cv2.COLOR_YCrCb2BGR))
     vw.release()
     print(f"mjpeg_640x480.avi: {os.path.getsize(avi)} bytes")
-    for name in catalog_sources(args.out, ffvideo, ffaudio, cv2):
+    for name in catalog_sources(args.out, ffvideo, ffaudio, cv2) \
+            + truehd_fixture(args.out):
         print(f"{name}: {os.path.getsize(os.path.join(args.out, name))} "
               f"bytes")
     if args.check:

@@ -184,16 +184,35 @@ def dts_core_frame(amode: int = 9, lff: int = 1, sfreq: int = 13,
     return head + bytes([fill]) * (size - len(head))
 
 
-def dts_exss(size: int, fill: int = 0, wide: bool = False) -> bytes:
+def dts_exss(size: int, fill: int = 0, wide: bool = False,
+             asset=None) -> bytes:
     """One DTS extension substream (ETSI TS 102 114 7.5), as DTS-HD puts
-    one after each core frame: the sync word 0x64582025, substream index
-    0, a 16-byte header whose size fields are 8 and 16 bits (12 and 20
-    with ``wide``), then ``size`` bytes in all of the byte ``fill``.  It
-    frames a stream; it decodes to nothing."""
+    one after each core frame and DTS Express sends alone: the sync word
+    0x64582025, substream index 0, a header whose size fields are 8 and
+    16 bits (12 and 20 with ``wide``), then ``size`` bytes in all of the
+    byte ``fill``.  Without ``asset`` the 16-byte header carries no
+    static fields; with ``asset`` = (sample rate, channels, samples a
+    frame) it carries them (reference clock 48 kHz, one presentation
+    and one asset) and the first asset descriptor says nuMaxSampleRate
+    and nuTotalNumChs.  It frames a stream; it decodes to nothing."""
     bits = (12, 20) if wide else (8, 16)
-    fields = [(0, 8), (0, 2), (int(wide), 1), (15, bits[0]),
-              (size - 1, bits[1])]
-    head = (b"\x64\x58\x20\x25" + pack_bits(fields)).ljust(16, b"\x00")
+    if asset is None:
+        fields = [(0, 8), (0, 2), (int(wide), 1), (15, bits[0]),
+                  (size - 1, bits[1])]
+        head = (b"\x64\x58\x20\x25" + pack_bits(fields)).ljust(16,
+                                                                 b"\x00")
+        return head + bytes([fill]) * (size - len(head))
+    rate, channels, samples = asset
+    rates = (8000, 16000, 32000, 64000, 128000, 22050, 44100, 88200,
+             176400, 352800, 12000, 24000, 48000, 96000, 192000, 384000)
+    hsize = 32
+    head = (b"\x64\x58\x20\x25" + pack_bits([
+        (0, 8), (0, 2), (int(wide), 1), (hsize - 1, bits[0]),
+        (size - 1, bits[1]),
+        (1, 1), (2, 2), (samples * 48000 // rate // 512 - 1, 3), (0, 1),
+        (0, 3), (0, 3), (1, 1), (1, 8), (0, 1), (size - hsize - 1, bits[1]),
+        (12, 9), (0, 3), (0, 1), (0, 1), (0, 1), (23, 5),
+        (rates.index(rate), 4), (channels - 1, 8)])).ljust(hsize, b"\x00")
     return head + bytes([fill]) * (size - len(head))
 
 
@@ -469,14 +488,18 @@ def lang_descriptor(code: str) -> bytes:
     return bytes([0x0A, 4]) + code.encode("latin-1") + b"\x00"
 
 
-def ts_pes(stream_id: int, pts, data: bytes) -> bytes:
+def ts_pes(stream_id: int, pts, data: bytes, ext=None) -> bytes:
     """A TS-borne PES packet with a pts, or none where ``pts`` is None
-    (length 0: unbounded)."""
-    if pts is None:
-        return (b"\x00\x00\x01" + bytes([stream_id]) + b"\x00\x00"
-                + b"\x80\x00\x00" + data)
+    (length 0: unbounded); with ``ext``, a PES extension whose
+    PES_extension_flag_2 field carries that stream_id_extension (as a
+    Blu-ray's TrueHD PID tells its TrueHD 0x72 and AC-3 0x76 apart)."""
+    fields = b"" if pts is None else _ts33(pts, 0x20)
+    flags = 0x00 if pts is None else 0x80
+    if ext is not None:
+        fields += bytes([0x0F, 0x81, ext & 0x7F])
+        flags |= 0x01
     return (b"\x00\x00\x01" + bytes([stream_id]) + b"\x00\x00"
-            + b"\x80\x80\x05" + _ts33(pts, 0x20) + data)
+            + bytes([0x80, flags, len(fields)]) + fields + data)
 
 
 def ts_packets(pid: int, pes: bytes, cc: int) -> tuple:
@@ -504,29 +527,33 @@ def ts_packets(pid: int, pes: bytes, cc: int) -> tuple:
 
 def build_ts(streams, units) -> bytes:
     """A single-program TS: PAT and PMT (``streams``: (stream_type, pid,
-    descriptors)), then ``units`` — (at, pid, stream_id, data, pts) — in
-    the order of ``at``, one PES packet each (without a PTS where ``pts``
-    is None), with per-PID continuity counters."""
+    descriptors)), then ``units`` — (at, pid, stream_id, data, pts), or
+    with a sixth member, the PES's stream_id_extension — in the order of
+    ``at``, one PES packet each (without a PTS where ``pts`` is None),
+    with per-PID continuity counters."""
     out = bytearray(pat() + pmt(streams))
     cc = {}
-    for _at, pid, sid, data, pts in sorted(units, key=lambda u: u[0]):
-        pk, cc[pid] = ts_packets(pid, ts_pes(sid, pts, data), cc.get(pid, 0))
+    for _at, pid, sid, data, pts, *ext in sorted(units, key=lambda u: u[0]):
+        pk, cc[pid] = ts_packets(pid, ts_pes(sid, pts, data, *ext),
+                                 cc.get(pid, 0))
         out += pk
     return bytes(out)
 
 
-def pes_units(pid: int, sid: int, frames, pts, cuts) -> list:
+def pes_units(pid: int, sid: int, frames, pts, cuts, ext=None) -> list:
     """build_ts units of a sound stream whose PES packets are not its
     frames: the frames' bytes cut at the byte offsets ``cuts`` (several
     ADTS access units a PES, an AC-3 frame split across two), each
     piece's PTS that of the first frame beginning in it, or none
     (``es_pieces``); ``at`` the last PTS of the pieces before it (the
     first piece's: the first frame's), so each piece goes out no later
-    than the frame its first byte belongs to."""
+    than the frame its first byte belongs to; with ``ext``, each PES
+    carries that stream_id_extension."""
     out = []
     at = pts[0]
     for p, payload, _n, _first in es_pieces(frames, pts, cuts):
-        out.append((at, pid, sid, payload, p))
+        out.append((at, pid, sid, payload, p) + (
+            () if ext is None else (ext,)))
         at = p if p is not None else at
     return out
 

@@ -636,7 +636,12 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
             sub_sel.append((k, sspec, events))
         elif 0 <= sspec.track < len(sub_srcs):
             sti = src.tracks[sub_srcs[sspec.track]]
-            if sti.codec == "pgs":
+            if sti.codec == "pgs" and not sspec.burn and job.mux == "mkv":
+                # kept: each display set becomes an S_HDMV/PGS block as
+                # it is (HandBrake's PGS passthrough); the reference
+                # writes an empty text track
+                sdecs[sub_srcs[sspec.track]] = (k, _KeptPgs())
+            elif sti.codec == "pgs":
                 # PGS bitmap decode (decavsub.c:739 personality)
                 from .subtitles.pgs import PgsDecoder
                 sdecs[sub_srcs[sspec.track]] = (k, PgsDecoder())
@@ -797,7 +802,9 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     else:
         mux = _MuxAdapter(job, out_fi, audio_sel, src, aencs,
                           sub_specs=sub_specs, config_boxes=config_boxes,
-                          copies=copies)
+                          copies=copies, kept_pgs={
+                              k for k, d in sdecs.values()
+                              if isinstance(d, _KeptPgs)})
         if ckpt is not None:
             mux.journal = ckpt
             for rec in replay:
@@ -954,6 +961,12 @@ def _copy_stream(ti, spec, byte_stream: bool, head) -> _CopyTrack:
     if byte_stream and codec in frames.READERS:
         data = head()
         f = frames.first_frame(codec, data)
+        if f is not None and not f.channels and codec == "dts":
+            raise WorkError(f"audio track {spec.track + 1}: a DTS Express "
+                            f"stream (extension substreams, no core) whose "
+                            f"header carries no static fields says neither "
+                            f"its rate nor its channels, so the copy cannot "
+                            f"be labelled")
         if f is None or not f.channels:
             raise WorkError(f"audio track {spec.track + 1}: no whole {codec} "
                             f"frame that says its channels in its first "
@@ -1259,7 +1272,13 @@ class _DecodeSyncStage(WorkObject):
                     self.sync.queue(self.a_sync[k], ab)
         elif trk in self.sdecs and buf.data is not None:
             key, dec = self.sdecs[trk]
-            if isinstance(dec, _TextCueDecoder):
+            if isinstance(dec, _KeptPgs):
+                b = Buffer(track_kind="subtitle", pts=buf.pts,
+                           duration=buf.duration)
+                b.data = bytes(buf.data)
+                b.stream_id = _SUB_SID0 + key
+                self.sync.queue(self.s_sync[key], b)
+            elif isinstance(dec, _TextCueDecoder):
                 txt = dec.parse(bytes(buf.data))
                 if txt:
                     b = Buffer(track_kind="subtitle", pts=buf.pts,
@@ -1834,6 +1853,12 @@ class _Ac3PacketDecoder:
         return outs
 
 
+class _KeptPgs:
+    """A kept PGS track into mkv: its packets, whole display sets (an mkv
+    S_HDMV/PGS block, or what the TS demuxer joins), pass to the muxer
+    undecoded."""
+
+
 class _TextCueDecoder:
     """In-stream text subtitle cues → plain text (dectx3gsub.c role for
     mp4 tx3g samples; mkv S_TEXT/UTF8 raw cues; S_TEXT/ASS block lines
@@ -2044,12 +2069,14 @@ class _MuxAdapter:
     copy's track takes the rate, channels and config of ``copies`` (key →
     ``_CopyTrack``); a copy cut into frames is written a frame a sample,
     its mp4 duration the frame's samples, and an ADTS frame less its
-    header.  A codec the writer refuses raises WorkError.  With a
-    checkpoint journal (``journal``) every sample written is journaled;
-    ``replay`` writes a journaled one."""
+    header.  A codec the writer refuses raises WorkError.  The subtitle
+    outputs in ``kept_pgs`` (keys) are mkv S_HDMV/PGS tracks, the others
+    text.  With a checkpoint journal (``journal``) every sample written
+    is journaled; ``replay`` writes a journaled one."""
 
     def __init__(self, job: Job, out_fi, audio_sel, src, aencs=None,
-                 sub_specs=None, config_boxes=None, copies=None):
+                 sub_specs=None, config_boxes=None, copies=None,
+                 kept_pgs=()):
         self.journal = None
         self.kind = job.mux
         self.aencs = aencs or {}
@@ -2164,7 +2191,8 @@ class _MuxAdapter:
                 continue
             if self.kind in ("mkv", "webm"):
                 self._smap[k] = self.w.add_subtitle_track(
-                    codec="srt", language=sspec.language)
+                    codec="pgs" if k in kept_pgs else "srt",
+                    language=sspec.language)
             else:
                 self._smap[k] = self.w.add_subtitle_track(
                     codec="tx3g", language=sspec.language)

@@ -1116,10 +1116,290 @@ def sequence_info(es: bytes):
 '''),
 )
 
+# the port's Blu-ray streams: TrueHD with its AC-3 core by PES extension,
+# E-AC-3, DTS-HD, DTS Express and PGS tracks, the skipped PMT entries logged
+_TS_BD_STREAMS = (
+    (r'''hook, decavcodec.c:2407).
+"""
+''',
+     r'''hook, decavcodec.c:2407).
+
+A Blu-ray's streams are listed as libavformat's mpegts.c lists them: a
+TrueHD PID (stream type 0x83) carries its AC-3 core on the same PID, told
+apart by the PES stream_id_extension (0x72 TrueHD, 0x76 AC-3), and
+becomes two tracks, TrueHD then its core; a PGS PID (0x90) carries bare
+segments, joined here into whole display sets.  Tracks are video first,
+then audio in PMT order, then subtitles; each PMT entry of a type with
+no track is logged with its PID.
+"""
+'''),
+    (r"""    0x80: ("audio", "lpcm"),
+}
+
+""",
+     r'''    0x80: ("audio", "lpcm"),
+    # Blu-ray: TrueHD (with its AC-3 core), E-AC-3 and secondary E-AC-3,
+    # DTS-HD High Resolution and DTS Express, PGS
+    0x83: ("audio", "truehd"), 0x84: ("audio", "eac3"),
+    0xA1: ("audio", "eac3"), 0x85: ("audio", "dts"),
+    0xA2: ("audio", "dts"), 0x90: ("subtitle", "pgs"),
+}
+# the substreams of a TrueHD PID, by stream_id_extension: 0x76 is the
+# AC-3 core, any other (0x72, or none) the TrueHD stream, as in mpegts.c
+_TRUEHD_SUBSTREAMS = ((0x72, "truehd"), (0x76, "ac3"))
+_KIND_ORDER = {"video": 0, "audio": 1, "subtitle": 2}
+
+
+class _DisplaySets:
+    """A PGS track's PES payloads → whole display sets (its segments,
+    type u8, size u16 and payload, up to the END segment), each with the
+    PTS and DTS of the PES its first byte came in.  A segment cut across
+    PES packets is joined."""
+
+    def __init__(self):
+        self.buf = bytearray()
+        self.stamp = (None, None)
+
+    def feed(self, data: bytes, pts, dts) -> list:
+        if not self.buf:
+            self.stamp = (pts, dts)
+        self.buf += data
+        out = []
+        i = 0
+        while i + 3 <= len(self.buf):
+            end = i + 3 + int.from_bytes(self.buf[i + 1:i + 3], "big")
+            if end > len(self.buf):
+                break
+            seg, i = self.buf[i], end
+            if seg == 0x80:               # END: the display set is whole
+                out.append((bytes(self.buf[:i]), *self.stamp))
+                del self.buf[:i]
+                i = 0
+                self.stamp = (pts, dts)
+        return out
+
+'''),
+    (r'''        """Returns (pts, dts, payload_offset), None if not a PES start, or
+        _PES_SHORT when the header (incl. PTS/DTS fields) is split across TS
+        packets by a large adaptation field and more bytes are needed."""
+''',
+     r'''        """Returns (pts, dts, payload_offset, stream_id_extension or
+        None), None if not a PES start, or _PES_SHORT when the header
+        (incl. PTS/DTS fields, and the PES extension where its flag is
+        set) is split across TS packets by a large adaptation field and
+        more bytes are needed."""
+'''),
+    (r"""            need = 19
+        if len(data) < need:
+""",
+     r"""            need = 19
+        if flags & 0x01:
+            need = max(need, 9 + data[8])
+        if len(data) < need:
+"""),
+    (r"""        return pts, dts, 9 + data[8]
+
+    # -- scan -----------------------------------------------------------------
+    def _scan(self):
+        pmts = set()
+        es = {}
+""",
+     r'''        return pts, dts, 9 + data[8], self._pes_extension(data)
+
+    @staticmethod
+    def _pes_extension(data):
+        """The 7-bit stream_id_extension of a whole PES header: after the
+        fields its flags announce, the PES extension's flags, the fields
+        they announce, then PES_extension_flag_2, the field length and
+        the id (ISO/IEC 13818-1 2.4.3.7); None where there is none."""
+        flags = data[7]
+        if not flags & 0x01:
+            return None
+        i = 9 + (5 if flags & 0x80 else 0) + (5 if flags & 0x40 else 0) \
+            + (6 if flags & 0x20 else 0) + (3 if flags & 0x10 else 0) \
+            + (1 if flags & 0x08 else 0) + (1 if flags & 0x04 else 0) \
+            + (2 if flags & 0x02 else 0)
+        end = 9 + data[8]
+        if i >= end:
+            return None
+        ext = data[i]
+        i += 1 + (16 if ext & 0x80 else 0)
+        if ext & 0x40 and i < end:
+            i += 1 + data[i]
+        i += (2 if ext & 0x20 else 0) + (2 if ext & 0x10 else 0)
+        if not ext & 0x01 or i + 2 > end or not data[i] & 0x7F \
+                or data[i + 1] & 0x80:
+            return None
+        return data[i + 1] & 0x7F
+
+    # -- scan -----------------------------------------------------------------
+    def _scan(self):
+        from ..utils.logging import log
+        pmts = set()
+        es = {}
+        skipped = set()
+'''),
+    (r"""                        es[spid] = (stype, lang)
+            elif pid in es and pusi:
+""",
+     r"""                        es[spid] = (stype, lang)
+                    elif stype not in _STREAM_TYPES \
+                            and (spid, stype) not in skipped:
+                        skipped.add((spid, stype))
+                        log(f"ts: PMT entry of stream type {stype:#04x} on "
+                            f"PID {spid:#06x} skipped: no track of that "
+                            f"type is read")
+            elif pid in es and pusi:
+"""),
+    (r"""        # build TrackInfo, video first
+        ordered = sorted(es.items(),
+                         key=lambda kv: 0 if _STREAM_TYPES[kv[1][0]][0]
+                         == "video" else 1)
+        for pid, (stype, lang) in ordered:
+            kind, codec = _STREAM_TYPES[stype]
+            ti = TrackInfo(kind=kind, codec=codec, language=lang)
+            self._pid_to_track[pid] = len(self.tracks)
+            self.tracks.append(ti)
+""",
+     r"""        # build TrackInfo: video first, then audio, then subtitles, each
+        # in PMT order; a TrueHD PID's tracks are keyed (PID, extension)
+        ordered = sorted(es.items(), key=lambda kv: _KIND_ORDER[
+            _STREAM_TYPES[kv[1][0]][0]])
+        self._ext_pids = set()
+        self._pgs = set()
+        for pid, (stype, lang) in ordered:
+            kind, codec = _STREAM_TYPES[stype]
+            subs = _TRUEHD_SUBSTREAMS if stype == 0x83 else ((None, codec),)
+            for ext, codec in subs:
+                if ext is not None:
+                    self._ext_pids.add(pid)
+                if codec == "pgs":
+                    self._pgs.add(len(self.tracks))
+                ti = TrackInfo(kind=kind, codec=codec, language=lang)
+                self._pid_to_track[pid if ext is None else (pid, ext)] = \
+                    len(self.tracks)
+                self.tracks.append(ti)
+"""),
+    (r"""        for trk, b in self._packets_nodur(start_state):
+            prev = held.get(trk)
+""",
+     r"""        for trk, b in self._packets_nodur(start_state):
+            if trk in self._pgs:
+                yield trk, b       # a display set lasts until the next
+                continue
+            prev = held.get(trk)
+"""),
+    (r"""        bufs = {pid: bytearray() for pid in self._pid_to_track}
+        meta = {pid: (None, None) for pid in self._pid_to_track}
+        pending = {}               # pid → partial PES header bytes
+
+        def flush(pid):
+            data = bytes(bufs[pid])
+            bufs[pid] = bytearray()
+            if not data:
+                return None
+            pts, dts = meta[pid]
+            b = Buffer(pts=pts, dts=dts)
+            b.data = data
+            trk = self._pid_to_track[pid]
+            b.track_kind = self.tracks[trk].kind
+            b.stream_id = trk
+            return trk, b
+
+        for pkt in self._packets_raw(start_state or 0):
+            pid = ((pkt[1] & 0x1F) << 8) | pkt[2]
+            if pid not in self._pid_to_track:
+""",
+     r'''        from ..utils.logging import log
+        bufs = {key: bytearray() for key in self._pid_to_track}
+        meta = {key: (None, None) for key in self._pid_to_track}
+        pids = {k[0] if isinstance(k, tuple) else k for k in bufs}
+        cur = {pid: pid for pid in pids if pid not in self._ext_pids}
+        pending = {}               # pid → partial PES header bytes
+        sets = {trk: _DisplaySets() for trk in self._pgs}
+
+        def buffers(trk, got):
+            out = []
+            for data, pts, dts in got:
+                b = Buffer(pts=pts, dts=dts)
+                b.data = data
+                b.track_kind = self.tracks[trk].kind
+                b.stream_id = trk
+                out.append((trk, b))
+            return out
+
+        def flush(key):
+            if key not in bufs:
+                return []
+            data = bytes(bufs[key])
+            bufs[key] = bytearray()
+            if not data:
+                return []
+            return buffers(self._pid_to_track[key], [(data, *meta[key])])
+
+        def start(pid, hdr, payload):
+            """A PES header of ``pid`` read: the key its payload now
+            feeds (a TrueHD PID's by its extension) takes its
+            timestamps; returns the payload."""
+            pts, dts, poff, ext = hdr
+            key = (pid, 0x76 if ext == 0x76 else 0x72) \
+                if pid in self._ext_pids else pid
+            cur[pid] = key
+            meta[key] = (pts, dts)
+            return payload[poff:]
+
+        for pkt in self._packets_raw(start_state or 0):
+            pid = ((pkt[1] & 0x1F) << 8) | pkt[2]
+            if pid not in pids:
+'''),
+    (r"""                out = flush(pid)
+                if out:
+                    yield out
+""",
+     r"""                yield from flush(cur.get(pid))
+"""),
+    (r"""                    pts, dts, poff = hdr
+                    meta[pid] = (pts, dts)
+                    payload = payload[poff:]
+""",
+     r"""                    payload = start(pid, hdr, payload)
+"""),
+    (r"""                    pts, dts, poff = hdr
+                    meta[pid] = (pts, dts)
+                    payload = buffered[poff:]
+                else:
+                    payload = buffered
+            bufs[pid] += payload
+        for pid in list(bufs):
+            out = flush(pid)
+            if out:
+                yield out
+""",
+     r"""                    payload = start(pid, hdr, buffered)
+                else:
+                    payload = buffered
+            key = cur.get(pid)
+            if self._pid_to_track.get(key) in sets:
+                # a PGS display set goes out once its END segment is in,
+                # not at the next PES
+                trk = self._pid_to_track[key]
+                yield from buffers(trk, sets[trk].feed(payload, *meta[key]))
+            elif key in bufs:
+                bufs[key] += payload
+        for key in list(bufs):
+            yield from flush(key)
+        for trk, ds in sets.items():
+            if ds.buf:
+                log(f"ts: track {trk}: {len(ds.buf)} bytes of PGS segments "
+                    f"after its last display set dropped")
+"""),
+)
+
+
 COPIES = {
     "sources/ps.py": _PS_ASPECT + _PS_DTS,
     "sources/dvd.py": _DVD_VIDEO_ATTRS + _DVD_AUDIO_ATTRS,
-    "sources/ts.py": _TS_HEVC_GEOMETRY + _TS_ASPECT,
+    "sources/ts.py": _TS_HEVC_GEOMETRY + _TS_ASPECT + _TS_BD_STREAMS,
     "sources/bd.py": (),
     "sources/avi.py": _AVI_MPEG4,      # MPEG-4 part 2 in AVI
     "native/hbdecmjpeg.cpp": (),
