@@ -382,6 +382,21 @@ Phases (none is caught; any failure exits non-zero before the last line):
    card burned, scaled to 1280x720, keyint 7, cut after GOP 2: the
    decode starts at the open GOP's I picture, the leading B pictures
    dropped; each resumed file equal to the uninterrupted one.
+22. A stream's own frame rate and a copied track's true label, one JSON
+   line a part with the card's name and power limit: (a) three 1080p
+   frames coded on the card at 24000/1001 as an annex-B .264 and at 25
+   fps in a TS, each through the CLI's default preset: the title, the
+   coded VUI and the mp4 durations carry the stream's rate, the log
+   line names it, deblock264 launched for each P frame, and each file
+   equals the same CLI job's on the CPU (a process of its own, started
+   first); (b) that TS's video with a DTS-HD Master Audio track (48 kHz
+   core, 96 kHz lossless asset) and an ADTS 5.1 track opened by a
+   program config element, copied to mkv: labelled 96000 Hz 8 channels
+   and 48000 Hz 6 channels, the AAC config carrying the element, each
+   block the stream's frame (the first AAC block less the element);
+   (c) the committed MJPEG AVI's first six frames with an MP2 track
+   through the default preset: the MP2 decoded to AAC (finite, its
+   length the MP2's), the file equal to the CPU run's.
 20. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
@@ -396,8 +411,9 @@ Phases (none is caught; any failure exits non-zero before the last line):
    ``job_launches`` include 11 (b)'s resumed job, the four jobs of step
    12, 17 (a)-(b), 18 (a)-(b) and 19 (a)-(c)'s resumes; resample's
    those of 12 (a)-(b), 17 (a)-(b), 18 (a)-(b) and 19 (b)-(c)'s
-   resumes; hqdn3d's 19 (a)'s resume), steps 7's to 19's numbers, the
-   card's name and power limit, and the result line.
+   resumes, and 22's four jobs; hqdn3d's 19 (a)'s resume), steps 7's to
+   22's numbers, the card's name and power limit, and the result
+   line.
 
 Step 14's ranks run this script with ``--mesh-rank KIND DIR ARGV...``
 (above).  Step 13's helper processes run it with: ``--decode-check
@@ -411,7 +427,8 @@ prints no result line: the check of 14 (d)'s NCCL world on a machine
 with several cards.  ``--anamorphic-only`` runs step 1's build and step
 17 alone and prints no result line; ``--audio-copy-only`` the build and
 step 18; ``--resumes-only`` the build and step 19; ``--discs-only`` the
-build and step 12, on step 7's stream encoded anew on the card.
+build and step 12, on step 7's stream encoded anew on the card;
+``--rates-only`` the build and step 22.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -635,6 +652,10 @@ COPY_RESUME_KEYINT, COPY_RESUME_DONE = 2, 2
 R19_N, R19_KEYINT, R19_CUT = 12, 2, 2
 R19_SRC_N, R19_SRC_GOP, R19_SCALE = 12, 4, (1280, 720)
 R19_DVD_N, R19_DVD_KEYINT, R19_DVD_CUT = 16, 7, 2
+# step 22: the 1080p frames of (a)'s streams (an IDR and two P frames:
+# each is also coded by a CPU run), the sound frames of (b), the MJPEG
+# frames of (c) and the OpenMP threads of each of the three CPU runs
+R22_N, R22_SOUND_N, R22_MJPEG_N, R22_THREADS = 3, 12, 6, 2
 
 
 def smi(query):
@@ -5213,6 +5234,193 @@ def phase_resumes(tmp, label):
     return rec
 
 
+def phase_rates(tmp, label):
+    """22: a stream's own frame rate and a copied track's true label on
+    the card, one JSON line a part with the card's name and power limit.
+    Its helper processes are stopped when it ends, whether it passes or
+    fails."""
+    try:
+        return rates_parts(tmp, label)
+    finally:
+        for p in PROCS:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def rates_sources(tmp):
+    """22's sources: (a) R22_N 1080p frames coded on the card at
+    24000/1001 as an annex-B .264 and at 25 fps in a TS (PES pts 3600
+    ticks apart), each stream's VUI stating its rate; (b) that TS's video
+    with a DTS-HD Master Audio track (stream type 0x86: 48 kHz 5.1 core
+    frames, each followed by an extension substream whose lossless asset
+    is 96 kHz, 8 channels) and an ADTS track (0x0F) whose
+    channel_configuration is 0 and whose frames open with a 5.1 program
+    config element; (c) the committed MJPEG AVI's first R22_MJPEG_N
+    frames with the committed MP2 stream as its sound (WAVEFORMATEX tag
+    0x50, a chunk a frame).  Returns ({name: path}, DTS frames, ADTS
+    frames, MP2 frames)."""
+    import torch
+    from handbrake_tpu_torch.audio.frames import Framer
+    from handbrake_tpu_torch.codecs.h264.encoder import (EncoderConfig,
+                                                         H264Encoder)
+    from handbrake_tpu_torch.sources.avi import AVIDemuxer
+    from handbrake_tpu_torch.tools import source_builders as B
+    from handbrake_tpu_torch.utils.synth import make_clip
+    frames = make_clip(W, H, R22_N, seed=22)
+    aus = {}
+    for name, fps in (("24p", (24000, 1001)), ("25p", (25, 1))):
+        enc = H264Encoder(EncoderConfig(width=W, height=H, qp=QP, gop=600,
+                                        deblock=True, cabac=True,
+                                        transform8x8=True, fps=fps))
+        aus[name] = [enc.encode_frame(*f) for f in frames]
+    torch.cuda.synchronize()
+    paths = {k: os.path.join(tmp, f) for k, f in (
+        ("annexb", "r22.264"), ("ts", "r22.ts"), ("sound", "r22_sound.ts"),
+        ("avi", "r22.avi"))}
+    with open(paths["annexb"], "wb") as f:
+        f.write(b"".join(aus["24p"]))
+    t0 = 90000
+    video = [(t0 + 3600 * i, 0x100, 0xE0, au, t0 + 3600 * i)
+             for i, au in enumerate(aus["25p"])]
+    with open(paths["ts"], "wb") as f:
+        f.write(B.build_ts([(0x1B, 0x100, b"")], video))
+    dts = [B.dts_core_frame(size=1024, fill=k + 1) + B.dts_exss(
+        900 + 8 * k, fill=k + 30, asset=(96000, 8, 1024), xll=True)
+        for k in range(R22_SOUND_N)]
+    adts = [B.adts_pce_frame(B.AAC_LAYOUTS["5.1"], 100 + k)
+            for k in range(R22_SOUND_N)]
+    sound = list(video)
+    for pid, sid, fr, ticks in ((0x101, 0xFD, dts, 960),
+                                (0x102, 0xC0, adts, 1920)):
+        ends = np.cumsum([len(x) for x in fr]).tolist()
+        sound += B.pes_units(pid, sid, fr, [t0 + ticks * k
+                                            for k in range(len(fr))],
+                             ends[2:-1:3])
+    with open(paths["sound"], "wb") as f:
+        f.write(B.build_ts([(0x1B, 0x100, b""), (0x86, 0x101, b""),
+                            (0x0F, 0x102, b"")], sound))
+    d = AVIDemuxer(os.path.join(B.FIXTURES, "mjpeg_640x480.avi"))
+    try:
+        mjpeg = [bytes(b.data) for _t, b in d.packets()][:R22_MJPEG_N]
+    finally:
+        d.close()
+    fr = Framer("mp2", quiet=True)
+    mp2 = [x.data for x in fr.feed(B.fixture("mp2_48k_stereo.mp2"))
+           + fr.flush()][:R22_MJPEG_N * 40 // 24 + 1]
+    with open(paths["avi"], "wb") as f:
+        f.write(B.build_avi(mjpeg, (25, 1), (640, 480), [B.AviSound(
+            0x50, 2, 48000, 16000, mp2, scale=1152)]))
+    return paths, dts, adts, mp2
+
+
+def rates_parts(tmp, label):
+    from fractions import Fraction
+
+    from handbrake_tpu_torch.audio import frames as F
+    from handbrake_tpu_torch.audio.aacdec import AACDecoder
+    from handbrake_tpu_torch.codecs.vui import stream_rate
+    from handbrake_tpu_torch.scan import scan_title
+    from handbrake_tpu_torch.tools import source_builders as B
+    t0 = time.perf_counter()
+    paths, dts, adts, mp2 = rates_sources(tmp)
+    outs = {k: (os.path.join(tmp, f"r22_{k}.mp4"),
+                os.path.join(tmp, f"r22_{k}_cpu.mp4"))
+            for k in ("annexb", "ts", "avi")}
+    cpu = {k: start_process(tmp, f"r22_{k}_cpu", [
+        "-m", "handbrake_tpu_torch.cli", "-i", paths[k], "-o", outs[k][1],
+        "--device", "cpu"], threads=R22_THREADS) for k in outs}
+    rec = {"phase": "22", "card": label,
+           "sources_s": time.perf_counter() - t0}
+    # (a) the default preset on the 24000/1001 .264 and the 25 fps TS
+    a = {}
+    for k, rate, tick in (("annexb", Fraction(24000, 1001), None),
+                          ("ts", Fraction(25), 3600)):
+        title = scan_title(paths[k], preview_count=1)
+        with log_lines() as lines:
+            secs, dev_ms, db, _rs, spy = disc_job("cli", [
+                "-i", paths[k], "-o", outs[k][0], "--previews", "1"])
+        info, _samples = read_mp4(outs[k][0])
+        durs = stts_durations(outs[k][0])[0]
+        want = [int((i + 1) * 90000 / rate) - int(i * 90000 / rate)
+                for i in range(R22_N)]
+        a[k] = {"do_job_s": secs, "device_ms": dev_ms,
+                "deblock264_launches": db, "p_frames": spy.p_frames(),
+                "title_rate": [title.vrate_num, title.vrate_den],
+                "vui_rate": str(stream_rate("h264", info.extradata)[0]),
+                "stts": durs, "rate_log": next((
+                    ln.split("hbtpu: ", 1)[-1] for ln in lines
+                    if "fps from the SPS's VUI" in ln), None)}
+        a[k]["ok"] = (Fraction(*a[k]["title_rate"]) == rate
+                      and a[k]["vui_rate"] == str(rate)
+                      and durs[:-1] == want[:-1] and len(durs) == R22_N
+                      and a[k]["rate_log"] is not None
+                      and a[k]["deblock264_launches"] >= a[k]["p_frames"]
+                      > 0)
+    # (b) the DTS-HD MA and ADTS 5.1 copies to mkv
+    out_b = os.path.join(tmp, "r22_sound.mkv")
+    secs, dev_ms, db, _rs, _spy = disc_job("cli", [
+        "-i", paths["sound"], "-o", out_b, "-e", "h264", "-q", "28",
+        "--encoder-profile", "high", "--previews", "1", "-a", "1,2", "-E",
+        "copy:dts,copy:aac"])
+    tracks, pk = read_tracks(out_b)
+    pce = F.adts_pce(adts[0]).size
+    b = {"do_job_s": secs, "device_ms": dev_ms, "deblock264_launches": db,
+         "audio_tracks": [(t.codec, t.sample_rate, t.channels)
+                          for t in tracks[1:]],
+         "aac_config": bytes(tracks[2].extradata).hex()
+         if len(tracks) > 2 else None,
+         "dts_copy_equal": [p for _, p in pk.get(1, [])] == dts,
+         "aac_copy_equal": [p for _, p in pk.get(2, [])]
+         == [adts[0][7 + pce:]] + [x[7:] for x in adts[1:]],
+         "dts_pts_ms": [t for t, _ in pk.get(1, [])][:4]}
+    b["ok"] = (b["audio_tracks"] == [("dts", 96000, 8), ("aac", 48000, 6)]
+               and b["aac_config"]
+               == B.aac_pce_config(B.AAC_LAYOUTS["5.1"]).hex()
+               and b["dts_copy_equal"] and b["aac_copy_equal"] and db > 0)
+    # (c) the MJPEG AVI with its MP2 track to AAC, the default preset
+    secs, dev_ms, db, _rs, spy = disc_job("cli", [
+        "-i", paths["avi"], "-o", outs["avi"][0], "--previews", "1"])
+    tracks, pk = read_tracks(outs["avi"][0])
+    aac = np.concatenate([AACDecoder(tracks[1].extradata).decode_frame(p)
+                          for _, p in pk[1]]) if len(tracks) > 1 else None
+    c = {"do_job_s": secs, "device_ms": dev_ms, "deblock264_launches": db,
+         "p_frames": spy.p_frames(),
+         "tracks": [(t.kind, t.codec, t.sample_rate, t.channels)
+                    for t in tracks],
+         "aac_samples": int(aac.shape[0]) if aac is not None else 0,
+         "aac_peak": float(np.abs(aac).max()) if aac is not None else 0.0}
+    c["ok"] = (c["tracks"][1:] == [("audio", "aac", 48000, 2)]
+               and abs(c["aac_samples"] - 1152 * len(mp2)) <= 2048
+               and bool(np.isfinite(aac).all()) and c["aac_peak"] > 0.05
+               and db >= c["p_frames"] > 0)
+    for k in outs:
+        finish_process(cpu[k])
+        part = c if k == "avi" else a[k]
+        part["equal_cpu_file"] = same_file(*outs[k])
+        part["ok"] = part["ok"] and part["equal_cpu_file"]
+    rec.update(a=a, b=b, c=c, seconds=time.perf_counter() - t0)
+    for name, part in (("22a", a), ("22b", b), ("22c", c)):
+        print(json.dumps(dict(part, part=name, card=label)), flush=True)
+    print(f"phase 22 ({label}): {rec['seconds']:.1f} s", flush=True)
+    bad = [k for k, part in (("a annexb", a["annexb"]), ("a ts", a["ts"]),
+                             ("b", b), ("c", c)) if not part["ok"]]
+    if bad:
+        raise RuntimeError(f"22: the checks of {bad} failed")
+    return rec
+
+
+def rates_only() -> int:
+    """Steps 1 and 22 alone (``--rates-only``)."""
+    import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
+    label = card()
+    print(f"card: {label}", flush=True)
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_rates(tmp, label)
+    return 0
+
+
 def resumes_only() -> int:
     """Steps 1 and 19 alone (``--resumes-only``)."""
     import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
@@ -5308,6 +5516,8 @@ def main() -> int:
         return resumes_only()
     if sys.argv[1:2] == ["--discs-only"]:
         return discs_only()
+    if sys.argv[1:2] == ["--rates-only"]:
+        return rates_only()
     import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
     from handbrake_tpu_torch.utils.device import resolve_device
     resolve_device(None)
@@ -5337,6 +5547,7 @@ def main() -> int:
         par = phase_anamorphic(tmp, label)
         acopy = phase_audio_copy(tmp, label)
         res = phase_resumes(tmp, label)
+        rates = phase_rates(tmp, label)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -5374,7 +5585,16 @@ def main() -> int:
                                    acopy["b"]["deblock264_launches"],
                                **{f"resume_19{k}_do_job":
                                   res[k]["resume"]["deblock264_launches"]
-                                  for k in "abc"}})
+                                  for k in "abc"},
+                               "annexb_24p_1080p_cli":
+                                   rates["a"]["annexb"]
+                                   ["deblock264_launches"],
+                               "ts_25p_1080p_cli":
+                                   rates["a"]["ts"]["deblock264_launches"],
+                               "dts_ma_adts_copies_mkv_cli":
+                                   rates["b"]["deblock264_launches"],
+                               "avi_mjpeg_mp2_cli":
+                                   rates["c"]["deblock264_launches"]})
     rs_entry = {
         "name": "resample", "route": "cuda",
         "source": "handbrake_tpu_torch/csrc/resample.cu",
@@ -5434,6 +5654,7 @@ def main() -> int:
     print(f"phase 17 seconds: {par['seconds']:.1f}", flush=True)
     print(f"phase 18 seconds: {acopy['seconds']:.1f}", flush=True)
     print(f"phase 19 seconds: {res['seconds']:.1f}", flush=True)
+    print(f"phase 22 seconds: {rates['seconds']:.1f}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

@@ -39,6 +39,8 @@ class FrameHeader(NamedTuple):
     substreamid: int = 0
     profile: int = 1     # ADTS: the AAC profile (1 LC)
     head: int = 0        # ADTS: the header's bytes (7, 9 with the CRC)
+    xll: bool = False    # DTS extension substream: its first asset is
+                         # lossless (XLL, DTS-HD Master Audio)
 
 
 class Frame(NamedTuple):
@@ -97,7 +99,12 @@ def dts_header(data: bytes, off: int = 0) -> Optional[FrameHeader]:
     (DTS-HD) where their headers are in ``data``: FSIZE and each
     extension's size give the bytes, NBLKS the samples, SFREQ the rate,
     AMODE and LFF the channels, or, where the first extension's header
-    carries static fields, its first asset's nuTotalNumChs.  At an
+    carries static fields, its first asset's nuTotalNumChs.  Where that
+    asset is lossless (XLL: DTS-HD Master Audio), its nuMaxSampleRate is
+    the rate, as libavcodec's parser labels it, and the samples are the
+    core's at that rate (the frame's duration stays the core's: 512
+    samples at 48 kHz are 1024 at 96 kHz); a DTS-HD High Resolution
+    frame keeps the core's rate.  At an
     extension substream's sync word the frame is that substream alone
     (DTS Express: no core), its rate, channels and samples from its
     header's static fields (0 where it has none)."""
@@ -116,14 +123,18 @@ def dts_header(data: bytes, off: int = 0) -> Optional[FrameHeader]:
             or nblks < 5:
         return None
     ch = DTS_AMODE_CHANNELS[amode] + (1 if lff else 0)
+    rate, samples = DTS_RATES[sfreq], (nblks + 1) * 32
     end = off + fsize + 1
-    first = True
+    first, xll = True, False
     while (x := dts_exss(data, end)) is not None:
         if first and x.channels:
             ch = x.channels
+        if first and x.xll and x.sample_rate:
+            xll = True
+            rate, samples = x.sample_rate, samples * x.sample_rate // rate
         first = False
         end += x.size
-    return FrameHeader(end - off, (nblks + 1) * 32, DTS_RATES[sfreq], ch)
+    return FrameHeader(end - off, samples, rate, ch, xll=xll)
 
 
 DTS_EXSS_SYNC = b"\x64\x58\x20\x25"
@@ -141,10 +152,11 @@ def dts_exss(data: bytes, off: int = 0) -> Optional[FrameHeader]:
     bits, the substream index, then its header size and frame size, 8
     and 16 bits or, with bHeaderSizeType, 12 and 20.  Its bytes and,
     where the header carries static fields, its samples (from
-    nuExSSFrameDurationCode at the reference clock) and its first asset
+    nuExSSFrameDurationCode at the reference clock), its first asset
     descriptor's nuMaxSampleRate and nuTotalNumChs (0 each where it
-    says none); None where there is no substream whose first 10 bytes
-    are in ``data``."""
+    says none) and whether that asset codes XLL (``_asset_xll``); None
+    where there is no substream whose first 10 bytes are in
+    ``data``."""
     if len(data) - off < _EXSS_HEAD or data[off:off + 4] != DTS_EXSS_SYNC:
         return None
     v = int.from_bytes(data[off + 4:off + _EXSS_HEAD], "big")   # 48 bits
@@ -175,10 +187,12 @@ def dts_exss(data: bytes, off: int = 0) -> Optional[FrameHeader]:
             for j in range(index + 1):
                 if m >> j & 1:
                     b.skip(8)
+        mix = None                # the mixer's outputs' channel counts
         if b.read(1):             # bMixMetadataEnbl
             b.skip(2)
             bits = (b.read(2) + 1) << 2
-            b.skip(bits * (b.read(2) + 1))
+            mix = [_dca_channels(b.read(bits))
+                   for _ in range(b.read(2) + 1)]
         b.skip(assets * (20 if wide else 16))  # nuAssetFsize
         b.skip(9 + 3)             # nuAssetDescriptFsize, nuAssetIndex
         if b.read(1):             # bAssetTypeDescrPresent
@@ -195,7 +209,65 @@ def dts_exss(data: bytes, off: int = 0) -> Optional[FrameHeader]:
     if clock >= len(_EXSS_CLOCKS):
         return none
     return FrameHeader(size, duration * rate // _EXSS_CLOCKS[clock], rate,
-                       channels)
+                       channels, xll=_asset_xll(b, channels, mix))
+
+
+def _dca_channels(mask: int) -> int:
+    """The channels of a DTS loudspeaker mask: a bit a speaker, and a
+    second for each bit that stands for a pair (libavcodec's
+    ff_dca_count_chs_for_mask)."""
+    return bin(mask).count("1") + bin(mask & 0xAE66).count("1")
+
+
+def _asset_xll(b: "_BR", channels: int, mix) -> bool:
+    """Whether the asset descriptor whose nuTotalNumChs ``b`` has just
+    read codes a lossless (XLL) component: the rest of its static
+    fields, its DRC, dialog normalization and mixing metadata (``mix``:
+    the mixer outputs' channel counts, None where the header enables no
+    mixing metadata) skipped, then nuCodingMode 0 with bit 0x20 of
+    nuCoreExtensionMask, or nuCodingMode 1 (ETSI TS 102 114 7.5.3, read
+    as libavcodec's dca_exss.c parse_descriptor).  False where the
+    descriptor is cut short or does not parse."""
+    try:
+        stereo = six = False
+        if b.read(1):             # bOne2OneMapChannels2Speakers
+            stereo = channels > 2 and bool(b.read(1))
+            six = channels > 6 and bool(b.read(1))
+            bits = 0
+            if b.read(1):         # bSpkrMaskEnabled
+                bits = (b.read(2) + 1) << 2
+                b.skip(bits)
+            sets = b.read(3)
+            if sets and not bits:
+                return False
+            speakers = [_dca_channels(b.read(bits)) for _ in range(sets)]
+            for n in speakers:
+                width = b.read(5) + 1
+                for _ in range(n):
+                    b.skip(5 * bin(b.read(width)).count("1"))
+        else:
+            b.skip(3)             # nuRepresentationType
+        drc = b.read(1)
+        if drc:
+            b.skip(8)
+        if b.read(1):             # bDialNormPresent
+            b.skip(5)
+        if drc and stereo:
+            b.skip(8)
+        if mix is not None and b.read(1):   # bMixMetadataPresent
+            b.skip(1 + 6)
+            b.skip(8 if b.read(2) == 3 else 3)
+            if b.read(1):         # bEnblPerChMainAudioScale
+                b.skip(6 * sum(mix))
+            else:
+                b.skip(6 * len(mix))
+            for n in mix:
+                for _ in range(channels + 6 * six + 2 * stereo):
+                    b.skip(6 * bin(b.read(n)).count("1"))
+        mode = b.read(2)          # nuCodingMode
+        return mode == 1 or mode == 0 and bool(b.read(12) & 0x20)
+    except IndexError:
+        return False
 
 
 def dts_exss_size(data: bytes, off: int = 0) -> Optional[int]:
@@ -287,13 +359,81 @@ def adts_payload(frame: bytes) -> bytes:
     return bytes(frame[h.head:])
 
 
-def adts_config(h: FrameHeader) -> bytes:
+def adts_config(h: FrameHeader, pce: bytes = b"") -> bytes:
     """The AudioSpecificConfig of an ADTS stream whose first frame's
     header is ``h``: its object type (profile + 1), rate index and
-    channel configuration."""
+    channel configuration, then ``pce``, the program config element
+    that gives the channels where the configuration is 0
+    (``adts_pce``)."""
     v = ((h.profile + 1) << 11) | (ADTS_RATES.index(h.sample_rate) << 7) \
         | (_ADTS_CHANNELS.index(h.channels) << 3)
-    return v.to_bytes(2, "big")
+    return v.to_bytes(2, "big") + pce
+
+
+class _Writer:
+    """Bits written most significant first."""
+
+    def __init__(self):
+        self.v = self.n = 0
+
+    def put(self, v: int, n: int):
+        self.v, self.n = (self.v << n) | v, self.n + n
+
+    def data(self) -> bytes:
+        self.put(0, -self.n % 8)
+        return self.v.to_bytes(self.n // 8, "big")
+
+
+class ProgramConfig(NamedTuple):
+    channels: int        # each SCE 1, each CPE 2, each LFE 1
+    config: bytes        # the element as an AudioSpecificConfig ends
+    size: int            # bytes of the raw data block it takes
+
+
+def adts_pce(frame: bytes) -> Optional[ProgramConfig]:
+    """The program config element (ISO/IEC 14496-3 4.4.1.1) that opens
+    the first raw data block of the ADTS frame ``frame``, as libavformat's
+    aac_adtstoasc filter takes it out of a stream whose
+    channel_configuration is 0: its channels (the front, side and back
+    elements, an SCE 1 and a CPE 2, and the LFE elements), the element
+    without its 3-bit id re-packed for an AudioSpecificConfig
+    (ff_copy_pce_data: its byte alignment counted from the element's
+    start), and the bytes of the block it takes (its comment field ends
+    on a byte of the block).  None where the block's first element is
+    not a PCE (id 5) or is cut short."""
+    h = adts_header(frame)
+    if h is None:
+        return None
+    b, w = _BR(bytes(frame[h.head:h.size])), _Writer()
+
+    def copy(n: int) -> int:
+        v = b.read(n)
+        w.put(v, n)
+        return v
+    try:
+        if b.read(3) != 5:
+            return None
+        copy(4 + 2 + 4)           # tag, object type, sampling index
+        fsb = [copy(4) for _ in range(3)]   # front, side, back elements
+        lfe, assoc, cc = copy(2), copy(3), copy(4)
+        for n in (4, 4, 3):       # mono, stereo and matrix mixdowns
+            if copy(1):
+                copy(n)
+        channels = 0
+        for _ in range(sum(fsb)):
+            channels += 2 if copy(1) else 1     # is_cpe
+            copy(4)
+        for _ in range(lfe):
+            copy(4)
+        channels += lfe
+        copy(4 * assoc + 5 * cc)
+        b.pos = (b.pos + 7) & ~7  # byte_alignment(): of the raw block
+        w.put(0, -w.n % 8)        # and of the element in the config
+        for _ in range(copy(8)):  # comment_field_bytes
+            copy(8)
+    except IndexError:
+        return None
+    return ProgramConfig(channels, w.data(), b.pos // 8)
 
 
 # -- Dolby TrueHD (MLP FBA) access units --------------------------------------

@@ -1,6 +1,7 @@
-"""Pixel aspect in H.264 and HEVC streams: the VUI's sample aspect ratio
-read from a sequence parameter set (H.264 E.1.1, HEVC E.2.1), and the
-16-bit check a writer of ``sar_width``/``sar_height`` needs.
+"""Pixel aspect and frame rate in H.264 and HEVC streams: the VUI's
+sample aspect ratio and timing read from a sequence parameter set (H.264
+E.1.1, HEVC E.2.1), an HEVC VPS's timing, and the 16-bit check a writer
+of ``sar_width``/``sar_height`` needs.
 
 The SPS parsers of ``h264/syntax.py`` and ``hevc/syntax.py`` stop before
 the VUI's aspect (the first) or take only the encoder's subset (the
@@ -8,7 +9,8 @@ second), so these read the whole SPS syntax up to the VUI's timing:
 scaling lists, every picture order count type, short- and long-term
 reference picture sets, sub-layers.  The aspect is ``None`` where the
 stream signals none (no VUI, no aspect info, ``aspect_ratio_idc`` 0
-"unspecified" or a reserved value, a zero term).
+"unspecified" or a reserved value, a zero term).  ``stream_rate`` gives
+the rate as libavcodec's decoders set ``framerate`` from that timing.
 """
 from __future__ import annotations
 
@@ -249,15 +251,78 @@ def _config_nals(codec: str, config: bytes) -> list:
     return out
 
 
+def hevc_vps_timing(rbsp: bytes):
+    """(vps_num_units_in_tick, vps_time_scale) of an HEVC VPS (its RBSP
+    after the two-byte NAL header), or None where
+    vps_timing_info_present_flag is 0 (F.7.3.2.1 read as 7.3.2.1)."""
+    br = BitReader(rbsp)
+    br.u(4 + 1 + 1 + 6)                     # id, base layer flags, layers
+    msl = br.u(3)                           # vps_max_sub_layers_minus1
+    br.u(1 + 16)                            # nesting, reserved 0xffff
+    _hevc_ptl(br, msl)
+    first = 0 if br.u(1) else msl           # sub_layer_ordering_info
+    for _ in range(first, msl + 1):
+        br.ue()
+        br.ue()
+        br.ue()
+    max_layer_id = br.u(6)
+    for _ in range(br.ue()):                # vps_num_layer_sets_minus1
+        br.u(max_layer_id + 1)              # layer_id_included_flag
+    if br.u(1):                             # vps_timing_info_present
+        return br.u(32), br.u(32)
+    return None
+
+
+def _nals(codec: str, data: bytes) -> list:
+    return _config_nals(codec, data) if data[0] == 1 \
+        else list(split_annexb(data))
+
+
+def _vps_timing(data: bytes):
+    """The timing of the first HEVC VPS in ``data`` (hvcC or annex-B), or
+    None; ValueError where the VPS cannot be read."""
+    for nal in _nals("hevc", data):
+        if nal and ((nal[0] >> 1) & 0x3F) == 32:
+            try:
+                return hevc_vps_timing(ebsp_to_rbsp(nal[2:]))
+            except (IndexError, ValueError) as e:
+                raise ValueError(f"hevc: the VPS cannot be read up to its "
+                                 f"timing ({e or 'cut short'})") from None
+    return None
+
+
+def stream_rate(codec: str, data: bytes) -> tuple:
+    """The frame rate an H.264 or HEVC stream states (``data``: an avcC
+    or hvcC payload, or an annex-B stream), as libavcodec's decoders set
+    ``framerate``: H.264 time_scale / (2 * num_units_in_tick) of the
+    first SPS's VUI (ticks_per_frame 2); HEVC time_scale /
+    num_units_in_tick of the SPS's VUI, or of the VPS where the VUI has
+    no timing (hevcdec.c export_stream_params).  (rate, where it was
+    read) with the fraction reduced, or (None, why there is none): no
+    timing, or a zero num_units_in_tick or time_scale.  ValueError where
+    the SPS or VPS cannot be read."""
+    if codec not in ("h264", "hevc") or not data:
+        return None, "no H.264 or HEVC parameter set"
+    timing, source = stream_vui(codec, data)["timing"], "the SPS's VUI"
+    if timing is None and codec == "hevc":
+        timing, source = _vps_timing(data), "the VPS"
+    if timing is None:
+        return None, ("no timing in the SPS's VUI" if codec == "h264" else
+                      "no timing in the SPS's VUI or the VPS")
+    nu, scale = timing
+    if not nu or not scale:
+        return None, (f"{source} states num_units_in_tick {nu} and "
+                      f"time_scale {scale}, which is no rate")
+    return Fraction(scale, nu * (2 if codec == "h264" else 1)), source
+
+
 def stream_vui(codec: str, data: bytes) -> dict:
     """The VUI's {"sar", "timing"} of the first SPS in ``data``: an avcC
     or hvcC payload, or an annex-B stream.  Both None where there is no
     SPS; ValueError where the SPS cannot be read."""
     if codec not in ("h264", "hevc") or not data:
         return {"sar": None, "timing": None}
-    nals = _config_nals(codec, data) if data[0] == 1 \
-        else list(split_annexb(data))
-    for nal in nals:
+    for nal in _nals(codec, data):
         if codec == "h264" and nal and (nal[0] & 0x1F) == 7:
             rbsp = ebsp_to_rbsp(nal[1:])
             parse = h264_sps_vui

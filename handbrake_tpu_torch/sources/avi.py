@@ -20,6 +20,7 @@ import struct
 from fractions import Fraction
 
 from ..core.buffer import Buffer
+from ..utils.logging import log
 from .common import CLOCK, DemuxError, TrackInfo
 
 _VID_CODECS = {b"MJPG": "mjpeg", b"mjpg": "mjpeg", b"\x00\x00\x00\x00": "rawvideo",
@@ -63,6 +64,16 @@ class _DisplayOrder:
         return held
 
 
+# The port also lists MPEG audio (WAVEFORMATEX tag 0x50, "mp2"; 0x55,
+# "mp3"), AC-3 (0x2000) and DTS (0x2001) tracks, which the reference lists
+# as "unknown"; any other tag but PCM stays "unknown" and is logged.  Such
+# a track's chunks carry timestamps as libavformat's avidec gives them:
+# where the stream header's dwSampleSize is 0 a chunk is one frame, at
+# dwScale/dwRate seconds a chunk; else the bytes before a chunk at the
+# format's nAvgBytesPerSec.  The job cuts the chunks into whole frames.
+_AUD_CODECS = {0x50: "mp2", 0x55: "mp3", 0x2000: "ac3", 0x2001: "dts"}
+
+
 def probe_is_avi(path: str) -> bool:
     with open(path, "rb") as f:
         head = f.read(12)
@@ -76,6 +87,9 @@ class AVIDemuxer:
         self.tracks = []
         self._stream_map = {}      # avi stream index → track index
         self._rates = {}           # avi stream index → Fraction fps
+        # avi stream index → (dwScale, dwRate, dwSampleSize) of a sound
+        # stream, then its nAvgBytesPerSec where it is framed
+        self._clock = {}
         self._movi = None          # (offset, size)
         self.duration = 0
         self.chapters = []
@@ -130,6 +144,8 @@ class AVIDemuxer:
                     ti = TrackInfo(kind="audio", codec="pcm")
                     self._stream_map[sidx] = len(self.tracks)
                     self._rates[sidx] = Fraction(rate, max(1, scale))
+                    self._clock[sidx] = (scale, rate, struct.unpack(
+                        "<I", data[44:48])[0] if len(data) >= 48 else 0)
                     self.tracks.append(ti)
                 else:
                     self._stream_map[sidx] = -1
@@ -154,7 +170,15 @@ class AVIDemuxer:
                     t.channels = ch
                     t.sample_rate = srate
                     t.codec = ("pcm_s16le" if bits == 16 else "pcm_u8") \
-                        if fmt == 1 else "unknown"
+                        if fmt == 1 else _AUD_CODECS.get(fmt, "unknown")
+                    sidx = self._next_sidx - 1
+                    if t.codec in _AUD_CODECS.values():
+                        self._clock[sidx] += struct.unpack(
+                            "<I", data[8:12])
+                    elif t.codec == "unknown":
+                        log(f"avi: stream {sidx}: sound of WAVEFORMATEX tag "
+                            f"{fmt:#06x}, which the port neither decodes "
+                            f"nor copies; listed as unknown")
             off = body + csz + (csz & 1)
 
     # -- packets -------------------------------------------------------------
@@ -174,6 +198,7 @@ class AVIDemuxer:
         off, size = self._movi
         end = off + size
         counts = {}
+        sizes = {}                 # bytes of each stream's chunks so far
         pos = off if not start_state else start_state
         while pos + 8 <= end:
             f.seek(pos)
@@ -209,10 +234,21 @@ class AVIDemuxer:
                 b.duration = int((n + 1) * CLOCK / float(fps)) - b.pts
                 b.stop = b.pts + b.duration
             else:
-                rate = self._rates.get(sidx) or 1
-                b.pts = None
+                b.pts = self._sound_pts(sidx, n, sizes.get(sidx, 0))
+                sizes[sidx] = sizes.get(sidx, 0) + csz
             yield trk, b
             pos = pos_next
+
+    def _sound_pts(self, sidx: int, n: int, before: int):
+        """The 90 kHz pts of chunk ``n`` of framed sound stream ``sidx``,
+        after ``before`` bytes of it (None for PCM, as the reference)."""
+        clock = self._clock.get(sidx, ())
+        if len(clock) < 4:
+            return None
+        scale, rate, sample_size, avg = clock
+        if not sample_size and rate:
+            return n * CLOCK * scale // rate
+        return before * CLOCK // avg if avg else None
 
     def seek(self, pts):
         return None

@@ -81,6 +81,30 @@ def vui_sar(ti: TrackInfo, data: bytes, where: str):
         return None
 
 
+def read_stream_rate(ti: TrackInfo, data: bytes, where: str):
+    """An H.264 or HEVC track's frame rate from the timing its stream
+    states (``codecs/vui.stream_rate``; ``data``: an avcC/hvcC payload
+    or an annex-B stream), set on ``ti`` and returned as a Fraction.
+    Where the stream states none, states a zero term, or its SPS or VPS
+    cannot be read, the track keeps its ``frame_rate`` and None is
+    returned.  One log line either way, ``where`` naming the track."""
+    from ..codecs.vui import stream_rate
+    from ..utils.logging import log
+    keep = "{}/{}".format(*ti.frame_rate) if ti.frame_rate else "no rate"
+    try:
+        rate, source = stream_rate(ti.codec, bytes(data))
+    except ValueError as e:
+        log(f"{where} {ti.codec}: {e}; the track keeps {keep} fps")
+        return None
+    if rate is None:
+        log(f"{where} {ti.codec}: {source}; the track keeps {keep} fps")
+        return None
+    ti.frame_rate = (rate.numerator, rate.denominator)
+    log(f"{where} {ti.codec} {rate.numerator}/{rate.denominator} fps from "
+        f"{source}")
+    return rate
+
+
 def read_vui_sar(ti: TrackInfo, data: bytes, where: str):
     """The track's pixel aspect from its SPS's VUI where it signals one,
     for a track whose container gives none."""

@@ -16,8 +16,9 @@ import os
 from typing import Optional
 
 from ..core.buffer import Buffer, FrameType
+from ..utils.logging import log
 from .common import (DemuxError, TrackInfo, read_audio_header,
-                     read_mpeg2_header, read_vui_sar)
+                     read_mpeg2_header, read_stream_rate, read_vui_sar)
 
 PACK_START = 0xBA
 SYSTEM_HDR = 0xBB
@@ -258,6 +259,8 @@ class PSDemuxer:
                 if len(es) > (1 << 18):
                     break
         if ti.codec == "h264":
+            where = "ps: stream {:#04x}".format(next(
+                k[0] for k, v in self._sid_to_track.items() if v == vids[0]))
             try:
                 from ..codecs.h264.bits import ebsp_to_rbsp, split_annexb
                 from ..codecs.h264.syntax import SPS
@@ -266,12 +269,14 @@ class PSDemuxer:
                         sps = SPS.parse(ebsp_to_rbsp(nal[1:]))
                         ti.width = sps.width
                         ti.height = sps.height
-                        if sps.vui_timing:
-                            nu, ts_ = sps.vui_timing
-                            ti.frame_rate = (ts_, nu * 2)
                         break
-            except Exception:   # noqa: BLE001 — geometry stays unknown
-                pass
+            except (IndexError, ValueError) as e:
+                log(f"{where}: the h264 SPS gives no picture size "
+                    f"({e or 'cut short'}); the track keeps 0x0")
+            # the rate the stream states (the reference labels every
+            # H.264 track 30000/1001)
+            ti.frame_rate = (30000, 1001)
+            read_stream_rate(ti, es, where)
             read_vui_sar(ti, es, "ps")
         elif ti.codec == "mpeg2":
             # size, pixel aspect and rate from the sequence header (the

@@ -12,7 +12,7 @@ from fractions import Fraction
 import numpy as np
 
 from ..core.buffer import (Buffer, FrameType, PIX_FMTS, CLOCK)
-from .common import DemuxError, TrackInfo, read_vui_sar
+from .common import DemuxError, TrackInfo, read_stream_rate, read_vui_sar
 
 
 class Y4MReader:
@@ -122,7 +122,10 @@ class Y4MReader:
 class AnnexBReader:
     """H.264/HEVC elementary stream → access-unit packets.
 
-    Frame rate is unknown in an ES; default 25 fps like libavformat.
+    The frame rate is the one the stream's SPS (HEVC: or VPS) states, as
+    libavcodec's decoders read it; where it states none, ``fps`` (25 like
+    libavformat).  The reader's ``fps``, ``duration`` and every access
+    unit's pts follow it (the reference labels every stream ``fps``).
     """
 
     def __init__(self, path: str, codec: str = "h264",
@@ -136,16 +139,17 @@ class AnnexBReader:
             raise DemuxError("no start codes")
         self.aus = self._split_access_units()
         self.n_frames = len(self.aus)
-        self.duration = int(self.n_frames * CLOCK
-                            * fps.denominator / fps.numerator)
         self.tracks = [TrackInfo(
             kind="video", codec=codec,
             frame_rate=(fps.numerator, fps.denominator))]
         self._probe_geometry()
+        self.duration = int(self.n_frames * CLOCK
+                            * self.fps.denominator / self.fps.numerator)
 
     def _probe_geometry(self):
         """Parse the first SPS for dimensions/rate (scan info() role)."""
         from ..codecs.h264.bits import ebsp_to_rbsp, split_annexb
+        from ..utils.logging import log
         try:
             for nal in split_annexb(self.data[:1 << 16]):
                 if self.codec == "h264" and (nal[0] & 0x1F) == 7:
@@ -153,10 +157,6 @@ class AnnexBReader:
                     sps = SPS.parse(ebsp_to_rbsp(nal[1:]))
                     self.tracks[0].width = sps.width
                     self.tracks[0].height = sps.height
-                    if sps.vui_timing:
-                        nu, ts = sps.vui_timing
-                        self.tracks[0].frame_rate = (ts, nu * 2)
-                        self.fps = Fraction(ts, nu * 2)
                     break
                 if self.codec == "hevc" and ((nal[0] >> 1) & 0x3F) == 33:
                     from ..codecs.hevc.syntax import SPS as HSPS
@@ -166,9 +166,15 @@ class AnnexBReader:
                     self.tracks[0].width = sps.width - sps.crop_right
                     self.tracks[0].height = sps.height - sps.crop_bottom
                     break
-        except Exception:
-            pass
-        # the pixel aspect of the SPS's VUI (the reference reads none)
+        except (AssertionError, IndexError, ValueError) as e:
+            log(f"annex-B: the {self.codec} SPS gives no picture size "
+                f"({e or 'cut short'}); the track keeps 0x0")
+        # the rate and pixel aspect of the SPS's VUI (the reference reads
+        # neither)
+        rate = read_stream_rate(self.tracks[0], self.data[:1 << 16],
+                                "annex-B:")
+        if rate is not None:
+            self.fps = rate
         read_vui_sar(self.tracks[0], self.data[:1 << 16], "annex-B")
 
     def _split_access_units(self) -> list:

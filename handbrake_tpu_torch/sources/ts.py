@@ -21,7 +21,9 @@ from __future__ import annotations
 import os
 
 from ..core.buffer import Buffer
-from .common import DemuxError, TrackInfo, read_mpeg2_header, read_vui_sar
+from ..utils.logging import log
+from .common import (DemuxError, TrackInfo, read_audio_header,
+                     read_mpeg2_header, read_stream_rate, read_vui_sar)
 
 _STREAM_TYPES = {
     0x01: ("video", "mpeg2"), 0x02: ("video", "mpeg2"),
@@ -306,6 +308,27 @@ class TSDemuxer:
                     if last_pts[p] >= first_pts[p]]
             self.duration = max(span) if span else 0
         self._fill_video_info()
+        self._fill_dts_info()
+
+    def _fill_dts_info(self):
+        """A DTS track's rate and channels from its first frame: a DTS-HD
+        Master Audio track's are its lossless asset's (the reference
+        leaves every DTS track at 48 kHz stereo)."""
+        dts = {i: bytearray() for i, t in enumerate(self.tracks)
+               if t.codec == "dts"}
+        if not dts:
+            return
+        # a listed DTS PID that carries little stops the read at 16 MB
+        seen = 0
+        for trk, buf in self.packets():
+            seen += len(buf.data or b"")
+            if trk in dts and buf.data and len(dts[trk]) < 1 << 16:
+                dts[trk] += buf.data
+            if seen >= 1 << 24 or all(len(v) >= 1 << 16
+                                      for v in dts.values()):
+                break
+        for i, es in dts.items():
+            read_audio_header(self.tracks[i], es, f"ts: track {i}")
 
     def _fill_video_info(self):
         """Parse the first video SPS for geometry/rate (scan info hook)."""
@@ -313,6 +336,8 @@ class TSDemuxer:
         if not vids:
             return
         ti = self.tracks[vids[0]]
+        where = "ts: pid {:#x}".format(next(
+            k for k, v in self._pid_to_track.items() if v == vids[0]))
         es = bytearray()
         for trk, buf in self.packets():
             if trk == vids[0] and buf.data:
@@ -333,12 +358,10 @@ class TSDemuxer:
                         sps = SPS.parse(ebsp_to_rbsp(nal[1:]))
                         ti.width = sps.width
                         ti.height = sps.height
-                        if sps.vui_timing:
-                            num_units, time_scale = sps.vui_timing
-                            ti.frame_rate = (time_scale, num_units * 2)
                         break
-            except Exception:
-                pass
+            except (IndexError, ValueError) as e:
+                log(f"{where}: the h264 SPS gives no picture size "
+                    f"({e or 'cut short'}); the track keeps 0x0")
         elif ti.codec == "hevc":
             # the picture's size: the SPS's coded size less its
             # conformance window (the reference reads no HEVC SPS here and
@@ -357,6 +380,9 @@ class TSDemuxer:
         if ti.frame_rate is None:
             ti.frame_rate = (30000, 1001)
         if ti.codec in ("h264", "hevc"):
+            # the rate the stream states (the reference labels every
+            # H.264 and HEVC track 30000/1001)
+            read_stream_rate(ti, es, where)
             read_vui_sar(ti, es, "ts")
 
     # -- packet iteration -------------------------------------------------------

@@ -1,7 +1,8 @@
 """Builders of disc and stream sources around elementary streams: MPEG-2
 program-stream packs (VOB), DVD-Video IFOs, MPEG transport streams
-(188-byte TS and 192-byte m2ts) and Blu-ray MPLS playlists, with the
-substream headers the port's demuxers read (``sources/{ps,dvd,ts,bd}.py``).
+(188-byte TS and 192-byte m2ts), Blu-ray MPLS playlists and AVI files,
+with the substream headers the port's demuxers read
+(``sources/{ps,dvd,ts,bd,avi}.py``).
 The port's disc tests and ``chip_smoke.py`` build their sources with them
 from the committed fixtures (``tests/data/torch_sources/``) and the
 port's own encoders.
@@ -12,6 +13,7 @@ directory of a checkout of the repository.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import numpy as np
 
@@ -185,7 +187,7 @@ def dts_core_frame(amode: int = 9, lff: int = 1, sfreq: int = 13,
 
 
 def dts_exss(size: int, fill: int = 0, wide: bool = False,
-             asset=None) -> bytes:
+             asset=None, xll: bool = False) -> bytes:
     """One DTS extension substream (ETSI TS 102 114 7.5), as DTS-HD puts
     one after each core frame and DTS Express sends alone: the sync word
     0x64582025, substream index 0, a header whose size fields are 8 and
@@ -194,7 +196,10 @@ def dts_exss(size: int, fill: int = 0, wide: bool = False,
     static fields; with ``asset`` = (sample rate, channels, samples a
     frame) it carries them (reference clock 48 kHz, one presentation
     and one asset) and the first asset descriptor says nuMaxSampleRate
-    and nuTotalNumChs.  It frames a stream; it decodes to nothing."""
+    and nuTotalNumChs; with ``xll`` its nuCodingMode 0 and
+    nuCoreExtensionMask name a lossless (XLL) component, as a DTS-HD
+    Master Audio asset's do, of the asset's bytes.  It frames a stream;
+    it decodes to nothing."""
     bits = (12, 20) if wide else (8, 16)
     if asset is None:
         fields = [(0, 8), (0, 2), (int(wide), 1), (15, bits[0]),
@@ -212,8 +217,70 @@ def dts_exss(size: int, fill: int = 0, wide: bool = False,
         (1, 1), (2, 2), (samples * 48000 // rate // 512 - 1, 3), (0, 1),
         (0, 3), (0, 3), (1, 1), (1, 8), (0, 1), (size - hsize - 1, bits[1]),
         (12, 9), (0, 3), (0, 1), (0, 1), (0, 1), (23, 5),
-        (rates.index(rate), 4), (channels - 1, 8)])).ljust(hsize, b"\x00")
+        (rates.index(rate), 4), (channels - 1, 8),
+        # no speaker map (representation 0), DRC or dialog normalization;
+        # then the coding mode and components (0x20: XLL) and the XLL
+        # component's size, no sync word
+        (0, 1), (0, 3), (0, 1), (0, 1)]
+        + ([(0, 2), (0x20, 12), (size - hsize - 1, bits[1]), (0, 1)]
+           if xll else []))).ljust(hsize, b"\x00")
     return head + bytes([fill]) * (size - len(head))
+
+
+# AAC channel layouts a program config element can give: (front, side,
+# back: is_cpe of each element), LFE elements
+AAC_LAYOUTS = {"5.1": ((0, 1), (), (1,), 1), "7.1": ((0, 1, 1), (), (1,), 1)}
+
+
+def _pce_fields(layout) -> list:
+    """program_config_element() after its id, up to its byte alignment:
+    tag 0, LC, 48 kHz, the layout's elements, no mixdowns."""
+    front, side, back, lfe = layout
+    f = [(0, 4), (1, 2), (3, 4), (len(front), 4), (len(side), 4),
+         (len(back), 4), (lfe, 2), (0, 3), (0, 4), (0, 3)]
+    tags = {0: 0, 1: 0}
+    for cpe in front + side + back:
+        f += [(cpe, 1), (tags[cpe], 4)]
+        tags[cpe] += 1
+    return f + [(t, 4) for t in range(lfe)]
+
+
+def _aligned(fields, start: int = 0) -> list:
+    """``fields`` padded with zero bits to a byte boundary counted from
+    ``start`` bits before them."""
+    return fields + [(0, -(start + sum(w for _v, w in fields)) % 8)]
+
+
+def aac_pce_config(layout) -> bytes:
+    """The AudioSpecificConfig of an LC 48 kHz stream of ``layout``:
+    channelConfiguration 0 and the program config element (no comment),
+    as libavformat's aac_adtstoasc writes it."""
+    return pack_bits([(2, 5), (3, 4), (0, 4), (0, 3)]
+                     + _aligned(_pce_fields(layout)) + [(0, 8)])
+
+
+def adts_pce_frame(layout, gain: int = 100, pce: bool = True) -> bytes:
+    """An ADTS frame (MPEG-4 LC, 48 kHz, no CRC) whose
+    channel_configuration is 0 and whose raw data block opens with the
+    layout's program config element (without it where not ``pce``),
+    then each element of the layout, silent (global gain ``gain``, a
+    long window, max_sfb 0), then END.  It frames and decodes to
+    silence."""
+    front, side, back, lfe = layout
+    f = _aligned([(5, 3)] + _pce_fields(layout)) + [(0, 8)] if pce else []
+    ics = [(gain, 8), (0, 4), (0, 6), (0, 1), (0, 3)]
+    tags = {0: 0, 1: 0}
+    for cpe in front + side + back:
+        f += [(cpe, 3), (tags[cpe], 4)] + ([(0, 1)] if cpe else []) \
+            + ics * (1 + cpe)
+        tags[cpe] += 1
+    for t in range(lfe):
+        f += [(3, 3), (t, 4)] + ics
+    raw = pack_bits(f + [(7, 3)])
+    n = 7 + len(raw)
+    return pack_bits([(0xFFF, 12), (0, 1), (0, 2), (1, 1), (1, 2), (3, 4),
+                      (0, 1), (0, 3), (0, 4), (n, 13), (0x7FF, 11),
+                      (0, 2)]) + raw
 
 
 def spu_sub(spu: bytes) -> bytes:
@@ -616,3 +683,89 @@ def write_bd(root: str, ts: bytes, n_clips: int, seconds: float,
         f.write(make_mpls(names, ticks, [(i, int(round(s * 45000)))
                                          for i, s in marks]))
     return root
+
+
+# -- AVI (RIFF) ---------------------------------------------------------------
+def _riff(cid: bytes, body: bytes) -> bytes:
+    return cid + len(body).to_bytes(4, "little") + body \
+        + (b"\x00" if len(body) & 1 else b"")
+
+
+def _riff_list(kind: bytes, *chunks: bytes) -> bytes:
+    return _riff(b"LIST", kind + b"".join(chunks))
+
+
+def _strh(kind: bytes, handler: bytes, scale: int, rate: int, length: int,
+          sample_size: int) -> bytes:
+    return _riff(b"strh", kind + handler + bytes(12)
+                 + b"".join(v.to_bytes(4, "little") for v in (
+                     scale, rate, 0, length, 0, 0xFFFFFFFF, sample_size))
+                 + bytes(8))
+
+
+class AviSound(NamedTuple):
+    """An AVI sound stream: its WAVEFORMATEX fields and chunks.  With
+    ``sample_size`` 0 each chunk is one frame of ``scale`` samples at
+    ``rate`` a second (the stream header's dwScale and dwRate); else the
+    stream header gives 1 and nAvgBytesPerSec (``avg_bytes``), and a
+    chunk's time is the bytes before it at that rate."""
+    tag: int
+    channels: int
+    sample_rate: int
+    avg_bytes: int
+    chunks: list
+    sample_size: int = 0
+    scale: int = 1152
+
+
+def _sound_times(a: AviSound) -> list:
+    if not a.sample_size:
+        return [k * a.scale / a.sample_rate for k in range(len(a.chunks))]
+    out, before = [], 0
+    for c in a.chunks:
+        out.append(before / a.avg_bytes)
+        before += len(c)
+    return out
+
+
+def build_avi(video: list, fps, size, sounds=()) -> bytes:
+    """An AVI of MJPEG ``video`` chunks (stream 0, ``00dc``) at ``fps``
+    ((num, den) frames a second) of ``size`` (width, height) and one
+    sound stream a ``sounds`` entry (``AviSound``; stream i + 1,
+    ``0Nwb``), each chunk after the video chunk of the frame it starts
+    in, as a muxer interleaves them.  No idx1 (the port's demuxer reads
+    the movi list in order)."""
+    w, h = size
+    num, den = fps
+    avih = _riff(b"avih", b"".join(v.to_bytes(4, "little") for v in (
+        1000000 * den // num, 0, 0, 0, len(video), 0, 1 + len(sounds), 0,
+        w, h, 0, 0, 0, 0)))
+    bih = b"".join(v.to_bytes(4, "little") for v in (40, w, h)) \
+        + (1).to_bytes(2, "little") + (24).to_bytes(2, "little") \
+        + b"MJPG" + (w * h * 3).to_bytes(4, "little") + bytes(16)
+    strls = [_riff_list(b"strl", _strh(b"vids", b"MJPG", den, num,
+                                       len(video), 0), _riff(b"strf", bih))]
+    for a in sounds:
+        scale, rate = (a.scale, a.sample_rate) if not a.sample_size \
+            else (1, a.avg_bytes)
+        wfx = b"".join(v.to_bytes(n, "little") for v, n in (
+            (a.tag, 2), (a.channels, 2), (a.sample_rate, 4),
+            (a.avg_bytes, 4), (max(1, a.sample_size), 2), (0, 2), (0, 2)))
+        strls.append(_riff_list(b"strl", _strh(
+            b"auds", bytes(4), scale, rate, len(a.chunks), a.sample_size),
+            _riff(b"strf", wfx)))
+    times = [_sound_times(a) for a in sounds]
+    next_chunk = [0] * len(sounds)
+    movi = []
+    for i, v in enumerate(video):
+        movi.append(_riff(b"00dc", v))
+        end = (i + 1) * den / num
+        for s, a in enumerate(sounds):
+            while next_chunk[s] < len(a.chunks) and (
+                    times[s][next_chunk[s]] < end or i == len(video) - 1):
+                movi.append(_riff(b"%02dwb" % (s + 1),
+                                  a.chunks[next_chunk[s]]))
+                next_chunk[s] += 1
+    hdrl = _riff_list(b"hdrl", avih, *strls)
+    body = b"AVI " + hdrl + _riff_list(b"movi", *movi)
+    return b"RIFF" + len(body).to_bytes(4, "little") + body

@@ -927,23 +927,28 @@ def _track_head(src, si: int) -> bytes:
 
 def _byte_stream(src) -> bool:
     """Whether `src` hands its sound over as a byte stream (PES
-    payloads: PS, DVD, TS, Blu-ray), not as the frames a container
-    indexes."""
+    payloads: PS, DVD, TS, Blu-ray; AVI chunks), not as the frames a
+    container indexes."""
+    from .sources.avi import AVIDemuxer
     from .sources.ps import PSDemuxer
     from .sources.ts import TSDemuxer
-    return isinstance(src, (PSDemuxer, TSDemuxer))
+    return isinstance(src, (PSDemuxer, TSDemuxer, AVIDemuxer))
 
 
 @dataclasses.dataclass
 class _CopyTrack:
     """What a copy's mux track says: the stream's rate and channels, its
     codec config where the stream gives one (an ADTS stream's
-    AudioSpecificConfig), and whether its packets are cut into frames."""
+    AudioSpecificConfig), whether its packets are cut into frames, and
+    the bytes of the program config element to take out of its first
+    access unit (an ADTS stream whose channel_configuration is 0: the
+    element moves into the config)."""
     codec: str
     sample_rate: int
     channels: int
     config: bytes = b""
     framed: bool = False
+    pce: int = 0
 
 
 def _copy_stream(ti, spec, byte_stream: bool, head) -> _CopyTrack:
@@ -951,9 +956,15 @@ def _copy_stream(ti, spec, byte_stream: bool, head) -> _CopyTrack:
     copy of a codec ``audio/frames.py`` reads is framed: it takes the
     rate, channels and config of its first frame in ``head()`` (the
     track's first bytes), and raises WorkError where there is none, or
-    where the frame does not say its channels.  Any other copy takes the
-    track's.  A mixdown or rate of the job that the copy does not keep
-    is logged as ignored."""
+    where the frame does not say its channels.  An ADTS frame whose
+    channel_configuration is 0 says them in the program config element
+    that opens its raw data block, which moves into the config as
+    libavformat's aac_adtstoasc moves it; one that opens with another
+    element is refused, as that filter refuses it.  A DTS-HD Master
+    Audio copy takes its lossless asset's rate.  Any other copy takes
+    the track's.  The framed copy's label is logged, and a mixdown or
+    rate of the job that the copy does not keep is logged as
+    ignored."""
     from .audio import frames
     from .audio.chain import MIXDOWN_CHANNELS
     codec = spec.encoder.partition(":")[2] or ti.codec
@@ -961,6 +972,17 @@ def _copy_stream(ti, spec, byte_stream: bool, head) -> _CopyTrack:
     if byte_stream and codec in frames.READERS:
         data = head()
         f = frames.first_frame(codec, data)
+        pce = None
+        if f is not None and not f.channels and codec == "aac":
+            pce = frames.adts_pce(f.data)
+            if pce is None:
+                raise WorkError(
+                    f"audio track {spec.track + 1}: an ADTS stream whose "
+                    f"channel_configuration is 0 and whose first raw data "
+                    f"block does not open with a program config element "
+                    f"says its channels nowhere a copy can carry them "
+                    f"(libavformat's aac_adtstoasc refuses it too)")
+            f = f._replace(channels=pce.channels)
         if f is not None and not f.channels and codec == "dts":
             raise WorkError(f"audio track {spec.track + 1}: a DTS Express "
                             f"stream (extension substreams, no core) whose "
@@ -973,8 +995,21 @@ def _copy_stream(ti, spec, byte_stream: bool, head) -> _CopyTrack:
                             f"{len(data)} bytes, so the copy cannot be "
                             f"written")
         c = _CopyTrack(codec, f.sample_rate, f.channels, framed=True,
-                       config=frames.adts_config(frames.adts_header(f.data))
-                       if codec == "aac" else b"")
+                       config=frames.adts_config(
+                           frames.adts_header(f.data),
+                           pce.config if pce else b"")
+                       if codec == "aac" else b"",
+                       pce=pce.size if pce else 0)
+        why = "its first frame"
+        if pce:
+            why = (f"the program config element of its first frame, "
+                   f"which moves into the {len(c.config)}-byte config")
+        elif codec == "dts" and frames.dts_header(f.data).xll:
+            why = ("its first frame's DTS-HD Master Audio asset (the "
+                   "lossless asset's rate, not the core's)")
+        log(f"audio: track {spec.track + 1}, {spec.encoder}: the copy is "
+            f"labelled {c.channels} channels at {c.sample_rate} Hz from "
+            f"{why}")
     ignored = []
     if MIXDOWN_CHANNELS.get(spec.mixdown, c.channels) != c.channels:
         ignored.append(f"mixdown {spec.mixdown}")
@@ -2069,9 +2104,10 @@ class _MuxAdapter:
     copy's track takes the rate, channels and config of ``copies`` (key →
     ``_CopyTrack``); a copy cut into frames is written a frame a sample,
     its mp4 duration the frame's samples, and an ADTS frame less its
-    header.  A codec the writer refuses raises WorkError.  The subtitle
-    outputs in ``kept_pgs`` (keys) are mkv S_HDMV/PGS tracks, the others
-    text.  With a checkpoint journal (``journal``) every sample written
+    header (the first less the program config element that moved into
+    the config too).  A codec the writer refuses raises WorkError.  The
+    subtitle outputs in ``kept_pgs`` (keys) are mkv S_HDMV/PGS tracks,
+    the others text.  With a checkpoint journal (``journal``) every sample written
     is journaled; ``replay`` writes a journaled one."""
 
     def __init__(self, job: Job, out_fi, audio_sel, src, aencs=None,
@@ -2084,6 +2120,9 @@ class _MuxAdapter:
         self._amap = {}
         self._config_boxes = dict(config_boxes or {})
         self._copies = dict(copies or {})
+        # outputs whose first access unit still opens with the program
+        # config element that moved into their config
+        self._pce_first = {k for k, cp in self._copies.items() if cp.pce}
         # ("a" | "s", key) -> samples a resume replayed, not to be
         # written again
         self.skip = {}
@@ -2309,6 +2348,9 @@ class _MuxAdapter:
             head = read_frame(cp.codec, bytes(data))
             if cp.codec == "aac":
                 data = self._strip_adts(bytes(data))
+                if k in self._pce_first:
+                    self._pce_first.discard(k)
+                    data = data[cp.pce:]
         if self.kind in ("mkv", "webm"):
             self.w.write_sample(tr, data, pts_90k=pkt.pts or 0,
                                 duration_90k=pkt.duration or 0)

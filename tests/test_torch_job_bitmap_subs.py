@@ -33,6 +33,7 @@ from handbrake_tpu_torch.subtitles.pgs import build_display_set
 from handbrake_tpu_torch.subtitles.vobsub import build_spu
 from handbrake_tpu_torch.utils.synth import make_clip
 from test_torch_subtitles import _pairs_for, ga94_sei
+from torch_rates import reference_reads_rate  # noqa: F401  (a fixture)
 
 W, H, N = 96, 64, 10
 FRAME = 3000
@@ -132,7 +133,9 @@ def _texts(path):
     ("cc", [dict(cc=True, language="eng")])], ids=["pgs-burn", "vobsub-burn",
                                                    "cea608-text"])
 def test_bitmap_and_caption_jobs_equal_reference(sources, tmp_path, src,
-                                                 subs):
+                                                 subs, reference_reads_rate):
+    """The annex-B caption source states its rate, which the port reads
+    and the reference is given (``torch_rates``)."""
     jout, tout = str(tmp_path / "ref.mkv"), str(tmp_path / "port.mkv")
     jwork.do_job(_job(JS, sources[src], jout, subs))
     work.do_job(_job(S, sources[src], tout, subs), device="cpu")
@@ -164,7 +167,7 @@ def test_scan_finds_the_caption_track(sources):
     ("pgs", ["-s", "1", "--subtitle-burned", "1"]),
     ("cc", ["-s", "1"])], ids=["pgs-burned", "cc"])
 def test_cli_subtitle_selection_equals_reference(sources, tmp_path, src,
-                                                 extra):
+                                                 extra, reference_reads_rate):
     jout, tout = str(tmp_path / "ref.mkv"), str(tmp_path / "port.mkv")
     args = ["-i", sources[src], "-e", "h264", "-q", "28",
             "--encoder-profile", "high", "--crop", "0:0:0:0", *extra]

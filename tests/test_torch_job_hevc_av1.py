@@ -51,6 +51,7 @@ from handbrake_tpu_torch.utils.synth import make_clip, write_y4m
 from handbrake_tpu_torch.work import WorkError
 from test_torch_checkpoint import _crash, _cut
 from test_torch_hevc import sao_stream
+from torch_rates import reference_reads_rate  # noqa: F401  (a fixture)
 
 W, H, N = 96, 64, 6
 FRAME = 3003
@@ -248,7 +249,10 @@ SOURCE_JOBS = {
 
 
 @pytest.mark.parametrize("case", list(SOURCE_JOBS))
-def test_source_job_equals_reference(sources, tmp_path, case):
+def test_source_job_equals_reference(sources, tmp_path, case,
+                                     reference_reads_rate):
+    """The .265 states its rate, which the port reads and the reference
+    is given (``torch_rates``)."""
     name, mux, vcodec, kw = SOURCE_JOBS[case]
     tstats, jstats, got, want = _both(sources[name], tmp_path, mux, vcodec,
                                       **kw)
@@ -310,9 +314,10 @@ def test_cropped_hevc_es_keeps_the_picture_size(tmp_path):
     ("hdr", ["-e", "hevc", "-f", "mkv"]),
     ("av1", ["-e", "h264", "--encoder-profile", "high"])],
     ids=["es-to-hevc", "hdr-to-hevc-mkv", "av1-to-h264"])
-def test_cli_source_equals_reference(sources, tmp_path, name, argv):
+def test_cli_source_equals_reference(sources, tmp_path, name, argv,
+                                     reference_reads_rate):
     """The CLI (scan with its previews, then the job) on HEVC and AV1
-    sources."""
+    sources; the reference is given the .265's stated rate."""
     jout, tout = str(tmp_path / "ref.out"), str(tmp_path / "port.out")
     assert jcli(["-i", sources[name], "-o", jout, *argv]) == 0
     assert cli(["-i", sources[name], "-o", tout, *argv, "--device",

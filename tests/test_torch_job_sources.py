@@ -5,8 +5,13 @@ JAX package's byte for byte; an H.264 mp4 source and an H.264 mkv source,
 each written by the JAX package, transcode to mp4 and mkv files equal to
 the JAX package's, and so does an annex-B H.264 stream of the JAX
 encoder; a scan of them gives the reference's geometry, crop and preview
-planes, and ``Handle.get_preview`` the reference's preview."""
+planes, and ``Handle.get_preview`` the reference's preview.  The annex-B
+stream states 30000/1001 in its VUI: the port reads that rate and the
+reference is given it (``torch_rates``), and the reference left alone
+still labels the stream 25 fps; a stream that states no rate gives files
+equal to the reference's with neither package given a rate."""
 import functools
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -18,13 +23,16 @@ from handbrake_tpu.cli.__main__ import main as jcli
 from handbrake_tpu.hb import Handle as JHandle
 from handbrake_tpu.job import schema as JS
 from handbrake_tpu.scan import scan_title as j_scan_title
+from handbrake_tpu.sources.raw import AnnexBReader as JAnnexBReader
 from handbrake_tpu_torch import work
 from handbrake_tpu_torch.cli.__main__ import main as cli
 from handbrake_tpu_torch.hb import Handle
 from handbrake_tpu_torch.job import schema as S
 from handbrake_tpu_torch.scan import scan_title
 from handbrake_tpu_torch.sources.mkv import MKVDemuxer
+from handbrake_tpu_torch.sources.raw import AnnexBReader
 from handbrake_tpu_torch.utils.synth import write_y4m
+from torch_rates import reference_reads_rate  # noqa: F401  (a fixture)
 
 W, H, N = 64, 48, 10
 BAR = 8                 # black rows above and below the picture
@@ -50,7 +58,8 @@ def _shared_jax_analyzers():
 def sources(tmp_path_factory):
     """A letterboxed y4m, the JAX package's H.264 mp4 and mkv of it (High
     profile, unscaled, so the bars stay in the picture), and the JAX
-    encoder's annex-B stream of the same frames."""
+    encoder's annex-B stream of the same frames, with the VUI timing
+    (30000/1001) it writes and, as "untimed", without."""
     d = tmp_path_factory.mktemp("tsrc")
     base = (np.add.outer(np.arange(H - 2 * BAR), np.arange(W)) * 3
             % 256).astype(np.uint8)
@@ -71,6 +80,16 @@ def sources(tmp_path_factory):
     out["annexb"] = str(d / "src.264")
     with open(out["annexb"], "wb") as f:
         for y, u, v in frames:
+            f.write(enc.encode_frame(
+                np.concatenate([black[0], y, black[0]]),
+                *(np.concatenate([black[1], c, black[1]]) for c in (u, v))))
+    enc = jenc.H264Encoder(jenc.EncoderConfig(
+        width=W, height=H, qp=26, gop=4, backend="device", deblock=True,
+        cabac=True, transform8x8=True))
+    enc.sps.vui_timing = ()            # an SPS with no VUI
+    out["untimed"] = str(d / "untimed.264")
+    with open(out["untimed"], "wb") as f:
+        for y, u, v in frames[:4]:
             f.write(enc.encode_frame(
                 np.concatenate([black[0], y, black[0]]),
                 *(np.concatenate([black[1], c, black[1]]) for c in (u, v))))
@@ -114,7 +133,8 @@ def test_y4m_job_to_matroska_equals_reference(sources, tmp_path, mux):
 @pytest.mark.parametrize("out_mux", ["mp4", "mkv"])
 @pytest.mark.parametrize("src_mux", ["mp4", "mkv", "annexb"])
 def test_h264_source_transcodes_equal_reference(sources, tmp_path, src_mux,
-                                                out_mux):
+                                                out_mux,
+                                                reference_reads_rate):
     src = sources[src_mux]
     jout = str(tmp_path / f"ref.{out_mux}")
     tout = str(tmp_path / f"port.{out_mux}")
@@ -139,7 +159,8 @@ def test_cli_mkv_source_to_mkv_equals_reference(sources, tmp_path):
 
 
 @pytest.mark.parametrize("kind", ["mp4", "mkv", "annexb"])
-def test_scan_h264_source_equals_reference(sources, kind):
+def test_scan_h264_source_equals_reference(sources, kind,
+                                           reference_reads_rate):
     t = scan_title(sources[kind], preview_count=3, keep_previews=True)
     j = j_scan_title(sources[kind], preview_count=3, keep_previews=True)
     assert (t.width, t.height, t.crop, t.interlaced, t.video_codec,
@@ -152,6 +173,36 @@ def test_scan_h264_source_equals_reference(sources, kind):
     assert len(got) == len(want) >= 1
     for g, w in zip(got, want):
         assert all(np.array_equal(a, np.asarray(b)) for a, b in zip(g, w))
+
+
+def test_reference_left_alone_labels_annexb_25_fps(sources):
+    """Without the rate the test gives it, the reference labels the
+    annex-B stream 25 fps, in its reader and its scan; the port labels it
+    with the 30000/1001 its VUI states."""
+    path = sources["annexb"]
+    assert JAnnexBReader(path).fps == Fraction(25, 1)
+    assert AnnexBReader(path).fps == Fraction(30000, 1001)
+    t = scan_title(path, preview_count=1)
+    j = j_scan_title(path, preview_count=1)
+    assert (j.vrate_num, j.vrate_den) == (25, 1)
+    assert (t.vrate_num, t.vrate_den) == (30000, 1001)
+    assert t.nframes == j.nframes == N
+
+
+@pytest.mark.parametrize("out_mux", ["mp4", "mkv"])
+def test_untimed_annexb_keeps_25_fps_equal_reference(sources, tmp_path,
+                                                     out_mux):
+    """A stream whose SPS has no VUI states no rate: both packages label
+    it 25 fps, with no rate given to either, and their files are equal
+    byte for byte."""
+    src = sources["untimed"]
+    assert AnnexBReader(src).fps == JAnnexBReader(src).fps == 25
+    jout = str(tmp_path / f"ref.{out_mux}")
+    tout = str(tmp_path / f"port.{out_mux}")
+    jstats = jwork.do_job(_job(JS, src, jout, out_mux))
+    tstats = work.do_job(_job(S, src, tout, out_mux), device="cpu")
+    assert tstats == jstats and tstats["frames_out"] == 4
+    assert _bytes(tout) == _bytes(jout)
 
 
 def test_handle_preview_of_h264_source_equals_reference(sources, tmp_path):

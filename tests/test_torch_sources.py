@@ -484,12 +484,8 @@ control.
 # an HEVC track's picture size from its SPS (the reference reads none
 # for HEVC and leaves the track 0x0)
 _TS_HEVC_GEOMETRY = (
-    ("""            except Exception:
-                pass
-        if ti.frame_rate is None:
-""", """            except Exception:
-                pass
-        elif ti.codec == "hevc":
+    ("""        if ti.frame_rate is None:
+""", """        elif ti.codec == "hevc":
             # the picture's size: the SPS's coded size less its
             # conformance window (the reference reads no HEVC SPS here and
             # leaves the track 0x0)
@@ -598,20 +594,19 @@ from .common import DemuxError, TrackInfo
 
 """,
      """from ..core.buffer import Buffer, FrameType
+from ..utils.logging import log
 from .common import (DemuxError, TrackInfo, read_audio_header,
-                     read_mpeg2_header, read_vui_sar)
+                     read_mpeg2_header, read_stream_rate, read_vui_sar)
 
 """),
-    ("""                pass
-        elif ti.codec == "mpeg2":
+    ("""        elif ti.codec == "mpeg2":
             i = bytes(es).find(b"\\x00\\x00\\x01\\xb3")
             if i >= 0 and i + 8 <= len(es):
                 ti.width = (es[i + 4] << 4) | (es[i + 5] >> 4)
                 ti.height = ((es[i + 5] & 15) << 8) | es[i + 6]
         if ti.frame_rate is None:
 """,
-     """                pass
-            read_vui_sar(ti, es, "ps")
+     """            read_vui_sar(ti, es, "ps")
         elif ti.codec == "mpeg2":
             # size, pixel aspect and rate from the sequence header (the
             # reference reads the size alone and labels every track
@@ -627,7 +622,9 @@ from .common import DemuxError, TrackInfo
 
 """,
      """from ..core.buffer import Buffer
-from .common import DemuxError, TrackInfo, read_mpeg2_header, read_vui_sar
+from ..utils.logging import log
+from .common import (DemuxError, TrackInfo, read_audio_header,
+                     read_mpeg2_header, read_stream_rate, read_vui_sar)
 
 """),
     ("""                    break
@@ -646,8 +643,93 @@ from .common import DemuxError, TrackInfo, read_mpeg2_header, read_vui_sar
 """,
      """            ti.frame_rate = (30000, 1001)
         if ti.codec in ("h264", "hevc"):
+            # the rate the stream states (the reference labels every
+            # H.264 and HEVC track 30000/1001)
+            read_stream_rate(ti, es, where)
             read_vui_sar(ti, es, "ts")
 
+"""),
+)
+
+# an H.264 (TS: and HEVC) track's frame rate from the timing its stream
+# states (codecs/vui.stream_rate; the reference parses an SPS that stops
+# before the VUI, so its rate is always the default), the rate's lines and
+# the SPS's read fault logged rather than hidden
+_PS_RATE = (
+    ("""        if ti.codec == "h264":
+            try:
+""", """        if ti.codec == "h264":
+            where = "ps: stream {:#04x}".format(next(
+                k[0] for k, v in self._sid_to_track.items() if v == vids[0]))
+            try:
+"""),
+    ("""                        ti.height = sps.height
+                        if sps.vui_timing:
+                            nu, ts_ = sps.vui_timing
+                            ti.frame_rate = (ts_, nu * 2)
+                        break
+            except Exception:   # noqa: BLE001 — geometry stays unknown
+                pass
+""", """                        ti.height = sps.height
+                        break
+            except (IndexError, ValueError) as e:
+                log(f"{where}: the h264 SPS gives no picture size "
+                    f"({e or 'cut short'}); the track keeps 0x0")
+            # the rate the stream states (the reference labels every
+            # H.264 track 30000/1001)
+            ti.frame_rate = (30000, 1001)
+            read_stream_rate(ti, es, where)
+"""),
+)
+
+_TS_RATE = (
+    ("""        self._fill_video_info()
+
+    def _fill_video_info(self):
+""", """        self._fill_video_info()
+        self._fill_dts_info()
+
+    def _fill_dts_info(self):
+        \"\"\"A DTS track's rate and channels from its first frame: a DTS-HD
+        Master Audio track's are its lossless asset's (the reference
+        leaves every DTS track at 48 kHz stereo).\"\"\"
+        dts = {i: bytearray() for i, t in enumerate(self.tracks)
+               if t.codec == "dts"}
+        if not dts:
+            return
+        # a listed DTS PID that carries little stops the read at 16 MB
+        seen = 0
+        for trk, buf in self.packets():
+            seen += len(buf.data or b"")
+            if trk in dts and buf.data and len(dts[trk]) < 1 << 16:
+                dts[trk] += buf.data
+            if seen >= 1 << 24 or all(len(v) >= 1 << 16
+                                      for v in dts.values()):
+                break
+        for i, es in dts.items():
+            read_audio_header(self.tracks[i], es, f"ts: track {i}")
+
+    def _fill_video_info(self):
+"""),
+    ("""        ti = self.tracks[vids[0]]
+        es = bytearray()
+""", """        ti = self.tracks[vids[0]]
+        where = "ts: pid {:#x}".format(next(
+            k for k, v in self._pid_to_track.items() if v == vids[0]))
+        es = bytearray()
+"""),
+    ("""                        ti.height = sps.height
+                        if sps.vui_timing:
+                            num_units, time_scale = sps.vui_timing
+                            ti.frame_rate = (time_scale, num_units * 2)
+                        break
+            except Exception:
+                pass
+""", """                        ti.height = sps.height
+                        break
+            except (IndexError, ValueError) as e:
+                log(f"{where}: the h264 SPS gives no picture size "
+                    f"({e or 'cut short'}); the track keeps 0x0")
 """),
 )
 
@@ -1396,12 +1478,92 @@ class _DisplaySets:
 )
 
 
+# compressed sound in AVI (WAVEFORMATEX tags 0x50, 0x55, 0x2000, 0x2001)
+# listed as mp2, mp3, ac3 and dts, an unknown tag logged, and their chunks
+# timed as libavformat's avidec times them (the reference lists every
+# such track as unknown, its chunks with no pts)
+_AVI_SOUND = (
+    ('''from ..core.buffer import Buffer
+from .common import CLOCK, DemuxError, TrackInfo
+''', '''from ..core.buffer import Buffer
+from ..utils.logging import log
+from .common import CLOCK, DemuxError, TrackInfo
+'''),
+    ('''
+
+def probe_is_avi(path: str) -> bool:''', '''
+
+# The port also lists MPEG audio (WAVEFORMATEX tag 0x50, "mp2"; 0x55,
+# "mp3"), AC-3 (0x2000) and DTS (0x2001) tracks, which the reference lists
+# as "unknown"; any other tag but PCM stays "unknown" and is logged.  Such
+# a track's chunks carry timestamps as libavformat's avidec gives them:
+# where the stream header's dwSampleSize is 0 a chunk is one frame, at
+# dwScale/dwRate seconds a chunk; else the bytes before a chunk at the
+# format's nAvgBytesPerSec.  The job cuts the chunks into whole frames.
+_AUD_CODECS = {0x50: "mp2", 0x55: "mp3", 0x2000: "ac3", 0x2001: "dts"}
+
+
+def probe_is_avi(path: str) -> bool:'''),
+    ('''        self._rates = {}           # avi stream index → Fraction fps
+''', '''        self._rates = {}           # avi stream index → Fraction fps
+        # avi stream index → (dwScale, dwRate, dwSampleSize) of a sound
+        # stream, then its nAvgBytesPerSec where it is framed
+        self._clock = {}
+'''),
+    ('''                    self._rates[sidx] = Fraction(rate, max(1, scale))
+                    self.tracks.append(ti)
+''', '''                    self._rates[sidx] = Fraction(rate, max(1, scale))
+                    self._clock[sidx] = (scale, rate, struct.unpack(
+                        "<I", data[44:48])[0] if len(data) >= 48 else 0)
+                    self.tracks.append(ti)
+'''),
+    ('''                        if fmt == 1 else "unknown"
+''', '''                        if fmt == 1 else _AUD_CODECS.get(fmt, "unknown")
+                    sidx = self._next_sidx - 1
+                    if t.codec in _AUD_CODECS.values():
+                        self._clock[sidx] += struct.unpack(
+                            "<I", data[8:12])
+                    elif t.codec == "unknown":
+                        log(f"avi: stream {sidx}: sound of WAVEFORMATEX tag "
+                            f"{fmt:#06x}, which the port neither decodes "
+                            f"nor copies; listed as unknown")
+'''),
+    ('''        counts = {}
+        pos = off''', '''        counts = {}
+        sizes = {}                 # bytes of each stream's chunks so far
+        pos = off'''),
+    ('''            else:
+                rate = self._rates.get(sidx) or 1
+                b.pts = None
+''', '''            else:
+                b.pts = self._sound_pts(sidx, n, sizes.get(sidx, 0))
+                sizes[sidx] = sizes.get(sidx, 0) + csz
+'''),
+    ('''    def seek(self, pts):
+        return None
+''', '''    def _sound_pts(self, sidx: int, n: int, before: int):
+        \"\"\"The 90 kHz pts of chunk ``n`` of framed sound stream ``sidx``,
+        after ``before`` bytes of it (None for PCM, as the reference).\"\"\"
+        clock = self._clock.get(sidx, ())
+        if len(clock) < 4:
+            return None
+        scale, rate, sample_size, avg = clock
+        if not sample_size and rate:
+            return n * CLOCK * scale // rate
+        return before * CLOCK // avg if avg else None
+
+    def seek(self, pts):
+        return None
+'''),
+)
+
 COPIES = {
-    "sources/ps.py": _PS_ASPECT + _PS_DTS,
+    "sources/ps.py": _PS_ASPECT + _PS_DTS + _PS_RATE,
     "sources/dvd.py": _DVD_VIDEO_ATTRS + _DVD_AUDIO_ATTRS,
-    "sources/ts.py": _TS_HEVC_GEOMETRY + _TS_ASPECT + _TS_BD_STREAMS,
+    "sources/ts.py": (_TS_HEVC_GEOMETRY + _TS_ASPECT + _TS_BD_STREAMS
+                      + _TS_RATE),
     "sources/bd.py": (),
-    "sources/avi.py": _AVI_MPEG4,      # MPEG-4 part 2 in AVI
+    "sources/avi.py": _AVI_MPEG4 + _AVI_SOUND,   # MPEG-4 part 2, sound
     "native/hbdecmjpeg.cpp": (),
     "codecs/mpeg2.py": _MPEG2_FIELD_DCT + _MPEG2_ASPECT,
 }
