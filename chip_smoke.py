@@ -397,6 +397,15 @@ Phases (none is caught; any failure exits non-zero before the last line):
    (c) the committed MJPEG AVI's first six frames with an MP2 track
    through the default preset: the MP2 decoded to AAC (finite, its
    length the MP2's), the file equal to the CPU run's.
+23. HandBrake's peak-rate shaping, one JSON line with the card's name and
+   power limit: R23_N 1280x720 frames coded on the card at 60 fps in an
+   mp4 with a 48 kHz stereo AAC track as long, through the CLI's
+   default preset (peak 30): 6 video samples of 3000 ticks, the video as
+   long as the source's and within a peak frame time of the sound (less
+   its two AAC encoders' latency), the coded VUI and the encoder at 30,
+   the ``pfr:`` log line, deblock264 launched for each kept P frame, and
+   the file equal to the same CLI job's on the CPU (a process of its
+   own, started first).
 20. Print the kernels line (deblock264: ``ms`` is step 4's time, beside
    the bytes bound and the dependency-chain floor; ``job_launches`` are
    step 5's, 7's and 8's counts, ``ms_letterbox_input`` step 5 (e)'s
@@ -411,9 +420,9 @@ Phases (none is caught; any failure exits non-zero before the last line):
    ``job_launches`` include 11 (b)'s resumed job, the four jobs of step
    12, 17 (a)-(b), 18 (a)-(b) and 19 (a)-(c)'s resumes; resample's
    those of 12 (a)-(b), 17 (a)-(b), 18 (a)-(b) and 19 (b)-(c)'s
-   resumes, and 22's four jobs; hqdn3d's 19 (a)'s resume), steps 7's to
-   22's numbers, the card's name and power limit, and the result
-   line.
+   resumes, and 22's four jobs, 23's job; hqdn3d's 19 (a)'s resume),
+   steps 7's to 23's numbers, the card's name and power limit, and the
+   result line.
 
 Step 14's ranks run this script with ``--mesh-rank KIND DIR ARGV...``
 (above).  Step 13's helper processes run it with: ``--decode-check
@@ -428,7 +437,8 @@ with several cards.  ``--anamorphic-only`` runs step 1's build and step
 17 alone and prints no result line; ``--audio-copy-only`` the build and
 step 18; ``--resumes-only`` the build and step 19; ``--discs-only`` the
 build and step 12, on step 7's stream encoded anew on the card;
-``--rates-only`` the build and step 22.
+``--rates-only`` the build and step 22; ``--pfr-only`` the build and
+step 23.
 
 Imports nothing of JAX and nothing of ``handbrake_tpu``.
 """
@@ -656,6 +666,14 @@ R19_DVD_N, R19_DVD_KEYINT, R19_DVD_CUT = 16, 7, 2
 # each is also coded by a CPU run), the sound frames of (b), the MJPEG
 # frames of (c) and the OpenMP threads of each of the three CPU runs
 R22_N, R22_SOUND_N, R22_MJPEG_N, R22_THREADS = 3, 12, 6, 2
+# step 23: the 60 fps source's frames, size and frame ticks, the default
+# preset's peak rate, the OpenMP threads of its CPU run; its sound's
+# latency, in ticks, that no edit list marks: a frame of 1024 samples
+# for each of the two AAC encoders it went through (the source's, the
+# job's)
+R23_N, R23_SIZE, R23_SRC_TICKS, R23_PEAK, R23_THREADS = 12, (1280, 720), \
+    1500, 30, 4
+R23_AAC_LATENCY = 2 * 1024 * 90000 // 48000
 
 
 def smi(query):
@@ -5421,6 +5439,114 @@ def rates_only() -> int:
     return 0
 
 
+def phase_pfr(tmp, label):
+    """23: HandBrake's peak-rate shaping on the card, one JSON line with
+    the card's name and power limit.  Its helper process is stopped when
+    it ends, whether it passes or fails."""
+    try:
+        return pfr_part(tmp, label)
+    finally:
+        for p in PROCS:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def pfr_source(path):
+    """23's source: R23_N 1280x720 frames coded on the card at 60 fps
+    (the VUI states it) in an mp4 whose samples last 1500 ticks, with a
+    48 kHz stereo AAC track (the port's AACEncoder) as long, each sound
+    frame after the video frame it starts under."""
+    import torch
+    from handbrake_tpu_torch.audio.aac import AACEncoder
+    from handbrake_tpu_torch.codecs.h264.encoder import (EncoderConfig,
+                                                         H264Encoder)
+    from handbrake_tpu_torch.mux.mp4 import MP4Writer
+    from handbrake_tpu_torch.utils.synth import make_clip
+    w, h = R23_SIZE
+    enc = H264Encoder(EncoderConfig(width=w, height=h, qp=QP, gop=600,
+                                    deblock=True, cabac=True,
+                                    transform8x8=True, fps=(60, 1)))
+    video = [enc.encode_frame(*f) for f in make_clip(w, h, R23_N, seed=23)]
+    torch.cuda.synchronize()
+    pcm = tone(48000, 2, R23_N * R23_SRC_TICKS * 48000 // 90000, 23)
+    aac = AACEncoder(48000, 2)
+    sound = aac.encode(pcm) + aac.flush()
+    mp4 = MP4Writer(path)
+    vi = mp4.add_video_track(codec="h264", width=w, height=h)
+    ai = mp4.add_audio_track(codec="aac", sample_rate=48000, channels=2,
+                             extradata=aac.audio_specific_config())
+    k = 0
+    for i, au in enumerate(video):
+        mp4.write_sample(vi, au, duration=R23_SRC_TICKS, sync=i == 0,
+                         annexb=True)
+        while k < len(sound) and (k * 1024 * 90000 < (i + 1)
+                                  * R23_SRC_TICKS * 48000 or i == R23_N - 1):
+            mp4.write_sample(ai, sound[k], duration=1024)
+            k += 1
+    mp4.finalize()
+
+
+def pfr_part(tmp, label):
+    from handbrake_tpu_torch.codecs.vui import stream_rate
+    t0 = time.perf_counter()
+    src = os.path.join(tmp, "r23_60p.mp4")
+    pfr_source(src)
+    out, out_cpu = (os.path.join(tmp, f"r23{k}.mp4") for k in ("", "_cpu"))
+    cpu = start_process(tmp, "r23_cpu", [
+        "-m", "handbrake_tpu_torch.cli", "-i", src, "-o", out_cpu,
+        "--previews", "1", "--device", "cpu"], threads=R23_THREADS)
+    rec = {"phase": "23", "part": "23", "card": label,
+           "source_s": time.perf_counter() - t0}
+    with log_lines() as lines:
+        secs, dev_ms, db, rs, spy = disc_job("cli", [
+            "-i", src, "-o", out, "--previews", "1"])
+    info, _samples = read_mp4(out)
+    video, sound = stts_durations(out)[:2]
+    peak_ticks = 90000 // R23_PEAK
+    rec.update(do_job_s=secs, device_ms=dev_ms, deblock264_launches=db,
+               resample_launches=rs, p_frames=spy.p_frames(),
+               encoder_fps=list(spy.enc.cfg.fps),
+               vui_rate=str(stream_rate("h264", info.extradata)[0]),
+               stts=video, video_ticks=sum(video),
+               sound_ticks=sum(sound) * 90000 // 48000 - R23_AAC_LATENCY,
+               source_ticks=R23_N * R23_SRC_TICKS,
+               pfr_log=next((ln.split("hbtpu: ", 1)[-1] for ln in lines
+                             if ln.split("hbtpu: ", 1)[-1].startswith(
+                                 "pfr: ")), None))
+    want_log = (f"pfr: {R23_N // 2} frames dropped to hold the peak of "
+                f"{R23_PEAK}/1 fps; the source runs at 60/1 fps, the "
+                f"encoder and its rate control at {R23_PEAK}/1 fps")
+    finish_process(cpu)
+    rec["equal_cpu_file"] = same_file(out, out_cpu)
+    rec["ok"] = (video == [peak_ticks] * (R23_N // 2)
+                 and rec["video_ticks"] == rec["source_ticks"]
+                 and abs(rec["video_ticks"] - rec["sound_ticks"])
+                 <= peak_ticks
+                 and rec["vui_rate"] == str(R23_PEAK)
+                 and rec["encoder_fps"] == [R23_PEAK, 1]
+                 and rec["pfr_log"] == want_log
+                 and db >= rec["p_frames"] == R23_N // 2 - 1
+                 and rec["equal_cpu_file"])
+    rec["seconds"] = time.perf_counter() - t0
+    print(json.dumps(rec), flush=True)
+    print(f"phase 23 ({label}): {rec['seconds']:.1f} s", flush=True)
+    if not rec["ok"]:
+        raise RuntimeError("23: the peak-rate job's checks failed")
+    return rec
+
+
+def pfr_only() -> int:
+    """Steps 1 and 23 alone (``--pfr-only``)."""
+    import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
+    label = card()
+    print(f"card: {label}", flush=True)
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_pfr(tmp, label)
+    return 0
+
+
 def resumes_only() -> int:
     """Steps 1 and 19 alone (``--resumes-only``)."""
     import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
@@ -5518,6 +5644,8 @@ def main() -> int:
         return discs_only()
     if sys.argv[1:2] == ["--rates-only"]:
         return rates_only()
+    if sys.argv[1:2] == ["--pfr-only"]:
+        return pfr_only()
     import handbrake_tpu_torch  # noqa: F401  (fails outside the repo)
     from handbrake_tpu_torch.utils.device import resolve_device
     resolve_device(None)
@@ -5548,6 +5676,7 @@ def main() -> int:
         acopy = phase_audio_copy(tmp, label)
         res = phase_resumes(tmp, label)
         rates = phase_rates(tmp, label)
+        pfr = phase_pfr(tmp, label)
     entry.update(launches=launches, ms=ms, bound_ms=b["bound_ms"],
                  bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
                  chain_floor_us=b["chain_floor_us"],
@@ -5594,7 +5723,9 @@ def main() -> int:
                                "dts_ma_adts_copies_mkv_cli":
                                    rates["b"]["deblock264_launches"],
                                "avi_mjpeg_mp2_cli":
-                                   rates["c"]["deblock264_launches"]})
+                                   rates["c"]["deblock264_launches"],
+                               "pfr_60p_720p_cli":
+                                   pfr["deblock264_launches"]})
     rs_entry = {
         "name": "resample", "route": "cuda",
         "source": "handbrake_tpu_torch/csrc/resample.cu",
@@ -5655,6 +5786,7 @@ def main() -> int:
     print(f"phase 18 seconds: {acopy['seconds']:.1f}", flush=True)
     print(f"phase 19 seconds: {res['seconds']:.1f}", flush=True)
     print(f"phase 22 seconds: {rates['seconds']:.1f}", flush=True)
+    print(f"phase 23 seconds: {pfr['seconds']:.1f}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [entry, hq_entry, rs_entry]}))
     print(label)

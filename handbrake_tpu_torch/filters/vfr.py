@@ -7,6 +7,17 @@ small candidate queue is kept and the frame with the lowest motion metric
 (most similar to its neighbours — SAD on device, motion_metric.c analog)
 is the one dropped.
 
+PFR holds the stream at or under a peak rate as vfr.c's
+adjust_frame_rate does: a clock counts the frames kept, each a peak
+frame time F long from the first frame's start; a frame that stops a
+whole F or more before the clock's next tick is dropped, and a kept
+frame starts where the last kept one stopped and stops at its own stop
+or at the clock's tick, whichever is later.  So a faster source keeps
+its length (60 fps into peak 30: every other frame, each 2 source
+frames long), and a source at or under the peak keeps its own times
+where its frames are contiguous.  The rate that leaves the filter is
+the lower of the source's and the peak.
+
 The counterpart of ``handbrake_tpu/filters/vfr.py``: the motion metric
 is the reference's f32 mean, summed in the order XLA:CPU sums it (see
 ``motion_metric``), so a near-tie between two candidates, where the f32
@@ -114,18 +125,28 @@ class VFRFilter(Filter):
         self.last_emitted = None
         self.drops = 0
         self.dups = 0
+        self.count = 0            # PFR: frames kept
+        self.origin = None        # PFR: the first frame's start
+        self.last_stop = None     # PFR: the last kept frame's stop
         self.fi = fi.copy()
         self.fi.cfr = self.mode
         if self.mode == 1:
             self.fi.vrate = self.rate
+        elif self.mode == 2 and fi.vrate:
+            # the frames kept run at the lower of the two rates
+            self.fi.vrate = min(fi.vrate, self.rate)
         return self.fi
 
     def keeps_state(self):
-        """Frame-local in VFR mode (it passes every frame on); the CFR
-        and PFR modes drop and add frames."""
-        if self.mode in (1, 2):
-            return (f"changes the frame count "
-                    f"({'CFR' if self.mode == 1 else 'PFR'} mode)")
+        """Frame-local in VFR mode (it passes every frame on); CFR
+        duplicates and drops frames against its grid, and PFR drops a
+        frame by how many frames it has kept and re-times each kept frame
+        from the last one's stop."""
+        if self.mode == 1:
+            return "changes the frame count (CFR mode)"
+        if self.mode == 2:
+            return ("drops and re-times frames by the frames kept before "
+                    "(PFR mode)")
         return None
 
     # -- CFR engine ----------------------------------------------------------
@@ -186,17 +207,22 @@ class VFRFilter(Filter):
         return out
 
     def _emit_pfr(self, buf: Buffer) -> list:
-        # cap: drop frames that would exceed peak rate; keep timestamps.
-        # A third-of-a-frame tolerance absorbs container timestamp
-        # jitter (mkv stores ms: a 30 fps stream lands at 2970/3060-tick
-        # intervals) without letting a genuinely faster stream through.
-        if self.out_pts is None:
-            self.out_pts = Fraction(buf.pts or 0)
-        start = Fraction(buf.pts if buf.pts is not None else self.out_pts)
-        if start < self.out_pts - self.frame_ticks / 3:
+        # vfr.c adjust_frame_rate: cfr_stop is where this frame would
+        # stop if every frame kept so far had run at the peak rate
+        start = buf.pts if buf.pts is not None else (self.last_stop or 0)
+        stop = start + (buf.duration or int(self.frame_ticks))
+        if self.origin is None:
+            self.origin = self.last_stop = start
+        cfr_stop = self.origin + self.frame_ticks * (self.count + 1)
+        if cfr_stop - stop >= self.frame_ticks:
+            # a whole peak frame time or more behind the clock
             self.drops += 1
             return []
-        self.out_pts = start + self.frame_ticks
+        buf.pts = self.last_stop
+        buf.stop = stop if stop > cfr_stop else int(cfr_stop)
+        buf.duration = buf.stop - buf.pts
+        self.count += 1
+        self.last_stop = buf.stop
         return [buf]
 
     def work(self, buf: Buffer) -> list:

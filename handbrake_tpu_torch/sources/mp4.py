@@ -9,6 +9,7 @@ annex-B for the decoders, and yields packets in interleaved dts order.
 from __future__ import annotations
 
 import struct
+from fractions import Fraction
 from typing import Optional
 
 from ..core.buffer import Buffer, FrameType, CLOCK
@@ -56,9 +57,10 @@ def _find_all(data: bytes, typ: bytes, start, end):
 
 class _SampleTable:
     __slots__ = ("offsets", "sizes", "dts", "durations", "cts_offsets",
-                 "sync")
+                 "sync", "rate")
 
     def __init__(self):
+        self.rate = None           # samples a second, where stts has one
         self.offsets = []
         self.sizes = []
         self.dts = []
@@ -161,6 +163,8 @@ class MP4Demuxer:
                        language=lang if lang.isalpha() else "und")
         self._parse_stsd(moov, stbl, ti)
         st = self._parse_sample_tables(moov, stbl, timescale)
+        if kind == "video" and st.rate is not None:
+            ti.frame_rate = (st.rate.numerator, st.rate.denominator)
         if ti.codec == "mp3" and st.offsets:
             # objectTypeIndication 0x6B/0x69 names MPEG audio of any
             # layer: the first frame's layer bits tell Layer II (and I)
@@ -326,6 +330,11 @@ class MP4Demuxer:
                     t += d
         st.dts = [to_90k(t, timescale) for t in dts_native[:n]]
         st.durations = [to_90k(d, timescale) for d in durs_native[:n]]
+        # one duration for every sample (the last may be cut short): the
+        # rate the container states, as libavformat reads it
+        if n and durs_native[0] and len(set(durs_native[:max(1, n - 1)])) \
+                == 1:
+            st.rate = Fraction(timescale, durs_native[0])
         # ctts
         r = full(b"ctts")
         st.cts_offsets = [0] * n

@@ -819,7 +819,10 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     # → mux). IO, device analysis, host entropy coding and mux overlap
     # across the four threads; fifo capacity is the backpressure.
     stats = {"frames_in": 0, "frames_out": 0, "bytes_out": 0}
-    nframes = getattr(src, "n_frames", 0) or (
+    # the frames the encoder codes, at the rate that leaves the filters
+    # (a peak-rate shaper keeps 30 of a 60 fps source's frames a second)
+    n_src = getattr(src, "n_frames", 0)
+    nframes = n_src * out_vrate / vrate if n_src else (
         getattr(src, "duration", 0) * out_vrate.numerator
         // max(1, out_vrate.denominator * CLOCK))
     progress = Progress(int(nframes) or 1, state.update if state else
@@ -859,6 +862,12 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
     pl.run()          # joins on the mux thread (work.c:2287)
     if pl.error is not None:
         raise pl.error
+    pfr = next((f for f in graph.filters
+                if f.name == "vfr" and f.mode == 2 and f.drops), None)
+    if pfr is not None and job.pass_id != 1:
+        log(f"pfr: {pfr.drops} frames dropped to hold the peak of "
+            f"{_fps(pfr.rate)} fps; the source runs at {_fps(vrate)} fps, "
+            f"the encoder and its rate control at {_fps(out_vrate)} fps")
     if ckpt is not None:
         # a checkpointed or resumed job says how it decoded
         stats.update(resume="keyframe" if skip is not None else
@@ -874,6 +883,10 @@ def _run(job: Job, src, state, die, pause, dev: torch.device) -> dict:
         state.update(progress=1.0)
     stats["width"], stats["height"] = out_w, out_h
     return stats
+
+
+def _fps(rate: Fraction) -> str:
+    return f"{rate.numerator}/{rate.denominator}"
 
 
 def _resume_path(graph, point, n_done: int) -> tuple:

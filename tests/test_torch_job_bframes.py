@@ -39,6 +39,7 @@ from handbrake_tpu_torch.job import schema as S
 from handbrake_tpu_torch.mux.mp4 import MP4Writer
 from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
 from handbrake_tpu_torch.utils.synth import make_clip, write_y4m
+from torch_rates import reference_reads_mp4_rate  # noqa: F401  (a fixture)
 
 W, H, N = 96, 64, 11
 FRAME = 3000
@@ -310,7 +311,11 @@ def _sei_payloads(samples):
 
 
 @pytest.mark.parametrize("mux", ["mp4", "mkv"])
-def test_sei_job_equals_reference(sei_src, tmp_path, mux):
+def test_sei_job_equals_reference(sei_src, tmp_path, mux,
+                                  reference_reads_mp4_rate):
+    """The mp4 source's samples last 3000 ticks, so the port labels it 30
+    fps from its stts, and the reference is given that rate
+    (``torch_rates``)."""
     def job(Sm, out):
         return Sm.Job(path=sei_src, file=out, mux=mux, vcodec="h264",
                       quality=28.0, encoder_profile="high",
@@ -331,10 +336,11 @@ def test_sei_job_equals_reference(sei_src, tmp_path, mux):
         assert msgs == static + [(4, _t35(k))], k
 
 
-def test_b_job_writes_no_sei(sei_src, tmp_path):
+def test_b_job_writes_no_sei(sei_src, tmp_path, reference_reads_mp4_rate):
     """The reference writes SEIs only for an encoder whose class name
     holds "H264"; its B-frame adapter's does not, so neither package
-    writes them on a B-frame job (a fault the two share)."""
+    writes them on a B-frame job (a fault the two share).  The source's
+    30 fps is the reference's too, as above."""
     jout, tout = str(tmp_path / "ref.mp4"), str(tmp_path / "port.mp4")
     jwork.do_job(_bjob(JS, sei_src, jout, "mp4"))
     work.do_job(_bjob(S, sei_src, tout, "mp4"), device="cpu")

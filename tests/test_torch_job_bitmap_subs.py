@@ -13,6 +13,7 @@ encoder and muxer write (96x64, 10 frames of H.264):
   (``codecs/hdr.py``), so the GA94 SEIs come through in both files.
 """
 import functools
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -34,6 +35,8 @@ from handbrake_tpu_torch.subtitles.vobsub import build_spu
 from handbrake_tpu_torch.utils.synth import make_clip
 from test_torch_subtitles import _pairs_for, ga94_sei
 from torch_rates import reference_reads_rate  # noqa: F401  (a fixture)
+from torch_rates import (reference_rule, shaper_input, times_of, vfr_c_rule,
+                         vfr_c_shaper, video_times)
 
 W, H, N = 96, 64, 10
 FRAME = 3000
@@ -168,9 +171,28 @@ def test_scan_finds_the_caption_track(sources):
     ("cc", ["-s", "1"])], ids=["pgs-burned", "cc"])
 def test_cli_subtitle_selection_equals_reference(sources, tmp_path, src,
                                                  extra, reference_reads_rate):
+    """The PGS source's mkv states a default duration of 33333333 ns, a
+    hair over 30 fps, so its frames reach the default preset's peak-rate
+    shaper (30) 2999 ticks long: the port's shaper stops each on the
+    peak's grid, 3000 ticks apart, at 30 fps (vfr.c's rule, ROADMAP
+    3.20), so the file equals the reference's with its shaper on that
+    rule; the reference's own shaper keeps the 2999 ticks."""
     jout, tout = str(tmp_path / "ref.mkv"), str(tmp_path / "port.mkv")
     args = ["-i", sources[src], "-e", "h264", "-q", "28",
             "--encoder-profile", "high", "--crop", "0:0:0:0", *extra]
-    assert jcli([*args, "-o", jout]) == 0
-    assert cli([*args, "-o", tout, "--device", "cpu"]) == 0
+    with vfr_c_shaper():
+        assert jcli([*args, "-o", jout]) == 0
+    with shaper_input() as frames:
+        assert cli([*args, "-o", tout, "--device", "cpu"]) == 0
     assert _bytes(tout) == _bytes(jout)
+    peak = Fraction(30)
+    if src == "pgs":
+        own = str(tmp_path / "ref_own.mkv")
+        assert jcli([*args, "-o", own]) == 0
+        assert {d for _p, d in frames} == {2999}
+        assert video_times(tout) == times_of(vfr_c_rule(frames, peak), True)
+        assert video_times(own) == times_of(reference_rule(frames, peak),
+                                            True)
+    else:                        # 30000/1001: the rule keeps every time
+        assert vfr_c_rule(frames, peak) == [
+            (i, p, d) for i, (p, d) in enumerate(frames)]

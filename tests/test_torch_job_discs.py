@@ -13,6 +13,7 @@ The DVD job's mp4 equals the reference's apart from the AC-3 copy's
 a guess from the track's channel count (``dac3_apart``)."""
 import functools
 import os
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -34,6 +35,8 @@ from handbrake_tpu_torch.tools import source_builders as B
 from handbrake_tpu_torch.work import WorkError
 from test_torch_sources import (FRAME, T0, ac3_frames, dvd_units, h264_aus,
                                 h264_ts, mp2_frames)
+from torch_rates import (reference_rule, shaper_input, times_of,
+                         vfr_c_rule, vfr_c_shaper, video_times)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -169,13 +172,27 @@ def test_disc_and_stream_jobs_equal_reference(sources, tmp_path, name):
 
 
 def test_cli_on_a_dvd_folder_equals_reference(sources, tmp_path):
-    """-t 1 -c 2 -m: title 1's second chapter, with its marker."""
+    """-t 1 -c 2 -m: title 1's second chapter, with its marker.  Where
+    the two VOBs meet the sync leaves a frame of 18 ticks, which the
+    default preset's peak-rate shaper (30) counts as a whole frame, so
+    the frames after it stop on the peak's grid (vfr.c's rule, ROADMAP
+    3.20): the file equals the reference's with its shaper on that
+    rule, and the reference's own shaper keeps each frame's own times
+    and drops the frame after the short one."""
     jout, tout = str(tmp_path / "ref.mp4"), str(tmp_path / "port.mp4")
     args = ["-i", sources["dvd"], "-t", "1", "-c", "2", "-m", "-e", "h264",
             "-q", "28", "--encoder-profile", "high"]
-    assert jcli([*args, "-o", jout]) == 0
-    assert cli([*args, "-o", tout, "--device", "cpu"]) == 0
+    with vfr_c_shaper():
+        assert jcli([*args, "-o", jout]) == 0
+    with shaper_input() as frames:
+        assert cli([*args, "-o", tout, "--device", "cpu"]) == 0
     assert _bytes(tout) == _bytes(jout)
+    own = str(tmp_path / "ref_own.mp4")
+    assert jcli([*args, "-o", own]) == 0
+    peak = Fraction(30)
+    assert video_times(tout) == times_of(vfr_c_rule(frames, peak))
+    assert video_times(own) == times_of(reference_rule(frames, peak))
+    assert any(d < 100 for _p, d in frames)
     d = MP4Demuxer(tout)
     assert 0 < d.n_samples(0) < 12
     d.close()

@@ -26,7 +26,8 @@ from handbrake_tpu_torch.mux.mp4 import MP4Writer
 from handbrake_tpu_torch.sources.probe import open_source
 from handbrake_tpu_torch.sync.sync import SyncCore
 from handbrake_tpu_torch.utils.synth import make_clip
-from torch_rates import reference_reads_rate  # noqa: F401  (a fixture)
+from torch_rates import (reference_reads_mp4_rate,  # noqa: F401
+                         reference_reads_rate)      # (fixtures)
 
 
 def _jobs(S):
@@ -229,11 +230,13 @@ def _write_sources(d):
 
 
 @pytest.mark.parametrize("kind", ["annexb", "mp4", "y4m"])
-def test_sources_equal_reference(tmp_path, kind, reference_reads_rate):
+def test_sources_equal_reference(tmp_path, kind, reference_reads_rate,
+                                 reference_reads_mp4_rate):
     """open_source of each container the port opens gives the reference
     demuxer's tracks and packets, and seeks to the same place.  The
-    annex-B stream states 30000/1001, which the port reads and the
-    reference is given (``torch_rates``)."""
+    annex-B stream states 30000/1001, which the port reads, and so do
+    the mp4's samples of 3003 ticks, which the port labels it with; the
+    reference is given both (``torch_rates``)."""
     path = _write_sources(tmp_path)[kind]
 
     def read(opener):

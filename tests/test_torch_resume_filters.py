@@ -15,6 +15,7 @@ one wherever the chain keeps state or changes the frame count; that is
 held here as it is.  The crash is simulated as in
 ``test_torch_checkpoint.py``: the journal is kept at the end of a
 checkpointed run and cut after a marker."""
+import contextlib
 import os
 
 import numpy as np
@@ -26,12 +27,14 @@ from handbrake_tpu_torch.codecs import registry
 from handbrake_tpu_torch.codecs.h264.encoder import EncoderConfig, H264Encoder
 from handbrake_tpu_torch.job import schema as S
 from handbrake_tpu_torch.mux.mp4 import MP4Writer
+from handbrake_tpu_torch.sources.mp4 import MP4Demuxer
 from handbrake_tpu_torch.utils import logging as plog
 from handbrake_tpu_torch.utils.synth import (make_clip, make_interlaced_clip,
                                               write_y4m)
 from test_torch_checkpoint import (FPS, H, N, W, _bytes, _crash, _cut,
                                    _job, _run, _samples,
                                    _shared_jax_analyzers)  # noqa: F401
+from torch_rates import vfr_c_shaper
 
 CROP = {"crop-top": 8, "crop-bottom": 8, "crop-left": 8, "crop-right": 8,
         "width": 32, "height": 24}
@@ -124,7 +127,8 @@ def _chain_job(Sm, chain, sources, out, **kw):
 def checkpointed(sources, tmp_path_factory):
     """(file, journal) of each package's checkpointed run of a chain,
     kept as a kill after the last GOP would keep them: the file is the
-    uninterrupted one."""
+    uninterrupted one.  "jax-vfr-c" is the reference with its peak-rate
+    shaper on vfr.c's rule, as the port's is."""
     d = tmp_path_factory.mktemp("resume_runs")
     cache = {}
 
@@ -132,13 +136,27 @@ def checkpointed(sources, tmp_path_factory):
         if (pkg, chain) not in cache:
             Sm = S if pkg == "torch" else JS
             out = str(d / f"{pkg}_{chain}.mp4")
-            with pytest.MonkeyPatch.context() as m:
+            shaper = vfr_c_shaper() if pkg == "jax-vfr-c" \
+                else contextlib.nullcontext()
+            with pytest.MonkeyPatch.context() as m, shaper:
                 _crash(m, pkg)
                 _run(pkg, _chain_job(Sm, chain, sources, out,
                                      checkpoint=True))
             cache[pkg, chain] = (_bytes(out), _bytes(out + ".ckpt"))
         return cache[pkg, chain]
     return get
+
+
+def _durations(data, tmp_path):
+    """The video sample durations of an mp4 file's bytes."""
+    path = str(tmp_path / "durations.mp4")
+    with open(path, "wb") as f:
+        f.write(data)
+    d = MP4Demuxer(path)
+    try:
+        return d._samples[0].durations
+    finally:
+        d.close()
 
 
 def _resumed(pkg, chain, sources, checkpointed, gops, path):
@@ -167,7 +185,15 @@ def test_resumed_file_equals_uninterrupted(chain, gops, sources,
     frame_local = CHAINS[chain][0] == [] or chain == "crop-scale"
     assert stats["resume"] == ("keyframe" if frame_local else "start")
     jwant, _ = checkpointed("jax", chain)
-    assert want == jwant
+    if chain == "pfr-half":
+        # vfr.c's rule (ROADMAP 3.20) keeps the frames the reference
+        # keeps, each lasting two source frames; the reference's own
+        # keeps each one's 3003 ticks
+        assert want == checkpointed("jax-vfr-c", chain)[0]
+        assert [_durations(f, tmp_path) for f in (want, jwant)] == [
+            [6006] * 12, [3003] * 12]
+    else:
+        assert want == jwant
     jgot, _ = _resumed("jax", chain, sources, checkpointed, gops,
                        str(tmp_path / "jax.mp4"))
     assert (jgot == jwant) == CHAINS[chain][2][gops - 1]

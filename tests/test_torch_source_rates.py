@@ -13,8 +13,9 @@
   reference's); the reference labels each 30000/1001;
 - jobs: the file carries the rate in the coded VUI and in the mp4
   ``stts`` or the mkv ``DefaultDuration``, and the default preset's
-  peak-rate shaper (30 fps) drops frames of a 50 fps stream, which the
-  reference, at 25, would not.
+  peak-rate shaper (30 fps) brings a 50 fps stream to 30 fps at its own
+  length (ROADMAP 3.20), where the reference, given the stream's rate,
+  halves it.
 
 The streams are the port's own encoders' on the CPU (64x64, three to
 six frames), laid into PS and TS by ``tools/source_builders.py``; the
@@ -26,6 +27,7 @@ from fractions import Fraction
 
 import pytest
 
+from handbrake_tpu.cli.__main__ import main as jcli
 from handbrake_tpu.scan import scan_title as jscan
 from handbrake_tpu.sources.ps import PSDemuxer as JPSDemuxer
 from handbrake_tpu.sources.raw import AnnexBReader as JAnnexBReader
@@ -47,6 +49,7 @@ from handbrake_tpu_torch.sources.ts import TSDemuxer
 from handbrake_tpu_torch.tools import source_builders as B
 from handbrake_tpu_torch.utils.synth import make_clip
 from torch_par import mkv_elements, mp4_boxes
+from torch_rates import reference_reads_rate  # noqa: F401  (a fixture)
 
 W = H = 64
 N = 3
@@ -328,16 +331,29 @@ def test_ts_25p_job_carries_the_rate(tmp_path, codec, vcodec):
         j.close()
 
 
-@pytest.mark.parametrize("rate,kept", [("50", 3), ("25", 6)])
-def test_default_preset_shapes_from_the_true_rate(tmp_path, rate, kept):
+@pytest.mark.parametrize("rate,ref_kept", [("50", 3), ("25", 6)])
+def test_default_preset_shapes_from_the_true_rate(tmp_path, rate, ref_kept,
+                                                  reference_reads_rate,
+                                                  monkeypatch):
     """The CLI's default preset (Fast 1080p30: peak rate 30) on a .264 of
-    6 frames: at 50 fps the shaper drops every second frame to stay at
-    or under 30 fps; at 25 fps, the rate the reference reads from either
-    stream, it drops none."""
+    6 frames.  At 50 fps the port's peak-rate shaper keeps frames 0, 1,
+    3 and 5, each 3000 ticks long (30 of every 50 frames, the source's
+    length kept), and the coded VUI states 30; the reference, given the
+    stream's 50 fps, keeps 3 frames with their own 1800 ticks and states
+    50.  At 25 fps both keep every frame with its own 3600 ticks."""
     es = _es(tmp_path, "h264", rate, n=6)
-    out = str(tmp_path / "o.mp4")
+    out, ref = str(tmp_path / "o.mp4"), str(tmp_path / "ref.mp4")
     assert cli(["-i", es, "-o", out, "--device", "cpu"]) == 0
+    assert jcli(["-i", es, "-o", ref]) == 0
     _scale, durs, avcc = _mp4_video(out)
-    assert len(durs) == kept
-    assert vui.stream_rate("h264", avcc)[0] == int(rate)   # the title's
+    _scale, ref_durs, ref_avcc = _mp4_video(ref)
+    if rate == "50":
+        assert durs == [3000] * 4
+        assert vui.stream_rate("h264", avcc)[0] == 30
+        assert ref_durs == [1800] * ref_kept
+    else:
+        assert durs == ref_durs == [3600] * ref_kept
+        assert vui.stream_rate("h264", avcc)[0] == 25
+    assert vui.stream_rate("h264", ref_avcc)[0] == int(rate)
+    monkeypatch.undo()                 # the reference left alone reads 25
     assert JAnnexBReader(es).fps == 25
